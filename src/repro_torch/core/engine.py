@@ -1,0 +1,342 @@
+"""PatternSearchEngine — the paper's in-storage accelerator on one CUDA
+card, the port of ``repro.core.engine`` (DESIGN.md §2).
+
+The corpus lives in the card's memory. A search merges its L queries into
+one id stream with L value columns, scores the corpus against it with a
+kernel (``gpu``: ELL, ``gpu_packed``: Fig. 8 words, ``gpu_fused``: decode +
+match + top-k over packed doc tiles; ``torch``: the gather path, only when
+asked for by name), takes the top-k and returns it to the host. Only the
+queries go in and the top-k comes out; the corpus never moves.
+
+Streaming mode handles corpora larger than the card: slabs are uploaded
+and scored one after another, with top-k merged across slabs.
+
+Query shapes are *bucketed*: L pads to the next power of two and the
+merged id stream to a capacity proportional to that L bucket, so a
+session serving batches of any size up to ``max_batch`` uses at most
+``log2(max_batch) + 1`` launch shapes; ``compile_stats`` reports the
+distinct (Lp, Qp, n_docs) launch keys seen.
+
+On the CPU (``device="cpu"``) every kernel wrapper runs its plain PyTorch
+version; that is how the tests hold this engine against the JAX one.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.paper_search import SearchConfig
+from repro_torch.core import topk as topk_lib
+from repro_torch.core.corpus import Corpus
+from repro_torch.core.stream_format import VAL_MASK
+from repro_torch.device import DeviceLike, resolve
+from repro_torch.kernels import fused as kfused
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.fused import PackedSlab
+from repro_torch.kernels.sparse_match_packed import pack as pack_ell
+from repro_torch.kernels.tiling import FixedTiling, TilingStrategy
+
+
+@dataclasses.dataclass
+class SearchResult:
+    doc_ids: np.ndarray   # [L, k] int64 (-1 for no result)
+    scores: np.ndarray    # [L, k] cosine
+
+
+class DeviceSlab(NamedTuple):
+    """A corpus slab already uploaded to the card — the unit the
+    streaming path scores. Produced by ``put_slab``."""
+    ids: torch.Tensor     # [n, K] int32 (packed words for gpu_packed)
+    vals: torch.Tensor    # [n, K] float32
+    norms: torch.Tensor   # [n] float32
+    doc_ids: torch.Tensor  # [n] int32
+
+
+SlabLike = Union[Corpus, DeviceSlab, PackedSlab]
+
+
+def _require_integral_counts(vals: np.ndarray, backend: str):
+    """The packed/fused backends carry values in the Fig. 8 12-bit count
+    field — arbitrary floats would be silently clipped/rounded."""
+    v = vals[vals != 0]
+    if v.size and (not np.all(v == np.round(v)) or v.min() < 0
+                   or v.max() > VAL_MASK):
+        raise ValueError(
+            f"backend={backend!r} needs integral counts in "
+            f"[0, {VAL_MASK}] (Fig. 8 packing); use backend='torch' or "
+            "'gpu' for arbitrary float values")
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+class PatternSearchEngine:
+    def __init__(self, corpus: Optional[Corpus], cfg: SearchConfig,
+                 device: DeviceLike = None, backend: str = "gpu",
+                 tiling: Optional[TilingStrategy] = None):
+        """``corpus=None`` builds a streaming-only engine (no resident
+        corpus): callers use ``search_streaming`` / ``put_slab``.
+        ``device`` defaults to the CUDA card (``repro_torch.device``).
+        ``tiling`` picks the fused backend's doc tile (DESIGN.md §12.3);
+        None uses ``FixedTiling`` at the config's shapes."""
+        if backend not in kops.BACKENDS:
+            raise ValueError(f"backend must be one of {kops.BACKENDS}, "
+                             f"got {backend!r}")
+        self.device = resolve(device)
+        self.cfg = cfg
+        self.backend = backend
+        if corpus is None:
+            corpus = Corpus.empty(cfg.nnz_pad)
+        if corpus.ids.size and int(corpus.ids.max()) >= cfg.vocab_size:
+            raise ValueError(
+                f"corpus word ids reach {int(corpus.ids.max())} but "
+                f"cfg.vocab_size={cfg.vocab_size}")
+        self.corpus = corpus
+        self.tiling = tiling if tiling is not None else FixedTiling(
+            cfg.block_docs, cfg.block_query)
+        self.f_tiles: Optional[torch.Tensor] = None
+        self.d_ids = self.d_vals = self.d_norms = self.d_docids = None
+        if backend == "gpu_fused":
+            self._block_docs = self.tiling.doc_tile(
+                nnz_pad=cfg.nnz_pad, n_docs=corpus.n_docs)
+            tiles, _, _ = kfused.tile_stream(
+                kfused.corpus_to_stream(corpus),
+                block_docs=self._block_docs, nnz_pad=cfg.nnz_pad,
+                pad_docs_to=corpus.n_docs)
+            # one packed tile matrix is the whole resident corpus
+            self.f_tiles = self._upload(tiles.view(np.int32))
+        else:
+            self._block_docs = cfg.block_docs
+            slab = self.put_slab(corpus)
+            self.d_ids, self.d_vals, self.d_norms, self.d_docids = slab
+        # distinct launch keys (Lp, Qp, n_docs), in first-seen order
+        self._launch_keys: list = []
+
+    # ------------------------------------------------------------------
+    def bucket_L(self, L: int) -> int:
+        """The L bucket: next power of two of L, so any batch size up to
+        ``max_batch`` lands in one of ``log2(max_batch) + 1`` shapes."""
+        return _next_pow2(L)
+
+    def bucket_Q(self, q_items: int, Lp: int) -> int:
+        """Merged-stream capacity for an L bucket: ``Lp * block_query``
+        items, doubling (power-of-two blocks) only when the batch's merged
+        stream overflows it."""
+        cap = Lp * self.cfg.block_query
+        return _next_pow2(-(-max(q_items, 1) // cap)) * cap
+
+    def search(self, query, q_vals=None, *, options=None):
+        """Public search surface. Typed form — ``search(Query(ids,
+        vals), options=QueryOptions(...))`` — returns a
+        ``SearchResponse``; positional ``search(q_ids, q_vals)``
+        ``[L, Qn]`` arrays (pad < 0) remain as a deprecation shim
+        returning the bare ``SearchResult``. Of the scheduling options
+        only ``k`` applies to the resident engine."""
+        from repro_torch.serve.api import (QueryStats, SearchResponse,
+                                           coerce_request, truncate_k)
+        q, options = coerce_request(query, q_vals, options,
+                                    surface="PatternSearchEngine.search")
+        res = self._search_arrays(*q.rows())
+        if options is None:
+            return res
+        return SearchResponse(truncate_k(res, options.k), QueryStats(
+            deadline_ms=options.deadline_ms, tenant=options.tenant))
+
+    def search_typed(self, query, options=None) -> SearchResult:
+        """The raw typed surface: no wrapping, no shim warning."""
+        return self._search_arrays(*query.rows())
+
+    def merged_stream(self, q_ids: np.ndarray, q_vals: np.ndarray
+                      ) -> Tuple[int, np.ndarray, np.ndarray, np.ndarray]:
+        """[L, Qn] queries (pad < 0, L >= 1) -> the host arrays a launch
+        takes: (Lp, ids [Qp] int32, vals [Qp, Lp] float32, q_norms [Lp]
+        float32). L pads to its bucket, the merged stream to the bucket's
+        capacity with -2 pads."""
+        L_ = q_ids.shape[0]
+        Lp = self.bucket_L(L_)
+        if Lp != L_:
+            pad_i = np.full((Lp - L_, q_ids.shape[1]), -1, q_ids.dtype)
+            pad_v = np.zeros((Lp - L_, q_vals.shape[1]), q_vals.dtype)
+            q_ids = np.concatenate([q_ids, pad_i])
+            q_vals = np.concatenate([q_vals, pad_v])
+        mi, mv = kops.merge_queries(q_ids, q_vals)
+        # pad the merged stream to the bucket's fixed capacity
+        pad = self.bucket_Q(mi.size, Lp)
+        mi = np.pad(mi, (0, pad - mi.size), constant_values=-2)
+        mv = np.pad(mv, ((0, pad - mv.shape[0]), (0, 0)))
+        q_norms = np.sqrt((np.where(q_vals > 0, q_vals, 0) ** 2).sum(1))
+        q_norms = np.maximum(q_norms, 1e-12).astype(np.float32)
+        return Lp, mi, mv, q_norms
+
+    def _search_arrays(self, q_ids: np.ndarray,
+                       q_vals: np.ndarray) -> SearchResult:
+        """q_ids/q_vals: [L, Qn] (pad < 0). L is padded to its bucket."""
+        L_ = q_ids.shape[0]
+        if L_ == 0:
+            return self.empty_result(0)
+        Lp, mi, mv, q_norms = self.merged_stream(q_ids, q_vals)
+        mi_t, mv_t, qn_t = (self._upload(a) for a in (mi, mv, q_norms))
+        cfg = self.cfg
+        if self.backend == "gpu_fused":
+            n_docs = self.f_tiles.shape[0] * self._block_docs
+            v, i = kops.fused_topk(
+                self.f_tiles, mi_t, mv_t, qn_t, k=cfg.top_k,
+                block_docs=self._block_docs,
+                block_query=self.tiling.query_tile(Lp))
+        else:
+            n_docs = self.d_ids.shape[0]
+            corr = kops.correlate(
+                self.d_ids, self.d_vals, mi_t, mv_t, backend=self.backend,
+                vocab_size=cfg.vocab_size, block_docs=cfg.block_docs,
+                block_query=cfg.block_query)
+            cos = kops.cosine_scores(corr, self.d_norms, qn_t)
+            v, i = topk_lib.local_topk(cos, self.d_docids, cfg.top_k)
+        key = (Lp, mi.size, n_docs)
+        if key not in self._launch_keys:
+            self._launch_keys.append(key)
+        v = v[:L_].cpu().numpy()
+        # ids come from local_topk / the fused epilogue already masked by
+        # row validity, never by score finiteness
+        i = i[:L_].cpu().numpy()
+        return SearchResult(doc_ids=i.astype(np.int64), scores=v)
+
+    # ------------------------------------------------------------------
+    def search_streaming(self, q_ids, q_vals,
+                         corpus_slabs: Iterable[SlabLike]) -> SearchResult:
+        """Score a lazily-consumed sequence of corpus slabs larger than
+        the card's memory, merging top-k across slabs (DESIGN.md §2).
+
+        Each element may be a host ``Corpus`` (uploaded here) or a slab
+        already on the card (``DeviceSlab`` / ``PackedSlab``). The
+        iterable is never materialized."""
+        best: Optional[SearchResult] = None
+        it = iter(corpus_slabs)
+        cur = self._as_device(next(it, None))
+        if cur is None:
+            return self.empty_result(q_ids.shape[0])
+        while cur is not None:
+            # upload the next slab before scoring the current one
+            nxt = self._as_device(next(it, None))
+            r = eng_search(self._with_slab(cur), q_ids, q_vals)
+            best = r if best is None else _merge_results(best, r,
+                                                         self.cfg.top_k)
+            cur = nxt
+        return best
+
+    @property
+    def compile_stats(self) -> dict:
+        """Distinct launch shapes used so far: ``n_traces`` plus the (Lp,
+        Qp, n_docs) key of each. The serving bound is ``n_traces <=
+        log2(max_batch) + 1`` for a session whose queries stay within one
+        Q capacity per L bucket."""
+        return {"n_traces": len(self._launch_keys),
+                "buckets": list(self._launch_keys)}
+
+    def empty_result(self, n_queries: int) -> SearchResult:
+        """The [L, k] no-result sentinel (id -1, score -inf)."""
+        k = self.cfg.top_k
+        return SearchResult(np.full((n_queries, k), -1, np.int64),
+                            np.full((n_queries, k), -np.inf, np.float32))
+
+    @property
+    def slab_fmt(self) -> str:
+        """The device-slab layout this engine scores — part of the slab
+        cache key, so an ELL slab can never satisfy a fused lookup."""
+        if self.backend == "gpu_fused":
+            return f"fused:{self._block_docs}"
+        return "ell"
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def put_slab(self, slab: Corpus) -> SlabLike:
+        """Upload a host slab. The fused backend re-encodes the rows into
+        packed doc tiles (``PackedSlab``); ELL backends upload the row
+        arrays (packed words for ``gpu_packed``)."""
+        if self.backend == "gpu_fused":
+            tiles, _, _ = kfused.tile_stream(
+                kfused.corpus_to_stream(slab),
+                block_docs=self._block_docs, nnz_pad=self.cfg.nnz_pad,
+                pad_docs_to=slab.n_docs)
+            return PackedSlab(self._upload(tiles.view(np.int32)))
+        ids = slab.ids
+        if self.backend == "gpu_packed":
+            _require_integral_counts(slab.vals, self.backend)
+            ids = pack_ell(slab.ids, slab.vals).view(np.int32)
+        return DeviceSlab(
+            self._upload(ids), self._upload(slab.vals),
+            self._upload(slab.norms),
+            self._upload(slab.doc_ids.astype(np.int32)))
+
+    def put_stream_slab(self, stream: np.ndarray, *,
+                        pad_docs_to: Optional[int] = None
+                        ) -> Tuple[PackedSlab, int, int]:
+        """Fused-backend ingest straight from the Fig. 8 byte stream: a
+        segment becomes device tiles with *no* host ELL decode. Returns
+        ``(slab, n_docs, n_truncated)`` with the exact counts
+        ``decode_to_ell`` would have reported."""
+        if self.backend != "gpu_fused":
+            raise ValueError("put_stream_slab is the fused-backend "
+                             f"ingest; engine backend is {self.backend!r}")
+        tiles, n_docs, n_trunc = kfused.tile_stream(
+            stream, block_docs=self._block_docs, nnz_pad=self.cfg.nnz_pad,
+            pad_docs_to=pad_docs_to)
+        return PackedSlab(self._upload(tiles.view(np.int32))), n_docs, n_trunc
+
+    def _as_device(self, slab: Optional[SlabLike]) -> Optional[SlabLike]:
+        if slab is None or isinstance(slab, (DeviceSlab, PackedSlab)):
+            return slab
+        return self.put_slab(slab)
+
+    def _with_slab(self, dev: SlabLike):
+        eng = object.__new__(PatternSearchEngine)
+        eng.__dict__.update(self.__dict__)
+        if isinstance(dev, PackedSlab):
+            eng.f_tiles = dev.tiles
+        else:
+            eng.d_ids, eng.d_vals, eng.d_norms, eng.d_docids = dev
+        return eng
+
+
+def eng_search(eng: PatternSearchEngine, q_ids, q_vals) -> SearchResult:
+    # the streaming hot loop's internal entry: positional arrays without
+    # the public shim's deprecation machinery
+    return PatternSearchEngine._search_arrays(eng, q_ids, q_vals)
+
+
+def _merge_results(a: SearchResult, b: SearchResult, k: int) -> SearchResult:
+    """Merge two [L, k] candidate sets into the best k per row.
+
+    Deterministic: descending score, stable within ties (a's candidates
+    win over b's). Duplicate doc ids keep only their best-scoring entry,
+    and no-result fillers (id < 0) never displace real candidates — any
+    unfilled tail stays (-1, -inf). A verbatim copy of the reference."""
+    ids = np.concatenate([a.doc_ids, b.doc_ids], axis=1).astype(np.int64)
+    sc = np.concatenate([a.scores, b.scores], axis=1).astype(np.float32)
+    L, M = ids.shape
+    # rank every candidate by descending score; stable, so a's candidates
+    # win ties against b's and order within each input is preserved
+    order = np.argsort(-sc, axis=1, kind="stable")
+    rid = np.take_along_axis(ids, order, axis=1)
+    rsc = np.take_along_axis(sc, order, axis=1)
+    # keep a candidate iff it is valid (id >= 0) and the best-ranked
+    # occurrence of its doc id: stable-sorting the ranked ids groups
+    # duplicates while preserving rank order inside each group
+    by_id = np.argsort(rid, axis=1, kind="stable")
+    sid = np.take_along_axis(rid, by_id, axis=1)
+    first = np.ones((L, M), bool)
+    first[:, 1:] = sid[:, 1:] != sid[:, :-1]
+    keep = np.zeros((L, M), bool)
+    np.put_along_axis(keep, by_id, first & (sid >= 0), axis=1)
+    # compact the keepers leftward in rank order into the [L, k] output
+    pos = np.cumsum(keep, axis=1) - 1
+    out_i = np.full((L, k), -1, np.int64)
+    out_s = np.full((L, k), -np.inf, np.float32)
+    rows, cols = np.nonzero(keep & (pos < k))
+    out_i[rows, pos[rows, cols]] = rid[rows, cols]
+    out_s[rows, pos[rows, cols]] = rsc[rows, cols]
+    return SearchResult(out_i, out_s)

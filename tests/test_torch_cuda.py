@@ -1,0 +1,177 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: on a machine without a card every test here skips (the
+fixture decides, never the import). On the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Inputs are made with numpy from a seed and handed to the kernel (CUDA
+tensors) and to the plain version (the same tensors on the CPU).
+Integral counts must agree bit for bit; float values within a stated
+tolerance.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.paper_search import SearchConfig
+from repro_torch.core import corpus as corpus_lib
+from repro_torch.core.engine import PatternSearchEngine
+from repro_torch.kernels import _build, fused, ops
+from repro_torch.kernels.sparse_match import sparse_match
+from repro_torch.kernels.sparse_match_packed import pack, sparse_match_packed
+
+torch.set_num_threads(2)
+pytestmark = pytest.mark.cuda
+VOCAB = 256
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _case(seed, sorted_stream=True, Qm=None, L=None):
+    """Random ELL docs (pads, duplicates, empty rows, zero values) and a
+    merged query stream (in-stream pads, duplicate ids)."""
+    rng = np.random.default_rng(seed)
+    D = int(rng.integers(1, 700))
+    K = int(rng.integers(1, 70))
+    Qm = int(rng.integers(0, 300)) if Qm is None else Qm
+    L = int(rng.integers(1, 12)) if L is None else L
+    ids = np.full((D, K), -1, np.int32)
+    vals = np.zeros((D, K), np.float32)
+    for d in range(D):
+        if rng.random() < 0.1:
+            continue
+        k = int(rng.integers(1, K + 1))
+        row = rng.integers(0, VOCAB, k)
+        if k > 1 and rng.random() < 0.3:
+            row[0] = row[1]
+        ids[d, :k] = np.sort(row)
+        vals[d, :k] = rng.integers(0, 30, k)
+    mi = np.where(rng.random(Qm) < 0.2, -2,
+                  rng.integers(0, VOCAB, Qm)).astype(np.int32)
+    mv = np.zeros((Qm, L), np.float32)
+    mv[np.arange(Qm), rng.integers(0, L, Qm)] = rng.integers(1, 30, Qm)
+    if sorted_stream:
+        order = np.argsort(np.where(mi < 0, VOCAB + 1, mi), kind="stable")
+        mi, mv = mi[order], mv[order]
+    return ids, vals, mi, mv
+
+
+def _both(dev, *arrays):
+    cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    return cpu, [t.to(dev) for t in cpu]
+
+
+def test_kernels_build(dev):
+    _build.build()
+    for name in _build.SOURCES:
+        assert _build.library_path(name).exists()
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("sorted_stream", [True, False])
+def test_ell_and_packed_match_plain_bitwise(dev, seed, sorted_stream):
+    ids, vals, mi, mv = _case(seed, sorted_stream)
+    (ci, cv, cqi, cqv), (gi, gv, gqi, gqv) = _both(dev, ids, vals, mi, mv)
+    want = sparse_match(ci, cv, cqi, cqv)
+    got = sparse_match(gi, gv, gqi, gqv).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    words = pack(ids, vals).view(np.int32)
+    (cw,), (gw,) = _both(dev, words)
+    got_p = sparse_match_packed(gw, gqi, gqv).cpu()
+    torch.testing.assert_close(got_p, sparse_match_packed(cw, cqi, cqv),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("Qm", [0, 8191, 8192, 20000])
+def test_ell_multi_tile_and_empty_streams(dev, Qm):
+    """Streams longer than one shared-memory tile (8192 ids) are scored
+    tile by tile; an empty stream scores zero."""
+    ids, vals, mi, mv = _case(100 + Qm, True, Qm=Qm, L=3)
+    (ci, cv, cqi, cqv), (gi, gv, gqi, gqv) = _both(dev, ids, vals, mi, mv)
+    got = sparse_match(gi, gv, gqi, gqv).cpu()
+    torch.testing.assert_close(got, sparse_match(ci, cv, cqi, cqv),
+                               rtol=0, atol=0)
+
+
+def test_ell_float_values_within_tolerance(dev):
+    """Arbitrary float values: the kernel sums each row across lanes in a
+    shuffle tree, the plain version in torch's order; both are sums of
+    at most K * L products, so rtol 1e-5 with atol 1e-5 x the largest
+    |score| bounds the rounding difference."""
+    ids, vals, mi, mv = _case(7, True, Qm=400, L=5)
+    rng = np.random.default_rng(7)
+    vals = (vals * rng.random(vals.shape)).astype(np.float32)
+    mv = (mv * rng.standard_normal(mv.shape)).astype(np.float32)
+    (ci, cv, cqi, cqv), (gi, gv, gqi, gqv) = _both(dev, ids, vals, mi, mv)
+    want = sparse_match(ci, cv, cqi, cqv)
+    got = sparse_match(gi, gv, gqi, gqv).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_fused_matches_plain_bitwise(dev, seed):
+    rng = np.random.default_rng(seed)
+    nnz_pad = int(rng.integers(1, 40))
+    bd = int(2 ** rng.integers(0, 8))
+    corpus = corpus_lib.synthesize(int(rng.integers(1, 900)), VOCAB, 12,
+                                   nnz_pad, seed=seed)
+    tiles, _, _ = fused.tile_stream(fused.corpus_to_stream(corpus),
+                                    block_docs=bd, nnz_pad=nnz_pad)
+    _, _, mi, mv = _case(seed, bool(seed % 2), L=int(rng.integers(1, 11)))
+    qn = np.sqrt((mv ** 2).sum(0) + 1).astype(np.float32)
+    kp = int(rng.integers(1, bd + 1))
+    (ct, cqi, cqv, cqn), (gt, gqi, gqv, gqn) = _both(
+        dev, tiles.view(np.int32), mi, mv, qn)
+    wv, wi = fused.fused_match_topk(ct, cqi, cqv, cqn, block_docs=bd, kp=kp)
+    gv, gi = fused.fused_match_topk(gt, gqi, gqv, gqn, block_docs=bd, kp=kp)
+    torch.testing.assert_close(gv.cpu(), wv, rtol=0, atol=0)
+    torch.testing.assert_close(gi.cpu(), wi, rtol=0, atol=0)
+
+
+def test_wrappers_count_launches_and_reject_bad_inputs(dev):
+    ids, vals, mi, mv = _case(3, True)
+    _, (gi, gv, gqi, gqv) = _both(dev, ids, vals, mi, mv)
+    before = sparse_match.launches
+    sparse_match(gi, gv, gqi, gqv)
+    assert sparse_match.launches == before + 1
+    strided = torch.full((6, 4), -1, dtype=torch.int32, device=dev).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        sparse_match(strided, torch.zeros(4, 6, device=dev), gqi, gqv)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        sparse_match(gi, gv.cpu(), gqi, gqv)
+    with pytest.raises(TypeError):
+        sparse_match(gi.long(), gv, gqi, gqv)
+
+
+@pytest.mark.parametrize("L", [1, 3, 8])
+def test_engine_backends_bit_identical_on_card(dev, L):
+    cfg = SearchConfig(name="card-test", vocab_size=2000, avg_nnz_per_doc=20,
+                       nnz_pad=32, top_k=8, block_docs=32, block_query=64)
+    corpus = corpus_lib.synthesize(3000, cfg.vocab_size, 20, cfg.nnz_pad,
+                                   seed=L)
+    rng = np.random.default_rng(L)
+    idx = rng.integers(0, corpus.n_docs, L)
+    qs = [corpus_lib.make_query(corpus, int(i), cfg.max_query_nnz)
+          for i in idx]
+    qi = np.stack([q[0] for q in qs])
+    qv = np.stack([q[1] for q in qs])
+    ref = PatternSearchEngine(corpus, cfg, "cpu", "torch").search_typed(
+        _query(qi, qv))
+    for backend in ops.BACKENDS:
+        got = PatternSearchEngine(corpus, cfg, dev, backend).search_typed(
+            _query(qi, qv))
+        np.testing.assert_array_equal(got.doc_ids, ref.doc_ids, backend)
+        np.testing.assert_array_equal(got.scores, ref.scores, backend)
+    np.testing.assert_array_equal(ref.doc_ids[:, 0], idx)
+
+
+def _query(qi, qv):
+    from repro_torch.serve import Query
+    return Query(qi, qv)

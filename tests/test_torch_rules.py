@@ -1,0 +1,120 @@
+"""Rules of the port that no differential test would catch:
+
+  - ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
+    the JAX package ``repro`` (only ``repro_torch``);
+  - with no CUDA card, the default device is an error, never the CPU;
+  - a wrapper given CUDA tensors launches its kernel or raises: it never
+    reaches its plain version (checked with fake CUDA tensors and a
+    kernel loader that raises);
+  - the default backend is the ELL kernel, ``gpu``.
+"""
+import ast
+import inspect
+from pathlib import Path
+
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch import device as device_mod
+from repro_torch.configs.paper_search import smoke
+from repro_torch.core.engine import PatternSearchEngine
+from repro_torch.kernels import _build, fused, ops, sparse_match
+from repro_torch.kernels import sparse_match_packed
+from repro_torch.launch import search as launcher
+
+torch.set_num_threads(2)
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_no_jax_and_no_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_a_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_mod.resolve()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_mod.resolve("cuda")
+    assert device_mod.resolve("cpu") == torch.device("cpu")
+
+
+def test_engine_without_device_raises_without_a_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PatternSearchEngine(None, smoke())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launcher.main(["--n-docs", "4", "--vocab", "64"])
+
+
+def test_default_backend_is_the_ell_kernel():
+    sig = inspect.signature(PatternSearchEngine.__init__)
+    assert sig.parameters["backend"].default == "gpu"
+    assert sig.parameters["device"].default is None
+    assert inspect.signature(ops.correlate).parameters[
+        "backend"].default == "gpu"
+
+
+def _cuda_calls():
+    """One call per wrapper, on fake CUDA tensors of valid shapes."""
+    i32, f32 = torch.int32, torch.float32
+    q_ids = torch.zeros(8, dtype=i32, device="cuda")
+    q_vals = torch.zeros(8, 2, dtype=f32, device="cuda")
+    return {
+        "sparse_match": lambda: sparse_match.sparse_match(
+            torch.zeros(4, 3, dtype=i32, device="cuda"),
+            torch.zeros(4, 3, dtype=f32, device="cuda"), q_ids, q_vals),
+        "sparse_match_packed": lambda: sparse_match_packed.sparse_match_packed(
+            torch.zeros(4, 3, dtype=i32, device="cuda"), q_ids, q_vals),
+        "fused": lambda: fused.fused_match_topk(
+            torch.zeros(2, 12, dtype=i32, device="cuda"), q_ids, q_vals,
+            torch.ones(2, dtype=f32, device="cuda"), block_docs=4, kp=2),
+    }
+
+
+@pytest.mark.parametrize("name", ["sparse_match", "sparse_match_packed",
+                                  "fused"])
+def test_cuda_tensors_never_reach_the_plain_version(monkeypatch, name):
+    def loader_fails(*args, **kwargs):
+        raise RuntimeError("kernel loader called")
+
+    def plain_called(*args, **kwargs):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(_build, "kernel", loader_fails)
+    monkeypatch.setattr(sparse_match, "sparse_match_plain", plain_called)
+    monkeypatch.setattr(sparse_match_packed, "sparse_match_packed_plain",
+                        plain_called)
+    monkeypatch.setattr(fused, "fused_match_topk_plain", plain_called)
+    with FakeTensorMode():
+        call = _cuda_calls()[name]
+        with pytest.raises(RuntimeError, match="kernel loader called"):
+            call()
+
+
+def test_mixed_devices_are_refused():
+    with FakeTensorMode():
+        q_ids = torch.zeros(8, dtype=torch.int32, device="cuda")
+        q_vals = torch.zeros(8, 2, device="cuda")
+        with pytest.raises(ValueError, match="one CUDA device"):
+            sparse_match.sparse_match(
+                torch.zeros(4, 3, dtype=torch.int32),
+                torch.zeros(4, 3), q_ids, q_vals)
