@@ -7,7 +7,7 @@ From the root of a checkout, with one card and the CUDA toolkit. Phases,
 each of which fails the run (non-zero exit) if it fails:
 
   1. card      the card's name and power limit (nvidia-smi);
-  2. build     the three kernels from ``src/repro_torch/kernels/csrc``,
+  2. build     the four kernels from ``src/repro_torch/kernels/csrc``,
                one nvcc each, in parallel;
   3. corpus    the paper's full-width configuration (SearchConfig
                defaults: vocab 141 000, ~60 nnz/doc, nnz_pad 128, top_k
@@ -25,10 +25,29 @@ each of which fails the run (non-zero exit) if it fails:
                kernel must have launched; every self-query must rank
                itself first; the three backends and the ``torch`` gather
                path must agree bit for bit, streaming with resident;
-  7. times     each kernel, its plain version and the library yardstick
-               (torch.sparse.mm, CSR [D, V] x dense [V, L]) by CUDA
-               events, median of repeats, beside the bound the card's
-               memory rate puts on the same bytes.
+  7. times     each search kernel, its plain version and the library
+               yardstick (torch.sparse.mm, CSR [D, V] x dense [V, L]) by
+               CUDA events, median of repeats, beside the bound the card's
+               memory rate puts on the same bytes;
+  8. attention flash attention (B4) against its plain version at the
+               qwen2-0.5b prefill shape (B 4, S 1024, 14 heads over 2 kv
+               heads, hd 64) in bf16, and in f32, non-causal, and at an S
+               that no tile divides;
+  9. LM path   ``repro_torch.launch.serve.main``: qwen2-0.5b at full width
+               (24 layers, d_model 896, vocab 151 936) from seed 0 in bf16,
+               4 prompts of 1024 random tokens, 32 greedy tokens, with the
+               launch counts set to 0 before and read after: B4 must have
+               launched once a layer (24); then the same call again, warm,
+               for the prefill and decode times;
+ 10. LM check  the same model in f32, prefill attention by the kernel and
+               then by its plain version: last-position prefill logits
+               within LM_ATOL, and the greedy tokens equal or, at the
+               first difference, the plain path's top-2 margin below it;
+ 11. B4 times  the kernel, its plain version and the library yardstick
+               (scaled_dot_product_attention, causal, GQA) by CUDA events
+               at the prefill shape, beside its bound: causal FLOPs
+               2·B·H·S²·hd over the bf16 tensor-core peak, or the bytes
+               of q, k, v and o over the memory rate, the larger.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the repo beside it, it
@@ -48,7 +67,16 @@ N_SLABS = 4
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 F32_OPS_PER_S = 67e12                # H100 SXM float32, outside tensor cores
+BF16_OPS_PER_S = 989e12              # H100 SXM bf16 tensor cores, dense
 FLOAT_RTOL = 1e-5
+LM_ARCH = "qwen2-0.5b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 32
+# B4 against its plain version: sums in another order (f32); outputs
+# rounded to bf16, 8 bits (tests/test_flash_kernel.py's tolerances)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# the f32 model with the kernel against the same model with plain
+# attention: 24 layers carry each attention's ~1e-6 relative difference
+LM_ATOL = 1e-3
 
 
 def say(*args):
@@ -87,11 +115,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the float32 rate, in ms."""
+    memory rate and operations over ``ops_per_s``, in ms."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -335,12 +363,216 @@ def main() -> int:
     # check the script's inputs, outputs and end state once more
     if not all(np.isfinite(r.scores[:, 0]).all() for r in results["gpu"]):
         fail("non-finite top-1 scores")
+    del engines, g, p, f, corpus, slabs, csr, dq
+    torch.cuda.empty_cache()
+
+    rows.append(lm_phases(torch, dev))
     say(nvidia_smi_line())
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def attention_inputs(torch, dev, B, S, H, KV, hd, dtype, seed=SEED):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((B, S, h, hd), generator=gen, device=dev).to(dtype)
+            for h in (H, KV, KV)]
+
+
+def greedy_with_margins(torch, step, params, cfg, prompt, max_new):
+    """``generate``'s greedy loop, also returning each step's top-2 logit
+    margin [B, max_new] and the last-position prefill logits."""
+    from repro_torch.models import model as M
+    B, S = prompt.shape
+    logits, kv = step.make_prefill(cfg)(params, {"tokens": prompt})
+    first = logits[:, 0].clone()
+    cache = M.init_cache(cfg, B, S + max_new, prompt.device)
+    cache["k"][:, :, :S] = kv["k"]
+    cache["v"][:, :, :S] = kv["v"]
+    decode = step.make_decode_step(cfg)
+    toks, margins = [], []
+    for i in range(max_new):
+        top2 = logits[:, 0].float().topk(2, dim=-1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        toks.append(step.sample(logits))
+        if i < max_new - 1:
+            logits, cache = decode(params, {"tokens": toks[-1]}, cache, S + i)
+    return torch.cat(toks, 1), torch.stack(margins, 1), first
+
+
+def lm_phases(torch, dev):
+    """Phases 8-11: kernel B4 and the LM serving path. Returns B4's row
+    of the kernels line."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models import layers, model as M
+    from repro_torch.serve import step
+
+    cfg = get_config(LM_ARCH)
+    B, S, H, KV, hd = (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+
+    # -- 8. B4 against its plain version -----------------------------------
+    cases = [("prefill bf16 causal", B, S, "bfloat16", True),
+             ("prefill f32 causal", B, S, "float32", True),
+             ("prefill bf16 non-causal", B, S, "bfloat16", False),
+             ("bf16 causal S=1000 (no 64-tile divides)", 2, 1000,
+              "bfloat16", True)]
+    attn_err = {}
+    for name, b, s_len, dtype, causal in cases:
+        q, k, v = attention_inputs(torch, dev, b, s_len, H, KV, hd,
+                                   getattr(torch, dtype))
+        got = fa.flash_attention_gqa(q, k, v, causal=causal)
+        want = fa.flash_attention_gqa_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = ATTN_TOL[dtype]
+        say(f"B4 vs plain, {name} [{b}, {s_len}, {H}/{KV}, {hd}]: "
+            f"max_abs_err {err:.3e} (tolerance {tol}, rtol {tol})")
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        attn_err[name] = err
+    bh = attention_inputs(torch, dev, B * H, S, 1, 1, hd, torch.bfloat16)
+    got = fa.flash_attention(*(t[:, :, 0] for t in bh))
+    want = fa.flash_attention_plain(*(t[:, :, 0] for t in bh))
+    torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
+    say(f"B4 vs plain, [BH, S, hd] entry [{B * H}, {S}, {hd}] bf16: "
+        f"max_abs_err {float((got.float() - want.float()).abs().max()):.3e}")
+    del q, k, v, got, want, bh
+
+    # -- 9. LM main path ---------------------------------------------------
+    argv = ["--arch", LM_ARCH, "--batch", str(B), "--prompt-len", str(S),
+            "--max-new", str(LM_NEW), "--seed", str(SEED)]
+    counted = _launch_counters()
+    for fn in counted.values():
+        fn.launches = 0
+    run = serve_launcher.main(argv)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    say(f"LM main path launches: {launches}")
+    if launches["flash_attention"] != cfg.n_layers:
+        fail(f"B4 launched {launches['flash_attention']} times in one "
+             f"prefill, want {cfg.n_layers} (one a layer)")
+    tokens = run.tokens
+    if tuple(tokens.shape) != (B, LM_NEW) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab_size:
+        fail(f"LM tokens: shape {tuple(tokens.shape)}, range "
+             f"[{int(tokens.min())}, {int(tokens.max())}]")
+    n_params = sum(t.numel() for t in _leaves(run.params))
+    say(f"LM model: {cfg.name}, {cfg.n_layers} layers x d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params} params "
+        f"({n_params * 2 / 1e9:.2f} GB bf16) initialised in "
+        f"{run.stats['init_s']:.1f} s; first call: prefill "
+        f"{run.stats['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{run.stats['decode_s'] * 1e3:.1f} ms")
+    warm = []
+    for _ in range(3):
+        stats = {}
+        fa.flash_attention_gqa.launches = 0
+        again = step.generate(run.params, cfg, run.prompt, max_new=LM_NEW,
+                              max_len=S + LM_NEW, device=dev, stats=stats)
+        if fa.flash_attention_gqa.launches != cfg.n_layers:
+            fail("B4 launch count differs on the warm call")
+        if not torch.equal(again, tokens):
+            fail("the warm call's greedy tokens differ from the first's")
+        warm.append(stats)
+    pre = statistics.median(w["prefill_s"] for w in warm) * 1e3
+    dec = statistics.median(w["decode_s"] for w in warm) * 1e3
+    total_s = (pre + dec) / 1e3
+    say(f"LM warm (median of 3): prefill + first token {pre:.2f} ms "
+        f"({B * S / (pre / 1e3):.0f} prompt tok/s), decode "
+        f"{dec / (LM_NEW - 1):.3f} ms/step of {B} tokens "
+        f"({B * (LM_NEW - 1) / (dec / 1e3):.1f} tok/s); "
+        f"{B * LM_NEW / total_s:.1f} generated tok/s end to end")
+    del run, again
+    torch.cuda.empty_cache()
+
+    # -- 10. whole model in f32: kernel against plain attention -------------
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = M.init(cfg32, seed=SEED, device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32), device=dev)
+    tok_k, _, logit_k = greedy_with_margins(torch, step, params32, cfg32,
+                                            prompt, LM_NEW)
+    kernel_attn = layers.flash_attention_gqa
+    layers.flash_attention_gqa = fa.flash_attention_gqa_plain
+    try:
+        tok_p, margin_p, logit_p = greedy_with_margins(
+            torch, step, params32, cfg32, prompt, LM_NEW)
+    finally:
+        layers.flash_attention_gqa = kernel_attn
+    torch.cuda.synchronize()
+    lm_err = float((logit_k - logit_p).abs().max())
+    say(f"LM check f32: last-position prefill logits max |kernel - plain| "
+        f"{lm_err:.3e} (tolerance {LM_ATOL}; max |logit| "
+        f"{float(logit_p.abs().max()):.3f})")
+    if not (lm_err <= LM_ATOL and torch.isfinite(logit_k).all()):
+        fail(f"prefill logits differ by {lm_err} > {LM_ATOL}")
+    diff = (tok_k != tok_p).nonzero()
+    if len(diff):
+        t = int(diff[:, 1].min())
+        rows_t = diff[diff[:, 1] == t][:, 0].tolist()
+        margins = [float(margin_p[r, t]) for r in rows_t]
+        say(f"LM check f32: greedy tokens first differ at step {t} in rows "
+            f"{rows_t}; plain top-2 margins there {margins}")
+        if max(margins) >= LM_ATOL:
+            fail("greedy tokens differ where the margin exceeds tolerance")
+    else:
+        say(f"LM check f32: the {B} x {LM_NEW} greedy tokens agree; "
+            f"smallest plain top-2 margin {float(margin_p.min()):.3e}")
+    del params32
+    torch.cuda.empty_cache()
+
+    # -- 11. B4 times --------------------------------------------------------
+    q, k, v = attention_inputs(torch, dev, B, S, H, KV, hd, torch.bfloat16)
+    ms = cuda_ms(torch, lambda: fa.flash_attention_gqa(q, k, v), 20)
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_gqa_plain(q, k, v),
+                       3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_ms = cuda_ms(torch, lib, 20)
+    lib_err = float((lib().transpose(1, 2).float()
+                     - fa.flash_attention_gqa(q, k, v).float()).abs().max())
+    flops = 2 * B * H * S * S * hd
+    b_ms, b_by = bound(nbytes(q, k, v) + nbytes(q), flops, BF16_OPS_PER_S)
+    say(f"time flash_attention [{B}, {S}, {H}/{KV}, {hd}] bf16 causal: "
+        f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+        f"{b_by}: {flops / 1e9:.2f} GFLOP, "
+        f"{(nbytes(q, k, v) + nbytes(q)) / 1e6:.1f} MB; library "
+        f"scaled_dot_product_attention {lib_ms:.4f} ms, max |diff| "
+        f"{lib_err:.3e}); kernel / library {ms / lib_ms:.1f}x")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:29",
+            "launches": launches["flash_attention"],
+            "max_abs_err": attn_err["prefill bf16 causal"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
+
+
+def _launch_counters():
+    from repro_torch.kernels import flash_attention as fa, fused
+    from repro_torch.kernels.sparse_match import sparse_match
+    from repro_torch.kernels.sparse_match_packed import sparse_match_packed
+    return {"sparse_match": sparse_match,
+            "sparse_match_packed": sparse_match_packed,
+            "fused_match_topk": fused.fused_match_topk,
+            "flash_attention": fa.flash_attention_gqa}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 if __name__ == "__main__":

@@ -1,26 +1,30 @@
-"""Carry corpus state from the JAX package into the port.
+"""Carry corpus state and LM weights from the JAX package into the port.
 
-Data takes the place of weights in this system: to hold the two packages
-against each other they must score the same corpus. ``from_reference``
-takes the reference's corpus state, duck-typed and without importing it,
-and returns the port's:
+Data takes the place of weights in the search engine: to hold the two
+packages against each other they must score the same corpus.
+``from_reference`` takes the reference's corpus state, duck-typed and
+without importing it, and returns the port's:
 
   - a corpus (anything with ``ids``, ``vals``, ``norms``, ``doc_ids``,
     numpy or array-like) -> ``repro_torch.core.corpus.Corpus`` (host);
   - a 1-D packed uint32 Fig. 8 stream -> the same stream as numpy uint32;
   - a packed tile matrix (2-D uint32, or a slab with ``.tiles``) ->
     ``PackedSlab`` on ``device`` (int32 view of the words).
+
+``lm_params_from_reference`` does the same for the LM stack's params.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Any, Mapping, Union
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.corpus import Corpus
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels.fused import PackedSlab
+from repro_torch.models.transformer import check_supported
 
 
 def from_reference(state, device: DeviceLike = None
@@ -45,3 +49,38 @@ def from_reference(state, device: DeviceLike = None
         return PackedSlab(torch.from_numpy(words).to(resolve(device)))
     raise ValueError(f"packed words must be a 1-D stream or a 2-D tile "
                      f"matrix, got shape {arr.shape}")
+
+
+def _tensor(arr, device: torch.device) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype and bits; bfloat16
+    (numpy's ml_dtypes extension type) goes through its int16 bits."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
+                             device: DeviceLike = None) -> dict:
+    """The reference's dense-transformer param tree, as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), as the port's params on
+    ``device``: the ``[n_layers, ...]`` stacks of ``blocks`` become one
+    dict a layer; every array keeps its dtype (f32 biases and norm scales,
+    weights in the config's dtype) and its ``x @ W`` orientation."""
+    check_supported(cfg)
+    device = resolve(device)
+
+    def conv(tree, index=None):
+        if isinstance(tree, Mapping):
+            return {k: conv(v, index) for k, v in tree.items()}
+        arr = np.asarray(tree)
+        return _tensor(arr if index is None else arr[index], device)
+
+    blocks = params["blocks"]
+    n = np.asarray(blocks["ln1"]).shape[0]
+    if n != cfg.n_layers:
+        raise ValueError(f"{n} stacked layers, config has {cfg.n_layers}")
+    return {"embed": conv(params["embed"]),
+            "final_norm": conv(params["final_norm"]),
+            "blocks": [conv(blocks, i) for i in range(n)]}

@@ -1,1 +1,1 @@
-"""Search workload configurations (copies of ``repro.configs``)."""
+"""Search and model configurations (copies of ``repro.configs``)."""

@@ -1,0 +1,32 @@
+"""Architecture registry: ``--arch <id>`` resolution for the LM launcher.
+
+Only the archs the port serves are registered. The reference knows ten;
+the others wait for ROADMAP item A9 and raise ``KeyError`` saying so.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig
+
+_MODULES: Dict[str, str] = {
+    "qwen2-0.5b": "repro_torch.configs.qwen2_0p5b",
+}
+
+ARCH_NAMES = tuple(_MODULES)
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"arch {name!r} is not ported (ROADMAP A9); the port "
+                       f"serves {sorted(_MODULES)}")
+    return importlib.import_module(_MODULES[name])
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).config()
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).smoke_config()

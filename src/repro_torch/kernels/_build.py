@@ -27,7 +27,8 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("sparse_match", "sparse_match_packed", "fused")
+SOURCES = ("sparse_match", "sparse_match_packed", "fused",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 

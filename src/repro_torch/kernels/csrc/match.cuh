@@ -20,6 +20,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "error.cuh"
+
 namespace rsm {
 
 constexpr int kThreads = 256;              // 8 warps a block
@@ -206,8 +208,3 @@ int launch_match(int device, const Docs& docs, int D, int K,
 }
 
 }  // namespace rsm
-
-// Every library exports the CUDA runtime's message for its error codes.
-extern "C" const char* rsm_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}

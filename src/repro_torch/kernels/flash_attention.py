@@ -1,0 +1,149 @@
+"""Flash attention, forward: the port of ``repro.kernels.flash_attention``.
+
+    o = softmax(q kᵀ / sqrt(hd), causal mask at -1e30) v
+
+with an online softmax over key tiles: running max and sum in f32, ``p``
+rounded to v's dtype before ``p·v``, f32 accumulation, and the output
+``acc / max(l, 1e-30)`` in q's dtype. On the card this is
+``csrc/flash_attention.cu``; ``flash_attention_gqa_plain`` takes the same
+steps in PyTorch, tile by tile, and is what the wrappers run for CPU
+tensors and what the kernel is held against.
+
+Two entry points, as in the reference:
+
+  - ``flash_attention_gqa``: q ``[B, S, H, hd]``, k and v ``[B, S, KV,
+    hd]`` as the model holds them; head h reads kv head ``h // (H // KV)``.
+    Unlike the reference it neither repeats k and v nor transposes: the
+    kernel reads the heads by stride.
+  - ``flash_attention``: q, k, v ``[BH, S, hd]``.
+
+Head dims 8, 16, 32 and 64 (the kernel is compiled for each); any other
+raises. Any S: partial tiles are bounds-checked, not resized.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.sparse_match import on_cpu, stream_of
+
+NEG_INF = -1e30
+HEAD_DIMS = (8, 16, 32, 64)
+BLOCK_Q = 64                  # csrc/flash_attention.cu: kBlockQ
+BLOCK_K = 64                  # csrc/flash_attention.cu: kBlockK
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_gqa_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True
+                              ) -> torch.Tensor:
+    """The kernel's function in PyTorch, in its tiles: q [B, S, H, hd],
+    k, v [B, S, KV, hd] -> [B, S, H, hd] in q's dtype."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.reshape(B, S, KV, G, hd).float()
+    kf, vf = k.float(), v.float()
+    out = torch.empty_like(q)
+    for q0 in range(0, S, BLOCK_Q):
+        qt = qf[:, q0:q0 + BLOCK_Q]                       # [B, bq, KV, G, hd]
+        bq = qt.shape[1]
+        qpos = torch.arange(q0, q0 + bq, device=q.device)
+        m = torch.full((B, KV, G, bq), NEG_INF, device=q.device)
+        l = torch.zeros((B, KV, G, bq), device=q.device)
+        acc = torch.zeros((B, KV, G, bq, hd), device=q.device)
+        k_end = min(S, q0 + BLOCK_Q) if causal else S
+        for k0 in range(0, k_end, BLOCK_K):
+            kt, vt = kf[:, k0:k0 + BLOCK_K], vf[:, k0:k0 + BLOCK_K]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qt, kt) * scale
+            if causal:
+                kpos = torch.arange(k0, k0 + kt.shape[1], device=q.device)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(v.dtype).float(), vt)
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]   # [B, KV, G, bq, hd]
+        out[:, q0:q0 + bq] = o.permute(0, 3, 1, 2, 4).reshape(
+            B, bq, H, hd).to(q.dtype)
+    return out
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """``flash_attention_gqa_plain`` on [BH, S, hd] (one head a row)."""
+    return flash_attention_gqa_plain(q.unsqueeze(2), k.unsqueeze(2),
+                                     v.unsqueeze(2), causal=causal).squeeze(2)
+
+
+_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                ctypes.c_float, ctypes.c_void_p])
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    B, S, H, hd = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[1] != S or k.shape[3] != hd:
+        raise ValueError(f"q {tuple(q.shape)} must be [B, S, H, hd] and "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         "[B, S, KV, hd]")
+    KV = k.shape[2]
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} kv heads")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one of {HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """q [B, S, H, hd], k, v [B, S, KV, hd] (float32 or bfloat16, hd in
+    ``HEAD_DIMS``, each with a contiguous last dim) -> [B, S, H, hd].
+
+    CPU tensors run ``flash_attention_gqa_plain``; CUDA tensors launch
+    the kernel (counted in ``flash_attention_gqa.launches``) or raise."""
+    if q.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)} must be [B, S, H, hd]")
+    _check(q, k, v)
+    if on_cpu(q, k, v, contiguous=False):
+        return flash_attention_gqa_plain(q, k, v, causal=causal)
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("kernel inputs need a contiguous head_dim")
+    B, S, H, hd = q.shape
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.kernel("flash_attention", "flash_attention_launch",
+                       _ARGTYPES)
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    _build.check("flash_attention", fn(
+        q.device.index, _DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], strides,
+        int(causal), 1.0 / math.sqrt(hd), stream_of(out)))
+    flash_attention_gqa.launches += 1
+    return out
+
+
+flash_attention_gqa.launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q, k, v [BH, S, hd] -> [BH, S, hd]: ``flash_attention_gqa`` with
+    one head a row (its launches count there)."""
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} must all be [BH, S, hd]")
+    return flash_attention_gqa(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
+                               causal=causal).squeeze(2)

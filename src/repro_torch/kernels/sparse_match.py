@@ -65,9 +65,10 @@ def _check_query(q_ids: torch.Tensor, q_vals: torch.Tensor) -> None:
                         f"got {q_ids.dtype} and {q_vals.dtype}")
 
 
-def on_cpu(*tensors: torch.Tensor) -> bool:
+def on_cpu(*tensors: torch.Tensor, contiguous: bool = True) -> bool:
     """True if every tensor lies on the CPU (the plain version's case);
-    False if every one lies on one CUDA device; raises otherwise."""
+    False if every one lies on one CUDA device (and, where ``contiguous``,
+    is contiguous); raises otherwise."""
     devices = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devices):
         return True
@@ -75,7 +76,7 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
         raise ValueError(f"tensors must all be on one CUDA device or all "
                          f"on the CPU, got {sorted(map(str, devices))}")
     for t in tensors:
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
     return False
 

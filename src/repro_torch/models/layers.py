@@ -1,0 +1,163 @@
+"""Layers of the LM stack: norms, RoPE, attention, FFN, embeddings.
+
+The port of ``repro.models.layers`` for the dense transformer family.
+Plain functions over dict params, as in the reference, with the weights
+in its ``x @ W`` orientation (``[d_in, d_out]``). Params hold one layer
+each (the reference stacks layers for ``lax.scan``; the port loops).
+
+Numerics follow the reference: norms and RoPE in f32, cast back to the
+activation dtype; biases and norm scales are f32 and cast to the
+activation dtype where they are added. Prefill attention is kernel B4
+(``kernels/flash_attention.py``); decode attention, the projections and
+the FFN are plain PyTorch, as the reference leaves them to XLA.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_gqa
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype, scale: float = 1.0) -> torch.Tensor:
+    """Truncated normal at ±3σ, std = scale / sqrt(d_in), drawn in f32 on
+    the generator's device, then cast to ``dtype``: ``[d_in, d_out]``."""
+    w = torch.empty((d_in, d_out), dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return (w * (scale / math.sqrt(d_in))).to(dtype)
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """One layer's attention params (biases f32 zeros, as the reference)."""
+    dtype = getattr(torch, cfg.dtype)
+    p = {
+        "wq": dense_init(gen, cfg.d_model, cfg.q_dim, dtype),
+        "wk": dense_init(gen, cfg.d_model, cfg.kv_dim, dtype),
+        "wv": dense_init(gen, cfg.d_model, cfg.kv_dim, dtype),
+        "wo": dense_init(gen, cfg.q_dim, cfg.d_model, dtype,
+                         scale=1.0 / math.sqrt(2 * cfg.n_layers)),
+    }
+    if cfg.qkv_bias:
+        for name, dim in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                          ("bv", cfg.kv_dim)):
+            p[name] = torch.zeros(dim, dtype=torch.float32,
+                                  device=gen.device)
+    return p
+
+
+def ffn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """One layer's SwiGLU params."""
+    dtype = getattr(torch, cfg.dtype)
+    down_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
+    return {
+        "w_gate": dense_init(gen, cfg.d_model, cfg.d_ff, dtype),
+        "w_up": dense_init(gen, cfg.d_model, cfg.d_ff, dtype),
+        "w_down": dense_init(gen, cfg.d_ff, cfg.d_model, dtype,
+                             scale=down_scale),
+    }
+
+
+def embed_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Embedding table N(0, 0.02²), and an untied head if the config has
+    one."""
+    dtype = getattr(torch, cfg.dtype)
+    table = torch.empty((cfg.vocab_size, cfg.d_model), dtype=torch.float32,
+                        device=gen.device)
+    table.normal_(0.0, 1.0, generator=gen)
+    p = {"table": (table * 0.02).to(dtype)}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# norm, RoPE
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [S] or [B, S] (integers)."""
+    half = x.shape[-1] // 2
+    freqs = torch.pow(theta, -torch.arange(0, half, dtype=torch.float32,
+                                           device=x.device) / half)
+    ang = positions.float()[..., None] * freqs        # [S, half] / [B, S, half]
+    ang = ang[None, :, None, :] if positions.dim() == 1 else ang[:, :, None]
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """Prefill attention, q [B, S, H, hd], k, v [B, S, KV, hd] ->
+    [B, S, H, hd]: kernel B4 (the reference computes the same function
+    with its jnp blockwise attention)."""
+    return flash_attention_gqa(q, k, v, causal=causal)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cur_index: int) -> torch.Tensor:
+    """q: [B, 1, H, hd]; caches: [B, S, KV, hd]; cache entries at
+    positions <= cur_index are valid. Scores and p·v in f32; p / l in
+    the cache dtype, as the reference."""
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    qh = q.reshape(B, KV, H // KV, hd).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qh, k_cache.float()) * scale
+    valid = torch.arange(S, device=q.device) <= cur_index
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", (p / l).to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def attn_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Project to q [B, S, H, hd] and k, v [B, S, KV, hd]; the f32 biases
+    are added in the activation dtype."""
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    B, S = x.shape[:2]
+    return (q.reshape(B, S, cfg.n_heads, cfg.head_dim),
+            k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
+
+
+# ---------------------------------------------------------------------------
+# FFN, embedding
+# ---------------------------------------------------------------------------
+def ffn_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU. silu(g) is g · 1 / (1 + exp(-g)) with each step rounded to
+    the activation dtype: the reference's ``jax.nn.silu`` lowers so."""
+    g = x @ p["w_gate"]
+    return (g * (1.0 / (1.0 + torch.exp(-g))) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def unembed_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ (p["head"] if "head" in p else p["table"].T)

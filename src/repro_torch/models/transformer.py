@@ -1,0 +1,142 @@
+"""Decoder-only transformer, dense family: the port of
+``repro.models.transformer`` for the archs the port serves (qwen2).
+
+GQA attention with RoPE and QKV bias, SwiGLU FFN, RMS norms, tied or
+untied unembedding. Prefill runs every layer's attention through kernel
+B4; decode writes the new position into a preallocated cache in place
+and attends over the positions ``<= cur_index``.
+
+On one card the reference's mesh context (``distributed/meshctx``), its
+perf flags (``models/perfcfg``: the ones on this path act only on a mesh
+or on gemma3) and its remat policy (``models/rematcfg``: training only)
+have nothing to do, so ``forward`` takes no ``ctx``. MoE, VLM, audio,
+sliding-window, softcap and qk-norm configs raise ``NotImplementedError``
+(ROADMAP A9).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve
+from repro_torch.models import layers as L
+
+MODES = ("prefill", "decode")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    missing = [name for name, off in (
+        (f"family {cfg.family!r}", cfg.family == "dense"),
+        ("MoE", cfg.n_experts == 0),
+        ("cross-attention", cfg.cross_attn_every == 0),
+        ("embeddings input", not cfg.embeds_input),
+        ("qk-norm", not cfg.qk_norm),
+        ("sliding window", cfg.sliding_window == 0),
+        ("logit softcap", cfg.attn_logit_softcap == 0.0),
+        (f"ffn {cfg.ffn_kind!r}", cfg.ffn_kind == "swiglu")) if not off]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP A9)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def _block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {"ln1": torch.ones(d, dtype=torch.float32, device=gen.device),
+            "attn": L.attn_init(gen, cfg),
+            "ln2": torch.ones(d, dtype=torch.float32, device=gen.device),
+            "mlp": L.ffn_init(gen, cfg)}
+
+
+def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random params on the generator's device: ``{"embed", "final_norm",
+    "blocks": [one dict a layer]}``."""
+    check_supported(cfg)
+    return {"embed": L.embed_init(gen, cfg),
+            "final_norm": torch.ones(cfg.d_model, dtype=torch.float32,
+                                     device=gen.device),
+            "blocks": [_block_init(gen, cfg) for _ in range(cfg.n_layers)]}
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+def _self_attn(pb, x, cfg, *, positions, mode, cache=None, cur_index=None):
+    """Returns (attn_out, (k, v)): the rotated k and v of this call in
+    prefill, the updated caches in decode."""
+    ap = pb["attn"]
+    q, k, v = L.attn_qkv(ap, L.rms_norm(x, pb["ln1"], cfg.norm_eps), cfg)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k_rot = L.rope(k, positions, cfg.rope_theta)
+    if mode == "prefill":
+        out = L.blockwise_attention(q, k_rot, v, causal=True)
+        new_kv = (k_rot, v)
+    else:           # decode: cache = (k_cache, v_cache) [B, S_max, KV, hd]
+        k_cache, v_cache = cache
+        k_cache[:, cur_index] = k_rot[:, 0]
+        v_cache[:, cur_index] = v[:, 0]
+        out = L.decode_attention(q, k_cache, v_cache, cur_index)
+        new_kv = (k_cache, v_cache)
+    B, S = x.shape[:2]
+    return out.reshape(B, S, cfg.q_dim) @ ap["wo"], new_kv
+
+
+def _mlp(pb, x, cfg):
+    return x + L.ffn_apply(pb["mlp"], L.rms_norm(x, pb["ln2"], cfg.norm_eps))
+
+
+# ---------------------------------------------------------------------------
+# forward: prefill / decode
+# ---------------------------------------------------------------------------
+def forward(params: dict, cfg: ModelConfig, batch: dict, *,
+            mode: str = "prefill", caches: Optional[dict] = None,
+            cur_index: Optional[int] = None, last_only: bool = False):
+    """batch: ``{"tokens": [B, S]}`` (``S == 1`` in decode). Returns
+    (logits, aux, kv): in prefill ``kv`` stacks every layer's rotated k
+    and v, ``[n_layers, B, S, KV, hd]``; in decode it is ``caches``,
+    updated in place at ``cur_index``. ``last_only`` unembeds only the
+    last position (its logits are the same)."""
+    check_supported(cfg)
+    if mode not in MODES:
+        raise NotImplementedError(f"mode {mode!r}: training is not ported "
+                                  "yet (ROADMAP A9)")
+    x = L.embed_apply(params["embed"], batch["tokens"])
+    B, S = x.shape[:2]
+    if mode == "decode":
+        positions = torch.full((B, 1), cur_index, dtype=torch.int32,
+                               device=x.device)
+    else:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    ks, vs = [], []
+    for i, pb in enumerate(params["blocks"]):
+        cache = (caches["k"][i], caches["v"][i]) if mode == "decode" else None
+        attn_out, (k, v) = _self_attn(pb, x, cfg, positions=positions,
+                                      mode=mode, cache=cache,
+                                      cur_index=cur_index)
+        x = _mlp(pb, x + attn_out, cfg)
+        if mode == "prefill":
+            ks.append(k)
+            vs.append(v)
+    kv = {"k": torch.stack(ks), "v": torch.stack(vs)} \
+        if mode == "prefill" else caches
+    if last_only:
+        x = x[:, -1:]
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed_apply(params["embed"], x), 0.0, kv
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               device: DeviceLike = None) -> dict:
+    """Zeroed decode caches ``{"k", "v"}``, each ``[n_layers, B, max_len,
+    KV, hd]`` in the config's dtype."""
+    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
+             cfg.head_dim)
+    dtype = getattr(torch, cfg.dtype)
+    device = resolve(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -8,7 +8,10 @@ fixture decides, never the import). On the card:
 Inputs are made with numpy from a seed and handed to the kernel (CUDA
 tensors) and to the plain version (the same tensors on the CPU).
 Integral counts must agree bit for bit; float values within a stated
-tolerance.
+tolerance. Flash attention (B4): float32 within 2e-5 and bfloat16 within
+3e-2 of its plain version, the tolerances ``tests/test_flash_kernel.py``
+holds the Pallas kernel to (sums in another order; bf16 outputs rounded
+to 8 bits).
 """
 import numpy as np
 import pytest
@@ -17,7 +20,7 @@ import torch
 from repro_torch.configs.paper_search import SearchConfig
 from repro_torch.core import corpus as corpus_lib
 from repro_torch.core.engine import PatternSearchEngine
-from repro_torch.kernels import _build, fused, ops
+from repro_torch.kernels import _build, flash_attention as fa, fused, ops
 from repro_torch.kernels.sparse_match import sparse_match
 from repro_torch.kernels.sparse_match_packed import pack, sparse_match_packed
 
@@ -175,3 +178,82 @@ def test_engine_backends_bit_identical_on_card(dev, L):
 def _query(qi, qv):
     from repro_torch.serve import Query
     return Query(qi, qv)
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _attn_inputs(seed, q_shape, kv_shape, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dtype) for s in (q_shape, kv_shape, kv_shape)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (BH, S, hd, causal): tests/test_flash_kernel.py's, then S that no
+    # 64-row tile divides, at qwen2's head dim
+    (2, 64, 16, True), (1, 128, 32, True), (3, 48, 8, False),
+    (2, 96, 16, True), (2, 100, 64, True), (1, 130, 64, False)])
+def test_flash_attention_matches_plain(dev, case, dtype):
+    BH, S, hd, causal = case
+    cpu = _attn_inputs(S + hd, (BH, S, hd), (BH, S, hd), dtype)
+    want = fa.flash_attention(*cpu, causal=causal)
+    got = fa.flash_attention(*(t.to(dev) for t in cpu), causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.is_cuda
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gqa_at_the_qwen2_prefill_shape(dev, dtype):
+    q, k, v = (t.to(dev) for t in _attn_inputs(
+        0, (4, 1024, 14, 64), (4, 1024, 2, 64), dtype))
+    before = fa.flash_attention_gqa.launches
+    got = fa.flash_attention_gqa(q, k, v)
+    assert fa.flash_attention_gqa.launches == before + 1
+    want = fa.flash_attention_gqa_plain(q, k, v)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_flash_attention_reads_strided_heads(dev):
+    B, S, H, KV, hd = 2, 200, 14, 2, 64
+    packed = torch.randn(B, S, H + 2 * KV, hd, device=dev,
+                         generator=torch.Generator(dev).manual_seed(0))
+    q, k, v = packed[:, :, :H], packed[:, :, H:H + KV], packed[:, :, H + KV:]
+    got = fa.flash_attention_gqa(q, k, v)
+    want = fa.flash_attention_gqa(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="contiguous head_dim"):
+        fa.flash_attention_gqa(q.transpose(2, 3).contiguous().transpose(2, 3),
+                               k, v)
+    with pytest.raises(ValueError, match="head_dim 24"):
+        fa.flash_attention(*(torch.zeros(2, 8, 24, device=dev)
+                             for _ in range(3)))
+
+
+def test_lm_smoke_on_the_card_matches_the_cpu(dev):
+    """The smoke qwen2 in f32: prefill logits on the card (kernel B4 in
+    every layer) within 1e-4 of the CPU's (plain attention; matmuls on
+    the card sum in other orders), one B4 launch a layer."""
+    import dataclasses
+    from repro_torch.configs import qwen2_0p5b
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(qwen2_0p5b.smoke_config(), dtype="float32")
+    params = M.init(cfg, seed=0, device="cpu")
+    on_card = {"embed": {k: t.to(dev) for k, t in params["embed"].items()},
+               "final_norm": params["final_norm"].to(dev),
+               "blocks": [{g: ({k: t.to(dev) for k, t in v.items()}
+                               if isinstance(v, dict) else v.to(dev))
+                           for g, v in b.items()} for b in params["blocks"]]}
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32))
+    want, _, _ = M.apply_prefill(params, cfg, {"tokens": tokens})
+    before = fa.flash_attention_gqa.launches
+    got, _, _ = M.apply_prefill(on_card, cfg, {"tokens": tokens.to(dev)})
+    assert fa.flash_attention_gqa.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

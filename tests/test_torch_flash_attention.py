@@ -1,0 +1,137 @@
+"""Kernel B4 (flash attention, forward) of the port against the JAX package.
+
+On the CPU the port's wrappers run their plain PyTorch version, so this
+holds ``flash_attention_gqa_plain`` (the function the CUDA kernel is held
+against on the card, ``tests/test_torch_cuda.py``) against the Pallas
+kernel in interpret mode, as ``tests/test_flash_kernel.py`` runs it.
+Inputs are made with numpy from a seed and handed to both.
+
+Tolerances: float32 2e-5 (rtol and atol), as ``test_flash_kernel.py``
+holds the Pallas kernel to its oracle: the two sum the same products in
+other orders and cut the keys into other tiles. bfloat16 3e-2, as there:
+outputs are rounded to bf16 (8 bits), so one ulp of a value near 1 is
+2^-7.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as ref_flash
+from repro.kernels.flash_attention import flash_attention_gqa as ref_gqa
+from repro_torch.kernels import flash_attention as fa
+
+torch.set_num_threads(2)
+F32_TOL = 2e-5
+BF16_TOL = 3e-2
+
+
+def _qkv(seed, q_shape, kv_shape, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32).astype(dtype)
+                 for s in (q_shape, kv_shape, kv_shape))
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("case", [
+    # (BH, S, hd, causal, bq, bk): tests/test_flash_kernel.py's cases
+    (2, 64, 16, True, 16, 16),
+    (1, 128, 32, True, 32, 64),
+    (3, 48, 8, False, 16, 16),
+    (2, 96, 16, True, 32, 16),
+    # S that no tile of the port's (64) divides; hd of qwen2
+    (2, 100, 64, True, 256, 512),
+    (1, 130, 8, False, 256, 512),
+])
+def test_plain_matches_pallas_f32(case):
+    BH, S, hd, causal, bq, bk = case
+    q, k, v = _qkv(sum(case[:3]), (BH, S, hd), (BH, S, hd))
+    want = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=causal, block_q=bq, block_kv=bk, interpret=True)
+    got = fa.flash_attention(*_torch(q, k, v), causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (BH, S, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_plain_matches_pallas_bf16():
+    import ml_dtypes
+    q, k, v = _qkv(1, (2, 64, 16), (2, 64, 16), ml_dtypes.bfloat16)
+    want = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=True, block_q=16, block_kv=16, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a.astype(np.float32)).bfloat16()
+                  for a in (q, k, v))
+    got = fa.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
+    (2, 64, 4, 2, 16, True),        # tests/test_flash_kernel.py's case
+    (1, 80, 14, 2, 64, True),       # qwen2's heads, S not a tile multiple
+    (2, 40, 6, 3, 32, False),
+])
+def test_gqa_plain_matches_pallas_gqa(B, S, H, KV, hd, causal):
+    q, k, v = _qkv(S + H, (B, S, H, hd), (B, S, KV, hd))
+    want = ref_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=causal, interpret=True)
+    got = fa.flash_attention_gqa(*_torch(q, k, v), causal=causal)
+    assert got.shape == (B, S, H, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_gqa_reads_strided_views_as_the_model_holds_them():
+    """q, k, v sliced out of one packed projection (not contiguous) give
+    what their contiguous copies give."""
+    B, S, H, KV, hd = 2, 70, 4, 2, 8
+    rng = np.random.default_rng(5)
+    packed = torch.from_numpy(rng.standard_normal(
+        (B, S, H + 2 * KV, hd)).astype(np.float32))
+    q, k, v = packed[:, :, :H], packed[:, :, H:H + KV], packed[:, :, H + KV:]
+    assert not q.is_contiguous()
+    got = fa.flash_attention_gqa(q, k, v)
+    want = fa.flash_attention_gqa(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_plain_takes_the_kernels_tiles_and_roundings():
+    """One hand-checkable case: a query row sees exactly the keys at or
+    before it, p is rounded to v's dtype before p·v, and a row whose
+    keys span two 64-key tiles matches a one-pass softmax."""
+    S, hd = fa.BLOCK_K + 3, 8
+    q, k, v = _torch(*_qkv(9, (1, S, hd), (1, S, hd)))
+    got = fa.flash_attention(q, k, v, causal=True)
+    s = (q[0] @ k[0].T) / np.sqrt(hd)
+    s = torch.where(torch.ones(S, S, dtype=torch.bool).tril(), s, fa.NEG_INF)
+    want = torch.softmax(s, dim=-1) @ v[0]
+    torch.testing.assert_close(got[0], want, rtol=F32_TOL, atol=F32_TOL)
+    assert torch.equal(got[0, 0], v[0, 0])          # row 0 sees key 0 only
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    q, k, v = _torch(*_qkv(0, (1, 8, 2, 24), (1, 8, 1, 24)))
+    with pytest.raises(ValueError, match="head_dim 24"):
+        fa.flash_attention_gqa(q, k, v)
+    q, k, v = _torch(*_qkv(0, (1, 8, 3, 16), (1, 8, 2, 16)))
+    with pytest.raises(ValueError, match="do not group"):
+        fa.flash_attention_gqa(q, k, v)
+    q, k, v = _torch(*_qkv(0, (1, 8, 2, 16), (1, 8, 1, 16)))
+    with pytest.raises(TypeError):
+        fa.flash_attention_gqa(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        fa.flash_attention_gqa(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="BH, S, hd"):
+        fa.flash_attention(q[:, :, 0], k[:, :4, 0], v[:, :, 0])
+
+
+def test_cpu_tensors_do_not_count_as_launches():
+    before = fa.flash_attention_gqa.launches
+    fa.flash_attention_gqa(*_torch(*_qkv(0, (1, 8, 2, 16), (1, 8, 1, 16))))
+    assert fa.flash_attention_gqa.launches == before

@@ -1,0 +1,360 @@
+"""The port's LM serving path (qwen2-0.5b) against the JAX package.
+
+Params come from ``repro.models.model.init(PRNGKey(0), cfg)`` and are
+carried into the port with ``repro_torch.carry.lm_params_from_reference``;
+layer inputs are made with numpy from a seed and handed to both. The
+port runs on the CPU, where prefill attention is kernel B4's plain
+version (the reference runs its jnp blockwise attention).
+
+Tolerances, each with its reason:
+
+  - float32, 1e-5 (rtol and atol): the two sum the same products in
+    other orders (matmuls, attention tiles); logits of the smoke model
+    are below 1, and their differences measure ~1e-6.
+  - bfloat16, 3e-2 on logits: every layer rounds to bf16 (one ulp at
+    0.5 is 2^-8), and attention outputs that differ by one ulp (f32 sums
+    in another order, then rounded) move every later layer's rounding;
+    logits measure up to ~1e-2 apart. Greedy tokens must agree up to the
+    first step where the reference's top-2 margin is below that
+    tolerance; after it the two continue from different tokens.
+  - Layers whose arithmetic is the same on both sides (norms, the
+    projections, the FFN, embeddings) are held bit for bit in bf16.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import qwen2_0p5b as ref_qwen2
+from repro.configs import registry as ref_registry
+from repro.distributed.meshctx import single_device_ctx
+from repro.models import layers as RL
+from repro.models import model as RM
+from repro.serve import step as ref_step
+from repro_torch.carry import lm_params_from_reference
+from repro_torch.configs import qwen2_0p5b, registry
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch import serve as launcher
+from repro_torch.models import layers as TL
+from repro_torch.models import model as TM
+from repro_torch.serve import step
+
+torch.set_num_threads(2)
+F32_TOL = 1e-5
+BF16_TOL = 3e-2
+DTYPES = {"float32": (np.float32, torch.float32),
+          "bfloat16": (ml_dtypes.bfloat16, torch.bfloat16)}
+
+
+def _cfgs(dtype):
+    return (dataclasses.replace(ref_qwen2.smoke_config(), dtype=dtype),
+            dataclasses.replace(qwen2_0p5b.smoke_config(), dtype=dtype))
+
+
+def _params(dtype, seed=0):
+    ref_cfg, cfg = _cfgs(dtype)
+    ref = RM.init(jax.random.PRNGKey(seed), ref_cfg)
+    return ref, lm_params_from_reference(jax.tree.map(np.asarray, ref), cfg,
+                                         "cpu")
+
+
+def _pair(rng, shape, dtype="float32", scale=1.0):
+    """The same random array for both packages, in ``dtype``."""
+    np_dt, t_dt = DTYPES[dtype]
+    a = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return jnp.asarray(a.astype(np_dt)), torch.from_numpy(a).to(t_dt)
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# configs and registry
+# ---------------------------------------------------------------------------
+def test_configs_equal_the_reference_field_for_field():
+    for mine, ref in ((qwen2_0p5b.config(), ref_qwen2.config()),
+                      (qwen2_0p5b.smoke_config(), ref_qwen2.smoke_config())):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        assert (mine.q_dim, mine.kv_dim) == (ref.q_dim, ref.kv_dim)
+    full = registry.get_config("qwen2-0.5b")
+    assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+            full.head_dim, full.d_ff, full.vocab_size) == (
+        24, 896, 14, 2, 64, 4864, 151_936)
+
+
+@pytest.mark.parametrize("name", [n for n in ref_registry.ARCH_NAMES
+                                  if n != "qwen2-0.5b"])
+def test_unported_archs_raise_naming_the_roadmap(name):
+    with pytest.raises(KeyError, match="A9"):
+        registry.get_config(name)
+    with pytest.raises(KeyError, match="A9"):
+        registry.get_smoke_config(name)
+    cfg = ModelConfig(**dataclasses.asdict(ref_registry.get_smoke_config(
+        name)))
+    if name == "internlm2-20b":   # dense GQA without bias: the path runs it
+        TM.init(cfg, device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match="A9"):
+        TM.init(cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm(dtype):
+    rng = np.random.default_rng(1)
+    x, tx = _pair(rng, (2, 5, 64), dtype, 3.0)
+    s, ts = _pair(rng, (64,))
+    _close(TL.rms_norm(tx, ts, 1e-6), RL.rms_norm(x, s, 1e-6),
+           F32_TOL if dtype == "float32" else 0.0)
+
+
+@pytest.mark.parametrize("positions", ["1d", "2d"])
+def test_rope(positions):
+    rng = np.random.default_rng(2)
+    x, tx = _pair(rng, (2, 9, 3, 16))
+    pos = np.arange(9, dtype=np.int32) if positions == "1d" else \
+        rng.integers(0, 1000, (2, 9)).astype(np.int32)
+    for theta in (10_000.0, 1_000_000.0):
+        # angles up to 1000 rad: one ulp of a frequency moves them ~1e-4,
+        # so torch's and XLA's pow/sin/cos may differ there by that much
+        tol = F32_TOL if positions == "1d" else 2e-4
+        _close(TL.rope(tx, torch.from_numpy(pos), theta),
+               RL.rope(x, jnp.asarray(pos), theta), tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attn_qkv_with_f32_bias(dtype):
+    ref_cfg, cfg = _cfgs(dtype)
+    rng = np.random.default_rng(3)
+    p, tp = {}, {}
+    for name, shape in (("wq", (64, cfg.q_dim)), ("wk", (64, cfg.kv_dim)),
+                        ("wv", (64, cfg.kv_dim))):
+        p[name], tp[name] = _pair(rng, shape, dtype, 0.125)
+    for name, dim in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                      ("bv", cfg.kv_dim)):
+        p[name], tp[name] = _pair(rng, (dim,))       # biases stay f32
+    x, tx = _pair(rng, (2, 7, 64), dtype)
+    got, want = TL.attn_qkv(tp, tx, cfg), RL.attn_qkv(p, x, ref_cfg)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape and g.dtype == DTYPES[dtype][1]
+        _close(g, w, F32_TOL if dtype == "float32" else 0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ffn_apply_swiglu(dtype):
+    rng = np.random.default_rng(4)
+    p, tp = {}, {}
+    for name, shape in (("w_gate", (64, 128)), ("w_up", (64, 128)),
+                        ("w_down", (128, 64))):
+        p[name], tp[name] = _pair(rng, shape, dtype, 0.125)
+    x, tx = _pair(rng, (2, 7, 64), dtype)
+    _close(TL.ffn_apply(tp, tx), RL.ffn_apply(p, x),
+           F32_TOL if dtype == "float32" else 0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cur_index", [0, 5, 15])
+def test_decode_attention(dtype, cur_index):
+    rng = np.random.default_rng(cur_index)
+    q, tq = _pair(rng, (2, 1, 4, 16), dtype)
+    k, tk = _pair(rng, (2, 16, 2, 16), dtype)
+    v, tv = _pair(rng, (2, 16, 2, 16), dtype)
+    got = TL.decode_attention(tq, tk, tv, cur_index)
+    want = RL.decode_attention(q, k, v, jnp.int32(cur_index))
+    _close(got, want, F32_TOL if dtype == "float32" else BF16_TOL)
+    if cur_index == 0:            # only position 0 is valid
+        _close(got[:, 0].reshape(2, 2, 2, 16)[:, :, 0], tv[:, 0], 0.0)
+
+
+def test_prefill_attention_matches_blockwise_attention():
+    rng = np.random.default_rng(6)
+    q, tq = _pair(rng, (2, 70, 4, 16))
+    k, tk = _pair(rng, (2, 70, 2, 16))
+    v, tv = _pair(rng, (2, 70, 2, 16))
+    _close(TL.blockwise_attention(tq, tk, tv),
+           RL.blockwise_attention(q, k, v, causal=True), F32_TOL)
+
+
+def test_embed_and_tied_unembed():
+    ref, params = _params("bfloat16")
+    tokens = np.random.default_rng(7).integers(0, 256, (2, 5)).astype(
+        np.int32)
+    x = TL.embed_apply(params["embed"], torch.from_numpy(tokens))
+    _close(x, RL.embed_apply(ref["embed"], jnp.asarray(tokens)), 0.0)
+    _close(TL.unembed_apply(params["embed"], x),
+           RL.unembed_apply(ref["embed"], jnp.asarray(_np(x)).astype(
+               jnp.bfloat16)), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# init and carry
+# ---------------------------------------------------------------------------
+def test_carry_keeps_dtypes_orientation_and_bits():
+    ref, params = _params("bfloat16")
+    blocks = ref["blocks"]
+    assert len(params["blocks"]) == 2
+    for i, pb in enumerate(params["blocks"]):
+        for group in ("attn", "mlp"):
+            for name, t in pb[group].items():
+                want = np.asarray(blocks[group][name][i])
+                assert tuple(t.shape) == want.shape, name
+                f32 = name.startswith("b")
+                assert t.dtype == (torch.float32 if f32 else torch.bfloat16)
+                np.testing.assert_array_equal(_np(t), want.astype(np.float32))
+        assert pb["ln1"].dtype == torch.float32
+    assert params["embed"]["table"].dtype == torch.bfloat16
+    assert params["final_norm"].dtype == torch.float32
+
+
+def test_port_init_matches_the_reference_tree_and_statistics():
+    ref_cfg, cfg = _cfgs("bfloat16")
+    params = TM.init(cfg, seed=0, device="cpu")
+    _, carried = _params("bfloat16")
+    leaves = lambda p: sorted((g, k, tuple(t.shape), str(t.dtype))
+                              for b in p["blocks"] for g in ("attn", "mlp")
+                              for k, t in b[g].items())
+    assert leaves(params) == leaves(carried)
+    w = params["blocks"][0]["mlp"]["w_gate"].float()
+    std = 1.0 / np.sqrt(cfg.d_model)
+    assert float(w.abs().max()) <= 3.0 * std * (1 + 2 ** -7)
+    assert abs(float(w.std()) / std - 0.9866) < 0.05   # N(0,1) cut at ±3
+    wo = params["blocks"][0]["attn"]["wo"].float()
+    assert float(wo.abs().max()) <= 3.0 * std / 2.0 * (1 + 2 ** -7)
+    assert not params["blocks"][0]["attn"]["bq"].any()
+    table = params["embed"]["table"].float()
+    assert abs(float(table.std()) - 0.02) < 0.002
+    again = TM.init(cfg, seed=0, device="cpu")
+    assert torch.equal(again["embed"]["table"], params["embed"]["table"])
+
+
+# ---------------------------------------------------------------------------
+# the slice as a whole: prefill, decode, generate
+# ---------------------------------------------------------------------------
+def _prompt(B=2, S=37, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (B, S)).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_and_decode_logits_match_the_reference(dtype):
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    ref_cfg, cfg = _cfgs(dtype)
+    ref, params = _params(dtype)
+    ctx = single_device_ctx()
+    tokens = _prompt()
+    B, S = tokens.shape
+    want, _, ref_kv = RM.apply_prefill(ref, ref_cfg, ctx,
+                                       {"tokens": jnp.asarray(tokens)})
+    got, _, kv = TM.apply_prefill(params, cfg,
+                                  {"tokens": torch.from_numpy(tokens)})
+    assert tuple(got.shape) == (B, S, 256)
+    _close(got, want, tol)
+    _close(kv["k"], ref_kv["k"], tol)
+    last, _, _ = TM.apply_prefill(params, cfg,
+                                  {"tokens": torch.from_numpy(tokens)},
+                                  last_only=True)
+    _close(last, got[:, -1:], tol)
+
+    max_len = S + 3
+    ref_cache = jax.tree.map(
+        lambda dst, src: jax.lax.dynamic_update_slice(
+            dst, src.astype(dst.dtype), (0,) * src.ndim),
+        RM.init_cache(ref_cfg, B, max_len), ref_kv)
+    cache = TM.init_cache(cfg, B, max_len, device="cpu")
+    cache["k"][:, :, :S] = kv["k"]
+    cache["v"][:, :, :S] = kv["v"]
+    for i in range(3):
+        step_tok = _prompt(B, 1, seed=10 + i)
+        want, _, ref_cache = RM.apply_decode(
+            ref, ref_cfg, ctx, {"tokens": jnp.asarray(step_tok)}, ref_cache,
+            jnp.int32(S + i))
+        got, _, cache = TM.apply_decode(
+            params, cfg, {"tokens": torch.from_numpy(step_tok)}, cache, S + i)
+        assert tuple(got.shape) == (B, 1, 256)
+        _close(got, want, tol)
+    assert not cache["k"][:, :, S + 3:].any()
+
+
+def _first_mismatch_margin(ref_params, ref_cfg, prompt, ref_tokens, tokens):
+    """Where the two greedy streams first differ, the reference's top-2
+    margin at that step (teacher-forced on its own tokens), else None."""
+    diff = np.argwhere(ref_tokens != tokens)
+    if diff.size == 0:
+        return None
+    b, t = diff[np.lexsort((diff[:, 0], diff[:, 1]))][0]
+    seq = np.concatenate([prompt, ref_tokens[:, :t]], axis=1)
+    logits, _, _ = RM.apply_prefill(ref_params, ref_cfg, single_device_ctx(),
+                                    {"tokens": jnp.asarray(seq)})
+    top2 = np.sort(np.asarray(logits[b, -1], np.float32))[-2:]
+    return float(top2[1] - top2[0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_matches_the_reference_greedy_tokens(dtype):
+    ref_cfg, cfg = _cfgs(dtype)
+    ref, params = _params(dtype)
+    prompt = _prompt()
+    max_new = 6
+    max_len = prompt.shape[1] + max_new
+    want = np.asarray(ref_step.generate(ref, ref_cfg, single_device_ctx(),
+                                        jnp.asarray(prompt), max_new=max_new,
+                                        max_len=max_len))
+    before = fa.flash_attention_gqa.launches
+    got = step.generate(params, cfg, prompt, max_new=max_new,
+                        max_len=max_len, device="cpu")
+    assert fa.flash_attention_gqa.launches == before   # plain on the CPU
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+    if dtype == "float32":
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        margin = _first_mismatch_margin(ref, ref_cfg, prompt, want,
+                                        got.numpy())
+        assert margin is None or margin < BF16_TOL, margin
+
+
+def test_generate_checks_the_cache_length_and_samples_with_a_generator():
+    _, cfg = _cfgs("float32")
+    _, params = _params("float32")
+    with pytest.raises(ValueError, match="cache"):
+        step.generate(params, cfg, _prompt(), max_new=4, max_len=39,
+                      device="cpu")
+    a = step.generate(params, cfg, _prompt(), max_new=4, max_len=40,
+                      temperature=1.0, seed=3, device="cpu")
+    b = step.generate(params, cfg, _prompt(), max_new=4, max_len=40,
+                      temperature=1.0, seed=3, device="cpu")
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert int(a.min()) >= 0 and int(a.max()) < cfg.vocab_size
+
+
+def test_sample_greedy_takes_the_first_of_equal_maxima():
+    logits = torch.tensor([[[0.0, 2.0, 2.0, 1.0]], [[5.0, 5.0, 5.0, 5.0]]])
+    assert step.sample(logits).tolist() == [[1], [0]]
+    assert np.asarray(ref_step.sample(jnp.asarray(logits.numpy()), None)
+                      ).tolist() == [[1], [0]]
+
+
+def test_launcher_runs_on_the_cpu(capsys):
+    run = launcher.main(["--arch", "qwen2-0.5b", "--smoke", "--batch", "2",
+                         "--prompt-len", "12", "--max-new", "4",
+                         "--device", "cpu"])
+    assert tuple(run.tokens.shape) == (2, 4)
+    assert run.stats["prefill_s"] > 0 and run.stats["decode_s"] > 0
+    out = capsys.readouterr().out
+    assert "tok/s" in out and "prefill" in out and "seq 1:" in out
+    again = launcher.main(["--arch", "qwen2-0.5b", "--smoke", "--batch", "2",
+                           "--prompt-len", "12", "--max-new", "4",
+                           "--device", "cpu"])
+    torch.testing.assert_close(again.tokens, run.tokens, rtol=0, atol=0)

@@ -2,7 +2,8 @@
 
   - ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
     the JAX package ``repro`` (only ``repro_torch``);
-  - with no CUDA card, the default device is an error, never the CPU;
+  - with no CUDA card, the default device is an error, never the CPU
+    (the search engine, and the LM's init, generate and launcher);
   - a wrapper given CUDA tensors launches its kernel or raises: it never
     reaches its plain version (checked with fake CUDA tensors and a
     kernel loader that raises);
@@ -19,9 +20,13 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch import device as device_mod
 from repro_torch.configs.paper_search import smoke
 from repro_torch.core.engine import PatternSearchEngine
-from repro_torch.kernels import _build, fused, ops, sparse_match
-from repro_torch.kernels import sparse_match_packed
+from repro_torch.configs import qwen2_0p5b
+from repro_torch.kernels import _build, flash_attention, fused, ops
+from repro_torch.kernels import sparse_match, sparse_match_packed
 from repro_torch.launch import search as launcher
+from repro_torch.launch import serve as lm_launcher
+from repro_torch.models import model as lm_model
+from repro_torch.serve import step as lm_step
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
@@ -65,6 +70,19 @@ def test_engine_without_device_raises_without_a_card(no_card):
         launcher.main(["--n-docs", "4", "--vocab", "64"])
 
 
+def test_lm_entry_points_without_device_raise_without_a_card(no_card):
+    cfg = qwen2_0p5b.smoke_config()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_model.init(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_model.init_cache(cfg, 1, 4)
+    params = lm_model.init(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_step.generate(params, cfg, [[1, 2]], max_new=2, max_len=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_launcher.main(["--arch", "qwen2-0.5b", "--smoke"])
+
+
 def test_default_backend_is_the_ell_kernel():
     sig = inspect.signature(PatternSearchEngine.__init__)
     assert sig.parameters["backend"].default == "gpu"
@@ -87,11 +105,18 @@ def _cuda_calls():
         "fused": lambda: fused.fused_match_topk(
             torch.zeros(2, 12, dtype=i32, device="cuda"), q_ids, q_vals,
             torch.ones(2, dtype=f32, device="cuda"), block_docs=4, kp=2),
+        "flash_attention": lambda: flash_attention.flash_attention(
+            *(torch.zeros(2, 8, 16, device="cuda") for _ in range(3))),
+        "flash_attention_gqa": lambda: flash_attention.flash_attention_gqa(
+            torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16, device="cuda"),
+            *(torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16, device="cuda")
+              for _ in range(2))),
     }
 
 
 @pytest.mark.parametrize("name", ["sparse_match", "sparse_match_packed",
-                                  "fused"])
+                                  "fused", "flash_attention",
+                                  "flash_attention_gqa"])
 def test_cuda_tensors_never_reach_the_plain_version(monkeypatch, name):
     def loader_fails(*args, **kwargs):
         raise RuntimeError("kernel loader called")
@@ -104,6 +129,8 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch, name):
     monkeypatch.setattr(sparse_match_packed, "sparse_match_packed_plain",
                         plain_called)
     monkeypatch.setattr(fused, "fused_match_topk_plain", plain_called)
+    monkeypatch.setattr(flash_attention, "flash_attention_gqa_plain",
+                        plain_called)
     with FakeTensorMode():
         call = _cuda_calls()[name]
         with pytest.raises(RuntimeError, match="kernel loader called"):
@@ -118,3 +145,17 @@ def test_mixed_devices_are_refused():
             sparse_match.sparse_match(
                 torch.zeros(4, 3, dtype=torch.int32),
                 torch.zeros(4, 3), q_ids, q_vals)
+
+
+@pytest.mark.parametrize("entry", ["flash_attention", "flash_attention_gqa"])
+def test_mixed_devices_are_refused_by_flash_attention(entry):
+    with FakeTensorMode():
+        kv = torch.zeros(1, 8, 2, 16, device="cuda")
+        bh = torch.zeros(2, 8, 16, device="cuda")
+        call = {"flash_attention": lambda: flash_attention.flash_attention(
+                    torch.zeros(2, 8, 16), bh, bh),
+                "flash_attention_gqa": lambda: (
+                    flash_attention.flash_attention_gqa(
+                        torch.zeros(1, 8, 4, 16), kv, kv))}[entry]
+        with pytest.raises(ValueError, match="one CUDA device"):
+            call()
