@@ -31,29 +31,42 @@ each of which fails the run (non-zero exit) if it fails:
                memory rate puts on the same bytes;
   8. attention flash attention (B4) against its plain version at the
                qwen2-0.5b prefill shape (B 4, S 1024, 14 heads over 2 kv
-               heads, hd 64) in bf16, and in f32, non-causal, and at an S
-               that no tile divides;
+               heads, hd 64) in bf16 (its wgmma instance) and f32 (its
+               simt instance), non-causal, and at an S that no tile
+               divides; each case must count under the instance that
+               ``fa.design`` names;
   9. LM path   ``repro_torch.launch.serve.main``: qwen2-0.5b at full width
                (24 layers, d_model 896, vocab 151 936) from seed 0 in bf16,
                4 prompts of 1024 random tokens, 32 greedy tokens, with the
                launch counts set to 0 before and read after: B4 must have
-               launched once a layer (24); then the same call again, warm,
-               for the prefill and decode times;
- 10. LM check  the same model in f32, prefill attention by the kernel and
-               then by its plain version: last-position prefill logits
-               within LM_ATOL, and the greedy tokens equal or, at the
-               first difference, the plain path's top-2 margin below it;
- 11. B4 times  the kernel, its plain version and the library yardstick
-               (scaled_dot_product_attention, causal, GQA) by CUDA events
-               at the prefill shape, beside its bound: causal FLOPs
-               2·B·H·S²·hd over the bf16 tensor-core peak, or the bytes
-               of q, k, v and o over the memory rate, the larger.
+               launched once a layer (24), all 24 on the wgmma instance;
+               then the same call again, warm, for the prefill and decode
+               times;
+ 10. LM checks the model with prefill attention by the kernel and then by
+               its plain version, same weights and prompts, first in bf16
+               (the main path's weights; the wgmma instance) within
+               LM_ATOL["bfloat16"], then in f32 (the simt instance) within
+               LM_ATOL["float32"]: last-position prefill logits within the
+               tolerance, and the greedy tokens equal or, at the first
+               difference, the plain path's top-2 margin below it;
+ 11. B4 times  the kernel, its plain version, the simt instance on the
+               same bf16 inputs (PR 14's design, for the same-run ratio)
+               and the library yardstick (scaled_dot_product_attention,
+               causal, GQA) by CUDA events at the prefill shape (kernel,
+               simt and library as CUDA-graph replays of 10 calls, so no
+               host time between launches; eager calls printed beside),
+               beside
+               its bound: causal FLOPs 2·B·H·S²·hd over the bf16
+               tensor-core peak, or the bytes of q, k, v and o over the
+               memory rate, the larger; the wgmma instance's shared
+               memory a block and blocks an SM (occupancy API).
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the repo beside it, it
 exits non-zero and prints no result.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -74,9 +87,15 @@ LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 32
 # B4 against its plain version: sums in another order (f32); outputs
 # rounded to bf16, 8 bits (tests/test_flash_kernel.py's tolerances)
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
-# the f32 model with the kernel against the same model with plain
-# attention: 24 layers carry each attention's ~1e-6 relative difference
-LM_ATOL = 1e-3
+# the model with the kernel against the same model with plain attention.
+# f32: 24 layers carry each attention's ~1e-6 relative difference.
+# bf16: outputs keep 8 bits, so kernel and plain round ~1 in 10^3 entries
+# of an attention output the other way (one ulp, 2^-8 relative); random
+# weights do not damp that, and 24 layers carry it into every later
+# rounding: a few bf16 ulps of the logits (one ulp is 1.6e-2 at |logit|
+# 2-4), so 0.1, ~3% of the logits' scale; a wrong tile or mask moves
+# them by O(1).
+LM_ATOL = {"float32": 1e-3, "bfloat16": 0.1}
 
 
 def say(*args):
@@ -95,6 +114,23 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_lines(log):
+    """ptxas' "Used ..." line of each kernel, flash attention's instances
+    labelled (e.g. ``flash_fwd_wgmma<64>: 128 registers ...``)."""
+    out, label = [], ""
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", ln)
+        if entry:
+            inst = re.search(r"(flash_fwd\w*?)I(13__nv_bfloat16|f)?Li(\d+)E",
+                             entry.group(1))
+            dtype = "f32" if inst and inst.group(2) == "f" else "bf16"
+            label = (f"{inst.group(1)}<{dtype}, {inst.group(3)}>: "
+                     if inst else "")
+        elif "Used " in ln:
+            out.append(label + ln.split("Used ")[1])
+    return out
+
+
 def cuda_ms(torch, fn, reps):
     """Median time of ``fn`` on the card by CUDA events, after a warm-up."""
     fn()
@@ -109,6 +145,23 @@ def cuda_ms(torch, fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, reps, per_graph=10):
+    """Device time of one ``fn``: ``per_graph`` calls captured in a CUDA
+    graph, the median of ``reps`` replays by CUDA events over
+    ``per_graph``. No host time between launches: for kernels that are
+    shorter than their Python wrapper's launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(per_graph):
+            fn()
+    return cuda_ms(torch, graph.replay, reps) / per_graph
 
 
 def nbytes(*tensors) -> int:
@@ -164,9 +217,8 @@ def main() -> int:
     say(f"build: {time.perf_counter() - t0:.1f} s wall for "
         f"{len(report)} libraries (one nvcc each, in parallel)")
     for name, r in report.items():
-        regs = [ln.split("Used ")[1] for ln in r["log"].splitlines()
-                if "Used " in ln]
-        say(f"  {name}: {r['seconds']:.1f} s; ptxas: {' | '.join(regs)}")
+        say(f"  {name}: {r['seconds']:.1f} s; ptxas: "
+            f"{' | '.join(ptxas_lines(r['log']))}")
     for name in _build.SOURCES:
         if not _build.library_path(name).exists():
             fail(f"{name} did not build")
@@ -402,6 +454,48 @@ def greedy_with_margins(torch, step, params, cfg, prompt, max_new):
     return torch.cat(toks, 1), torch.stack(margins, 1), first
 
 
+def lm_check(torch, step, layers, fa, params, cfg, prompt, label):
+    """Phase 10 in ``cfg.dtype``: the model with kernel B4 against the
+    same model with its plain version. Returns the logits' max error."""
+    by = fa.flash_attention_gqa.launches_by_design
+    before = dict(by)
+    tok_k, _, logit_k = greedy_with_margins(torch, step, params, cfg,
+                                            prompt, LM_NEW)
+    which = fa.design(getattr(torch, cfg.dtype), cfg.head_dim)
+    if by[which] - before[which] != cfg.n_layers:
+        fail(f"LM check {label}: the prefill did not run B4's {which} "
+             "instance once a layer")
+    kernel_attn = layers.flash_attention_gqa
+    layers.flash_attention_gqa = fa.flash_attention_gqa_plain
+    try:
+        tok_p, margin_p, logit_p = greedy_with_margins(
+            torch, step, params, cfg, prompt, LM_NEW)
+    finally:
+        layers.flash_attention_gqa = kernel_attn
+    torch.cuda.synchronize()
+    atol = LM_ATOL[cfg.dtype]
+    err = float((logit_k.float() - logit_p.float()).abs().max())
+    say(f"LM check {label} ({which}): last-position prefill logits max "
+        f"|kernel - plain| {err:.3e} (tolerance {atol}; max |logit| "
+        f"{float(logit_p.float().abs().max()):.3f})")
+    if not (err <= atol and torch.isfinite(logit_k).all()):
+        fail(f"{label} prefill logits differ by {err} > {atol}")
+    diff = (tok_k != tok_p).nonzero()
+    if len(diff):
+        t = int(diff[:, 1].min())
+        rows_t = diff[diff[:, 1] == t][:, 0].tolist()
+        margins = [float(margin_p[r, t]) for r in rows_t]
+        say(f"LM check {label}: greedy tokens first differ at step {t} in "
+            f"rows {rows_t}; plain top-2 margins there {margins}")
+        if max(margins) >= atol:
+            fail("greedy tokens differ where the margin exceeds tolerance")
+    else:
+        say(f"LM check {label}: the {tok_k.shape[0]} x {LM_NEW} greedy "
+            f"tokens agree; smallest plain top-2 margin "
+            f"{float(margin_p.min()):.3e}")
+    return err
+
+
 def lm_phases(torch, dev):
     """Phases 8-11: kernel B4 and the LM serving path. Returns B4's row
     of the kernels line."""
@@ -415,6 +509,7 @@ def lm_phases(torch, dev):
     cfg = get_config(LM_ARCH)
     B, S, H, KV, hd = (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim)
+    by = fa.flash_attention_gqa.launches_by_design
 
     # -- 8. B4 against its plain version -----------------------------------
     cases = [("prefill bf16 causal", B, S, "bfloat16", True),
@@ -426,12 +521,16 @@ def lm_phases(torch, dev):
     for name, b, s_len, dtype, causal in cases:
         q, k, v = attention_inputs(torch, dev, b, s_len, H, KV, hd,
                                    getattr(torch, dtype))
+        which = fa.design(q.dtype, hd)
+        before = by[which]
         got = fa.flash_attention_gqa(q, k, v, causal=causal)
         want = fa.flash_attention_gqa_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        if by[which] != before + 1:
+            fail(f"B4 {name}: not counted under its {which} instance")
         err = float((got.float() - want.float()).abs().max())
         tol = ATTN_TOL[dtype]
-        say(f"B4 vs plain, {name} [{b}, {s_len}, {H}/{KV}, {hd}]: "
+        say(f"B4 ({which}) vs plain, {name} [{b}, {s_len}, {H}/{KV}, {hd}]: "
             f"max_abs_err {err:.3e} (tolerance {tol}, rtol {tol})")
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
         attn_err[name] = err
@@ -449,13 +548,19 @@ def lm_phases(torch, dev):
     counted = _launch_counters()
     for fn in counted.values():
         fn.launches = 0
+    for name in by:
+        by[name] = 0
     run = serve_launcher.main(argv)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counted.items()}
-    say(f"LM main path launches: {launches}")
+    by_design = dict(by)
+    say(f"LM main path launches: {launches}; B4 by instance {by_design}")
     if launches["flash_attention"] != cfg.n_layers:
         fail(f"B4 launched {launches['flash_attention']} times in one "
              f"prefill, want {cfg.n_layers} (one a layer)")
+    if by_design["wgmma"] != cfg.n_layers:
+        fail(f"{by_design['wgmma']} of B4's {cfg.n_layers} prefill launches "
+             "ran the wgmma instance, want all")
     tokens = run.tokens
     if tuple(tokens.shape) != (B, LM_NEW) or int(tokens.min()) < 0 \
             or int(tokens.max()) >= cfg.vocab_size:
@@ -487,65 +592,55 @@ def lm_phases(torch, dev):
         f"{dec / (LM_NEW - 1):.3f} ms/step of {B} tokens "
         f"({B * (LM_NEW - 1) / (dec / 1e3):.1f} tok/s); "
         f"{B * LM_NEW / total_s:.1f} generated tok/s end to end")
+
+    # -- 10. whole model: kernel against plain attention, bf16 then f32 ------
+    lm_check(torch, step, layers, fa, run.params, cfg,
+             torch.as_tensor(run.prompt, device=dev), "bf16")
     del run, again
     torch.cuda.empty_cache()
-
-    # -- 10. whole model in f32: kernel against plain attention -------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = M.init(cfg32, seed=SEED, device=dev)
     prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32), device=dev)
-    tok_k, _, logit_k = greedy_with_margins(torch, step, params32, cfg32,
-                                            prompt, LM_NEW)
-    kernel_attn = layers.flash_attention_gqa
-    layers.flash_attention_gqa = fa.flash_attention_gqa_plain
-    try:
-        tok_p, margin_p, logit_p = greedy_with_margins(
-            torch, step, params32, cfg32, prompt, LM_NEW)
-    finally:
-        layers.flash_attention_gqa = kernel_attn
-    torch.cuda.synchronize()
-    lm_err = float((logit_k - logit_p).abs().max())
-    say(f"LM check f32: last-position prefill logits max |kernel - plain| "
-        f"{lm_err:.3e} (tolerance {LM_ATOL}; max |logit| "
-        f"{float(logit_p.abs().max()):.3f})")
-    if not (lm_err <= LM_ATOL and torch.isfinite(logit_k).all()):
-        fail(f"prefill logits differ by {lm_err} > {LM_ATOL}")
-    diff = (tok_k != tok_p).nonzero()
-    if len(diff):
-        t = int(diff[:, 1].min())
-        rows_t = diff[diff[:, 1] == t][:, 0].tolist()
-        margins = [float(margin_p[r, t]) for r in rows_t]
-        say(f"LM check f32: greedy tokens first differ at step {t} in rows "
-            f"{rows_t}; plain top-2 margins there {margins}")
-        if max(margins) >= LM_ATOL:
-            fail("greedy tokens differ where the margin exceeds tolerance")
-    else:
-        say(f"LM check f32: the {B} x {LM_NEW} greedy tokens agree; "
-            f"smallest plain top-2 margin {float(margin_p.min()):.3e}")
+    lm_check(torch, step, layers, fa, params32, cfg32, prompt, "f32")
     del params32
     torch.cuda.empty_cache()
 
     # -- 11. B4 times --------------------------------------------------------
     q, k, v = attention_inputs(torch, dev, B, S, H, KV, hd, torch.bfloat16)
-    ms = cuda_ms(torch, lambda: fa.flash_attention_gqa(q, k, v), 20)
+    which = fa.design(q.dtype, hd)
+    # device times from CUDA-graph replays: the wrapper's host work is
+    # longer than the kernel, so one eager call would time the host
+    eager_ms = cuda_ms(torch, lambda: fa.flash_attention_gqa(q, k, v), 20)
+    ms = graph_ms(torch, lambda: fa.flash_attention_gqa(q, k, v), 20)
     plain_ms = cuda_ms(torch, lambda: fa.flash_attention_gqa_plain(q, k, v),
                        3)
+    simt_out = torch.empty_like(q)
+    simt_ms = graph_ms(torch, lambda: fa._launch(q, k, v, simt_out, True,
+                                                 "simt"), 20)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib_ms = cuda_ms(torch, lib, 20)
+    lib_eager_ms = cuda_ms(torch, lib, 20)
+    lib_ms = graph_ms(torch, lib, 20)
     lib_err = float((lib().transpose(1, 2).float()
                      - fa.flash_attention_gqa(q, k, v).float()).abs().max())
     flops = 2 * B * H * S * S * hd
     b_ms, b_by = bound(nbytes(q, k, v) + nbytes(q), flops, BF16_OPS_PER_S)
-    say(f"time flash_attention [{B}, {S}, {H}/{KV}, {hd}] bf16 causal: "
-        f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
-        f"{b_by}: {flops / 1e9:.2f} GFLOP, "
+    smem, blocks = fa.wgmma_occupancy(hd)
+    say(f"time flash_attention ({which}) [{B}, {S}, {H}/{KV}, {hd}] bf16 "
+        f"causal: {ms:.4f} ms a launch in a CUDA graph, {eager_ms:.4f} ms "
+        f"an eager call (plain {plain_ms:.3f} ms, simt instance "
+        f"{simt_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
+        f"{flops / 1e9:.2f} GFLOP, "
         f"{(nbytes(q, k, v) + nbytes(q)) / 1e6:.1f} MB; library "
-        f"scaled_dot_product_attention {lib_ms:.4f} ms, max |diff| "
-        f"{lib_err:.3e}); kernel / library {ms / lib_ms:.1f}x")
-    return {"name": "flash_attention", "route": "cuda",
+        f"scaled_dot_product_attention {lib_ms:.4f} ms in a graph, "
+        f"{lib_eager_ms:.4f} ms eager, max |diff| "
+        f"{lib_err:.3e}); kernel / library {ms / lib_ms:.2f}x, kernel / "
+        f"bound {ms / b_ms:.1f}x, simt / kernel {simt_ms / ms:.1f}x; "
+        f"{which} block: {smem} B dynamic shared memory, {blocks} blocks "
+        f"an SM")
+    return {"name": "flash_attention", "route": "cuda", "design": which,
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:29",
             "launches": launches["flash_attention"],

@@ -5,32 +5,82 @@
 // flash_attention and flash_attention_gqa), which walks a (bh, q block,
 // kv block) grid in order on one TPU core and carries the running max,
 // running sum and accumulator in VMEM scratch across the kv axis. Here the
-// kv axis is a loop inside the block: one block a (batch, head, 64-row
-// query tile), one thread a query row holding its q row and f32
-// accumulator in registers; 64-key K and V tiles are staged in shared
-// memory as f32, and each thread keeps its row of a tile's scores in a
-// shared-memory column. Tiles wholly above the diagonal are skipped, and
-// the grid starts with the longest (last) query tiles.
+// kv axis is a loop inside the block, one block a (batch, head, 64-row
+// query tile); tiles wholly above the diagonal are skipped (the TPU
+// kernel's `run`), and the grid starts with the longest query tiles.
 //
 // Layout: q and o are [B, S, H, hd], k and v [B, S, KV, hd], read by
 // element strides with hd contiguous; head h reads kv head h / (H / KV),
 // so grouped-query attention needs no repeated copy of k and v. The
-// [BH, S, hd] entry point is the same kernel with H = KV = 1.
+// [BH, S, hd] entry point is the same kernel with H = KV = 1. Any S: rows
+// and keys past S are masked inside the kernel.
 //
-// Numerics, as in the TPU kernel: scores from q and k in f32, scaled by
-// 1/sqrt(hd); positions above the diagonal set to -1e30; running max and
-// sum in f32; p rounded to v's dtype before p·v, with f32 accumulation;
-// the output is acc / max(l, 1e-30), cast to q's dtype. expf (not
-// __expf), IEEE division, and no FMA contraction (built with -fmad=false).
+// Numerics, as in the TPU kernel: scores from q and k summed in f32,
+// scaled by 1/sqrt(hd); positions above the diagonal set to -1e30;
+// running max and sum in f32; p rounded to v's dtype before p·v, with f32
+// accumulation; the output is acc / max(l, 1e-30), cast to q's dtype.
+// expf (not __expf), IEEE division, and no FMA contraction (built with
+// -fmad=false).
 //
 // Bound on the H100 at the qwen2-0.5b prefill shape (B 4, S 1024, 14 heads
 // over 2 kv heads, hd 64, bf16): operations. Causal attention needs
 // 2·B·H·S²·hd = 7.5 GFLOP against 16.8 MB of q, k, v and o: 7.6 us on the
-// bf16 tensor cores (989 TFLOP/s) against 5.0 us at 3.35 TB/s. This simple
-// design runs on the CUDA cores in f32 and is far from that bound; the
-// tensor-core (wgmma) redesign is ROADMAP's kernel-redesign queue.
+// bf16 tensor cores (989 TFLOP/s) against 5.0 us at 3.35 TB/s.
+//
+// Two instances; kernels/flash_attention.py::design picks one from the
+// dtype and head dim alone, and never falls back from one to the other.
+//
+// wgmma (bfloat16, hd 16, 32, 64), the main path's. The first design ran
+// one thread a query row on the CUDA cores: scalar f32 products with a
+// shared-memory load per multiply-add, K and V converted to f32 and
+// staged synchronously, scores written to shared memory and read back,
+// 198 registers a thread in 64-thread blocks. Here:
+//  - Both products run on the tensor cores, one warpgroup (128 threads)
+//    a 64-row query tile: s = q·kᵀ as wgmma m64n64k16 with q and k from
+//    shared memory (K-major, k in its natural [keys, hd] layout), then
+//    o += p·v as wgmma m64n{hd}k16 with p from registers and v from
+//    shared memory read MN-major through the instruction's transpose
+//    flag, so v is never transposed in memory. f32 accumulators.
+//  - K and V tiles (64 keys) stay bf16 and arrive by cp.async into two
+//    stages: tile j+1's copy is issued before tile j's products and
+//    waited for only when j+1 is consumed. cp.async and not TMA: the
+//    model hands over q, k and v as strided views of one projection, a
+//    row is only 32-128 bytes, and a tensor map would have to be encoded
+//    on the host for every call and view; 128 threads issue a tile's
+//    16-byte chunks in 2-8 instructions each, zero-filling rows past S
+//    (src-size 0), which is the ragged-edge mask for free. Each 16-byte
+//    chunk goes where the 32/64/128-byte swizzle of the wgmma descriptor
+//    expects it (rows of 2·hd bytes), so wgmma reads without bank
+//    conflicts.
+//  - The online softmax stays in registers on the accumulator layout: a
+//    thread holds 2 rows x 16 scores, and a row's max and sum are reduced
+//    over the 4 threads of a lane quad by shuffles; nothing is staged in
+//    shared memory. p's f32 fragment, rounded to bf16 pairs, is the A
+//    operand of p·v as it stands: the rounding to v's dtype is the
+//    conversion wgmma needs. The -1e30 mask is applied only on tiles
+//    that cross the diagonal or S.
+//  - Block shape: kBlockK 64 (the plain version's tiles, and 32 f32
+//    score registers a thread), one warpgroup a block and no producer
+//    warp: a block's copies are 8 cp.async a thread a tile (hd 64), and
+//    with 41,984 bytes of shared memory and 128 registers a thread
+//    (ptxas, hd 64) four blocks share an SM, whose softmax and products
+//    interleave; the 896 query tiles of the prefill shape are ~1.7 waves
+//    of 528 blocks. Two stages cover the copy of one tile with the
+//    products of the last. Two warpgroups a block sharing each K/V tile
+//    (half the copies a query row) measured slower, and so did three:
+//    the loop is bound by the softmax's instruction issue (34 accurate
+//    expf of ~8 instructions each a thread a tile), not by copies.
+//
+// simt (float32 at every head dim, and bfloat16 at hd 8, below wgmma's
+// bf16 depth of 16): one thread a query row holding its q row and f32
+// accumulator in registers; 64-key K and V tiles staged in shared memory
+// as f32, and each thread keeps its row of a tile's scores in a
+// shared-memory column. The f32 path is the accuracy reference of the
+// whole-model check in chip_smoke.py.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "error.cuh"
 
@@ -181,6 +231,394 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The tensor-core instance: bf16, head dims 16, 32 and 64.
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int kBlockQ = 64;         // query rows a block: one wgmma M
+constexpr int kBlockK = 64;         // keys a tile: N of q·kᵀ, K of p·v
+constexpr int kThreads = 128;       // one warpgroup
+constexpr int kStages = 2;          // K/V tiles in flight
+
+// A [64 rows][HD] bf16 tile in shared memory: rows of W = 2·HD bytes
+// (32, 64 or 128), 16-byte chunks swizzled as wgmma's 32/64/128-byte
+// modes read them: address bits [4, 4 + log2(W/16)) ^= bits [7, ...).
+template <int HD>
+struct Tile {
+  static constexpr int W = 2 * HD;
+  static constexpr int kChunks = W / 16;
+  static constexpr int kBytes = kBlockQ * W;     // 2, 4 or 8 KB
+  // descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
+  static constexpr int kLayout = HD == 64 ? 1 : HD == 32 ? 2 : 3;
+  static constexpr int kSBO = 8 * W;             // between 8-row groups
+  __device__ static uint32_t swizzle(uint32_t off) {
+    return off ^ ((off >> 3) & ((kChunks - 1) << 4));
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// makes this thread's completed shared-memory writes visible to wgmma,
+// which reads through the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of wgmma's registers across
+// the asynchronous instruction
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), layout type (bits 62-63).
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t sbo,
+                                               int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(1) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(layout) << 62;
+}
+
+// wgmma, bf16 x bf16 -> f32, M 64, K 16. ss: A and B from shared memory
+// (both K-major); rs: A from registers, B from shared memory MN-major
+// (transposed), adding to d.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, "
+      "1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n16(float (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12,"
+      " p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, "
+      "1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, "
+      "%35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  wgmma_rs_m64n16(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  wgmma_rs_m64n32(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  wgmma_rs_m64n64(d, a, b);
+}
+
+// Rows row0.. of a [S, HD] slice (row stride `stride` elements) into a
+// swizzled tile; rows at or past S are zeros.
+template <int HD>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* base,
+                                          long long stride, int row0, int S,
+                                          int tid) {
+  using T = Tile<HD>;
+#pragma unroll
+  for (int i = 0; i < T::kChunks / 2; ++i) {      // 64·kChunks / 128
+    const int e = tid + i * kThreads;
+    const int r = e / T::kChunks, c = e % T::kChunks;
+    const bool live = row0 + r < S;
+    const __nv_bfloat16* src =
+        base + (live ? (row0 + r) * stride + c * 8 : 0);
+    cp_async16(dst + T::swizzle(r * T::W + c * 16), src, live ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// One block a (head, batch, 64-row query tile), one warpgroup. Thread t
+// of warp w owns query rows 16w + t%32/4 and that + 8 of the tile, and
+// in each 8-column group of an accumulator the columns 2(t%4) and + 1.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                __nv_bfloat16* __restrict__ o, int S, int G, Strides sq,
+                Strides sk, Strides sv, Strides so, int causal, float scale) {
+  using T = Tile<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles start on 1024-byte boundaries (the 128-byte mode's
+  // pattern repeats every 8 rows of 128 bytes)
+  const uint32_t s_q = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t s_k = s_q + T::kBytes;                    // kStages tiles
+  const uint32_t s_v = s_k + kStages * T::kBytes;          // kStages tiles
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / G;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockQ;   // longest first
+  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
+  const __nv_bfloat16* kb = k + b * sk.b + kvh * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + kvh * sv.h;
+  // causal: a tile runs iff its first key is at or below the block's
+  // last row (the TPU kernel's `run`)
+  const int k_end = causal ? min(S, q0 + kBlockQ) : S;
+  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
+
+  load_tile<HD>(s_q, qb, sq.s, q0, S, tid);
+  load_tile<HD>(s_k, kb, sk.s, 0, S, tid);
+  load_tile<HD>(s_v, vb, sv.s, 0, S, tid);
+  cp_async_commit();
+
+  const int r_lo = warp * 16 + lane / 4;    // this thread's first row
+  const int c_lo = 2 * (lane % 4);          // its first column of a group
+  float acc[HD / 2];                        // o: [64, HD] f32 fragment
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t % kStages;
+    // the next tile's copy is issued before this tile's products
+    if (t + 1 < n_tiles) {
+      const int next = (t + 1) % kStages;
+      load_tile<HD>(s_k + next * T::kBytes, kb, sk.s, (t + 1) * kBlockK, S,
+                    tid);
+      load_tile<HD>(s_v + next * T::kBytes, vb, sv.s, (t + 1) * kBlockK, S,
+                    tid);
+      cp_async_commit();
+      cp_async_wait<1>();                   // all but the newest group
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // s = q kᵀ: [64, HD] x [HD, 64], HD / 16 steps of K 16
+    const uint32_t kt = s_k + stage * T::kBytes;
+    float s[kBlockK / 2];
+#pragma unroll
+    for (int i = 0; i < kBlockK / 2; ++i) s[i] = 0.f;
+    pin(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_m64n64(s, descriptor(s_q + kk * 32, T::kSBO, T::kLayout),
+                      descriptor(kt + kk * 32, T::kSBO, T::kLayout), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+
+    // scale; -1e30 only on a tile that crosses the diagonal or S
+    const int k0 = t * kBlockK;
+    const bool edge = (causal && k0 + kBlockK - 1 > q0) || k0 + kBlockK > S;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < kBlockK / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * i + e] * scale;
+        if (edge) {
+          const int col = k0 + 8 * i + c_lo + (e & 1);
+          const int row = q0 + r_lo + 8 * (e >> 1);
+          if (col >= S || (causal && col > row)) x = kNegInf;
+        }
+        s[4 * i + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    // a row's 64 scores lie in the 4 threads of a lane quad
+    float alpha[2], m_new[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+      m_new[j] = fmaxf(m[j], mx[j]);
+      alpha[j] = expf(m[j] - m_new[j]);
+    }
+    // p = exp(s - m) in f32 for the sum, rounded to bf16 (v's dtype) for
+    // p·v: the score fragment is already the A fragment of m64k16
+    uint32_t pa[kBlockK / 4];
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kBlockK / 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float p0 = expf(s[4 * i + 2 * j] - m_new[j]);
+        const float p1 = expf(s[4 * i + 2 * j + 1] - m_new[j]);
+        ps[j] += p0;
+        ps[j] += p1;
+        pa[2 * i + j] = pack_bf16(p0, p1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      ps[j] += __shfl_xor_sync(0xffffffffu, ps[j], 1);
+      ps[j] += __shfl_xor_sync(0xffffffffu, ps[j], 2);
+      l[j] = l[j] * alpha[j] + ps[j];
+      m[j] = m_new[j];
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // acc += p v: [64, 64] x [64, HD], 4 steps of 16 keys; v's tile is
+    // read MN-major (transposed by the instruction, not in memory)
+    const uint32_t vt = s_v + stage * T::kBytes;
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                             pa[4 * kk + 3]};
+      wgmma_rs<HD>(acc, a, descriptor(vt + kk * 16 * T::W, T::kSBO,
+                                      T::kLayout));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+    __syncthreads();                        // this stage may be refilled
+  }
+
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = q0 + r_lo + 8 * j;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[j], 1e-30f);
+    __nv_bfloat16* op = o + b * so.b + row * so.s + h * so.h + c_lo;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * i) = __floats2bfloat162_rn(
+          acc[4 * i + 2 * j] / denom, acc[4 * i + 2 * j + 1] / denom);
+  }
+}
+
+template <int HD>
+size_t smem_bytes() {
+  return 1024 + (1 + 2 * kStages) * Tile<HD>::kBytes;  // + alignment slack
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int S, int H, int KV, const long long* st,
+                   int causal, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, B, (S + kBlockQ - 1) / kBlockQ);
+  flash_fwd_wgmma<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      S, H / KV, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
+      scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t occupancy(int* smem, int* blocks) {
+  const size_t bytes = smem_bytes<HD>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  *smem = (int)bytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, flash_fwd_wgmma<HD>, kThreads, bytes);
+}
+
+}  // namespace wg
 }  // namespace
 
 // dtype 0: float32, 1: bfloat16. strides: 12 element strides, (b, s, head)
@@ -203,4 +641,54 @@ extern "C" int flash_attention_launch(int device, int dtype, int hd,
     return (int)launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, H, KV,
                                          strides, causal, scale, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core instance: bfloat16 only, hd 16, 32 or 64; q, k, v and o
+// 16-byte aligned with (b, s, head) strides that are multiples of 8
+// elements. Arguments as flash_attention_launch without the dtype.
+extern "C" int flash_attention_wgmma_launch(int device, int hd,
+                                            const void* q, const void* k,
+                                            const void* v, void* o, int B,
+                                            int S, int H, int KV,
+                                            const long long* strides,
+                                            int causal, float scale,
+                                            cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
+  if (KV <= 0 || H % KV != 0 || B > 65535 ||
+      (S + wg::kBlockQ - 1) / wg::kBlockQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  switch (hd) {
+    case 16:
+      return (int)wg::launch<16>(q, k, v, o, B, S, H, KV, strides, causal,
+                                 scale, stream);
+    case 32:
+      return (int)wg::launch<32>(q, k, v, o, B, S, H, KV, strides, causal,
+                                 scale, stream);
+    case 64:
+      return (int)wg::launch<64>(q, k, v, o, B, S, H, KV, strides, causal,
+                                 scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory a block of the wgmma instance takes at head dim
+// hd, and how many such blocks one SM holds (the CUDA occupancy API).
+// Returns a CUDA error code.
+extern "C" int flash_attention_wgmma_occupancy(int device, int hd,
+                                               int* smem, int* blocks) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  switch (hd) {
+    case 16:
+      return (int)wg::occupancy<16>(smem, blocks);
+    case 32:
+      return (int)wg::occupancy<32>(smem, blocks);
+    case 64:
+      return (int)wg::occupancy<64>(smem, blocks);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -9,6 +9,12 @@ rounded to v's dtype before ``p·v``, f32 accumulation, and the output
 steps in PyTorch, tile by tile, and is what the wrappers run for CPU
 tensors and what the kernel is held against.
 
+The source holds two instances, and ``design(dtype, head_dim)`` picks
+one: ``"wgmma"`` (tensor cores) for bfloat16 at head dims 16, 32 and 64,
+``"simt"`` (CUDA cores, f32 arithmetic) for float32 at every head dim and
+bfloat16 at 8, which is below wgmma's bf16 depth of 16. A launch that
+fails raises; neither instance stands in for the other.
+
 Two entry points, as in the reference:
 
   - ``flash_attention_gqa``: q ``[B, S, H, hd]``, k and v ``[B, S, KV,
@@ -18,7 +24,10 @@ Two entry points, as in the reference:
   - ``flash_attention``: q, k, v ``[BH, S, hd]``.
 
 Head dims 8, 16, 32 and 64 (the kernel is compiled for each); any other
-raises. Any S: partial tiles are bounds-checked, not resized.
+raises. Any S: partial tiles are masked, not resized. The wgmma instance
+reads 16-byte chunks, so it needs q, k and v 16-byte aligned with (batch,
+position, head) strides that are multiples of 8 elements (any view of
+the model's projections is); it raises on others.
 """
 from __future__ import annotations
 
@@ -32,9 +41,21 @@ from repro_torch.kernels.sparse_match import on_cpu, stream_of
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64)
-BLOCK_Q = 64                  # csrc/flash_attention.cu: kBlockQ
-BLOCK_K = 64                  # csrc/flash_attention.cu: kBlockK
+BLOCK_Q = 64                  # csrc/flash_attention.cu: kBlockQ (both)
+BLOCK_K = 64                  # csrc/flash_attention.cu: kBlockK (both)
+DESIGNS = ("wgmma", "simt")
+WGMMA_HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def design(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel instance runs these inputs: ``"wgmma"`` for bfloat16
+    at head dims 16, 32 and 64 (the tensor cores: bf16 operands, K 16
+    deep), else ``"simt"`` (float32, the accuracy reference, and bf16 at
+    head dim 8)."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
 
 
 def flash_attention_gqa_plain(q: torch.Tensor, k: torch.Tensor,
@@ -83,9 +104,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      v.unsqueeze(2), causal=causal).squeeze(2)
 
 
-_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                ctypes.c_float, ctypes.c_void_p])
+_TAIL = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
+    ctypes.c_void_p]
+# design -> (C symbol, argtypes): simt takes (device, dtype, hd, ...),
+# wgmma (device, hd, ...), bf16 only
+_SYMBOLS = {"simt": ("flash_attention_launch", [ctypes.c_int] * 3 + _TAIL),
+            "wgmma": ("flash_attention_wgmma_launch",
+                      [ctypes.c_int] * 2 + _TAIL)}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -111,7 +137,9 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``HEAD_DIMS``, each with a contiguous last dim) -> [B, S, H, hd].
 
     CPU tensors run ``flash_attention_gqa_plain``; CUDA tensors launch
-    the kernel (counted in ``flash_attention_gqa.launches``) or raise."""
+    the instance ``design`` names (counted in
+    ``flash_attention_gqa.launches`` and, by design, in
+    ``flash_attention_gqa.launches_by_design``) or raise."""
     if q.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} must be [B, S, H, hd]")
     _check(q, k, v)
@@ -123,19 +151,50 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    fn = _build.kernel("flash_attention", "flash_attention_launch",
-                       _ARGTYPES)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    _build.check("flash_attention", fn(
-        q.device.index, _DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], strides,
-        int(causal), 1.0 / math.sqrt(hd), stream_of(out)))
+    which = design(q.dtype, hd)
+    _launch(q, k, v, out, causal, which)
     flash_attention_gqa.launches += 1
+    flash_attention_gqa.launches_by_design[which] += 1
     return out
 
 
 flash_attention_gqa.launches = 0
+flash_attention_gqa.launches_by_design = dict.fromkeys(DESIGNS, 0)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, causal: bool, which: str) -> None:
+    """Launch instance ``which`` on checked CUDA tensors (not counted)."""
+    symbol, argtypes = _SYMBOLS[which]
+    fn = _build.kernel("flash_attention", symbol, argtypes)
+    B, S, H, hd = q.shape
+    if which == "wgmma":
+        for t in (q, k, v, out):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(
+                    "the wgmma instance needs 16-byte aligned tensors with "
+                    f"strides that are multiples of 8, got {t.stride()}")
+    strides = (ctypes.c_longlong * 12)(
+        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    head = (q.device.index, hd) if which == "wgmma" else (
+        q.device.index, _DTYPES[q.dtype], hd)
+    _build.check("flash_attention", fn(
+        *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+        S, H, k.shape[2], strides, int(causal), 1.0 / math.sqrt(hd),
+        stream_of(out)))
+
+
+def wgmma_occupancy(head_dim: int, device: int = 0) -> tuple:
+    """(dynamic shared memory bytes a block, blocks an SM holds) of the
+    wgmma instance at ``head_dim``, from the CUDA occupancy API."""
+    fn = _build.kernel("flash_attention", "flash_attention_wgmma_occupancy",
+                       [ctypes.c_int, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_int),
+                        ctypes.POINTER(ctypes.c_int)])
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check("flash_attention", fn(device, head_dim, ctypes.byref(smem),
+                                       ctypes.byref(blocks)))
+    return smem.value, blocks.value
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

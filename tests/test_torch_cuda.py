@@ -11,8 +11,12 @@ Integral counts must agree bit for bit; float values within a stated
 tolerance. Flash attention (B4): float32 within 2e-5 and bfloat16 within
 3e-2 of its plain version, the tolerances ``tests/test_flash_kernel.py``
 holds the Pallas kernel to (sums in another order; bf16 outputs rounded
-to 8 bits).
+to 8 bits). bf16 at head dims 16, 32 and 64 runs its tensor-core (wgmma)
+instance, float32 and hd 8 its CUDA-core (simt) one.
 """
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -257,3 +261,92 @@ def test_lm_smoke_on_the_card_matches_the_cpu(dev):
     got, _, _ = M.apply_prefill(on_card, cfg, {"tokens": tokens.to(dev)})
     assert fa.flash_attention_gqa.launches == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def _gqa_on_card(dev, seed, B, S, H, KV, hd, dtype=torch.bfloat16):
+    return [t.to(dev) for t in _attn_inputs(
+        seed, (B, S, H, hd), (B, S, KV, hd), dtype)]
+
+
+@pytest.mark.parametrize("group", [1, 2, 7])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [64, 100, 130, 1000, 1024])
+@pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
+def test_wgmma_instance_matches_plain(dev, hd, S, causal, group):
+    """bf16 on the tensor cores against the plain version (run on the
+    card, the same tensors) within 3e-2: whole tiles, S that no 64-row
+    tile divides, one to seven query heads a kv head."""
+    KV = 2
+    q, k, v = _gqa_on_card(dev, S + hd + group, 2, S, KV * group, KV, hd)
+    before = dict(fa.flash_attention_gqa.launches_by_design)
+    got = fa.flash_attention_gqa(q, k, v, causal=causal)
+    after = fa.flash_attention_gqa.launches_by_design
+    assert after["wgmma"] == before["wgmma"] + 1
+    assert after["simt"] == before["simt"]
+    want = fa.flash_attention_gqa_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
+def test_wgmma_instance_reads_strided_heads(dev, hd):
+    """q, k, v as views of one packed projection give bit for bit what
+    their contiguous copies give, and agree with the plain version."""
+    B, S, H, KV = 2, 200, 14, 2
+    rng = np.random.default_rng(hd)
+    packed = torch.from_numpy(rng.standard_normal(
+        (B, S, H + 2 * KV, hd)).astype(np.float32)).to(dev).bfloat16()
+    q, k, v = packed[:, :, :H], packed[:, :, H:H + KV], packed[:, :, H + KV:]
+    assert not q.is_contiguous()
+    got = fa.flash_attention_gqa(q, k, v)
+    want = fa.flash_attention_gqa(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, fa.flash_attention_gqa_plain(q, k, v),
+                               rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
+def test_wgmma_instance_through_the_bh_entry_point(dev, hd, causal):
+    cpu = _attn_inputs(hd, (3, 130, hd), (3, 130, hd), torch.bfloat16)
+    before = fa.flash_attention_gqa.launches_by_design["wgmma"]
+    got = fa.flash_attention(*(t.to(dev) for t in cpu), causal=causal)
+    assert fa.flash_attention_gqa.launches_by_design["wgmma"] == before + 1
+    want = fa.flash_attention(*cpu, causal=causal)
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-2, atol=3e-2)
+
+
+def test_wgmma_instance_refuses_misaligned_views(dev):
+    q, k, v = _gqa_on_card(dev, 0, 1, 64, 2, 1, 16)
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=dev)
+    shifted = flat[1:].view(q.shape)               # 2 bytes off 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_gqa(shifted, k, v)
+
+
+def test_flash_attention_library_holds_hgmma(dev):
+    """The built library's SASS holds Hopper's warpgroup MMA (HGMMA):
+    the bf16 instance really runs on the tensor cores."""
+    _build.build(["flash_attention"])
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    assert "HGMMA" in sass
+
+
+def test_qwen2_prefill_shape_counts_under_wgmma(dev):
+    """At the prefill shape, bf16 counts under wgmma and f32 under simt;
+    every launch also counts in ``launches``."""
+    by = fa.flash_attention_gqa.launches_by_design
+    for dtype, which in ((torch.bfloat16, "wgmma"), (torch.float32, "simt")):
+        q, k, v = _gqa_on_card(dev, 1, 4, 1024, 14, 2, 64, dtype)
+        assert fa.design(dtype, 64) == which
+        before, total = dict(by), fa.flash_attention_gqa.launches
+        fa.flash_attention_gqa(q, k, v)
+        torch.cuda.synchronize()
+        assert by[which] == before[which] + 1
+        assert sum(by.values()) == sum(before.values()) + 1
+        assert fa.flash_attention_gqa.launches == total + 1

@@ -135,3 +135,37 @@ def test_cpu_tensors_do_not_count_as_launches():
     before = fa.flash_attention_gqa.launches
     fa.flash_attention_gqa(*_torch(*_qkv(0, (1, 8, 2, 16), (1, 8, 1, 16))))
     assert fa.flash_attention_gqa.launches == before
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_design_rule_picks_the_instance_by_dtype_and_head_dim(dtype, hd):
+    """bf16 at head dims 16, 32 and 64 runs on the tensor cores (wgmma);
+    f32 at every head dim, and bf16 at 8 (below wgmma's bf16 K of 16),
+    on the CUDA cores (simt)."""
+    want = "wgmma" if dtype == torch.bfloat16 and hd >= 16 else "simt"
+    assert fa.design(dtype, hd) == want
+    assert want in fa.DESIGNS
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tensors_load_the_symbol_of_their_design(monkeypatch, dtype, hd):
+    """The wrapper asks the kernel loader for the C function of the
+    instance ``design`` names, and for no other."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import _build
+
+    asked = []
+
+    def loader(name, symbol, argtypes):
+        asked.append(symbol)
+        raise RuntimeError("kernel loader called")
+
+    monkeypatch.setattr(_build, "kernel", loader)
+    with FakeTensorMode():
+        q = torch.zeros(1, 8, 4, hd, dtype=dtype, device="cuda")
+        kv = torch.zeros(1, 8, 2, hd, dtype=dtype, device="cuda")
+        with pytest.raises(RuntimeError, match="kernel loader called"):
+            fa.flash_attention_gqa(q, kv, kv)
+    assert asked == [fa._SYMBOLS[fa.design(dtype, hd)][0]]
