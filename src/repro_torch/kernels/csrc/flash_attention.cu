@@ -61,15 +61,19 @@
 //    that cross the diagonal or S.
 //  - Block shape: kBlockK 64 (the plain version's tiles, and 32 f32
 //    score registers a thread), one warpgroup a block and no producer
-//    warp: a block's copies are 8 cp.async a thread a tile (hd 64), and
-//    with 41,984 bytes of shared memory and 128 registers a thread
-//    (ptxas, hd 64) four blocks share an SM, whose softmax and products
-//    interleave; the 896 query tiles of the prefill shape are ~1.7 waves
-//    of 528 blocks. Two stages cover the copy of one tile with the
-//    products of the last. Two warpgroups a block sharing each K/V tile
-//    (half the copies a query row) measured slower, and so did three:
-//    the loop is bound by the softmax's instruction issue (34 accurate
-//    expf of ~8 instructions each a thread a tile), not by copies.
+//    warp: a block's copies are 8 cp.async a thread a tile (hd 64). A
+//    block takes smem_bytes<64>() = 41,984 bytes of shared memory (five
+//    8 KB tiles, q and two stages of k and v, and 1 KB of alignment
+//    slack) and, at 128 registers a thread (ptxas -v, hd 64), 16,384 of
+//    an SM's 65,536 registers: the registers allow four blocks an SM and
+//    the 228 KB of shared memory five, so four share an SM, whose
+//    softmax and products interleave; the 896 query tiles of the
+//    prefill shape are ~1.7 waves of 4 x 132 = 528 blocks. Two stages
+//    cover the copy of one tile with the products of the last. Two
+//    warpgroups a block sharing each K/V tile (half the copies a query
+//    row) measured slower, and so did three: the loop is bound by the
+//    softmax's instruction issue (34 accurate expf a thread a tile, 32
+//    for p and 2 for the rescale), not by copies.
 //
 // simt (float32 at every head dim, and bfloat16 at hd 8, below wgmma's
 // bf16 depth of 16): one thread a query row holding its q row and f32
@@ -209,23 +213,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      void* o, int B, int S, int H, int KV,
-                      const long long* st, int causal, float scale,
-                      cudaStream_t stream) {
+// float32 at every head dim
+cudaError_t launch_f32(int hd, const void* q, const void* k, const void* v,
+                       void* o, int B, int S, int H, int KV,
+                       const long long* st, int causal, float scale,
+                       cudaStream_t stream) {
   switch (hd) {
     case 8:
-      return launch<T, 8>(q, k, v, o, B, S, H, KV, st, causal, scale, stream);
+      return launch<float, 8>(q, k, v, o, B, S, H, KV, st, causal, scale,
+                              stream);
     case 16:
-      return launch<T, 16>(q, k, v, o, B, S, H, KV, st, causal, scale,
-                           stream);
+      return launch<float, 16>(q, k, v, o, B, S, H, KV, st, causal, scale,
+                               stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, S, H, KV, st, causal, scale,
-                           stream);
+      return launch<float, 32>(q, k, v, o, B, S, H, KV, st, causal, scale,
+                               stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, S, H, KV, st, causal, scale,
-                           stream);
+      return launch<float, 64>(q, k, v, o, B, S, H, KV, st, causal, scale,
+                               stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -606,23 +611,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t occupancy(int* smem, int* blocks) {
-  const size_t bytes = smem_bytes<HD>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return err;
-  *smem = (int)bytes;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, flash_fwd_wgmma<HD>, kThreads, bytes);
-}
-
 }  // namespace wg
 }  // namespace
 
-// dtype 0: float32, 1: bfloat16. strides: 12 element strides, (b, s, head)
-// of q, k, v and o in turn. Returns cudaGetLastError() of the launch.
+// The CUDA-core instance. dtype 0: float32 at hd 8, 16, 32 or 64;
+// 1: bfloat16 at hd 8 only (the wgmma instance takes bf16 at 16-64).
+// strides: 12 element strides, (b, s, head) of q, k, v and o in turn.
+// Returns cudaGetLastError() of the launch.
 extern "C" int flash_attention_launch(int device, int dtype, int hd,
                                       const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
@@ -635,11 +630,11 @@ extern "C" int flash_attention_launch(int device, int dtype, int hd,
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (dtype == 0)
-    return (int)launch_hd<float>(hd, q, k, v, o, B, S, H, KV, strides,
-                                 causal, scale, stream);
-  if (dtype == 1)
-    return (int)launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, H, KV,
-                                         strides, causal, scale, stream);
+    return (int)launch_f32(hd, q, k, v, o, B, S, H, KV, strides, causal,
+                           scale, stream);
+  if (dtype == 1 && hd == 8)
+    return (int)launch<__nv_bfloat16, 8>(q, k, v, o, B, S, H, KV, strides,
+                                         causal, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -669,25 +664,6 @@ extern "C" int flash_attention_wgmma_launch(int device, int hd,
     case 64:
       return (int)wg::launch<64>(q, k, v, o, B, S, H, KV, strides, causal,
                                  scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Dynamic shared memory a block of the wgmma instance takes at head dim
-// hd, and how many such blocks one SM holds (the CUDA occupancy API).
-// Returns a CUDA error code.
-extern "C" int flash_attention_wgmma_occupancy(int device, int hd,
-                                               int* smem, int* blocks) {
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  switch (hd) {
-    case 16:
-      return (int)wg::occupancy<16>(smem, blocks);
-    case 32:
-      return (int)wg::occupancy<32>(smem, blocks);
-    case 64:
-      return (int)wg::occupancy<64>(smem, blocks);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -152,22 +152,8 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     which = design(q.dtype, hd)
-    _launch(q, k, v, out, causal, which)
-    flash_attention_gqa.launches += 1
-    flash_attention_gqa.launches_by_design[which] += 1
-    return out
-
-
-flash_attention_gqa.launches = 0
-flash_attention_gqa.launches_by_design = dict.fromkeys(DESIGNS, 0)
-
-
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            out: torch.Tensor, causal: bool, which: str) -> None:
-    """Launch instance ``which`` on checked CUDA tensors (not counted)."""
     symbol, argtypes = _SYMBOLS[which]
     fn = _build.kernel("flash_attention", symbol, argtypes)
-    B, S, H, hd = q.shape
     if which == "wgmma":
         for t in (q, k, v, out):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
@@ -182,19 +168,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
         S, H, k.shape[2], strides, int(causal), 1.0 / math.sqrt(hd),
         stream_of(out)))
+    flash_attention_gqa.launches += 1
+    flash_attention_gqa.launches_by_design[which] += 1
+    return out
 
 
-def wgmma_occupancy(head_dim: int, device: int = 0) -> tuple:
-    """(dynamic shared memory bytes a block, blocks an SM holds) of the
-    wgmma instance at ``head_dim``, from the CUDA occupancy API."""
-    fn = _build.kernel("flash_attention", "flash_attention_wgmma_occupancy",
-                       [ctypes.c_int, ctypes.c_int,
-                        ctypes.POINTER(ctypes.c_int),
-                        ctypes.POINTER(ctypes.c_int)])
-    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    _build.check("flash_attention", fn(device, head_dim, ctypes.byref(smem),
-                                       ctypes.byref(blocks)))
-    return smem.value, blocks.value
+flash_attention_gqa.launches = 0
+flash_attention_gqa.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

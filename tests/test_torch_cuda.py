@@ -12,7 +12,9 @@ tolerance. Flash attention (B4): float32 within 2e-5 and bfloat16 within
 3e-2 of its plain version, the tolerances ``tests/test_flash_kernel.py``
 holds the Pallas kernel to (sums in another order; bf16 outputs rounded
 to 8 bits). bf16 at head dims 16, 32 and 64 runs its tensor-core (wgmma)
-instance, float32 and hd 8 its CUDA-core (simt) one.
+instance, float32 and hd 8 its CUDA-core (simt) one; the wgmma instance
+is also held, output row by output row, within two bf16 ulps of the
+row's largest entry (``ROW_TOL``), which a dropped key tile would fail.
 """
 import subprocess
 from pathlib import Path
@@ -263,6 +265,19 @@ def test_lm_smoke_on_the_card_matches_the_cpu(dev):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
+# kernel and plain round the same f32 sums, taken in another order, to
+# bf16: an entry may part by one ulp of itself, at most 2^-7 of its row's
+# largest entry; the limit is two such ulps
+ROW_TOL = 2.0 ** -6
+
+
+def _row_scaled_err(got, want):
+    """max over output rows (the last dim) of max |got - want| over the
+    row's max |want|."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    return float((err / want.float().abs().amax(-1).clamp_min(1e-30)).max())
+
+
 def _gqa_on_card(dev, seed, B, S, H, KV, hd, dtype=torch.bfloat16):
     return [t.to(dev) for t in _attn_inputs(
         seed, (B, S, H, hd), (B, S, KV, hd), dtype)]
@@ -287,6 +302,7 @@ def test_wgmma_instance_matches_plain(dev, hd, S, causal, group):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
+    assert _row_scaled_err(got, want) <= ROW_TOL
 
 
 @pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
@@ -303,8 +319,9 @@ def test_wgmma_instance_reads_strided_heads(dev, hd):
     want = fa.flash_attention_gqa(q.contiguous(), k.contiguous(),
                                   v.contiguous())
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    torch.testing.assert_close(got, fa.flash_attention_gqa_plain(q, k, v),
-                               rtol=3e-2, atol=3e-2)
+    want = fa.flash_attention_gqa_plain(q, k, v)
+    torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
+    assert _row_scaled_err(got, want) <= ROW_TOL
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -316,6 +333,7 @@ def test_wgmma_instance_through_the_bh_entry_point(dev, hd, causal):
     assert fa.flash_attention_gqa.launches_by_design["wgmma"] == before + 1
     want = fa.flash_attention(*cpu, causal=causal)
     torch.testing.assert_close(got.cpu(), want, rtol=3e-2, atol=3e-2)
+    assert _row_scaled_err(got.cpu(), want) <= ROW_TOL
 
 
 def test_wgmma_instance_refuses_misaligned_views(dev):
