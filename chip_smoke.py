@@ -16,7 +16,10 @@ each of which fails the run (non-zero exit) if it fails:
   4. kernels   each kernel against its plain PyTorch version on the
                main path's inputs (the L = 8 request): integral counts
                must agree exactly; one float-valued ELL case within its
-               stated tolerance;
+               stated tolerance; what the hashed query table of B2 and
+               B3 holds for that request (real items, distinct ids,
+               slots, run-sum columns) and the share of doc words that
+               hit;
   5. launcher  ``repro_torch.launch.search.main`` on the card;
   6. main path 8 requests (L = 1..8) through ``PatternSearchEngine.
                search`` on gpu, gpu_packed and gpu_fused, then
@@ -190,10 +193,11 @@ def main() -> int:
     from repro_torch.core import corpus as corpus_lib
     from repro_torch.core.engine import PatternSearchEngine
     from repro_torch.kernels import _build, fused, ops, ref
-    from repro_torch.kernels.sparse_match import (sparse_match,
+    from repro_torch.kernels.sparse_match import (query_tiles, sparse_match,
                                                   sparse_match_plain)
     from repro_torch.kernels.sparse_match_packed import (
-        sparse_match_packed, sparse_match_packed_plain)
+        MIN_PASS_COLS, sparse_match_packed, sparse_match_packed_plain,
+        tile_bytes)
     from repro_torch.launch import search as launcher
     from repro_torch.serve import Query
 
@@ -255,6 +259,18 @@ def main() -> int:
     bd, kp = f._block_docs, min(cfg.top_k, f._block_docs)
     say(f"shapes: D={N_DOCS} K={cfg.nnz_pad} L={Lp} Qm={mi.size} "
         f"tiles={tuple(f.f_tiles.shape)} block_docs={bd} kp={kp}")
+    table = query_tiles(mi, fused.KEY_MASK)
+    b2_table = query_tiles(mi, (1 << 20) - 1, min_cols=MIN_PASS_COLS,
+                           tile_bytes=tile_bytes(dev, mi.size, Lp))
+    words = g.d_ids[g.d_ids >= 0]
+    hit = float(torch.isin(words, q_ids[q_ids >= 0]).double().mean())
+    say(f"query table (L={Lp} request): {table[0]['real']} real items of "
+        f"{mi.size}, {table[0]['distinct']} distinct ids in "
+        f"{table[0]['slots']} slots ({len(table)} tile, sorted "
+        f"{table[0]['sorted']}); run sums of {table[0]['sum_cols']} "
+        f"columns in B3, {b2_table[0]['sum_cols']} in B2; {hit:.4f} of the "
+        f"{words.numel()} doc words hit")
+    del words
     calls = {
         "sparse_match": (
             lambda: sparse_match(g.d_ids, g.d_vals, q_ids, q_vals),
@@ -398,9 +414,9 @@ def main() -> int:
         plain_ms = cuda_ms(torch, plain, 3)
         b_ms, b_by = bound(*work[name])
         library = None if name == "fused_match_topk" else lib_ms
-        say(f"time {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms by {b_by}, {work[name][0] / 1e9:.3f} GB; "
-            f"library {library})")
+        say(f"time {name}: {ms:.4f} ms, {ms / b_ms:.2f}x its bound (plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}, "
+            f"{work[name][0] / 1e9:.3f} GB; library {library})")
         rows.append({"name": name, "route": "cuda",
                      "source": sources[name][0],
                      "replaces": sources[name][1],

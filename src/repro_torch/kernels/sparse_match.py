@@ -7,8 +7,10 @@ backend ``gpu``, the port of ``repro.kernels.sparse_match``.
 The TPU kernel builds the match matrix ``eq = doc_id == q_id`` and runs
 ``eq @ q_vals`` on the MXU. On the card (``csrc/sparse_match.cu``) each
 document slot looks up the run of its id in the merged query stream
-instead. ``sparse_match_plain`` is the same lookup in PyTorch: it is what
-the wrapper runs for CPU tensors, and what the kernel is held against.
+instead, by binary search (the packed and fused kernels look it up in a
+hashed table; ``table_plan``). ``sparse_match_plain`` is the same
+lookup in PyTorch: it is what the wrapper runs for CPU tensors, and what
+the kernel is held against.
 
 Sentinels: any negative id is padding, on either side (documents pad with
 -1, the merged stream with -2); padding never matches.
@@ -16,6 +18,7 @@ Sentinels: any negative id is padding, on either side (documents pad with
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -42,6 +45,85 @@ def run_sums(ids: torch.Tensor, q_ids: torch.Tensor,
         max=uniq.numel() - 1)
     hit = (ids >= 0) & (uniq[pos] == ids)
     return torch.where(hit[..., None], runs[pos], 0.0)
+
+
+MAX_TILE_ITEMS = 8192         # csrc/match.cuh: kMaxTileItems
+TABLE_MIN_SLOTS = 64          # csrc/match.cuh: kMinSlots
+
+
+def _pow2_slots(x: int) -> int:
+    slots = TABLE_MIN_SLOTS
+    while slots < x:
+        slots *= 2
+    return slots
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def query_tile_bytes(items: int) -> int:
+    """Shared memory of the query tile of a stream whose largest tile has
+    ``items`` items, past its scratch word (``csrc/match.cuh``
+    ``query_tile_smem``): its ids and a table at load 1/2 for that many
+    distinct ids. B3's query tile has this; B2's may have more
+    (``sparse_match_packed.tile_bytes``)."""
+    items = max(1, items)
+    return _align16(4 * items) + _align16(2 * _pow2_slots(2 * items))
+
+
+def table_plan(n_real: int, tile_bytes: int, cols: int,
+               min_cols: int) -> Tuple[int, int]:
+    """(slots, sum columns) of the hashed query table that B2 and B3 build
+    for a sorted query tile of ``n_real`` real items in ``tile_bytes`` of
+    shared memory (``csrc/match.cuh`` ``table_plan``): the run sums of the
+    widest of ``cols``, ``cols // 2``, ... down to ``min_cols`` columns
+    that fit, beside a table of the least power of two >= 4 * n_real
+    slots (at most a quarter taken) where that fits too, else >= 2 *
+    n_real (at most half taken); if no sums fit, 0 columns (hits walk
+    their runs) and the table at a quarter where it fits beside the ids,
+    else at half, which always fits. At least 64 slots."""
+    def fits(slots, c):
+        return (_align16(4 * n_real) + _align16(2 * slots) + 4 * c * n_real
+                <= tile_bytes)
+    quarter, half = _pow2_slots(4 * n_real), _pow2_slots(2 * n_real)
+    c = cols
+    while c >= max(min_cols, 1):
+        for slots in (quarter, half):
+            if fits(slots, c):
+                return slots, c
+        c //= 2
+    return (quarter if fits(quarter, 0) else half), 0
+
+
+def query_tiles(q_ids, max_key: int, cols: int = 8, min_cols: int = 0,
+                tile_bytes: int = 0) -> list:
+    """What each 8192-item query tile of a merged stream gives the table
+    of ``csrc/match.cuh``: its items, whether it is sorted under "pads
+    sort last" (else no table: the full-tile scan), its real items (ids
+    >= 0), the distinct ids <= ``max_key`` the table holds, and its slots
+    and run-sum columns (None when unsorted), for passes of ``cols``
+    columns that may narrow to ``min_cols`` (default ``cols``: B3's) in
+    ``tile_bytes`` (default ``query_tile_bytes``: B3's). At least one
+    tile, as the kernels count them."""
+    ids = torch.as_tensor(q_ids).cpu().long()
+    items = max(1, min(ids.numel(), MAX_TILE_ITEMS))
+    tile_bytes = tile_bytes or query_tile_bytes(items)
+    out = []
+    for t0 in range(0, max(ids.numel(), 1), MAX_TILE_ITEMS):
+        tile = ids[t0:t0 + MAX_TILE_ITEMS]
+        key = torch.where(tile < 0, torch.iinfo(torch.int64).max, tile)
+        is_sorted = bool((key[1:] >= key[:-1]).all())
+        real = tile[tile >= 0]
+        slots, sum_cols = (table_plan(real.numel(), tile_bytes, cols,
+                                      min_cols or cols)
+                           if is_sorted else (None, None))
+        out.append({
+            "items": tile.numel(), "sorted": is_sorted,
+            "real": real.numel(),
+            "distinct": torch.unique(real[real <= max_key]).numel(),
+            "slots": slots, "sum_cols": sum_cols})
+    return out
 
 
 def sparse_match_plain(doc_ids: torch.Tensor, doc_vals: torch.Tensor,

@@ -4,7 +4,10 @@
 The corpus stays on the card in the paper's own Fig. 8 32-bit packing,
 ``[wordID:19 | count:12]`` with the top bit clear and 0xFFFFFFFF as the
 pad, and is unpacked in the kernel by a shift and a mask: 4 B a slot
-instead of ELL's 8 (``csrc/sparse_match_packed.cu``).
+instead of ELL's 8 (``csrc/sparse_match_packed.cu``). The kernel looks
+each word's id up in a hashed table of the query tile's distinct ids in
+shared memory (``sparse_match.table_plan``); ids of 2^20 and above,
+which no word carries, never match.
 
 torch has no arithmetic on uint32, so the port's tensors carry packed
 words as int32 with the same bits (``pack(...).view(np.int32)``); the
@@ -22,6 +25,7 @@ from repro_torch.kernels.sparse_match import (_check_query, on_cpu,
                                               sparse_match_plain, stream_of)
 
 VAL_BITS = 12
+MIN_PASS_COLS = 4            # csrc/sparse_match_packed.cu: kMinPassCols
 VAL_MASK = (1 << VAL_BITS) - 1
 PAD_WORD = np.uint32(0xFFFFFFFF)
 
@@ -87,3 +91,17 @@ def sparse_match_packed(docs_packed: torch.Tensor, q_ids: torch.Tensor,
 
 
 sparse_match_packed.launches = 0
+
+
+def tile_bytes(device, Qm: int, L: int) -> int:
+    """Shared memory of the kernel's query tile on card ``device`` for a
+    launch of ``Qm`` items and ``L`` columns, past its scratch word: what
+    the kernel's registers leave a block (``csrc/match.cuh``
+    ``smem_share``), at least ``sparse_match.query_tile_bytes``. For
+    ``sparse_match.query_tiles``'s report of B2's table; needs the card."""
+    fn = _build.kernel("sparse_match_packed", "sparse_match_packed_smem",
+                       [ctypes.c_int] * 3)
+    smem = fn(torch.device(device).index or 0, Qm, L)
+    if smem <= 0:
+        raise RuntimeError("sparse_match_packed_smem failed")
+    return smem - 16

@@ -16,6 +16,7 @@ instance, float32 and hd 8 its CUDA-core (simt) one; the wgmma instance
 is also held, output row by output row, within two bf16 ulps of the
 row's largest entry (``ROW_TOL``), which a dropped key tile would fail.
 """
+import ctypes
 import subprocess
 from pathlib import Path
 
@@ -27,7 +28,9 @@ from repro_torch.configs.paper_search import SearchConfig
 from repro_torch.core import corpus as corpus_lib
 from repro_torch.core.engine import PatternSearchEngine
 from repro_torch.kernels import _build, flash_attention as fa, fused, ops
-from repro_torch.kernels.sparse_match import sparse_match
+from repro_torch.kernels import sparse_match_packed as sparse_match_packed_mod
+from repro_torch.kernels.sparse_match import (query_tile_bytes, query_tiles,
+                                              sparse_match)
 from repro_torch.kernels.sparse_match_packed import pack, sparse_match_packed
 
 torch.set_num_threads(2)
@@ -42,7 +45,7 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _case(seed, sorted_stream=True, Qm=None, L=None):
+def _case(seed, sorted_stream=True, Qm=None, L=None, vocab=VOCAB):
     """Random ELL docs (pads, duplicates, empty rows, zero values) and a
     merged query stream (in-stream pads, duplicate ids)."""
     rng = np.random.default_rng(seed)
@@ -56,17 +59,17 @@ def _case(seed, sorted_stream=True, Qm=None, L=None):
         if rng.random() < 0.1:
             continue
         k = int(rng.integers(1, K + 1))
-        row = rng.integers(0, VOCAB, k)
+        row = rng.integers(0, vocab, k)
         if k > 1 and rng.random() < 0.3:
             row[0] = row[1]
         ids[d, :k] = np.sort(row)
         vals[d, :k] = rng.integers(0, 30, k)
     mi = np.where(rng.random(Qm) < 0.2, -2,
-                  rng.integers(0, VOCAB, Qm)).astype(np.int32)
+                  rng.integers(0, vocab, Qm)).astype(np.int32)
     mv = np.zeros((Qm, L), np.float32)
     mv[np.arange(Qm), rng.integers(0, L, Qm)] = rng.integers(1, 30, Qm)
     if sorted_stream:
-        order = np.argsort(np.where(mi < 0, VOCAB + 1, mi), kind="stable")
+        order = np.argsort(np.where(mi < 0, vocab + 1, mi), kind="stable")
         mi, mv = mi[order], mv[order]
     return ids, vals, mi, mv
 
@@ -184,6 +187,259 @@ def test_engine_backends_bit_identical_on_card(dev, L):
 def _query(qi, qv):
     from repro_torch.serve import Query
     return Query(qi, qv)
+
+
+# -- B2 and B3 on the hashed query table: every stream shape the table sees
+PACKED_MAX_KEY = (1 << 20) - 1       # the largest id a packed word carries
+
+
+def _packed_bitwise(dev, ids, vals, mi, mv):
+    words = pack(ids, vals).view(np.int32)
+    (cw, cqi, cqv), (gw, gqi, gqv) = _both(dev, words, mi, mv)
+    want = sparse_match_packed(cw, cqi, cqv)
+    got = sparse_match_packed(gw, gqi, gqv).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    return want
+
+
+def _fused_tiles(seed, vocab=VOCAB, nnz_pad=None, bd=None, n_docs=None,
+                 avg_nnz=12):
+    rng = np.random.default_rng(seed)
+    nnz_pad = int(rng.integers(1, 40)) if nnz_pad is None else nnz_pad
+    bd = int(2 ** rng.integers(0, 8)) if bd is None else bd
+    n_docs = int(rng.integers(1, 900)) if n_docs is None else n_docs
+    corpus = corpus_lib.synthesize(n_docs, vocab, avg_nnz, nnz_pad,
+                                   seed=seed)
+    tiles, _, _ = fused.tile_stream(fused.corpus_to_stream(corpus),
+                                    block_docs=bd, nnz_pad=nnz_pad)
+    return tiles, bd
+
+
+def _fused_bitwise(dev, tiles, bd, mi, mv, kp=None):
+    kp = min(bd, 16) if kp is None else kp
+    qn = np.sqrt((mv ** 2).sum(0) + 1).astype(np.float32)
+    (ct, cqi, cqv, cqn), (gt, gqi, gqv, gqn) = _both(
+        dev, tiles.view(np.int32), mi, mv, qn)
+    wv, wi = fused.fused_match_topk(ct, cqi, cqv, cqn, block_docs=bd, kp=kp)
+    gv, gi = fused.fused_match_topk(gt, gqi, gqv, gqn, block_docs=bd, kp=kp)
+    torch.testing.assert_close(gv.cpu(), wv, rtol=0, atol=0)
+    torch.testing.assert_close(gi.cpu(), wi, rtol=0, atol=0)
+    return wv, wi
+
+
+@pytest.mark.parametrize("L", [1, 3, 8, 13])
+@pytest.mark.parametrize("Qm", [0, 8191, 8192, 20000])
+def test_packed_and_fused_stream_shapes_bitwise(dev, Qm, L):
+    """Empty streams, one query tile, exactly one, and three (tables
+    rebuilt tile by tile); L = 13 runs two column passes."""
+    seed = 300 + Qm + L
+    ids, vals, mi, mv = _case(seed, True, Qm=Qm, L=L)
+    _packed_bitwise(dev, ids, vals, mi, mv)
+    tiles, bd = _fused_tiles(seed)
+    _fused_bitwise(dev, tiles, bd, mi, mv)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_packed_and_fused_unsorted_streams_bitwise(dev, seed):
+    """A stream out of key order builds no table: the full-tile scan."""
+    Qm = [300, 8192, 9000][seed]
+    ids, vals, mi, mv = _case(400 + seed, False, Qm=Qm, L=5)
+    assert not all(t["sorted"] for t in query_tiles(mi, PACKED_MAX_KEY))
+    _packed_bitwise(dev, ids, vals, mi, mv)
+    tiles, bd = _fused_tiles(400 + seed)
+    _fused_bitwise(dev, tiles, bd, mi, mv)
+
+
+def test_packed_and_fused_long_runs_of_one_id_bitwise(dev):
+    """One id carried by 500 items across every column, and 40 times
+    within one column; a run walks in stream order."""
+    L = 6
+    ids, vals, _, _ = _case(7, True, Qm=0, L=L)
+    rng = np.random.default_rng(7)
+    mi = np.concatenate([np.full(500, 5), np.full(40, 9),
+                         rng.integers(0, VOCAB, 300), np.full(60, -2)])
+    mv = np.zeros((mi.size, L), np.float32)
+    mv[np.arange(mi.size), rng.integers(0, L, mi.size)] = rng.integers(
+        1, 30, mi.size)
+    mv[500:540] = 0
+    mv[500:540, 2] = rng.integers(1, 30, 40)
+    order = np.argsort(np.where(mi < 0, VOCAB + 1, mi), kind="stable")
+    mi, mv = mi[order].astype(np.int32), mv[order]
+    want = _packed_bitwise(dev, ids, vals, mi, mv)
+    assert want.abs().sum() > 0
+    tiles, bd = _fused_tiles(7, bd=32)
+    _fused_bitwise(dev, tiles, bd, mi, mv)
+
+
+@pytest.mark.parametrize("sorted_stream", [True, False])
+def test_uncarried_query_ids_never_match(dev, sorted_stream):
+    """Query ids no doc word can carry (2^20 and above for packed words,
+    above 2^19 - 1 for fused ones), some equal to a carried id in their
+    low bits, mixed with pads: they stay out of the table and match
+    nothing."""
+    ids, vals, mi, mv = _case(11, sorted_stream, Qm=600, L=4)
+    rng = np.random.default_rng(11)
+    for high in (1 << 20, 1 << 19):
+        q = mi.copy()
+        pick = rng.random(q.size) < 0.4
+        q[pick] = np.where(rng.random(pick.sum()) < 0.5, high,
+                           high + 5000) + rng.integers(0, VOCAB, pick.sum())
+        q[rng.random(q.size) < 0.1] = np.iinfo(np.int32).max
+        if sorted_stream:
+            order = np.argsort(np.where(q < 0, np.iinfo(np.int64).max, q),
+                               kind="stable")
+            q, v = q[order].astype(np.int32), mv[order]
+        else:
+            q, v = q.astype(np.int32), mv
+        _packed_bitwise(dev, ids, vals, q, v)
+        tiles, bd = _fused_tiles(11, bd=16)
+        _fused_bitwise(dev, tiles, bd, q, v)
+
+
+@pytest.mark.parametrize("bd,kp", [(8, 8), (64, 16)])
+def test_query_tile_of_8192_distinct_ids(dev, bd, kp):
+    """8192 distinct ids in one tile: the table at its largest (16384
+    slots), every slot chain as long as it gets."""
+    vocab = 20000
+    ids, vals, _, _ = _case(13, True, Qm=0, L=3, vocab=vocab)
+    rng = np.random.default_rng(13)
+    mi = np.sort(rng.choice(vocab, 8192, replace=False)).astype(np.int32)
+    mv = np.zeros((8192, 3), np.float32)
+    mv[np.arange(8192), rng.integers(0, 3, 8192)] = rng.integers(1, 30, 8192)
+    assert query_tiles(mi, PACKED_MAX_KEY) == [{
+        "items": 8192, "sorted": True, "real": 8192, "distinct": 8192,
+        "slots": 16384, "sum_cols": 0}]
+    want = _packed_bitwise(dev, ids, vals, mi, mv)
+    assert want.abs().sum() > 0
+    tiles, bd = _fused_tiles(13, vocab=vocab, bd=bd, n_docs=700,
+                             avg_nnz=30, nnz_pad=40)
+    _fused_bitwise(dev, tiles, bd, mi, mv, kp=kp)
+
+
+def test_fused_crafted_tiles_bitwise(dev):
+    """Pads between rows and inside them, an all-pad tile, a tile with
+    more headers than block_docs (the rows past it drop), and a full tile
+    with no pad at all."""
+    bd, nnz_pad = 8, 6
+    cap = bd * (1 + nnz_pad)
+    pad = np.uint32(0xFFFFFFFF)
+    rng = np.random.default_rng(17)
+
+    def row(doc, n=None):
+        n = int(rng.integers(0, 4)) if n is None else n
+        words = (rng.choice(40, n, replace=False).astype(np.uint32) << 12) \
+            | rng.integers(1, 30, n).astype(np.uint32)
+        return [np.uint32(0x80000000 | doc)] + list(words)
+
+    gaps = []
+    for d in range(5):
+        gaps += [pad] * int(rng.integers(0, 3)) + row(d)
+        if len(gaps) > 3:
+            gaps.insert(len(gaps) - 1, pad)
+    many = sum((row(100 + d) for d in range(bd + 3)), [])
+    tiles = np.full((4, cap), pad, np.uint32)
+    tiles[0, :len(gaps)] = gaps
+    tiles[2, :len(many)] = many
+    tiles[3] = sum((row(200 + d, nnz_pad) for d in range(bd)), [])
+    mi = np.concatenate([np.arange(0, 40, 2), np.full(4, -2)])
+    mv = np.ones((mi.size, 3), np.float32)
+    wv, wi = _fused_bitwise(dev, tiles, bd, mi.astype(np.int32), mv)
+    assert (wi[1] == -1).all() and torch.isinf(wv[1]).all()
+    assert set(wi[2].flatten().tolist()) <= set(range(100, 100 + bd)) | {-1}
+
+
+@pytest.mark.parametrize("nnz_pad,bd,kp", [(312, 128, 16), (1000, 64, 16),
+                                            (6, 3, 3), (20, 1024, 40)])
+def test_fused_tiles_of_any_size_bitwise(dev, nnz_pad, bd, kp):
+    """A 160 KB tile (one stage fits, two do not), a 256 KB one (read
+    from device memory), tiles of 21 words (most not on a 16-byte
+    boundary: the bulk copy's edges), and 1024 rows a tile (more than
+    four a lane: the epilogue rescans shared memory) with kp > 32."""
+    vocab = 2000
+    _, _, mi, mv = _case(19, True, Qm=900, L=8, vocab=vocab)
+    tiles, bd = _fused_tiles(19, vocab=vocab, nnz_pad=nnz_pad, bd=bd,
+                             n_docs=300, avg_nnz=max(2, nnz_pad // 2))
+    _fused_bitwise(dev, tiles, bd, mi, mv, kp=kp)
+
+
+def test_fused_stage_rule(dev):
+    """One tile stage wherever it fits a block (the main shape's 66 KB,
+    small tiles, a 160 KB tile), none for a tile too big for one; -1
+    where even the unstaged launch would not fit."""
+    stages = _build.kernel("fused", "fused_match_topk_stages",
+                           [ctypes.c_int] * 4 + [ctypes.c_longlong])
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert stages(16512, 128, 4096, 8, optin) == 1
+    assert stages(21, 3, 900, 8, optin) == 1
+    assert stages(128 * 313, 128, 4096, 8, optin) == 1
+    assert stages(64 * 1001, 64, 4096, 8, optin) == 0
+    assert stages(16512, 128, 4096, 8, 1024) == -1
+
+
+LONG_QUERY_ITEMS = [700, 1500, 3000, 4096, 8000]
+
+
+def _long_stream(seed, n_real, L, vocab):
+    """n_real real items of one sorted tile, in a 4096- or 8192-item
+    bucket: the merged stream of L queries of ~n_real / L ids each."""
+    rng = np.random.default_rng(seed)
+    Qm = 4096 if n_real <= 4096 else 8192
+    mi = np.full(Qm, -2, np.int32)
+    mi[:n_real] = np.sort(rng.integers(0, vocab, n_real))
+    mv = np.zeros((Qm, L), np.float32)
+    mv[np.arange(n_real), rng.integers(0, L, n_real)] = rng.integers(
+        1, 30, n_real)
+    return mi, mv
+
+
+@pytest.mark.parametrize("L", [8, 13])
+@pytest.mark.parametrize("n_real", LONG_QUERY_ITEMS)
+def test_packed_and_fused_long_queries_bitwise(dev, n_real, L):
+    """Longer queries than the main path's: B2's run sums narrow to 4
+    columns a pass as the real items grow, and then its hits walk their
+    runs; B3's sums fit at 8 columns or not at all."""
+    vocab = 20000
+    ids, vals, _, _ = _case(31, True, Qm=0, L=L, vocab=vocab)
+    mi, mv = _long_stream(31 + n_real, n_real, L, vocab)
+    want = _packed_bitwise(dev, ids, vals, mi, mv)
+    assert want.abs().sum() > 0
+    tiles, bd = _fused_tiles(31, vocab=vocab, bd=64, n_docs=700,
+                             avg_nnz=30, nnz_pad=40)
+    _fused_bitwise(dev, tiles, bd, mi, mv)
+
+
+def test_packed_query_tile_takes_what_registers_leave(dev):
+    """B2's query tile takes more than its least where its registers
+    leave shared memory, and the long-query test above then covers run
+    sums of 8 columns, of 4, and none."""
+    tile = {Qm: sparse_match_packed_mod.tile_bytes(dev, Qm, 8)
+            for Qm in (4096, 8192)}
+    assert tile[4096] > query_tile_bytes(4096)
+    assert tile[8192] >= query_tile_bytes(8192)
+    widths = set()
+    for n_real in LONG_QUERY_ITEMS:
+        mi, _ = _long_stream(31 + n_real, n_real, 8, 20000)
+        (plan,) = query_tiles(mi, PACKED_MAX_KEY,
+                              min_cols=sparse_match_packed_mod.MIN_PASS_COLS,
+                              tile_bytes=tile[mi.size])
+        widths.add(plan["sum_cols"])
+    assert widths == {8, 4, 0}
+
+
+def test_packed_float_queries_within_tolerance(dev):
+    """Float query values: a lane sums its four slots in order and the
+    lanes by a shuffle tree, the plain version in torch's order; both are
+    sums of at most K * L products, so B1's tolerance holds (rtol 1e-5,
+    atol 1e-5 x the largest |score|)."""
+    ids, vals, mi, mv = _case(23, True, Qm=400, L=8)
+    mv = (mv * np.random.default_rng(23).standard_normal(mv.shape)).astype(
+        np.float32)
+    words = pack(ids, vals).view(np.int32)
+    (cw, cqi, cqv), (gw, gqi, gqv) = _both(dev, words, mi, mv)
+    want = sparse_match_packed(cw, cqi, cqv)
+    got = sparse_match_packed(gw, gqi, gqv).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
 
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}

@@ -19,6 +19,8 @@ from repro.kernels import ops as j_ops
 from repro.kernels.sparse_match_packed import pack
 from repro_torch.kernels import fused as t_fused
 from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels.sparse_match import (query_tile_bytes,
+                                              query_tiles, table_plan)
 
 torch.set_num_threads(2)
 VOCAB = 256
@@ -230,3 +232,126 @@ def test_fused_nan_ranks_as_inf_and_ties_keep_lower_row():
     assert np.isnan(tv[0, 1, 0]) and (tv[0, 1, 1:4] == 0).all()
     np.testing.assert_array_equal(ji[0, 1], [0, 1, 2, 3, -1])
     assert np.isnan(jv[0, 1, :4]).all()
+
+
+# -- the hashed query table of B2 and B3 (csrc/match.cuh) ----------------
+def _query_tile_bytes(items):
+    """A query tile's shared memory: its ids and a table at load 1/2."""
+    slots = 64
+    while slots < 2 * items:
+        slots *= 2
+    return -(-4 * items // 16) * 16 + -(-2 * slots // 16) * 16
+
+
+@pytest.mark.parametrize("n_real,items,slots", [
+    (0, 1, 64), (16, 512, 64), (17, 512, 128), (50, 512, 256),
+    (402, 4096, 2048), (700, 4096, 2048), (2048, 4096, 8192),
+    (3000, 4096, 8192), (4096, 4096, 8192), (8192, 8192, 16384)])
+def test_table_slots_quarter_load_where_it_fits(n_real, items, slots):
+    """B3's table (8-column sums, the tile's least shared memory): the
+    least power of two >= 4 x the real items (at least 64) where it fits
+    beside the ids and the sums, else half that (700 real items: half,
+    because the sums then fit)."""
+    assert query_tile_bytes(items) == _query_tile_bytes(items)
+    assert table_plan(n_real, query_tile_bytes(items), 8, 8)[0] == slots
+
+
+@pytest.mark.parametrize("n_real,tile_bytes,min_cols,plan", [
+    (402, 32768, 8, (2048, 8)), (700, 32768, 8, (2048, 8)),
+    (800, 32768, 8, (4096, 0)), (1000, 57344, 1, (4096, 8)),
+    (2048, 57344, 1, (8192, 4)), (4096, 57344, 1, (8192, 1)),
+    (4096, 32768, 8, (8192, 0)), (8192, 65536, 1, (16384, 0))])
+def test_table_plan_gives_the_sums_room_before_a_quarter_load(
+        n_real, tile_bytes, min_cols, plan):
+    """The widest run sums that fit come first, at load 1/4 where that
+    fits too, else 1/2; B2 (min_cols 1) narrows its passes before its hits
+    walk, B3 (min_cols 8) does not; with no sums (0 columns), load 1/4
+    where it fits beside the ids."""
+    assert table_plan(n_real, tile_bytes, 8, min_cols) == plan
+
+
+def test_table_slots_always_fit_and_stay_at_most_half_full():
+    for items in (1, 100, 512, 4096, 8191, 8192):
+        for tile_bytes in (_query_tile_bytes(items), 57344):
+            tile_bytes = max(tile_bytes, _query_tile_bytes(items))
+            for n in range(0, items + 1, max(1, items // 97)):
+                for cols, min_cols in ((8, 8), (8, 1), (4, 1), (1, 1)):
+                    slots, c = table_plan(n, tile_bytes, cols, min_cols)
+                    assert slots & (slots - 1) == 0
+                    assert slots >= max(64, 2 * n)
+                    assert c == 0 or min_cols <= c <= cols
+                    assert (-(-4 * n // 16) * 16 + 2 * slots + 4 * c * n
+                            <= tile_bytes)
+
+
+def test_query_tiles_report_what_the_table_holds():
+    carry = (1 << 20) - 1
+    mi = np.array([3, 3, 5, (1 << 20) + 3, -2, -2], np.int32)
+    assert query_tiles(mi, carry) == [{
+        "items": 6, "sorted": True, "real": 4, "distinct": 2, "slots": 64,
+        "sum_cols": 0}]
+    assert query_tiles(mi, carry, min_cols=1)[0]["sum_cols"] == 1
+    assert query_tiles(mi, carry, tile_bytes=4096)[0]["sum_cols"] == 8
+    unsorted = query_tiles(mi[::-1].copy(), carry)[0]
+    assert unsorted["sorted"] is False and unsorted["slots"] is None
+    assert query_tiles(np.empty(0, np.int32), carry) == [{
+        "items": 0, "sorted": True, "real": 0, "distinct": 0, "slots": 64,
+        "sum_cols": 8}]
+    tiles = query_tiles(np.arange(20000, dtype=np.int32), (1 << 19) - 1)
+    assert [t["items"] for t in tiles] == [8192, 8192, 3616]
+    assert [t["slots"] for t in tiles] == [16384, 16384, 16384]
+    assert [t["sum_cols"] for t in tiles] == [0, 0, 0]
+
+
+@pytest.mark.parametrize("jb,tb", PAIRS[1:])
+@pytest.mark.parametrize("seed", [21, 22])
+def test_uncarried_query_ids_match_nothing_like_the_reference(jb, tb, seed):
+    """Query ids of 2^20 and above, which no packed word carries, with the
+    low bits of ids the docs hold: the plain versions score them as the
+    Pallas kernels do (not at all)."""
+    ids, vals, mi, mv = _adversarial_case(seed)
+    real = np.flatnonzero(mi >= 0)
+    mi = mi.copy()
+    mi[real[::2]] += 1 << 20
+    order = np.argsort(np.where(mi < 0, np.iinfo(np.int64).max, mi),
+                       kind="stable")
+    mi, mv = mi[order], mv[order]
+    np.testing.assert_array_equal(_port_corr(tb, ids, vals, mi, mv),
+                                  _jax_corr(jb, ids, vals, mi, mv))
+
+
+def test_fused_crafted_tiles_and_uncarried_ids_like_the_reference():
+    """Tiles the fused kernel must read word by word: pads between rows
+    and inside them, an all-pad tile, a tile with more headers than
+    block_docs; and query ids above 2^19 - 1, which no fused word
+    carries. Per-tile candidates match the Pallas kernel bit for bit."""
+    bd, nnz_pad, pad = 8, 6, np.uint32(0xFFFFFFFF)
+    cap = bd * (1 + nnz_pad)
+    rng = np.random.default_rng(23)
+
+    def row(doc, n):
+        words = (rng.choice(40, n, replace=False).astype(np.uint32) << 12) \
+            | rng.integers(1, 30, n).astype(np.uint32)
+        return [np.uint32(0x80000000 | doc)] + list(words)
+
+    gaps = [pad, pad] + row(0, 2) + [pad] + row(1, 3) + row(2, 0) + [pad] \
+        + row(3, 1)
+    gaps.insert(4, pad)                       # a pad inside row 0
+    many = sum((row(100 + d, 2) for d in range(bd + 3)), [])
+    tiles = np.full((3, cap), pad, np.uint32)
+    tiles[0, :len(gaps)] = gaps
+    tiles[2, :len(many)] = many
+    mi = np.array(list(range(0, 40, 5)) + [5 + (1 << 19), 6 + (1 << 19)]
+                  + [-2] * 6, np.int32)
+    mv = rng.integers(1, 5, (16, 3)).astype(np.float32)
+    qn = np.sqrt((mv ** 2).sum(0)).astype(np.float32)
+    jv, ji = j_fused.fused_match_topk(
+        *map(jnp.asarray, (tiles, mi, mv, qn)), block_docs=bd, kp=6,
+        block_query=8, interpret=True)
+    tv, ti = t_fused.fused_match_topk(
+        torch.from_numpy(tiles.view(np.int32)),
+        *map(torch.from_numpy, (mi, mv, qn)), block_docs=bd, kp=6)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert (ti[1] == -1).all()
+    assert set(ti[2].flatten().tolist()) <= set(range(100, 100 + bd))
