@@ -16,10 +16,10 @@ each of which fails the run (non-zero exit) if it fails:
   4. kernels   each kernel against its plain PyTorch version on the
                main path's inputs (the L = 8 request): integral counts
                must agree exactly; one float-valued ELL case within its
-               stated tolerance; what the hashed query table of B2 and
-               B3 holds for that request (real items, distinct ids,
-               slots, run-sum columns) and the share of doc words that
-               hit;
+               stated tolerance; what the hashed query table of B1, B2
+               and B3 holds for that request (real items, distinct ids,
+               slots, run-sum columns, B1's and B2's query tile bytes on
+               the card) and the share of doc words that hit;
   5. launcher  ``repro_torch.launch.search.main`` on the card;
   6. main path 8 requests (L = 1..8) through ``PatternSearchEngine.
                search`` on gpu, gpu_packed and gpu_fused, then
@@ -193,11 +193,12 @@ def main() -> int:
     from repro_torch.core import corpus as corpus_lib
     from repro_torch.core.engine import PatternSearchEngine
     from repro_torch.kernels import _build, fused, ops, ref
-    from repro_torch.kernels.sparse_match import (query_tiles, sparse_match,
-                                                  sparse_match_plain)
-    from repro_torch.kernels.sparse_match_packed import (
-        MIN_PASS_COLS, sparse_match_packed, sparse_match_packed_plain,
+    from repro_torch.kernels import sparse_match_packed as b2
+    from repro_torch.kernels.sparse_match import (
+        MAX_KEY, MIN_PASS_COLS, query_tiles, sparse_match, sparse_match_plain,
         tile_bytes)
+    from repro_torch.kernels.sparse_match_packed import (
+        sparse_match_packed, sparse_match_packed_plain)
     from repro_torch.launch import search as launcher
     from repro_torch.serve import Query
 
@@ -259,16 +260,26 @@ def main() -> int:
     bd, kp = f._block_docs, min(cfg.top_k, f._block_docs)
     say(f"shapes: D={N_DOCS} K={cfg.nnz_pad} L={Lp} Qm={mi.size} "
         f"tiles={tuple(f.f_tiles.shape)} block_docs={bd} kp={kp}")
-    table = query_tiles(mi, fused.KEY_MASK)
-    b2_table = query_tiles(mi, (1 << 20) - 1, min_cols=MIN_PASS_COLS,
-                           tile_bytes=tile_bytes(dev, mi.size, Lp))
+    # what the request gives each kernel's table: B1 holds every id, B2
+    # those below 2^20, B3 those up to 2^19 - 1; B1's and B2's query tiles
+    # take what their registers leave (tile_bytes, from the card)
+    b1_bytes = tile_bytes(dev, mi.size, Lp)
+    b2_bytes = b2.tile_bytes(dev, mi.size, Lp)
+    tables = {
+        "B1": query_tiles(mi, MAX_KEY, min_cols=MIN_PASS_COLS,
+                          tile_bytes=b1_bytes),
+        "B2": query_tiles(mi, (1 << 20) - 1, min_cols=MIN_PASS_COLS,
+                          tile_bytes=b2_bytes),
+        "B3": query_tiles(mi, fused.KEY_MASK)}
     words = g.d_ids[g.d_ids >= 0]
     hit = float(torch.isin(words, q_ids[q_ids >= 0]).double().mean())
+    table = tables["B3"]
     say(f"query table (L={Lp} request): {table[0]['real']} real items of "
-        f"{mi.size}, {table[0]['distinct']} distinct ids in "
-        f"{table[0]['slots']} slots ({len(table)} tile, sorted "
-        f"{table[0]['sorted']}); run sums of {table[0]['sum_cols']} "
-        f"columns in B3, {b2_table[0]['sum_cols']} in B2; {hit:.4f} of the "
+        f"{mi.size} ({len(table)} tile, sorted {table[0]['sorted']}); "
+        + "; ".join(f"{k}: {t[0]['distinct']} distinct ids in "
+                    f"{t[0]['slots']} slots, run sums of {t[0]['sum_cols']} "
+                    f"columns" for k, t in tables.items())
+        + f"; query tiles B1 {b1_bytes} B, B2 {b2_bytes} B; {hit:.4f} of the "
         f"{words.numel()} doc words hit")
     del words
     calls = {

@@ -16,7 +16,7 @@
 // L = 8, Qm = 4096). It read each 66 KB tile three times (header scan,
 // norms, match; the second and third through L1/L2), its header scan took
 // two block barriers every 256 words (130 a tile), each word's lookup was
-// the 12-step binary search of match.cuh, and each of its 8192 blocks
+// a 12-step binary search, and each of its 8192 blocks
 // reloaded and re-checked the query tile. Here each tile is read from
 // device memory once, into shared memory, and every later read is a
 // shared load:

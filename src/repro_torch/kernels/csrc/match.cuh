@@ -1,7 +1,8 @@
 // Device code shared by the three search kernels (sparse_match.cu, B1;
 // sparse_match_packed.cu, B2; fused.cu, B3): the merged query stream held
-// in shared memory tile by tile (8192 ids a tile), and the lookup of the
-// run of query items that carry one word id. It replaces the match matrix
+// in shared memory tile by tile (8192 ids a tile), the lookup of the run
+// of query items that carry one word id, and the persistent loop over doc
+// rows that B1 and B2 run (table_kernel). It replaces the match matrix
 // eq[d*k, q] = (doc_id == q_id) that the TPU kernels
 // (src/repro/kernels/sparse_match.py, sparse_match_packed.py, fused.py)
 // multiply on the MXU. Each kernel's bound is in its own note (bytes: the
@@ -10,16 +11,16 @@
 //
 // The merged stream (kernels/ops.py) is the real ids in ascending order
 // followed by query pads (-2): sorted under "pads sort last". The first
-// design, which B1 keeps until it moves to the table, binary-searched the
-// whole tile for every doc word: 12 dependent shared loads at Qm = 4096,
-// each a warp-wide gather with bank conflicts, though an L = 8 request
-// holds ~400 real items (~350 distinct ids) in its 4096 and only ~22% of
-// doc words hit. B1's lookups cost ~0.9-0.95 of its 1.60-1.65 ms (its
-// "constant miss" variant, benchmarks/port_match_variants.py; H100 80GB
-// HBM3, 700 W).
+// design binary-searched the whole tile for every doc word: 12 dependent
+// shared loads at Qm = 4096, each a warp-wide gather with bank conflicts,
+// though an L = 8 request holds ~400 real items (~350 distinct ids) in
+// its 4096 and only ~22% of doc words hit. B1 and B2 took 1.58-1.66 ms
+// that way, ~0.9-1.0 of it B1's lookups and run walks (H100 80GB HBM3,
+// 700 W; benchmarks/port_match_variants.py carries that design's loop as
+// text and times it beside this one).
 //
-// The lookup of B2 and B3 is a hashed table of the query tile's distinct
-// ids in shared memory (QueryTile):
+// The lookup is a hashed table of the query tile's distinct ids in shared
+// memory (QueryTile):
 //  - built by the block from the sorted tile, over the tile's pads, once a
 //    query tile: one 16-bit slot a distinct id, holding the start of its
 //    run; the key is the id at that start;
@@ -32,42 +33,57 @@
 //    against 0.71 ms, B3 0.75-0.80 against 0.90 (variants, same card);
 //  - a Fibonacci hash with linear probing: a miss ends at an empty slot,
 //    so most doc words pay one shared load, not 12;
-//  - holding only ids the doc format can carry (below 2^20 for B2's
-//    words, at most 2^19 - 1 for B3's): the others never match;
+//  - holding only ids the doc format can carry (every non-negative int32
+//    for B1's ELL ids, below 2^20 for B2's words, at most 2^19 - 1 for
+//    B3's): the others never match. The hash takes any 32-bit id, and a
+//    slot holds a run start, below 8192, whatever the id;
 //  - placed with a 16-bit shared atomicCAS: placement, not a sum. Each
 //    distinct id is inserted once, so a lookup finds the same start
 //    whatever the insertion order.
 // A hit adds its run's value rows summed in stream order. Walking the run
-// from its start, as run_sum does, puts a dependent global load a hit on
-// the critical path (B2 at the main request: 1.30 ms walking against
-// 0.60-0.63; with four words a lane 2.21, slower than the binary search's
-// 1.60), so the block sums every run once a column pass (sum_runs, the
-// plain version's `runs`), in the same order, into shared memory after
-// the table: a hit then reads one row of at most 8 floats. The sums take
-// 4 bytes a column a real item (13 KB at L = 8 for the main request), and
-// table_plan gives them room before it gives the table load 1/4. B3's
-// query tile has query_tile_smem(Qm) (32 KB at Qm = 4096), and its passes
-// stay 8 columns wide. B2's takes the shared memory its registers leave
+// from its start puts a dependent global load a hit on the critical path
+// (B2 at the main request: 1.30 ms walking against 0.60-0.63; with four
+// words a lane 2.21, slower than the binary search's 1.60), so the block
+// sums every run once a column pass (sum_runs, the plain version's
+// `runs`), in the same order, into shared memory after the table: a hit
+// then reads one row of at most 8 floats. The sums take 4 bytes a column
+// a real item (13 KB at L = 8 for the main request), and table_plan gives
+// them room before it gives the table load 1/4. B3's query tile has
+// query_tile_smem(Qm) (32 KB at Qm = 4096), and its passes stay 8 columns
+// wide. B1's and B2's take the shared memory their registers leave
 // (smem_share: 56 KB a block at four blocks an SM), and where the sums of
-// 8 columns still do not fit, its column passes narrow to 4 (each pass a
-// sweep of the docs; narrower ones lost to walking). Where no sums fit,
+// 8 columns still do not fit, their column passes narrow to 4 (each pass
+// a sweep of the docs; narrower ones lost to walking). Where no sums fit,
 // hits walk their runs: at 512 ids a query (4096 real items) B2 takes
 // 2.84-2.86 ms and B3 2.77-2.78, against 3.56 for B2's first design
-// (sparse_match_packed.cu has the crossovers). A bitmap with ranks over the 2^19-2^20 id space would need
-// 64-128 KB a block, or a two-level index, to answer what 4 KB of table
-// answers here. A tile that is not sorted under "pads sort last" builds
-// no table and is scored by the full-tile scan, exactly, as before.
+// (sparse_match_packed.cu has the crossovers). A bitmap with ranks over
+// the 2^19-2^20 id space would need 64-128 KB a block, or a two-level
+// index, to answer what 4 KB of table answers here. A tile that is not
+// sorted under "pads sort last" builds no table and is scored by the
+// full-tile scan, exactly, as before.
+//
+// B1 and B2 differ only in how a slot is read (a doc reader: ELL ids and
+// values from two arrays, or packed words), and run one loop, table_kernel:
+// persistent blocks, as many as the card holds at once; each warp strides
+// over rows, one slot a lane, the warp's next load issued before this
+// slot's lookup and streamed past L1 (__ldcs) so that the query rows stay
+// there; a row's column sums leave the warp by a transposed shuffle tree.
+// The design choices and their times are in sparse_match_packed.cu (B2,
+// which they were measured on first) and sparse_match.cu (B1).
 //
 // Numerics: sums are taken in a fixed order (run items in stream order,
-// then one warp's lanes by a fixed shuffle tree), never with atomics, so
-// a launch is deterministic; integral counts are exact in any order, so
-// they agree bit for bit with the plain versions. The build uses IEEE
-// division and square root and no FMA contraction (no --use_fast_math,
-// -fmad=false).
+// then a lane's slots in order, then one warp's lanes by a fixed shuffle
+// tree, then query tiles in order), never with atomics, so a launch is
+// deterministic; integral counts are exact in any order, so they agree
+// bit for bit with the plain versions. A miss adds value x 0, which is
+// nothing unless the value is not finite (B1's float values: then NaN, as
+// in the plain version). The build uses IEEE division and square root and
+// no FMA contraction (no --use_fast_math, -fmad=false).
 #pragma once
 
 #include <algorithm>
 #include <climits>
+#include <cmath>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
@@ -354,8 +370,8 @@ struct QueryTile {
 // case is two independent rounds of shared loads; probing past a taken
 // slot is the rare case. A hit then reads its run's summed row (columns
 // past qt.cols read 0), or walks the run where no sums fit. A miss adds
-// nothing (v * 0 would add +0).
-template <int LC, int NW>
+// v * 0: +0, nothing, unless FloatVals and v is not finite (NaN).
+template <int LC, int NW, bool FloatVals = false>
 __device__ __forceinline__ void match_words(const QueryTile& qt,
                                             const QueryCols& q,
                                             const int (&id)[NW],
@@ -383,12 +399,18 @@ __device__ __forceinline__ void match_words(const QueryTile& qt,
   }
 #pragma unroll
   for (int j = 0; j < NW; ++j) {
-    if (!ok[j] || (qt.sorted && s[j] == kEmpty)) continue;
+    if (!ok[j] || (qt.sorted && s[j] == kEmpty)) {   // a pad or a miss
+      if constexpr (FloatVals)
+        if (ok[j] && !isfinite(v[j]))
+#pragma unroll
+          for (int c = 0; c < LC; ++c) acc[c] += v[j] * 0.f;
+      continue;
+    }
     float m[LC];
     if (qt.rs) {
       if (qt.cols == LC) {
         load_cols<LC>(m, qt.rs + (size_t)s[j] * LC);
-      } else {                             // B2's narrower passes
+      } else {                             // narrower passes (B1, B2)
 #pragma unroll
         for (int c = 0; c < LC; ++c)
           m[c] = c < qt.cols ? qt.rs[(size_t)s[j] * qt.cols + c] : 0.f;
@@ -404,161 +426,6 @@ __device__ __forceinline__ void match_words(const QueryTile& qt,
 #pragma unroll
     for (int c = 0; c < LC; ++c) acc[c] += v[j] * m[c];
   }
-}
-
-// ---------------------------------------------------------------------------
-// B1's lookup and loop (sparse_match.cu): the binary search of the first
-// design, kept for B1 alone until it moves to the table.
-
-// Load the ids of query tile `t` into shared memory; returns its item
-// count and whether it is in key order. Every thread of the block must
-// call it: it ends with a barrier.
-__device__ __forceinline__ int load_query_tile(const int* __restrict__ q_ids,
-                                               int Qm, int t, int* s_ids,
-                                               bool* sorted) {
-  const int t0 = t * kMaxTileItems;
-  const int n = max(0, min(kMaxTileItems, Qm - t0));
-  __syncthreads();                         // the previous tile is done
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s_ids[i] = q_ids[t0 + i];
-  __syncthreads();
-  int ok = 1;
-  for (int i = threadIdx.x; i + 1 < n; i += blockDim.x)
-    ok &= qkey(s_ids[i]) <= qkey(s_ids[i + 1]);
-  *sorted = __syncthreads_and(ok) != 0;
-  return n;
-}
-
-// m[c] = sum of qv[p * L + c0 + c] over the tile items p whose id equals
-// `id` (id >= 0), in stream order; qv points at the tile's first row.
-template <int LC>
-__device__ __forceinline__ void run_sum(const int* s_ids, int n, bool sorted,
-                                        int id, const float* __restrict__ qv,
-                                        int L, int c0, int nc,
-                                        float (&m)[LC]) {
-#pragma unroll
-  for (int c = 0; c < LC; ++c) m[c] = 0.f;
-  int p = 0;
-  if (sorted) {                            // lower bound of id's run
-    int hi = n;
-    while (p < hi) {
-      const int mid = (p + hi) >> 1;
-      if (qkey(s_ids[mid]) < id) p = mid + 1; else hi = mid;
-    }
-  }
-  for (; p < n; ++p) {
-    const int q = s_ids[p];
-    if (q != id) {
-      if (sorted && qkey(q) != id) break;  // past the run
-      continue;
-    }
-    const float* row = qv + (size_t)p * L + c0;
-#pragma unroll
-    for (int c = 0; c < LC; ++c)
-      if (c < nc) m[c] += __ldg(row + c);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// ELL doc reader: slot i of the [D, K] doc matrix -> (word id, value), or
-// false for a pad slot.
-struct EllDocs {                           // ids int32 (pad < 0), vals f32
-  const int* ids;
-  const float* vals;
-  __device__ __forceinline__ bool get(size_t i, int& id, float& v) const {
-    id = ids[i];
-    if (id < 0) return false;
-    v = vals[i];
-    return true;
-  }
-};
-
-// out[d, c] = sum_k val[d, k] * (sum of q_vals[q, c] over items q with
-// q_id == id[d, k]), for rows [r0, r1) of this block: one warp per row,
-// lanes over the row's K slots (coalesced), query tiles in a loop.
-template <class Docs, int LC>
-__device__ void match_rows(const Docs& docs, int K,
-                           const int* __restrict__ q_ids,
-                           const float* __restrict__ q_vals, int Qm, int L,
-                           float* __restrict__ out, int r0, int r1,
-                           int* s_ids) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nt = n_query_tiles(Qm);
-  for (int t = 0; t < nt; ++t) {
-    bool sorted;
-    const int n = load_query_tile(q_ids, Qm, t, s_ids, &sorted);
-    const float* qv = q_vals + (size_t)t * kMaxTileItems * L;
-    for (int c0 = 0; c0 < L; c0 += LC) {
-      const int nc = min(LC, L - c0);
-      for (int r = r0 + warp; r < r1; r += kWarps) {
-        float acc[LC];
-#pragma unroll
-        for (int c = 0; c < LC; ++c) acc[c] = 0.f;
-        for (int k = lane; k < K; k += 32) {
-          int id;
-          float v;
-          if (!docs.get((size_t)r * K + k, id, v)) continue;
-          float m[LC];
-          run_sum<LC>(s_ids, n, sorted, id, qv, L, c0, nc, m);
-#pragma unroll
-          for (int c = 0; c < LC; ++c) acc[c] += v * m[c];
-        }
-#pragma unroll
-        for (int c = 0; c < LC; ++c) acc[c] = warp_sum(acc[c]);
-        if (lane == 0) {
-          float* o = out + (size_t)r * L + c0;
-#pragma unroll
-          for (int c = 0; c < LC; ++c)
-            if (c < nc) o[c] = (t == 0) ? acc[c] : o[c] + acc[c];
-        }
-      }
-    }
-  }
-}
-
-template <class Docs, int LC>
-__global__ void __launch_bounds__(kThreads)
-match_kernel(Docs docs, int D, int K, const int* __restrict__ q_ids,
-             const float* __restrict__ q_vals, int Qm, int L,
-             float* __restrict__ out, int rows_per_block) {
-  extern __shared__ int s_ids[];
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(D, r0 + rows_per_block);
-  match_rows<Docs, LC>(docs, K, q_ids, q_vals, Qm, L, out, r0, r1, s_ids);
-}
-
-constexpr int kRowsPerBlock = 256;         // 32 rows a warp
-
-// Host side: pick the column pass width from L and launch on `stream`
-// of card `device` (this library's CUDA runtime keeps its own current
-// device, so it is set from the caller's tensors on every launch).
-template <class Docs>
-int launch_match(int device, const Docs& docs, int D, int K,
-                 const int* q_ids, const float* q_vals, int Qm, int L,
-                 float* out, cudaStream_t stream) {
-  if (D <= 0 || L <= 0) return (int)cudaSuccess;
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (D + kRowsPerBlock - 1) / kRowsPerBlock;
-  const size_t smem =
-      sizeof(int) * (size_t)std::max(1, std::min(Qm, kMaxTileItems));
-  if (L == 1)
-    match_kernel<Docs, 1><<<blocks, kThreads, smem, stream>>>(
-        docs, D, K, q_ids, q_vals, Qm, L, out, kRowsPerBlock);
-  else if (L == 2)
-    match_kernel<Docs, 2><<<blocks, kThreads, smem, stream>>>(
-        docs, D, K, q_ids, q_vals, Qm, L, out, kRowsPerBlock);
-  else if (L <= 4)
-    match_kernel<Docs, 4><<<blocks, kThreads, smem, stream>>>(
-        docs, D, K, q_ids, q_vals, Qm, L, out, kRowsPerBlock);
-  else
-    match_kernel<Docs, kMaxCols><<<blocks, kThreads, smem, stream>>>(
-        docs, D, K, q_ids, q_vals, Qm, L, out, kRowsPerBlock);
-  return (int)cudaGetLastError();
 }
 
 // Host side: how many blocks of `kernel` (with `smem` bytes of dynamic
@@ -620,6 +487,116 @@ auto with_pass_cols(int L, F&& f) {
     default:
       return f(std::integral_constant<int, kMaxCols>{});
   }
+}
+
+constexpr int kMinPassCols = 4;            // narrower passes: hits walk
+
+// The persistent loop of B1 and B2 over the rows of a [D, K] doc matrix
+// read by `Docs`, which gives
+//   Slot, load(r, k, D, K)    what a lane loads of slot k of row r (a pad
+//                             outside the matrix), streamed past L1;
+//   word(slot, r, k, K, id, v, ok)  its word id, value and whether it is
+//                             a word, not a pad;
+//   kMaxKey                   the largest id a slot carries;
+//   kFloatVals                values may be any float, not only counts;
+//   kBlocksPerSm              the blocks an SM its registers are capped for.
+// out[r, c] = sum_k v[r, k] * (sum of the query rows carrying id[r, k]):
+// query tile by query tile, each a table (QueryTile::load) and column
+// passes as wide as its run sums (LC, or down to kMinPassCols, where the
+// sums of LC do not fit), each pass one sweep of the rows.
+template <class Docs, int LC>
+__global__ void __launch_bounds__(kThreads, Docs::kBlocksPerSm)
+table_kernel(Docs docs, int D, int K, const int* __restrict__ q_ids,
+             const float* __restrict__ q_vals, int Qm, int L,
+             size_t tile_bytes, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  QueryTile qt = QueryTile::at(smem, tile_bytes);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = blockIdx.x * kWarps + warp;   // this warp's first row
+  const int stride = gridDim.x * kWarps;
+  const int chunks = max(1, (K + 31) / 32);       // loads a row
+  const int nt = n_query_tiles(Qm);
+  for (int t = 0; t < nt; ++t) {
+    qt.load(q_ids, Qm, t, Docs::kMaxKey, LC, min(LC, kMinPassCols));
+    const int w = qt.cols ? qt.cols : LC;         // this tile's pass width
+    for (int c0 = 0; c0 < L; c0 += w) {
+      const QueryCols q{q_vals + (size_t)t * kMaxTileItems * L, L, c0,
+                        min(w, L - c0)};
+      qt.sum_runs<LC>(q);
+      float acc[LC];
+#pragma unroll
+      for (int c = 0; c < LC; ++c) acc[c] = 0.f;
+      int r = first, c = 0;
+      typename Docs::Slot slot = docs.load(r, lane, D, K);
+      while (r < D) {
+        int nr = r, nc = c + 1;            // the warp's next load
+        if (nc == chunks) {
+          nr = r + stride;
+          nc = 0;
+        }
+        const typename Docs::Slot next = docs.load(nr, nc * 32 + lane, D, K);
+        int id[1];
+        float v[1];
+        bool ok[1];
+        docs.word(slot, r, c * 32 + lane, K, id[0], v[0], ok[0]);
+        match_words<LC, 1, Docs::kFloatVals>(qt, q, id, v, ok, acc);
+        if (nc == 0) {                     // row r is done
+          const float sum = warp_sum_cols<LC>(acc, lane);
+          const int col = col_of<LC>(lane);
+          if (write_lane<LC>(lane) && col < q.nc) {
+            float* o = out + (size_t)r * L + c0 + col;
+            *o = (t == 0) ? sum : *o + sum;
+          }
+#pragma unroll
+          for (int j = 0; j < LC; ++j) acc[j] = 0.f;
+        }
+        r = nr;
+        c = nc;
+        slot = next;
+      }
+    }
+  }
+}
+
+// Host side: the dynamic shared memory of a launch, its query tile: what
+// the kernel's registers leave a block, at least query_tile_smem(Qm).
+template <class Docs, int LC>
+size_t table_smem(int device, int Qm) {
+  return smem_share(device, table_kernel<Docs, LC>, kThreads,
+                    query_tile_smem(Qm));
+}
+
+// Host side: table_smem for L columns on card `device` (0 on an error).
+template <class Docs>
+int table_smem_bytes(int device, int Qm, int L) {
+  if (cudaSetDevice(device) != cudaSuccess) return 0;
+  return (int)with_pass_cols(L, [&](auto lc) {
+    return table_smem<Docs, decltype(lc)::value>(device, Qm);
+  });
+}
+
+// Host side: launch table_kernel on `stream` of card `device` (this
+// library's CUDA runtime keeps its own current device, so it is set from
+// the caller's tensors on every launch); returns cudaGetLastError().
+template <class Docs>
+int launch_table(int device, const Docs& docs, int D, int K,
+                 const int* q_ids, const float* q_vals, int Qm, int L,
+                 float* out, cudaStream_t stream) {
+  if (D <= 0 || L <= 0) return (int)cudaSuccess;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return with_pass_cols(L, [&](auto lc) {
+    constexpr int LC = decltype(lc)::value;
+    const size_t smem = table_smem<Docs, LC>(device, Qm);
+    const int resident =
+        smem ? resident_blocks(device, table_kernel<Docs, LC>, kThreads, smem)
+             : 0;
+    if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
+    const int blocks = std::min(resident, (D + kWarps - 1) / kWarps);
+    table_kernel<Docs, LC><<<blocks, kThreads, smem, stream>>>(
+        docs, D, K, q_ids, q_vals, Qm, L, smem, out);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace rsm

@@ -6,11 +6,12 @@ backend ``gpu``, the port of ``repro.kernels.sparse_match``.
 
 The TPU kernel builds the match matrix ``eq = doc_id == q_id`` and runs
 ``eq @ q_vals`` on the MXU. On the card (``csrc/sparse_match.cu``) each
-document slot looks up the run of its id in the merged query stream
-instead, by binary search (the packed and fused kernels look it up in a
-hashed table; ``table_plan``). ``sparse_match_plain`` is the same
-lookup in PyTorch: it is what the wrapper runs for CPU tensors, and what
-the kernel is held against.
+document slot looks its id up in a hashed table of the query tile's
+distinct ids in shared memory instead, as the packed and fused kernels
+do (``table_plan``; what a stream gives the table, ``query_tiles``). The
+table holds every non-negative id (``MAX_KEY``). ``sparse_match_plain``
+is the same lookup in PyTorch: it is what the wrapper runs for CPU
+tensors, and what the kernel is held against.
 
 Sentinels: any negative id is padding, on either side (documents pad with
 -1, the merged stream with -2); padding never matches.
@@ -49,6 +50,8 @@ def run_sums(ids: torch.Tensor, q_ids: torch.Tensor,
 
 MAX_TILE_ITEMS = 8192         # csrc/match.cuh: kMaxTileItems
 TABLE_MIN_SLOTS = 64          # csrc/match.cuh: kMinSlots
+MIN_PASS_COLS = 4             # csrc/match.cuh: kMinPassCols (B1, B2)
+MAX_KEY = (1 << 31) - 1       # csrc/sparse_match.cu: EllDocs::kMaxKey
 
 
 def _pow2_slots(x: int) -> int:
@@ -66,15 +69,15 @@ def query_tile_bytes(items: int) -> int:
     """Shared memory of the query tile of a stream whose largest tile has
     ``items`` items, past its scratch word (``csrc/match.cuh``
     ``query_tile_smem``): its ids and a table at load 1/2 for that many
-    distinct ids. B3's query tile has this; B2's may have more
-    (``sparse_match_packed.tile_bytes``)."""
+    distinct ids. B3's query tile has this; B1's and B2's may have more
+    (``tile_bytes``, ``sparse_match_packed.tile_bytes``)."""
     items = max(1, items)
     return _align16(4 * items) + _align16(2 * _pow2_slots(2 * items))
 
 
 def table_plan(n_real: int, tile_bytes: int, cols: int,
                min_cols: int) -> Tuple[int, int]:
-    """(slots, sum columns) of the hashed query table that B2 and B3 build
+    """(slots, sum columns) of the hashed query table that B1-B3 build
     for a sorted query tile of ``n_real`` real items in ``tile_bytes`` of
     shared memory (``csrc/match.cuh`` ``table_plan``): the run sums of the
     widest of ``cols``, ``cols // 2``, ... down to ``min_cols`` columns
@@ -103,8 +106,9 @@ def query_tiles(q_ids, max_key: int, cols: int = 8, min_cols: int = 0,
     sort last" (else no table: the full-tile scan), its real items (ids
     >= 0), the distinct ids <= ``max_key`` the table holds, and its slots
     and run-sum columns (None when unsorted), for passes of ``cols``
-    columns that may narrow to ``min_cols`` (default ``cols``: B3's) in
-    ``tile_bytes`` (default ``query_tile_bytes``: B3's). At least one
+    columns that may narrow to ``min_cols`` (default ``cols``: B3's;
+    ``MIN_PASS_COLS`` for B1 and B2) in ``tile_bytes`` (default
+    ``query_tile_bytes``: B3's; ``tile_bytes`` for B1). At least one
     tile, as the kernels count them."""
     ids = torch.as_tensor(q_ids).cpu().long()
     items = max(1, min(ids.numel(), MAX_TILE_ITEMS))
@@ -201,3 +205,22 @@ def sparse_match(doc_ids: torch.Tensor, doc_vals: torch.Tensor,
 
 
 sparse_match.launches = 0
+
+
+def card_tile_bytes(name: str, device, Qm: int, L: int) -> int:
+    """Shared memory of kernel library ``name``'s query tile on card
+    ``device`` for a launch of ``Qm`` items and ``L`` columns, past its
+    scratch word: what the kernel's registers leave a block
+    (``csrc/match.cuh`` ``smem_share``, exported as ``<name>_smem``), at
+    least ``query_tile_bytes``. Needs the card."""
+    fn = _build.kernel(name, f"{name}_smem", [ctypes.c_int] * 3)
+    smem = fn(torch.device(device).index or 0, Qm, L)
+    if smem <= 0:
+        raise RuntimeError(f"{name}_smem failed")
+    return smem - 16
+
+
+def tile_bytes(device, Qm: int, L: int) -> int:
+    """B1's query tile on the card (``card_tile_bytes``), for
+    ``query_tiles``'s report of its table."""
+    return card_tile_bytes("sparse_match", device, Qm, L)

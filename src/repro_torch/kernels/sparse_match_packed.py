@@ -21,11 +21,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.sparse_match import (_check_query, on_cpu,
-                                              sparse_match_plain, stream_of)
+from repro_torch.kernels.sparse_match import (_check_query, card_tile_bytes,
+                                              on_cpu, sparse_match_plain,
+                                              stream_of)
 
 VAL_BITS = 12
-MIN_PASS_COLS = 4            # csrc/sparse_match_packed.cu: kMinPassCols
 VAL_MASK = (1 << VAL_BITS) - 1
 PAD_WORD = np.uint32(0xFFFFFFFF)
 
@@ -94,14 +94,6 @@ sparse_match_packed.launches = 0
 
 
 def tile_bytes(device, Qm: int, L: int) -> int:
-    """Shared memory of the kernel's query tile on card ``device`` for a
-    launch of ``Qm`` items and ``L`` columns, past its scratch word: what
-    the kernel's registers leave a block (``csrc/match.cuh``
-    ``smem_share``), at least ``sparse_match.query_tile_bytes``. For
-    ``sparse_match.query_tiles``'s report of B2's table; needs the card."""
-    fn = _build.kernel("sparse_match_packed", "sparse_match_packed_smem",
-                       [ctypes.c_int] * 3)
-    smem = fn(torch.device(device).index or 0, Qm, L)
-    if smem <= 0:
-        raise RuntimeError("sparse_match_packed_smem failed")
-    return smem - 16
+    """B2's query tile on the card (``sparse_match.card_tile_bytes``), for
+    ``sparse_match.query_tiles``'s report of its table."""
+    return card_tile_bytes("sparse_match_packed", device, Qm, L)

@@ -28,6 +28,7 @@ from repro_torch.configs.paper_search import SearchConfig
 from repro_torch.core import corpus as corpus_lib
 from repro_torch.core.engine import PatternSearchEngine
 from repro_torch.kernels import _build, flash_attention as fa, fused, ops
+from repro_torch.kernels import sparse_match as sparse_match_mod
 from repro_torch.kernels import sparse_match_packed as sparse_match_packed_mod
 from repro_torch.kernels.sparse_match import (query_tile_bytes, query_tiles,
                                               sparse_match)
@@ -97,17 +98,6 @@ def test_ell_and_packed_match_plain_bitwise(dev, seed, sorted_stream):
     (cw,), (gw,) = _both(dev, words)
     got_p = sparse_match_packed(gw, gqi, gqv).cpu()
     torch.testing.assert_close(got_p, sparse_match_packed(cw, cqi, cqv),
-                               rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("Qm", [0, 8191, 8192, 20000])
-def test_ell_multi_tile_and_empty_streams(dev, Qm):
-    """Streams longer than one shared-memory tile (8192 ids) are scored
-    tile by tile; an empty stream scores zero."""
-    ids, vals, mi, mv = _case(100 + Qm, True, Qm=Qm, L=3)
-    (ci, cv, cqi, cqv), (gi, gv, gqi, gqv) = _both(dev, ids, vals, mi, mv)
-    got = sparse_match(gi, gv, gqi, gqv).cpu()
-    torch.testing.assert_close(got, sparse_match(ci, cv, cqi, cqv),
                                rtol=0, atol=0)
 
 
@@ -189,8 +179,17 @@ def _query(qi, qv):
     return Query(qi, qv)
 
 
-# -- B2 and B3 on the hashed query table: every stream shape the table sees
+# -- B1, B2 and B3 on the hashed query table: every stream shape it sees
 PACKED_MAX_KEY = (1 << 20) - 1       # the largest id a packed word carries
+KERNELS = ["ell", "packed", "fused"]
+
+
+def _ell_bitwise(dev, ids, vals, mi, mv):
+    (ci, cv, cqi, cqv), (gi, gv, gqi, gqv) = _both(dev, ids, vals, mi, mv)
+    want = sparse_match(ci, cv, cqi, cqv)
+    got = sparse_match(gi, gv, gqi, gqv).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    return want
 
 
 def _packed_bitwise(dev, ids, vals, mi, mv):
@@ -227,30 +226,40 @@ def _fused_bitwise(dev, tiles, bd, mi, mv, kp=None):
     return wv, wi
 
 
+def _match_bitwise(dev, kernel, ids, vals, mi, mv, tiles=None, kp=None):
+    """``kernel`` (B1 "ell", B2 "packed" or B3 "fused", on the fused
+    ``tiles``) against its plain version, bit for bit; returns a plain
+    result."""
+    if kernel == "ell":
+        return _ell_bitwise(dev, ids, vals, mi, mv)
+    if kernel == "packed":
+        return _packed_bitwise(dev, ids, vals, mi, mv)
+    return _fused_bitwise(dev, *tiles, mi, mv, kp=kp)[0]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("L", [1, 3, 8, 13])
 @pytest.mark.parametrize("Qm", [0, 8191, 8192, 20000])
-def test_packed_and_fused_stream_shapes_bitwise(dev, Qm, L):
+def test_match_kernels_stream_shapes_bitwise(dev, Qm, L, kernel):
     """Empty streams, one query tile, exactly one, and three (tables
     rebuilt tile by tile); L = 13 runs two column passes."""
     seed = 300 + Qm + L
     ids, vals, mi, mv = _case(seed, True, Qm=Qm, L=L)
-    _packed_bitwise(dev, ids, vals, mi, mv)
-    tiles, bd = _fused_tiles(seed)
-    _fused_bitwise(dev, tiles, bd, mi, mv)
+    _match_bitwise(dev, kernel, ids, vals, mi, mv, _fused_tiles(seed))
 
 
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("seed", range(3))
-def test_packed_and_fused_unsorted_streams_bitwise(dev, seed):
+def test_match_kernels_unsorted_streams_bitwise(dev, seed, kernel):
     """A stream out of key order builds no table: the full-tile scan."""
     Qm = [300, 8192, 9000][seed]
     ids, vals, mi, mv = _case(400 + seed, False, Qm=Qm, L=5)
     assert not all(t["sorted"] for t in query_tiles(mi, PACKED_MAX_KEY))
-    _packed_bitwise(dev, ids, vals, mi, mv)
-    tiles, bd = _fused_tiles(400 + seed)
-    _fused_bitwise(dev, tiles, bd, mi, mv)
+    _match_bitwise(dev, kernel, ids, vals, mi, mv, _fused_tiles(400 + seed))
 
 
-def test_packed_and_fused_long_runs_of_one_id_bitwise(dev):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_match_kernels_long_runs_of_one_id_bitwise(dev, kernel):
     """One id carried by 500 items across every column, and 40 times
     within one column; a run walks in stream order."""
     L = 6
@@ -265,10 +274,9 @@ def test_packed_and_fused_long_runs_of_one_id_bitwise(dev):
     mv[500:540, 2] = rng.integers(1, 30, 40)
     order = np.argsort(np.where(mi < 0, VOCAB + 1, mi), kind="stable")
     mi, mv = mi[order].astype(np.int32), mv[order]
-    want = _packed_bitwise(dev, ids, vals, mi, mv)
+    want = _match_bitwise(dev, kernel, ids, vals, mi, mv,
+                          _fused_tiles(7, bd=32))
     assert want.abs().sum() > 0
-    tiles, bd = _fused_tiles(7, bd=32)
-    _fused_bitwise(dev, tiles, bd, mi, mv)
 
 
 @pytest.mark.parametrize("sorted_stream", [True, False])
@@ -286,18 +294,20 @@ def test_uncarried_query_ids_never_match(dev, sorted_stream):
                            high + 5000) + rng.integers(0, VOCAB, pick.sum())
         q[rng.random(q.size) < 0.1] = np.iinfo(np.int32).max
         if sorted_stream:
-            order = np.argsort(np.where(q < 0, np.iinfo(np.int64).max, q),
-                               kind="stable")
+            key = np.where(q < 0, 1 << 40, q.astype(np.int64))
+            order = np.argsort(key, kind="stable")
             q, v = q[order].astype(np.int32), mv[order]
         else:
             q, v = q.astype(np.int32), mv
+        assert query_tiles(q, PACKED_MAX_KEY)[0]["sorted"] == sorted_stream
         _packed_bitwise(dev, ids, vals, q, v)
         tiles, bd = _fused_tiles(11, bd=16)
         _fused_bitwise(dev, tiles, bd, q, v)
 
 
-@pytest.mark.parametrize("bd,kp", [(8, 8), (64, 16)])
-def test_query_tile_of_8192_distinct_ids(dev, bd, kp):
+@pytest.mark.parametrize("kernel,bd,kp", [("ell", 0, 0), ("packed", 0, 0),
+                                          ("fused", 8, 8), ("fused", 64, 16)])
+def test_query_tile_of_8192_distinct_ids(dev, kernel, bd, kp):
     """8192 distinct ids in one tile: the table at its largest (16384
     slots), every slot chain as long as it gets."""
     vocab = 20000
@@ -309,11 +319,10 @@ def test_query_tile_of_8192_distinct_ids(dev, bd, kp):
     assert query_tiles(mi, PACKED_MAX_KEY) == [{
         "items": 8192, "sorted": True, "real": 8192, "distinct": 8192,
         "slots": 16384, "sum_cols": 0}]
-    want = _packed_bitwise(dev, ids, vals, mi, mv)
+    tiles = (_fused_tiles(13, vocab=vocab, bd=bd, n_docs=700, avg_nnz=30,
+                          nnz_pad=40) if kernel == "fused" else None)
+    want = _match_bitwise(dev, kernel, ids, vals, mi, mv, tiles, kp=kp)
     assert want.abs().sum() > 0
-    tiles, bd = _fused_tiles(13, vocab=vocab, bd=bd, n_docs=700,
-                             avg_nnz=30, nnz_pad=40)
-    _fused_bitwise(dev, tiles, bd, mi, mv, kp=kp)
 
 
 def test_fused_crafted_tiles_bitwise(dev):
@@ -392,35 +401,100 @@ def _long_stream(seed, n_real, L, vocab):
     return mi, mv
 
 
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("L", [8, 13])
 @pytest.mark.parametrize("n_real", LONG_QUERY_ITEMS)
-def test_packed_and_fused_long_queries_bitwise(dev, n_real, L):
-    """Longer queries than the main path's: B2's run sums narrow to 4
-    columns a pass as the real items grow, and then its hits walk their
-    runs; B3's sums fit at 8 columns or not at all."""
+def test_match_kernels_long_queries_bitwise(dev, n_real, L, kernel):
+    """Longer queries than the main path's: B1's and B2's run sums narrow
+    to 4 columns a pass as the real items grow, and then their hits walk
+    their runs; B3's sums fit at 8 columns or not at all."""
     vocab = 20000
     ids, vals, _, _ = _case(31, True, Qm=0, L=L, vocab=vocab)
     mi, mv = _long_stream(31 + n_real, n_real, L, vocab)
-    want = _packed_bitwise(dev, ids, vals, mi, mv)
+    want = _match_bitwise(dev, kernel, ids, vals, mi, mv, _fused_tiles(
+        31, vocab=vocab, bd=64, n_docs=700, avg_nnz=30, nnz_pad=40))
     assert want.abs().sum() > 0
-    tiles, bd = _fused_tiles(31, vocab=vocab, bd=64, n_docs=700,
-                             avg_nnz=30, nnz_pad=40)
-    _fused_bitwise(dev, tiles, bd, mi, mv)
 
 
-def test_packed_query_tile_takes_what_registers_leave(dev):
-    """B2's query tile takes more than its least where its registers
-    leave shared memory, and the long-query test above then covers run
-    sums of 8 columns, of 4, and none."""
-    tile = {Qm: sparse_match_packed_mod.tile_bytes(dev, Qm, 8)
-            for Qm in (4096, 8192)}
+@pytest.mark.parametrize("L", [8, 13])
+@pytest.mark.parametrize("n_real", LONG_QUERY_ITEMS)
+def test_ell_float_values_long_queries_within_tolerance(dev, n_real, L):
+    """Float doc values and float query values at the long-query
+    lengths: B1's narrow passes and its run walks with floats, within
+    the tolerance of test_ell_float_values_within_tolerance."""
+    vocab = 20000
+    ids, vals, _, _ = _case(37, True, Qm=0, L=L, vocab=vocab)
+    mi, mv = _long_stream(37 + n_real, n_real, L, vocab)
+    rng = np.random.default_rng(37 + n_real)
+    vals = (vals * rng.random(vals.shape)).astype(np.float32)
+    mv = (mv * rng.standard_normal(mv.shape)).astype(np.float32)
+    (ci, cv, cqi, cqv), (gi, gv, gqi, gqv) = _both(dev, ids, vals, mi, mv)
+    want = sparse_match(ci, cv, cqi, cqv)
+    got = sparse_match(gi, gv, gqi, gqv).cpu()
+    assert want.abs().max() > 0
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("sorted_stream", [True, False])
+def test_ell_ids_at_and_above_2_20_match_exactly(dev, sorted_stream):
+    """B1 holds every non-negative id in its table, unlike B2 and B3:
+    doc and query ids of 2^20 and above, up to 2^31 - 1, with low bits
+    that equal small ids, mixed with small ids and pads, match exactly
+    as the plain version says."""
+    ids, vals, mi, mv = _case(41, sorted_stream, Qm=900, L=6)
+    rng = np.random.default_rng(41)
+    big = np.sort(np.concatenate([
+        [1 << 20, (1 << 20) + 1, (1 << 31) - 2, (1 << 31) - 1],
+        ((rng.choice(2000, VOCAB - 4, replace=False) + 1) << 20)
+        + rng.integers(0, VOCAB, VOCAB - 4)]))
+    big = np.where(np.arange(VOCAB) % 3 == 1, np.arange(VOCAB), big)
+    remap = lambda a: np.where(a < 0, a, big[np.maximum(a, 0)]).astype(
+        np.int32)
+    ids, mi = remap(ids), remap(mi)
+    mi[0] = (1 << 31) - 1
+    ids[np.flatnonzero((ids >= 0).any(1))[0], 0] = (1 << 31) - 1
+    if sorted_stream:
+        key = np.where(mi < 0, 1 << 40, mi.astype(np.int64))
+        order = np.argsort(key, kind="stable")
+        mi, mv = mi[order], mv[order]
+    (plan,) = query_tiles(mi, sparse_match_mod.MAX_KEY)
+    assert plan["sorted"] == sorted_stream
+    want = _ell_bitwise(dev, ids, vals, mi, mv)
+    assert want.abs().sum() > 0
+
+
+def test_ell_value_that_is_not_finite_scores_nan_on_a_miss(dev):
+    """A real slot's inf or NaN value adds NaN where its id misses (value
+    x 0), as the plain version does; pads add nothing."""
+    ids, vals, mi, mv = _case(43, True, Qm=300, L=4)
+    real = np.argwhere(ids >= 0)
+    pick = real[np.random.default_rng(43).random(len(real)) < 0.05]
+    vals[pick[::2, 0], pick[::2, 1]] = np.inf
+    vals[pick[1::2, 0], pick[1::2, 1]] = np.nan
+    vals[ids < 0] = np.inf
+    (ci, cv, cqi, cqv), (gi, gv, gqi, gqv) = _both(dev, ids, vals, mi, mv)
+    want = sparse_match(ci, cv, cqi, cqv)
+    got = sparse_match(gi, gv, gqi, gqv).cpu()
+    assert want.isnan().any() and want.isfinite().any()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("kernel", ["ell", "packed"])
+def test_query_tile_takes_what_registers_leave(dev, kernel):
+    """B1's and B2's query tiles take more than their least where their
+    registers leave shared memory, and the long-query test above then
+    covers run sums of 8 columns, of 4, and none."""
+    mod = sparse_match_mod if kernel == "ell" else sparse_match_packed_mod
+    max_key = sparse_match_mod.MAX_KEY if kernel == "ell" else PACKED_MAX_KEY
+    tile = {Qm: mod.tile_bytes(dev, Qm, 8) for Qm in (4096, 8192)}
     assert tile[4096] > query_tile_bytes(4096)
     assert tile[8192] >= query_tile_bytes(8192)
     widths = set()
     for n_real in LONG_QUERY_ITEMS:
         mi, _ = _long_stream(31 + n_real, n_real, 8, 20000)
-        (plan,) = query_tiles(mi, PACKED_MAX_KEY,
-                              min_cols=sparse_match_packed_mod.MIN_PASS_COLS,
+        (plan,) = query_tiles(mi, max_key,
+                              min_cols=sparse_match_mod.MIN_PASS_COLS,
                               tile_bytes=tile[mi.size])
         widths.add(plan["sum_cols"])
     assert widths == {8, 4, 0}

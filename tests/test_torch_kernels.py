@@ -19,7 +19,7 @@ from repro.kernels import ops as j_ops
 from repro.kernels.sparse_match_packed import pack
 from repro_torch.kernels import fused as t_fused
 from repro_torch.kernels import ops as t_ops
-from repro_torch.kernels.sparse_match import (query_tile_bytes,
+from repro_torch.kernels.sparse_match import (MAX_KEY, query_tile_bytes,
                                               query_tiles, table_plan)
 
 torch.set_num_threads(2)
@@ -127,8 +127,9 @@ def test_correlate_float_values_within_tolerance(tb):
 
 
 def test_unsorted_stream_scores_like_reference():
-    """The kernels' run lookup binary-searches a sorted stream and scans
-    any other; the plain version must not depend on the order either."""
+    """The kernels look a sorted stream's ids up in a hashed table and
+    scan any other; the plain version must not depend on the order
+    either."""
     ids, vals, mi, mv = _adversarial_case(3)
     perm = np.random.default_rng(3).permutation(mi.size)
     np.testing.assert_array_equal(
@@ -234,7 +235,7 @@ def test_fused_nan_ranks_as_inf_and_ties_keep_lower_row():
     assert np.isnan(jv[0, 1, :4]).all()
 
 
-# -- the hashed query table of B2 and B3 (csrc/match.cuh) ----------------
+# -- the hashed query table of B1-B3 (csrc/match.cuh) ---------------------
 def _query_tile_bytes(items):
     """A query tile's shared memory: its ids and a table at load 1/2."""
     slots = 64
@@ -303,6 +304,74 @@ def test_query_tiles_report_what_the_table_holds():
     assert [t["sum_cols"] for t in tiles] == [0, 0, 0]
 
 
+def test_query_tiles_count_every_nonnegative_id_in_b1s_table():
+    """B1's ELL ids carry any int32, so its table (MAX_KEY) holds every
+    real id of the tile, 2^20 and above and 2^31 - 1 included; B2's holds
+    those below 2^20, B3's those up to 2^19 - 1."""
+    big = [(1 << 19) + 1, 1 << 20, (1 << 20) + 3, (1 << 30) + 7, MAX_KEY]
+    mi = np.array([3, 3, 5] + big + [big[-1], -2, -2], np.int32)
+    assert MAX_KEY == np.iinfo(np.int32).max
+    tile = query_tiles(mi, MAX_KEY, min_cols=4)[0]
+    assert (tile["items"], tile["real"], tile["distinct"]) == (11, 9, 7)
+    assert query_tiles(mi, (1 << 20) - 1)[0]["distinct"] == 3
+    assert query_tiles(mi, (1 << 19) - 1)[0]["distinct"] == 2
+    assert tile["sorted"] and tile["slots"] == 64
+
+
+def _wide_ids(seed):
+    """_adversarial_case with its ids mapped, in order, onto ids that no
+    packed word carries: 2^20 and above, up to 2^31 - 1, with low bits
+    that collide with the small ids. The map keeps the stream sorted and
+    the scores unchanged."""
+    ids, vals, mi, mv = _adversarial_case(seed)
+    # the largest id (2^31 - 1 once mapped) in a doc and in the stream
+    d = int(np.flatnonzero((ids >= 0).any(1))[0])
+    ids[d, (ids[d] >= 0).sum() - 1] = VOCAB - 1
+    mi[max(0, (mi >= 0).sum() - 1)] = VOCAB - 1
+    rng = np.random.default_rng(seed)
+    wide = np.sort(np.concatenate([
+        [1 << 20, (1 << 20) + 1, MAX_KEY - 1, MAX_KEY],
+        rng.choice(np.arange(1 << 20, MAX_KEY - 1, 1 << 20), VOCAB - 4,
+                   replace=False) + rng.integers(0, VOCAB, VOCAB - 4)]))
+    assert np.unique(wide).size == VOCAB
+    remap = lambda a: np.where(a < 0, a, wide[np.maximum(a, 0)]).astype(
+        np.int32)
+    return (ids, remap(ids)), vals, (mi, remap(mi)), mv
+
+
+@pytest.mark.parametrize("seed", [31, 32, 33])
+def test_ell_ids_at_and_above_2_20_like_the_reference(seed):
+    """Doc and query ids of 2^20 and above, and 2^31 - 1, which B1 holds
+    in its table (B2 and B3 cannot carry them): the port's ``gpu``
+    backend scores them as the Pallas kernel in interpret mode does, bit
+    for bit, and as the same case with small ids."""
+    (ids, wide_ids), vals, (mi, wide_mi), mv = _wide_ids(seed)
+    assert wide_ids.max() == wide_mi.max() == MAX_KEY
+    got = _port_corr("gpu", wide_ids, vals, wide_mi, mv)
+    np.testing.assert_array_equal(
+        got, _jax_corr("pallas", wide_ids, vals, wide_mi, mv))
+    np.testing.assert_array_equal(got, _port_corr("gpu", ids, vals, mi, mv))
+
+
+def test_ell_value_that_is_not_finite_scores_nan_on_a_miss():
+    """A real slot whose value is inf or NaN adds value x 0 = NaN where
+    its id misses the stream (rows 0 and 1), as the Pallas kernel's
+    doc_vals x matched does. A pad slot adds nothing whatever its value
+    (row 2), where the Pallas kernel's product adds NaN too: the port
+    keeps to "pads never match". The CUDA kernel is held to the same
+    plain version on the card."""
+    ids = np.array([[1, 2, -1], [3, 2, -1], [4, 1, -1]], np.int32)
+    vals = np.array([[np.inf, 1, 5], [np.nan, np.inf, 5], [2, 1, np.inf]],
+                    np.float32)
+    mi = np.array([1, 4, -2, -2], np.int32)
+    mv = np.array([[1, 0], [0, 2], [0, 0], [0, 0]], np.float32)
+    got = _port_corr("gpu", ids, vals, mi, mv)
+    want = np.array([[np.inf, np.nan], [np.nan, np.nan], [1, 4]], np.float32)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:2],
+                                  _jax_corr("pallas", ids, vals, mi, mv)[:2])
+
+
 @pytest.mark.parametrize("jb,tb", PAIRS[1:])
 @pytest.mark.parametrize("seed", [21, 22])
 def test_uncarried_query_ids_match_nothing_like_the_reference(jb, tb, seed):
@@ -313,8 +382,8 @@ def test_uncarried_query_ids_match_nothing_like_the_reference(jb, tb, seed):
     real = np.flatnonzero(mi >= 0)
     mi = mi.copy()
     mi[real[::2]] += 1 << 20
-    order = np.argsort(np.where(mi < 0, np.iinfo(np.int64).max, mi),
-                       kind="stable")
+    order = np.argsort(np.where(mi < 0, 1 << 40, mi.astype(np.int64)),
+                       kind="stable")  # pads last
     mi, mv = mi[order], mv[order]
     np.testing.assert_array_equal(_port_corr(tb, ids, vals, mi, mv),
                                   _jax_corr(jb, ids, vals, mi, mv))
