@@ -1,6 +1,7 @@
 """Where a request's time goes in the PyTorch/CUDA port, on one CUDA card.
 
     PYTHONPATH=src python benchmarks/port_request_profile.py [--docs N]
+        [--store [--segment-docs N]] [--json]
 
 Synthesizes the paper's full-width corpus (SearchConfig defaults, seed
 0; 2^20 docs by default), builds a resident engine per backend and, for
@@ -11,6 +12,15 @@ so the card is done) and the host-side query preparation alone
 ``torch.profiler``: device time per kernel (and copy), per request, and
 the device's idle share of that window's wall time. Prints one line per
 (backend, L) and one JSON object per (backend, L) with ``--json``.
+
+``--store`` profiles ``FlashSearchSession`` instead: the corpus is
+written to a FlashStore of ``--segment-docs`` documents a segment (under
+``build/store-profile`` in the checkout, removed at the end) and, per
+(backend, L), one cold query (every segment a miss, decoded and uploaded
+by the prefetch thread) runs under ``torch.profiler``, then ``--reps``
+warm queries on the host clock (every segment a hit in the slab cache)
+and a profiled window of ``--reps`` more. Each line also gives the
+session's ``stage_ms`` histograms (the registry's median and mean).
 Needs a card; it does not run on the CPU.
 """
 import argparse
@@ -51,6 +61,8 @@ def main(argv=None):
                     default=["gpu", "gpu_packed", "gpu_fused", "torch"])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--json", action="store_true")
+    ap.add_argument("--store", action="store_true")
+    ap.add_argument("--segment-docs", type=int, default=1 << 16)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -69,6 +81,8 @@ def main(argv=None):
               for i in rng.integers(0, args.docs, L)]
         batches[L] = (np.stack([q[0] for q in qs]),
                       np.stack([q[1] for q in qs]))
+    if args.store:
+        return store_profile(args, card, cfg, corpus, batches, dev)
     for backend in args.backends:
         eng = PatternSearchEngine(corpus, cfg, dev, backend)
         for L, (qi, qv) in batches.items():
@@ -111,6 +125,98 @@ def main(argv=None):
                     "device_ms_by_op": table}))
         del eng
         torch.cuda.empty_cache()
+
+
+STAGES = ("plan", "decode", "upload", "score", "prefetch_wait", "merge")
+
+
+def stages_ms(obs):
+    """stage -> (median, mean, count) of the session's stage_ms, in ms."""
+    out = {}
+    for stage in STAGES:
+        h = obs.registry.histogram("stage_ms", stage=stage).summary()
+        out[stage] = (h["p50"], h["mean"], h["count"])
+    return out
+
+
+def store_profile(args, card, cfg, corpus, batches, dev):
+    import shutil
+    from pathlib import Path
+    from repro_torch.obs import Obs
+    from repro_torch.storage import FlashSearchSession, FlashStore, SlabCache
+    root = Path(__file__).resolve().parents[1] / "build" / "store-profile"
+    shutil.rmtree(root, ignore_errors=True)
+    root.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    store = FlashStore.create(str(root), vocab_size=cfg.vocab_size,
+                              docs_per_segment=args.segment_docs)
+    store.append_corpus(corpus)
+    print(f"store: {store.n_docs} docs in {store.n_segments} segments, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for backend in args.backends:
+        for L, (qi, qv) in batches.items():
+            q = Query(qi, qv)
+            cache = SlabCache(8 << 30)            # each cold query misses
+            cold_obs, warm_obs = Obs(), Obs()
+            cold = FlashSearchSession(store, cfg, dev, backend,
+                                      slab_cache=cache, obs=cold_obs)
+            torch.cuda.synchronize()
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                cold.search(q)
+                torch.cuda.synchronize()
+                cold_ms = (time.perf_counter() - t0) * 1e3
+            cold_table, cold_busy = device_table(prof, 1)
+            warm = FlashSearchSession(store, cfg, dev, backend,
+                                      slab_cache=cache, obs=warm_obs)
+            wall = []
+            for _ in range(args.reps):
+                t0 = time.perf_counter()
+                warm.search(q)
+                wall.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                for _ in range(args.reps):
+                    warm.search(q)
+                torch.cuda.synchronize()
+                window_ms = (time.perf_counter() - t0) * 1e3
+            table, busy = device_table(prof, args.reps)
+            idle = 1.0 - busy / (window_ms / args.reps)
+            cold_st, warm_st = stages_ms(cold_obs), stages_ms(warm_obs)
+            for label, st in (("cold", cold_st), ("warm", warm_st)):
+                print(f"store {backend} L={L} {label} stage_ms (median, "
+                      f"mean, n): " + "; ".join(
+                          f"{k} {v[0]} {v[1]} {v[2]}" for k, v in st.items()))
+            top = "; ".join(f"{k[:60]} {v:.3f}" for k, v in
+                            list(table.items())[:6])
+            cold_top = "; ".join(f"{k[:40]} {v:.3f}" for k, v in
+                                 list(cold_table.items())[:4])
+            print(f"store {backend} L={L}: cold {cold_ms:.1f} ms (device "
+                  f"{cold_busy:.3f} ms, idle share "
+                  f"{1.0 - cold_busy / cold_ms:.3f}; top {cold_top}); warm "
+                  f"median {statistics.median(wall):.3f} ms, max "
+                  f"{max(wall):.3f} (n={args.reps}); device {busy:.3f} "
+                  f"ms/query, idle share {idle:.3f} (profiled window); top "
+                  f"device: {top}")
+            if args.json:
+                print(json.dumps({
+                    "store": True, "backend": backend, "L": L,
+                    "docs": args.docs, "segment_docs": args.segment_docs,
+                    "card": card, "cold_ms": cold_ms,
+                    "cold_device_ms": cold_busy,
+                    "cold_device_ms_by_op": cold_table,
+                    "warm_ms_median": statistics.median(wall),
+                    "warm_ms_max": max(wall), "n": args.reps,
+                    "warm_device_ms_per_query": busy, "warm_idle_share": idle,
+                    "warm_device_ms_by_op": table,
+                    "cold_stage_ms": cold_st, "warm_stage_ms": warm_st,
+                    "slab_cache_bytes": cache.nbytes}))
+            warm.close()
+            cold.close()
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -28,6 +28,26 @@ each of which fails the run (non-zero exit) if it fails:
                kernel must have launched; every self-query must rank
                itself first; the three backends and the ``torch`` gather
                path must agree bit for bit, streaming with resident;
+  6b. store   the 2^20 documents written to a FlashStore of 16 segments
+               of 2^16 (build seconds, MB on disk, filter kind); gpu,
+               gpu_packed and gpu_fused FlashSearchSessions sharing one
+               4 GiB slab cache; the L = 8 request cold (16 misses
+               through the prefetcher), then all 8 requests warm (16
+               hits each) on a second session a backend, every result
+               equal to phase 6's resident one bit for bit, with the
+               launch counters set to 0 before and read after (each of
+               B1-B3 must have launched; these launches join phase 6's
+               in the kernels line); cold and warm ms, segments_skipped,
+               the stage_ms histograms (decode, upload, score,
+               prefetch_wait, merge), the cache's device bytes beside
+               the growth of torch.cuda.memory_allocated; one approx
+               request (candidates 64) on each backend and on ``torch``,
+               agreeing bit for bit with docs_scored far below 2^20;
+               AutoTiling's doc tiles at nnz_pad 64-512 and L buckets
+               1-8 staged whole in B3's shared memory, and a 2^16-doc
+               gpu_fused engine with AutoTiling at nnz_pad 512 equal to
+               its FixedTiling twin; B1-B3 against their plain versions
+               at D = 8, 64 and 1000, B3 at block_docs 8, 32 and 128;
   7. times     each search kernel, its plain version and the library
                yardstick (torch.sparse.mm, CSR [D, V] x dense [V, L]) by
                CUDA events, median of repeats, beside the bound the card's
@@ -65,6 +85,7 @@ It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the repo beside it, it
 exits non-zero and prints no result.
 """
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -102,6 +123,13 @@ ATTN_ROW_TOL = 2.0 ** -6
 # 2-4), so 0.1, ~3% of the logits' scale; a wrong tile or mask moves
 # them by O(1).
 LM_ATOL = {"float32": 1e-3, "bfloat16": 0.1}
+STORE_SEGMENT_DOCS = 1 << 16           # 16 segments of the 2^20 documents
+STORE_CACHE_BYTES = 4 << 30            # room for every backend's 16 slabs
+APPROX_CANDIDATES = 64
+STAGES = ("decode", "upload", "score", "prefetch_wait", "merge")
+STORE_NNZ_PADS = (64, 128, 256, 512)
+NEW_SHAPE_DOCS = (8, 64, 1000)         # an approx pool, a small one, odd
+NEW_SHAPE_BLOCK_DOCS = (8, 32)         # AutoTiling's narrow doc tiles
 
 
 def say(*args):
@@ -384,6 +412,14 @@ def main() -> int:
     say("main path: gpu, gpu_packed, gpu_fused and torch agree bit for bit "
         "on 8 requests; every self-query ranks itself first")
 
+    # -- 6b. store -----------------------------------------------------------
+    store_launches = store_phase(torch, dev, cfg, corpus, requests,
+                                 results["gpu"], kernels,
+                                 (q_ids, q_vals, q_norms))
+    for name, n in store_launches.items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+
     # -- 7. times ----------------------------------------------------------
     D, K = g.d_ids.shape
     n_valid = int((g.d_ids >= 0).sum())
@@ -449,6 +485,224 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def stage_summary(obs) -> str:
+    """The session's ``stage_ms`` histograms: the registry's median (its
+    bucket-interpolated p50), the mean and the count, in ms."""
+    parts = []
+    for stage in STAGES:
+        h = obs.registry.histogram("stage_ms", stage=stage).summary()
+        parts.append(f"{stage} p50 {h['p50']} mean {h['mean']} "
+                     f"(n={h['count']})")
+    return "; ".join(parts)
+
+
+def store_phase(torch, dev, cfg, corpus, requests, resident, kernels,
+                query):
+    """Phase 6b: the 2^20 documents as a FlashStore of 16 segments,
+    streamed cold and warm through one FlashSearchSession a backend, all
+    sharing one slab cache; approx; AutoTiling's tiles; B1-B3 against
+    their plain versions at the store's new shapes. Returns the launches
+    the store's requests (cold, warm, approx) made."""
+    import shutil
+    from repro_torch.core import corpus as corpus_lib
+    from repro_torch.core.engine import PatternSearchEngine
+    from repro_torch.kernels import fused
+    from repro_torch.kernels.sparse_match import (sparse_match,
+                                                  sparse_match_plain)
+    from repro_torch.kernels.sparse_match_packed import (
+        pack, sparse_match_packed, sparse_match_packed_plain)
+    from repro_torch.kernels.tiling import AutoTiling
+    from repro_torch.obs import Obs
+    from repro_torch.serve import Query, QueryOptions
+    from repro_torch.storage import FlashSearchSession, FlashStore, SlabCache
+
+    # -- build the store ---------------------------------------------------
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "store"
+    shutil.rmtree(root, ignore_errors=True)
+    root.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    store = FlashStore.create(str(root), vocab_size=cfg.vocab_size,
+                              docs_per_segment=STORE_SEGMENT_DOCS)
+    store.append_corpus(corpus)
+    info = store.stats()
+    say(f"store: {info.n_docs} docs in {info.n_segments} segments of "
+        f"{STORE_SEGMENT_DOCS}, built in {time.perf_counter() - t0:.1f} s, "
+        f"{info.n_bytes / 1e6:.1f} MB on disk, filter {info.filter_kind}")
+    n_seg = info.n_segments
+    if info.n_docs != N_DOCS or n_seg != N_DOCS // STORE_SEGMENT_DOCS:
+        fail(f"store holds {info.n_docs} docs in {n_seg} segments")
+
+    # -- cold, then warm, all backends on one slab cache -------------------
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated(dev)
+    cache = SlabCache(STORE_CACHE_BYTES)
+    sessions = {}
+    for backend in ("gpu", "gpu_packed", "gpu_fused"):
+        cold_obs, warm_obs = Obs(), Obs()
+        cold = FlashSearchSession(store, cfg, dev, backend, slab_cache=cache,
+                                  obs=cold_obs)
+        idx, qi, qv = requests[-1]
+        t0 = time.perf_counter()
+        r = cold.search(Query(qi, qv))
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        st = cold.last_stats
+        if (st.cache_misses, st.docs_scored) != (n_seg, N_DOCS):
+            fail(f"store {backend} cold: {st}")
+        if not same(r, resident[-1]):
+            fail(f"store {backend}: the cold L=8 request differs from the "
+                 "resident result")
+        say(f"store {backend} cold L=8: {cold_ms:.1f} ms, "
+            f"{st.cache_misses} misses, segments_skipped "
+            f"{st.segments_skipped}, docs_scored {st.docs_scored}; "
+            f"stage_ms {stage_summary(cold_obs)}; prefetch_wait is the "
+            "consumer's wait for the loader thread")
+        # a second session on the same cache: its requests are all hits
+        warm = FlashSearchSession(store, cfg, dev, backend, slab_cache=cache,
+                                  obs=warm_obs)
+        warm_ms = []
+        for l, (idx, qi, qv) in enumerate(requests):
+            t0 = time.perf_counter()
+            r = warm.search(Query(qi, qv))
+            warm_ms.append((time.perf_counter() - t0) * 1e3)
+            st = warm.last_stats
+            if (st.cache_hits, st.docs_scored) != (n_seg, N_DOCS):
+                fail(f"store {backend} warm L={l + 1}: {st}")
+            if not same(r, resident[l]):
+                fail(f"store {backend}: warm request L={l + 1} differs from "
+                     "the resident result")
+            if not np.array_equal(r.doc_ids[:, 0], idx):
+                fail(f"store {backend}: a self-query did not rank itself "
+                     "first")
+        say(f"store {backend} warm (L=1..8, {n_seg} hits each): ms "
+            f"{', '.join(f'{t:.1f}' for t in warm_ms)}; stage_ms "
+            f"{stage_summary(warm_obs)}")
+        sessions[backend] = (cold, warm)
+    torch.cuda.synchronize()
+    say(f"store: the three backends' cold and warm results equal the "
+        f"resident ones bit for bit; segments_skipped is 0 because the "
+        f"synthesized documents draw words from the whole vocabulary, so "
+        f"every segment's filter holds some of each query's words; slab "
+        f"cache {len(cache)} slabs, {cache.nbytes} device bytes, "
+        f"torch.cuda.memory_allocated grew by "
+        f"{torch.cuda.memory_allocated(dev) - alloc0}")
+
+    # -- approx: sessions without a cache (a hit would skip the pool) -----
+    opts = QueryOptions(mode="approx", candidates=APPROX_CANDIDATES)
+    idx, qi, qv = requests[-1]
+    approx = {}
+    for backend in ("gpu", "gpu_packed", "gpu_fused", "torch"):
+        sess = FlashSearchSession(store, cfg, dev, backend, cache_bytes=0)
+        t0 = time.perf_counter()
+        approx[backend] = sess.search(Query(qi, qv), options=opts)
+        ms = (time.perf_counter() - t0) * 1e3
+        st = sess.last_stats
+        sess.close()
+        say(f"store approx {backend} L=8 candidates={APPROX_CANDIDATES}: "
+            f"{ms:.1f} ms, docs_scored {st.docs_scored} of {N_DOCS}, "
+            f"approx_segments {st.approx_segments}")
+        if st.approx_segments != n_seg or st.docs_scored * 16 > N_DOCS:
+            fail(f"store approx {backend}: {st}")
+        if not np.array_equal(approx[backend].doc_ids[:, 0], idx):
+            fail(f"store approx {backend}: a self-query did not rank itself "
+                 "first")
+        if not same(approx[backend], approx["gpu"]):
+            fail(f"store approx: {backend} differs from gpu")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    say(f"store launches (cold, warm, approx): {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"{name} was not launched by the store's requests")
+    for pair in sessions.values():
+        for sess in pair:
+            sess.close()
+    if len(cache):
+        fail(f"{len(cache)} slabs left in the cache after the sessions closed")
+    del cache, sessions, approx
+
+    # -- AutoTiling's tiles are staged in shared memory --------------------
+    picks = {}
+    for nnz_pad in STORE_NNZ_PADS:
+        for block_docs in (fused.MAX_TILE_ROWS, cfg.block_docs):
+            tiling = AutoTiling(block_docs, cfg.block_query)
+            bd = tiling.doc_tile(nnz_pad=nnz_pad, n_docs=N_DOCS)
+            picks[nnz_pad, block_docs] = bd
+            for Lp in (1, 2, 4, 8):
+                for Qm in (Lp * tiling.query_tile(Lp), 8192):
+                    n = fused.stages(dev, bd * (1 + nnz_pad), bd, Qm, Lp)
+                    if n != 1:
+                        fail(f"AutoTiling's tile {bd} x (1 + {nnz_pad}) at "
+                             f"L={Lp}, Qm={Qm}: {n} stages, want 1")
+    say(f"AutoTiling doc tiles (nnz_pad, block_docs cap) -> rows: {picks}; "
+        "each staged whole in shared memory (fused_match_topk_stages 1) at "
+        "L buckets 1-8, Qm up to 8192")
+    cfg512 = dataclasses.replace(cfg, nnz_pad=512)
+    c512 = corpus_lib.synthesize(STORE_SEGMENT_DOCS, cfg.vocab_size,
+                                 cfg.avg_nnz_per_doc, 512, seed=SEED)
+    auto = PatternSearchEngine(c512, cfg512, dev, "gpu_fused",
+                               tiling=AutoTiling(cfg.block_docs,
+                                                 cfg.block_query))
+    fixed = PatternSearchEngine(c512, cfg512, dev, "gpu_fused")
+    rng = np.random.default_rng(SEED)
+    for L in (1, 8):
+        idx = rng.integers(0, STORE_SEGMENT_DOCS, L)
+        qs = [corpus_lib.make_query(c512, int(i), cfg.max_query_nnz)
+              for i in idx]
+        q = Query(np.stack([x[0] for x in qs]), np.stack([x[1] for x in qs]))
+        a, b = auto.search(q), fixed.search(q)
+        if not same(a, b) or not np.array_equal(a.doc_ids[:, 0], idx):
+            fail(f"AutoTiling ({auto._block_docs} rows) and FixedTiling "
+                 f"({fixed._block_docs}) differ at nnz_pad 512, L={L}")
+    say(f"AutoTiling at nnz_pad 512, {STORE_SEGMENT_DOCS} docs: tiles of "
+        f"{auto._block_docs} rows (kp {min(cfg.top_k, auto._block_docs)}) "
+        f"match FixedTiling's {fixed._block_docs} bit for bit at L=1 and 8")
+    del auto, fixed, c512
+
+    # -- B1-B3 against their plain versions at the store's new shapes ------
+    q_ids, q_vals, q_norms = query
+    rng = np.random.default_rng(SEED + 1)
+    checked = []
+    for D in NEW_SHAPE_DOCS:
+        lo = int(rng.integers(0, N_DOCS - D))
+        rows = corpus.slice_rows(lo, lo + D)
+        ids = torch.from_numpy(rows.ids).to(dev)
+        vals = torch.from_numpy(rows.vals).to(dev)
+        words = torch.from_numpy(pack(rows.ids, rows.vals).view(np.int32)
+                                 ).to(dev)
+        pairs = [("B1", sparse_match(ids, vals, q_ids, q_vals),
+                  sparse_match_plain(ids, vals, q_ids, q_vals)),
+                 ("B2", sparse_match_packed(words, q_ids, q_vals),
+                  sparse_match_packed_plain(words, q_ids, q_vals))]
+        stream = fused.corpus_to_stream(rows)
+        for bd in NEW_SHAPE_BLOCK_DOCS + (cfg.block_docs,):
+            tiles, _, _ = fused.tile_stream(stream, block_docs=bd,
+                                            nnz_pad=cfg.nnz_pad,
+                                            pad_docs_to=D)
+            tiles = torch.from_numpy(tiles.view(np.int32)).to(dev)
+            kp = min(cfg.top_k, bd)
+            got = fused.fused_match_topk(tiles, q_ids, q_vals, q_norms,
+                                         block_docs=bd, kp=kp)
+            want = fused.fused_match_topk_plain(tiles, q_ids, q_vals,
+                                                q_norms, block_docs=bd, kp=kp)
+            if not torch.equal(got[1], want[1]):
+                fail(f"B3 at D={D}, block_docs={bd}: candidate ids differ "
+                     "from the plain version")
+            pairs.append((f"B3 bd={bd}", got[0], want[0]))
+        for name, got, want in pairs:
+            if not torch.equal(got, want):
+                fail(f"{name} at D={D} differs from its plain version")
+            checked.append(f"{name} D={D}")
+    torch.cuda.synchronize()
+    say(f"kernels vs plain at the store's shapes (query: the L=8 request): "
+        f"{', '.join(checked)} agree bit for bit")
+    shutil.rmtree(root, ignore_errors=True)
+    say(f"store phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return launches
 
 
 def attention_inputs(torch, dev, B, S, H, KV, hd, dtype, seed=SEED):
@@ -523,7 +777,6 @@ def lm_check(torch, step, layers, fa, params, cfg, prompt, label):
 def lm_phases(torch, dev):
     """Phases 8-11: kernel B4 and the LM serving path. Returns B4's row
     of the kernels line."""
-    import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve as serve_launcher

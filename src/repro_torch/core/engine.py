@@ -245,9 +245,14 @@ class PatternSearchEngine:
     @property
     def slab_fmt(self) -> str:
         """The device-slab layout this engine scores — part of the slab
-        cache key, so an ELL slab can never satisfy a fused lookup."""
+        cache key, so no backend is handed a slab of another layout:
+        ``"ell"`` (``gpu``, ``torch``), ``"packed"`` (``gpu_packed``: Fig. 8
+        words in the ids) and ``"fused:<block_docs>"``. The reference
+        names its packed layout ``"ell"`` too (ROADMAP C11)."""
         if self.backend == "gpu_fused":
             return f"fused:{self._block_docs}"
+        if self.backend == "gpu_packed":
+            return "packed"
         return "ell"
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:

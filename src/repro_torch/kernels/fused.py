@@ -226,3 +226,15 @@ def fused_match_topk(tiles: torch.Tensor, q_ids: torch.Tensor,
 
 
 fused_match_topk.launches = 0
+
+
+def stages(device, cap: int, block_docs: int, Qm: int, L: int) -> int:
+    """Tile stages B3 takes for a launch on card ``device``:
+    ``fused_match_topk_stages`` of ``csrc/fused.cu`` against the card's
+    opt-in shared memory a block. 1: each doc tile is staged whole in
+    shared memory; 0: tiles are read from device memory. Needs the card."""
+    optin = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    fn = _build.kernel("fused", "fused_match_topk_stages",
+                       [ctypes.c_int] * 4 + [ctypes.c_longlong])
+    return fn(cap, block_docs, Qm, L, optin)

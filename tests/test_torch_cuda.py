@@ -698,3 +698,130 @@ def test_qwen2_prefill_shape_counts_under_wgmma(dev):
         assert by[which] == before[which] + 1
         assert sum(by.values()) == sum(before.values()) + 1
         assert fa.flash_attention_gqa.launches == total + 1
+
+
+# ---------------------------------------------------------------------------
+# the storage tier on the card: FlashSearchSession, shared slab cache,
+# approx pools, AutoTiling's tiles
+# ---------------------------------------------------------------------------
+STORE_CFG = SearchConfig(name="store-card", vocab_size=4096,
+                         avg_nnz_per_doc=40, nnz_pad=64, top_k=8,
+                         block_docs=128, block_query=512)
+
+
+@pytest.fixture(scope="module")
+def store(tmp_path_factory):
+    from repro_torch.storage import FlashStore
+    cfg = STORE_CFG
+    corpus = corpus_lib.synthesize(3000, cfg.vocab_size, cfg.avg_nnz_per_doc,
+                                   cfg.nnz_pad, seed=21)
+    root = str(tmp_path_factory.mktemp("card") / "store")
+    st = FlashStore.create(root, vocab_size=cfg.vocab_size,
+                           docs_per_segment=700)
+    st.append_corpus(corpus)
+    rng = np.random.default_rng(4)
+    requests = []
+    for L in (1, 3, 8):
+        idx = rng.integers(0, corpus.n_docs, L)
+        qs = [corpus_lib.make_query(corpus, int(i), cfg.max_query_nnz)
+              for i in idx]
+        requests.append((idx, np.stack([q[0] for q in qs]),
+                         np.stack([q[1] for q in qs])))
+    return root, corpus, requests
+
+
+def _same_result(a, b):
+    np.testing.assert_array_equal(a.doc_ids, b.doc_ids)
+    np.testing.assert_array_equal(a.scores.view(np.uint32),
+                                  b.scores.view(np.uint32))
+
+
+@pytest.mark.parametrize("backend", ["gpu", "gpu_packed", "gpu_fused",
+                                     "torch"])
+def test_store_session_on_the_card_matches_the_resident_engine(dev, store,
+                                                                backend):
+    from repro_torch.serve import Query
+    from repro_torch.storage import FlashSearchSession, FlashStore
+    root, corpus, requests = store
+    counter = {"gpu": sparse_match, "gpu_packed": sparse_match_packed,
+               "gpu_fused": fused.fused_match_topk}.get(backend)
+    before = counter.launches if counter else 0
+    resident = PatternSearchEngine(corpus, STORE_CFG, dev, backend)
+    with FlashSearchSession(FlashStore.open(root), STORE_CFG, dev,
+                            backend) as sess:
+        for n, (idx, qi, qv) in enumerate(requests + requests):
+            got = sess.search_typed(Query(qi, qv))
+            _same_result(got, resident.search_typed(Query(qi, qv)))
+            np.testing.assert_array_equal(got.doc_ids[:, 0], idx)
+            st = sess.last_stats
+            assert st.docs_scored == corpus.n_docs
+            # the first request is cold, every later one warm
+            assert (st.cache_misses if n == 0 else
+                    st.cache_hits) == st.segments_scored
+    if counter:
+        assert counter.launches > before
+
+
+def test_gpu_and_gpu_packed_share_one_slab_cache_on_the_card(dev, store):
+    """ROADMAP C11 on the card: sessions of every backend on one cache,
+    each answering as its own resident engine does."""
+    from repro_torch.serve import Query
+    from repro_torch.storage import FlashSearchSession, FlashStore, SlabCache
+    root, corpus, requests = store
+    fs = FlashStore.open(root)
+    cache = SlabCache()
+    backends = ("gpu", "gpu_packed", "gpu_fused", "torch")
+    sessions = {b: FlashSearchSession(fs, STORE_CFG, dev, b,
+                                      slab_cache=cache) for b in backends}
+    try:
+        for _ in range(2):
+            for b, sess in sessions.items():
+                eng = PatternSearchEngine(corpus, STORE_CFG, dev, b)
+                for _, qi, qv in requests:
+                    _same_result(sess.search_typed(Query(qi, qv)),
+                                 eng.search_typed(Query(qi, qv)))
+        # ELL (gpu and torch), packed and fused slabs of every segment
+        assert len(cache) == 3 * fs.n_segments
+    finally:
+        for sess in sessions.values():
+            sess.close()
+
+
+@pytest.mark.parametrize("backend", ["gpu", "gpu_packed", "gpu_fused"])
+def test_approx_pools_of_8_to_65536_docs_match_the_plain_versions(dev,
+                                                                   backend):
+    """The approx tier pads a candidate pool to a power of two (8 to the
+    plan's slab): each size, scored on the card, against the same pool
+    scored by the plain versions on the CPU."""
+    from repro_torch.serve import Query
+    cfg = SearchConfig(name="pools")
+    corpus = corpus_lib.synthesize(1 << 16, cfg.vocab_size,
+                                   cfg.avg_nnz_per_doc, cfg.nnz_pad, seed=5)
+    on_card = PatternSearchEngine(None, cfg, dev, backend)
+    on_cpu = PatternSearchEngine(None, cfg, "cpu", backend)
+    rng = np.random.default_rng(6)
+    for n in (8, 64, 512, 4096, 1 << 16):
+        rows = np.sort(rng.choice(corpus.n_docs, n - (n > 8), replace=False))
+        pool = corpus_lib.Corpus(corpus.doc_ids[rows], corpus.ids[rows],
+                                 corpus.vals[rows], corpus.norms[rows]
+                                 ).pad_docs_to(n)
+        idx = rows[rng.integers(0, rows.size, 8)]
+        qs = [corpus_lib.make_query(corpus, int(i), cfg.max_query_nnz)
+              for i in idx]
+        qi, qv = np.stack([q[0] for q in qs]), np.stack([q[1] for q in qs])
+        got = on_card.search_streaming(qi, qv, [on_card.put_slab(pool)])
+        want = on_cpu.search_streaming(qi, qv, [on_cpu.put_slab(pool)])
+        _same_result(got, want)
+        np.testing.assert_array_equal(got.doc_ids[:, 0], idx)
+
+
+@pytest.mark.parametrize("nnz_pad", [64, 128, 256, 512])
+def test_auto_tiling_tiles_are_staged_in_shared_memory(dev, nnz_pad):
+    from repro_torch.kernels.tiling import AutoTiling
+    for block_docs in (fused.MAX_TILE_ROWS, 128):
+        tiling = AutoTiling(block_docs, 512)
+        bd = tiling.doc_tile(nnz_pad=nnz_pad, n_docs=1 << 20)
+        for Lp in (1, 2, 4, 8, 16):
+            for Qm in (Lp * tiling.query_tile(Lp), 8192, 1 << 16):
+                assert fused.stages(dev, bd * (1 + nnz_pad), bd, Qm,
+                                    Lp) == 1, (bd, Lp, Qm)

@@ -3,7 +3,8 @@
   - ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
     the JAX package ``repro`` (only ``repro_torch``);
   - with no CUDA card, the default device is an error, never the CPU
-    (the search engine, and the LM's init, generate and launcher);
+    (the search engine, the store session, and the LM's init, generate
+    and launcher);
   - a wrapper given CUDA tensors launches its kernel or raises: it never
     reaches its plain version (checked with fake CUDA tensors and a
     kernel loader that raises);
@@ -68,6 +69,15 @@ def test_engine_without_device_raises_without_a_card(no_card):
         PatternSearchEngine(None, smoke())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launcher.main(["--n-docs", "4", "--vocab", "64"])
+
+
+def test_store_session_without_device_raises_without_a_card(no_card,
+                                                           tmp_path):
+    from repro_torch.storage import FlashSearchSession, FlashStore
+    store = FlashStore.create(str(tmp_path / "s"), vocab_size=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FlashSearchSession(store, smoke())
+    FlashSearchSession(store, smoke(), device="cpu").close()
 
 
 def test_lm_entry_points_without_device_raise_without_a_card(no_card):
