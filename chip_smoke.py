@@ -48,6 +48,32 @@ each of which fails the run (non-zero exit) if it fails:
                gpu_fused engine with AutoTiling at nnz_pad 512 equal to
                its FixedTiling twin; B1-B3 against their plain versions
                at D = 8, 64 and 1000, B3 at block_docs 8, 32 and 128;
+  6c. live     phase 6b's store served while it grows, with every launch
+               counter set to 0 before and read after (each of B1-B3 must
+               have launched; these launches join the kernels line): a
+               gpu session with ``enable_ingest(seal_docs=256)`` serves
+               16 client threads x 32 L = 1 self-queries of base documents
+               through ``session.submit`` (max_batch 8, max_delay_ms 2)
+               while a writer thread appends 4096 new documents (at least
+               16 seals and one compactor fold); every served result ranks
+               its document first at its resident score (phase 6's engine)
+               bit for bit. Then, the memtable flushed and 2 documents
+               appended, 8 self-queries (3 base, 3 sealed appends, 2 in
+               the memtable) through ``submit`` on a gpu, a torch, a
+               gpu_packed and a gpu_fused session in turn (the write path
+               handed on: each replays the WAL), each equal to its own
+               serial ``search`` and to gpu's bit for bit; on each kernel
+               backend the serial search launches one kernel a scored
+               segment plus one for the memtable. 100 more appends left
+               unsealed, the session closed without sealing, the store
+               reopened: the WAL replays 100 and the last document ranks
+               itself first. Then ``repro_torch.launch.search_serve.main``
+               on the store (``--ingest 4096 --backend gpu``). It prints
+               QPS, latency p50/p99, batches, occupancy, flush reasons,
+               appends/s, seals, folds, seal and fold ms, replay seconds,
+               the stage_ms histograms, the memtable's score (from the
+               traces' spans) apart from a segment's, and its wall time
+               beside the card's name and power limit;
   7. times     each search kernel, its plain version and the library
                yardstick (torch.sparse.mm, CSR [D, V] x dense [V, L]) by
                CUDA events, median of repeats, beside the bound the card's
@@ -87,6 +113,7 @@ exits non-zero and prints no result.
 """
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -127,6 +154,12 @@ STORE_SEGMENT_DOCS = 1 << 16           # 16 segments of the 2^20 documents
 STORE_CACHE_BYTES = 4 << 30            # room for every backend's 16 slabs
 APPROX_CANDIDATES = 64
 STAGES = ("decode", "upload", "score", "prefetch_wait", "merge")
+STORE_ROOT = Path(__file__).resolve().parent / "build" / "store"
+LIVE_CLIENTS, LIVE_REQUESTS = 16, 32   # phase 6c's serving load
+LIVE_APPENDS = 4096                    # ... and its writer's
+LIVE_SEAL_DOCS = 256
+LIVE_REPLAY = 100
+LIVE_CACHE_MB = 4000                   # search_serve's slab cache
 STORE_NNZ_PADS = (64, 128, 256, 512)
 NEW_SHAPE_DOCS = (8, 64, 1000)         # an approx pool, a small one, odd
 NEW_SHAPE_BLOCK_DOCS = (8, 32)         # AutoTiling's narrow doc tiles
@@ -418,6 +451,12 @@ def main() -> int:
                                  (q_ids, q_vals, q_norms))
     for name, n in store_launches.items():
         launches[name] += n
+
+    # -- 6c. live --------------------------------------------------------------
+    live_launches = live_phase(torch, dev, cfg, corpus, g, kernels)
+    for name, n in live_launches.items():
+        launches[name] += n
+    shutil.rmtree(STORE_ROOT, ignore_errors=True)
     torch.cuda.empty_cache()
 
     # -- 7. times ----------------------------------------------------------
@@ -505,7 +544,6 @@ def store_phase(torch, dev, cfg, corpus, requests, resident, kernels,
     sharing one slab cache; approx; AutoTiling's tiles; B1-B3 against
     their plain versions at the store's new shapes. Returns the launches
     the store's requests (cold, warm, approx) made."""
-    import shutil
     from repro_torch.core import corpus as corpus_lib
     from repro_torch.core.engine import PatternSearchEngine
     from repro_torch.kernels import fused
@@ -520,7 +558,7 @@ def store_phase(torch, dev, cfg, corpus, requests, resident, kernels,
 
     # -- build the store ---------------------------------------------------
     t_phase = time.perf_counter()
-    root = Path(__file__).resolve().parent / "build" / "store"
+    root = STORE_ROOT
     shutil.rmtree(root, ignore_errors=True)
     root.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -700,8 +738,307 @@ def store_phase(torch, dev, cfg, corpus, requests, resident, kernels,
     torch.cuda.synchronize()
     say(f"kernels vs plain at the store's shapes (query: the L=8 request): "
         f"{', '.join(checked)} agree bit for bit")
-    shutil.rmtree(root, ignore_errors=True)
     say(f"store phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return launches
+
+
+def ell_docs(c, rows):
+    """``(doc_id, [(word, count), ...])`` of corpus rows, for appends."""
+    out = []
+    for r in rows:
+        keep = c.ids[r] >= 0
+        out.append((int(c.doc_ids[r]), list(zip(
+            c.ids[r][keep].tolist(), c.vals[r][keep].astype(int).tolist()))))
+    return out
+
+
+def score_spans(traces):
+    """(memtable, segment) score-span ms of exported traces: a query's
+    memtable span holds its upload and its launch."""
+    mem, seg = [], []
+
+    def walk(node):
+        for ch in node["children"]:
+            if ch["name"] == "score":
+                (mem if ch["attrs"].get("segment") == "memtable"
+                 else seg).append(ch["dur_ms"])
+            walk(ch)
+    for t in traces:
+        walk(t["root"])
+    return mem, seg
+
+
+def trace_parts(trace):
+    """One exported query trace in parts, ms: the whole, the plan, the
+    memtable's score span, the segments' score spans, the loads from disk
+    (their count and decode + upload), the prefetch wait and the merge."""
+    parts = {"query": trace["root"]["dur_ms"], "plan": 0.0, "memtable": 0.0,
+             "segments": 0.0, "disk_loads": 0, "disk_ms": 0.0,
+             "prefetch_wait": trace["root"]["attrs"].get("prefetch_wait_ms",
+                                                         0.0),
+             "merge": 0.0}
+    for ch in trace["root"]["children"]:
+        a = ch["attrs"]
+        if ch["name"] in ("plan", "merge"):
+            parts[ch["name"]] += ch["dur_ms"]
+        elif ch["name"] == "score":
+            parts["memtable" if a.get("segment") == "memtable"
+                  else "segments"] += ch["dur_ms"]
+        elif ch["name"] == "load" and a.get("source") == "disk":
+            parts["disk_loads"] += 1
+            parts["disk_ms"] += a.get("decode_ms", 0.0) + a.get("upload_ms",
+                                                                0.0)
+    return {k: round(v, 3) for k, v in parts.items()}
+
+
+def med(xs):
+    return f"{statistics.median(xs):.3f}" if xs else "none"
+
+
+def hist_line(obs, name, **labels):
+    h = obs.registry.histogram(name, **labels).summary()
+    return f"p50 {h['p50']} mean {h['mean']} (n={h['count']})"
+
+
+def live_phase(torch, dev, cfg, corpus, resident, kernels):
+    """Phase 6c: phase 6b's store served through the coalescing
+    SearchService while a writer appends, seals and the compactor folds;
+    batched against serial on four backends; WAL replay; the launcher.
+    Returns the launches the phase made."""
+    import threading
+    from repro_torch.core import corpus as corpus_lib
+    from repro_torch.launch import search_serve
+    from repro_torch.obs import Obs
+    from repro_torch.serve import Query
+    from repro_torch.storage import FlashSearchSession, FlashStore, SlabCache
+
+    t_phase = time.perf_counter()
+    n_serve = LIVE_CLIENTS * LIVE_REQUESTS
+    rng = np.random.default_rng(SEED + 2)
+    idx = rng.integers(0, N_DOCS, n_serve)
+    queries = [corpus_lib.make_query(corpus, int(i), cfg.max_query_nnz)
+               for i in idx]
+    # the resident engine's top-1 of each self-query (phase 6's engine),
+    # before the counters are set to 0
+    top1 = []
+    for lo in range(0, n_serve, 8):
+        q = queries[lo:lo + 8]
+        r = resident.search(Query(np.stack([x[0] for x in q]),
+                                  np.stack([x[1] for x in q])))
+        top1 += list(zip(r.doc_ids[:, 0], r.scores[:, 0]))
+    if [int(d) for d, _ in top1] != [int(i) for i in idx]:
+        fail("live: a resident self-query did not rank itself first")
+    n_new = LIVE_APPENDS + 2 + LIVE_REPLAY
+    new = corpus_lib.synthesize(n_new, cfg.vocab_size, cfg.avg_nnz_per_doc,
+                                cfg.nnz_pad, seed=SEED + 3)
+    new.doc_ids[:] += N_DOCS
+    new_docs = ell_docs(new, range(n_new))
+
+    for fn in kernels.values():
+        fn.launches = 0
+    store = FlashStore.open(str(STORE_ROOT))
+    cache = SlabCache(STORE_CACHE_BYTES)
+    obs = Obs(trace_sample=1, keep_traces=4096)
+    sess = FlashSearchSession(store, cfg, dev, "gpu", slab_cache=cache,
+                              obs=obs)
+    pipe = sess.enable_ingest(seal_docs=LIVE_SEAL_DOCS)
+    t0 = time.perf_counter()
+    sess.search(Query(np.stack([x[0] for x in queries[:8]]),
+                      np.stack([x[1] for x in queries[:8]])))
+    say(f"live: store reopened, {store.n_segments} segments; first (cold) "
+        f"L=8 request {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    # -- 2. serve under writes ----------------------------------------------
+    svc = sess.service(max_batch=8, max_delay_ms=2.0)
+    lats = [[] for _ in range(LIVE_CLIENTS)]
+    rows = [None] * n_serve
+    errors = []
+    writer_s = {}
+
+    def client(t):
+        try:
+            for j in range(t * LIVE_REQUESTS, (t + 1) * LIVE_REQUESTS):
+                t1 = time.perf_counter()
+                rows[j] = sess.submit(Query(*queries[j])).result()
+                lats[t].append(time.perf_counter() - t1)
+        except Exception as e:
+            errors.append(e)
+
+    def writer():
+        t1 = time.perf_counter()
+        try:
+            for d, p in new_docs[:LIVE_APPENDS]:
+                sess.append(d, p)
+        except Exception as e:
+            errors.append(e)
+        writer_s["wall"] = time.perf_counter() - t1
+
+    threads = [threading.Thread(target=writer, name="live-writer")] + [
+        threading.Thread(target=client, args=(t,))
+        for t in range(LIVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"live: serving under writes: {errors[:3]}")
+    for j, (row, (d, sc)) in enumerate(zip(rows, top1)):
+        if int(row.doc_ids[0]) != int(d) or (
+                np.float32(row.scores[0]).view(np.uint32)
+                != np.float32(sc).view(np.uint32)):
+            fail(f"live: served self-query {j} (doc {int(d)}) gave "
+                 f"{int(row.doc_ids[0])} at {row.scores[0]!r}, resident "
+                 f"{sc!r}")
+    lat = np.concatenate([np.asarray(x) for x in lats]) * 1e3
+    st = svc.stats
+    seals, folds = pipe.stats.seals, pipe.stats.compactions
+    if seals < LIVE_APPENDS // LIVE_SEAL_DOCS or folds < 1:
+        fail(f"live: {seals} seals and {folds} folds under writes")
+    traces = obs.tracer.export()
+    mem, seg = score_spans(traces)
+    batch_ms = [t["root"]["dur_ms"] for t in traces[1:]]
+    say(f"live serve under writes: {n_serve} L=1 self-queries from "
+        f"{LIVE_CLIENTS} clients in {wall:.2f} s -> {n_serve / wall:.1f} QPS;"
+        f" latency p50 {np.percentile(lat, 50):.1f} ms p99 "
+        f"{np.percentile(lat, 99):.1f} ms; batches {st.n_batches}, mean "
+        f"occupancy {st.mean_occupancy:.2f}, flushes {st.flushes}; writer "
+        f"{LIVE_APPENDS} appends in {writer_s['wall']:.2f} s -> "
+        f"{LIVE_APPENDS / writer_s['wall']:.0f} appends/s under load; "
+        f"{seals} seals, {folds} folds ({pipe.stats.segments_folded} "
+        f"segments folded); every result ranks its document first at its "
+        f"resident score bit for bit")
+    say(f"live stage_ms: seal {hist_line(obs, 'ingest_seal_ms')}; fold "
+        f"{hist_line(obs, 'ingest_fold_ms')}; queue wait "
+        f"{hist_line(obs, 'serve_queue_wait_ms')}; {stage_summary(obs)}; "
+        f"score spans: memtable median {med(mem)} ms (n={len(mem)}), a "
+        f"segment's {med(seg)} ms (n={len(seg)})")
+    say(f"live batch search ms (traces): p50 "
+        f"{np.percentile(batch_ms, 50):.1f} p99 "
+        f"{np.percentile(batch_ms, 99):.1f} max {max(batch_ms):.1f}; the "
+        f"slowest three in parts: "
+        + "; ".join(str(trace_parts(t)) for t in sorted(
+            traces[1:], key=lambda t: -t["root"]["dur_ms"])[:3]))
+
+    # -- 3. batched against serial on four backends --------------------------
+    sess.flush_ingest()
+    for d, p in new_docs[LIVE_APPENDS:LIVE_APPENDS + 2]:
+        sess.append(d, p)
+    snap = pipe.capture()
+    mem_corpus, _ = snap.memtable_corpus(cfg.nnz_pad)
+    t0 = time.perf_counter()
+    mem_corpus.pad_docs_to(store.max_segment_docs)
+    say(f"live memtable: {mem_corpus.n_docs} documents padded on the host "
+        f"to the {store.max_segment_docs}-row launch shape in "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms a query (outside the "
+        f"score span)")
+    snap.close()
+    picks = [(corpus, int(i)) for i in idx[:3]] + [
+        (new, r) for r in (0, LIVE_APPENDS // 2, LIVE_APPENDS - 1,
+                           LIVE_APPENDS, LIVE_APPENDS + 1)]
+    q8 = [corpus_lib.make_query(c, r, cfg.max_query_nnz) for c, r in picks]
+    want_ids = [int(c.doc_ids[r]) for c, r in picks]
+    batch = Query(np.stack([x[0] for x in q8]), np.stack([x[1] for x in q8]))
+    first = None
+    for backend in ("gpu", "torch", "gpu_packed", "gpu_fused"):
+        if backend != "gpu":
+            # hand the write path on: the next session replays the WAL's
+            # two memtable documents; the shared cache keeps the ELL slabs
+            nxt = FlashSearchSession(store, cfg, dev, backend,
+                                     slab_cache=cache, obs=Obs())
+            sess.close()
+            sess = nxt
+            if sess.enable_ingest(seal_docs=LIVE_SEAL_DOCS).stats.replayed != 2:
+                fail(f"live {backend}: the WAL did not replay 2 documents")
+        t0 = time.perf_counter()
+        futs = [sess.submit(Query(*q)) for q in q8]
+        served = [f.result() for f in futs]
+        b_ms = (time.perf_counter() - t0) * 1e3
+        before = {n: fn.launches for n, fn in kernels.items()}
+        t0 = time.perf_counter()
+        serial = sess.search(batch)
+        s_ms = (time.perf_counter() - t0) * 1e3
+        sst = sess.last_stats
+        torch.cuda.synchronize()
+        delta = {n: fn.launches - before[n] for n, fn in kernels.items()}
+        for l, row in enumerate(served):
+            if not (np.array_equal(row.doc_ids, serial.doc_ids[l])
+                    and np.array_equal(row.scores.view(np.uint32),
+                                       serial.scores[l].view(np.uint32))):
+                fail(f"live {backend}: batched row {l} differs from serial")
+        if list(serial.doc_ids[:, 0]) != want_ids:
+            fail(f"live {backend}: a self-query did not rank itself first: "
+                 f"{list(serial.doc_ids[:, 0])}")
+        if first is None:
+            first = serial
+        elif not same(serial, first):
+            fail(f"live {backend}: differs from gpu")
+        if sst.memtable_docs != 2:
+            fail(f"live {backend}: memtable_docs {sst.memtable_docs}")
+        launched = sum(delta.values())
+        if backend != "torch" and launched != sst.segments_scored + 1:
+            fail(f"live {backend}: {launched} launches for "
+                 f"{sst.segments_scored} segments and the memtable")
+        say(f"live {backend}: 8 self-queries (3 base, 3 sealed, 2 in the "
+            f"memtable) through submit in {b_ms:.1f} ms equal the serial "
+            f"search ({s_ms:.1f} ms, {sst.segments_scored} segments + "
+            f"memtable, {sst.cache_hits} cache hits; launches {delta})")
+    say("live: batched equals serial and the four backends agree bit for "
+        "bit; the memtable branch launched on gpu, gpu_packed and gpu_fused")
+
+    # -- 4. WAL replay --------------------------------------------------------
+    sess.flush_ingest()
+    for d, p in new_docs[LIVE_APPENDS + 2:]:
+        sess.append(d, p)
+    sess.close()                      # unsealed: the WAL holds the 100
+    store = FlashStore.open(str(STORE_ROOT))
+    sess = FlashSearchSession(store, cfg, dev, "gpu_fused", cache_bytes=0)
+    t0 = time.perf_counter()
+    replayed = sess.enable_ingest(seal_docs=LIVE_SEAL_DOCS).stats.replayed
+    replay_s = time.perf_counter() - t0
+    last = corpus_lib.make_query(new, n_new - 1, cfg.max_query_nnz)
+    r = sess.search(Query(last[0][None], last[1][None]))
+    say(f"live replay: {replayed} documents replayed from the WAL in "
+        f"{replay_s:.4f} s; the last appended document ranks "
+        f"{'itself' if int(r.doc_ids[0, 0]) == int(new.doc_ids[-1]) else 'NOT'}"
+        f" first ({int(r.doc_ids[0, 0])}, memtable_docs "
+        f"{sess.last_stats.memtable_docs})")
+    if replayed != LIVE_REPLAY or int(r.doc_ids[0, 0]) != int(new.doc_ids[-1]):
+        fail("live: WAL replay")
+    sess.flush_ingest()
+    sess.close()
+
+    # -- 5. the launcher -------------------------------------------------------
+    t0 = time.perf_counter()
+    out = search_serve.main([
+        "--store", str(STORE_ROOT), "--ingest", str(LIVE_APPENDS),
+        "--seal-docs", "384", "--backend", "gpu",
+        "--vocab", str(cfg.vocab_size), "--avg-nnz", str(cfg.avg_nnz_per_doc),
+        "--nnz-pad", str(cfg.nnz_pad), "--top-k", str(cfg.top_k),
+        "--query-nnz", str(cfg.nnz_pad), "--cache-mb", str(LIVE_CACHE_MB),
+        "--clients", str(LIVE_CLIENTS), "--requests", str(LIVE_REQUESTS),
+        "--trace-sample", "1", "--seed", str(SEED)])
+    mem, seg = score_spans(out["obs"].tracer.export())
+    say(f"live search_serve: {time.perf_counter() - t0:.1f} s; "
+        f"{out['qps']:.1f} QPS, p50 {out['p50_ms']:.1f} ms, p99 "
+        f"{out['p99_ms']:.1f} ms, batches {out['batches']}, occupancy "
+        f"{out['mean_occupancy']:.2f}, flushes {out['flushes']}, "
+        f"{out['appends_per_s']:.0f} appends/s, {out['seals']} seals, "
+        f"{out['folds']} folds; stage_ms {stage_summary(out['obs'])}; score "
+        f"spans of the last {len(out['obs'].tracer.recent)} traces: memtable "
+        f"median {med(mem)} ms (n={len(mem)}), a segment's {med(seg)} ms "
+        f"(n={len(seg)})")
+    if out["queries"] != n_serve or out["seals"] < 1 or not mem:
+        fail(f"live search_serve: {out}")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    say(f"live launches: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"{name} was not launched in the live phase")
+    say(f"live phase: {time.perf_counter() - t_phase:.1f} s wall on "
+        f"{nvidia_smi_line()}")
     return launches
 
 

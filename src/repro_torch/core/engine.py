@@ -15,7 +15,12 @@ Query shapes are *bucketed*: L pads to the next power of two and the
 merged id stream to a capacity proportional to that L bucket, so a
 session serving batches of any size up to ``max_batch`` uses at most
 ``log2(max_batch) + 1`` launch shapes; ``compile_stats`` reports the
-distinct (Lp, Qp, n_docs) launch keys seen.
+distinct (Lp, Qp, n_docs) launch keys seen, and the ``obs`` registry's
+``engine_compile_traces`` counter counts each new one (the reference
+counts jit traces there). With ``obs.device_fence`` on, ``stage_ms``
+splits a request into ``score_dispatch`` (uploads and launches, on the
+host clock) and ``score_device`` (``torch.cuda.synchronize`` until the
+card is done).
 
 On the CPU (``device="cpu"``) every kernel wrapper runs its plain PyTorch
 version; that is how the tests hold this engine against the JAX one.
@@ -23,6 +28,7 @@ version; that is how the tests hold this engine against the JAX one.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Iterable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -38,6 +44,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.fused import PackedSlab
 from repro_torch.kernels.sparse_match_packed import pack as pack_ell
 from repro_torch.kernels.tiling import FixedTiling, TilingStrategy
+from repro_torch.obs import Obs, default_obs
 
 
 @dataclasses.dataclass
@@ -77,10 +84,13 @@ def _next_pow2(n: int) -> int:
 class PatternSearchEngine:
     def __init__(self, corpus: Optional[Corpus], cfg: SearchConfig,
                  device: DeviceLike = None, backend: str = "gpu",
+                 obs: Optional[Obs] = None,
                  tiling: Optional[TilingStrategy] = None):
         """``corpus=None`` builds a streaming-only engine (no resident
         corpus): callers use ``search_streaming`` / ``put_slab``.
         ``device`` defaults to the CUDA card (``repro_torch.device``).
+        ``obs`` mirrors new launch keys into the shared metrics registry;
+        None uses the process default.
         ``tiling`` picks the fused backend's doc tile (DESIGN.md §12.3);
         None uses ``FixedTiling`` at the config's shapes."""
         if backend not in kops.BACKENDS:
@@ -89,6 +99,11 @@ class PatternSearchEngine:
         self.device = resolve(device)
         self.cfg = cfg
         self.backend = backend
+        self.obs = obs if obs is not None else default_obs()
+        # registry handle resolved once: a request touches it only when
+        # its launch key is new
+        self._trace_counter = self.obs.registry.counter(
+            "engine_compile_traces")
         if corpus is None:
             corpus = Corpus.empty(cfg.nnz_pad)
         if corpus.ids.size and int(corpus.ids.max()) >= cfg.vocab_size:
@@ -179,6 +194,12 @@ class PatternSearchEngine:
         if L_ == 0:
             return self.empty_result(0)
         Lp, mi, mv, q_norms = self.merged_stream(q_ids, q_vals)
+        # optional device-stage split (DESIGN.md §8.5): with the fence
+        # on, the uploads and launches are timed apart from the device
+        # work they enqueue. Off by default — the synchronize serializes
+        # what the .cpu() below would have overlapped.
+        fence = self.obs.device_fence
+        t0 = time.perf_counter() if fence else 0.0
         mi_t, mv_t, qn_t = (self._upload(a) for a in (mi, mv, q_norms))
         cfg = self.cfg
         if self.backend == "gpu_fused":
@@ -195,9 +216,20 @@ class PatternSearchEngine:
                 block_query=cfg.block_query)
             cos = kops.cosine_scores(corr, self.d_norms, qn_t)
             v, i = topk_lib.local_topk(cos, self.d_docids, cfg.top_k)
+        if fence:
+            t1 = time.perf_counter()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t2 = time.perf_counter()
+            reg = self.obs.registry
+            reg.histogram("stage_ms", stage="score_dispatch").observe(
+                (t1 - t0) * 1e3)
+            reg.histogram("stage_ms", stage="score_device").observe(
+                (t2 - t1) * 1e3)
         key = (Lp, mi.size, n_docs)
         if key not in self._launch_keys:
             self._launch_keys.append(key)
+            self._trace_counter.inc()
         v = v[:L_].cpu().numpy()
         # ids come from local_topk / the fused epilogue already masked by
         # row validity, never by score finiteness

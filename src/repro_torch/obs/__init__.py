@@ -14,12 +14,13 @@ registry across a cluster's shard sessions needs no plumbing, while a
 benchmark that wants clean numbers passes its own ``Obs()`` (or
 ``Obs.disabled()`` to measure the instrumentation floor).
 
-A copy of ``repro.obs`` (``metrics``, ``trace``, ``window`` and this
-bundle): numpy and threads, no device work. The live plane of the
-reference (``slo``, ``export``, ``server``) and the engine's registry
-hookup wait for ROADMAP queue A6. Every counter and histogram carries a
-rolling-window twin (``obs/window.py``). ``device_fence`` is kept for
-that hookup: the port's engine does not read it yet.
+A copy of ``repro.obs`` (``metrics``, ``trace``, ``window``, ``export``
+and this bundle): numpy and threads, no device work. Every counter and
+histogram carries a rolling-window twin (``obs/window.py``).
+``device_fence=True`` opts the engine into ``torch.cuda.synchronize``
+fencing so ``stage_ms`` splits score time into dispatch vs device
+(default off: fencing serializes the pipeline). The reference's live
+plane (``slo``, ``server``) waits for ROADMAP queue A6.
 """
 from __future__ import annotations
 

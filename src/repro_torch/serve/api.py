@@ -1,7 +1,6 @@
-"""Typed request/response surface of the search engine (DESIGN.md §7.3).
+"""Typed request/response surface of the serving tier (DESIGN.md §7.3).
 
-A copy of the parts of ``repro.serve.api`` that ``PatternSearchEngine``
-takes and returns:
+A copy of ``repro.serve.api``:
 
     ``Query``          the sparse pattern itself (ids/vals, 1-D single
                        or 2-D batch), validated once at the boundary
@@ -15,6 +14,10 @@ The positional ``search(q_ids, q_vals)`` form still works but is a
 deprecation shim: ``coerce_request`` emits the ``DeprecationWarning``.
 Surfaces return a ``SearchResponse`` when the caller passed a
 ``QueryOptions`` and the bare ``SearchResult`` otherwise.
+
+The typed scheduling errors: ``OverloadError`` (admission shed — the
+request never entered the queue) and ``DeadlineExceeded`` (the request
+expired before or inside the queue; no device work was spent).
 """
 from __future__ import annotations
 
@@ -23,6 +26,36 @@ import warnings
 from typing import Any, Optional, Tuple
 
 import numpy as np
+
+
+class OverloadError(RuntimeError):
+    """Admission control shed this request (token-bucket quota or the
+    bounded pending queue) — it never entered the scheduler, no device
+    work was spent, and the caller should back off. Typed so callers
+    can distinguish load shedding from real failures; carries the
+    decision context."""
+
+    def __init__(self, msg: str, *, tenant: str = "default",
+                 reason: str = "queue_full", depth: int = 0,
+                 limit: Optional[int] = None):
+        super().__init__(msg)
+        self.tenant = tenant
+        self.reason = reason        # "queue_full" | "quota"
+        self.depth = depth
+        self.limit = limit
+
+
+class DeadlineExceeded(TimeoutError):
+    """The request's deadline passed before its batch started scoring
+    (at submit, or while queued). The scheduler drops expired requests
+    instead of spending device work on answers nobody is waiting for."""
+
+    def __init__(self, msg: str, *, deadline_ms: Optional[float] = None,
+                 late_ms: float = 0.0, where: str = "queue"):
+        super().__init__(msg)
+        self.deadline_ms = deadline_ms
+        self.late_ms = late_ms
+        self.where = where          # "submit" | "queue"
 
 
 @dataclasses.dataclass

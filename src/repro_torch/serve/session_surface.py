@@ -7,10 +7,9 @@ mixin is that surface, so the two cannot drift. Host classes implement
 ``search(q_ids [L, Qn], q_vals [L, Qn]) -> SearchResult`` and
 ``_close_resources()`` and call ``_init_serving()`` from ``__init__``.
 
-A copy of ``repro.serve.session_surface``. Its coalescing service and
-telemetry server are not in the port yet: ``service()`` (and so
-``submit``) raises ``NotImplementedError`` naming ROADMAP queue A4, and
-``start_telemetry()`` naming queue A6.
+A copy of ``repro.serve.session_surface``. The telemetry server is not
+in the port yet: ``start_telemetry()`` raises ``NotImplementedError``
+naming ROADMAP queue A6.
 """
 from __future__ import annotations
 
@@ -58,9 +57,13 @@ class ServingSessionMixin:
         with self._service_lock:
             if self._closed:
                 raise RuntimeError(f"{type(self).__name__} is closed")
-            raise NotImplementedError(
-                "service() needs the port's coalescing SearchService "
-                "(serve/search_service.py), ROADMAP queue A4")
+            if self._service is None:
+                from repro_torch.serve.search_service import SearchService
+                self._service = SearchService(
+                    self, max_batch=max_batch, max_delay_ms=max_delay_ms,
+                    admission=admission, max_pending=max_pending,
+                    tenant_qps=tenant_qps, tenant_burst=tenant_burst)
+            return self._service
 
     def submit(self, query, q_vals=None, *, options=None) -> Future:
         """Non-blocking single-query search: route one query through

@@ -34,8 +34,10 @@ current stream, which is the card's default stream as for the scoring
 thread: the copies are synchronous from pageable host memory and ordered
 before the scoring launches, so no event or ``record_stream`` is needed.
 A fused slab's ``decode`` time holds its tiling and upload (its
-``upload`` is 0), as in the reference. The memtable branch waits for the
-ingest tier (ROADMAP queue A3); until then no view carries a memtable.
+``upload`` is 0), as in the reference. A live snapshot's memtable is
+padded to the segment launch shape on the host and uploaded by the
+scoring thread with every query (``search_streaming`` of its
+``Corpus``), as in the reference.
 """
 from __future__ import annotations
 

@@ -22,9 +22,15 @@ The port of ``repro.storage.session``: ``device`` (the CUDA card unless
 the caller passes ``device="cpu"``, ``repro_torch.device``) takes the
 place of the mesh context, and the backend is one of the port's
 (``gpu`` by default: B1; ``gpu_packed``: B2; ``gpu_fused``: B3 through
-``put_stream_slab``; ``torch``: the gather path). Live ingestion
-(``enable_ingest``, the reference's write-ahead log and memtable) waits
-for ROADMAP queue A3 and raises until then.
+``put_stream_slab``; ``torch``: the gather path).
+
+With ``enable_ingest()`` the session also becomes a *live* writer
+surface (DESIGN.md §6): ``append`` routes documents through a
+write-ahead log + memtable, and every search scores an atomic snapshot
+— the manifest segments, sealed deltas, and memtable captured at the
+moment the query (or its coalesced batch) starts scoring — so results
+are bit-identical to a from-scratch store holding the same documents,
+and background seals/compactions never perturb an in-flight query.
 """
 from __future__ import annotations
 
@@ -123,7 +129,8 @@ class FlashSearchSession(ServingSessionMixin):
             raise ValueError(
                 f"store vocab_size {store.vocab_size} exceeds "
                 f"cfg.vocab_size {cfg.vocab_size}")
-        self.engine = PatternSearchEngine(None, cfg, device, backend)
+        self.engine = PatternSearchEngine(None, cfg, device, backend,
+                                          obs=self.obs)
         self.slab_cache = SlabCache.resolve(slab_cache, cache_bytes)
         if self.slab_cache is not None:
             store.register_cache(self.slab_cache)
@@ -136,33 +143,40 @@ class FlashSearchSession(ServingSessionMixin):
         self._memo = memo if memo is not None else (
             MemoCache(memo_entries) if memo_entries > 0 else None)
         self.last_stats = SearchStats()
+        self._ingest = None
         # one launch shape for every slab: the largest segment
         self._slab_docs = max(store.max_segment_docs, 1)
         self._init_serving()
 
-    # -- live ingestion (DESIGN.md §6): ROADMAP queue A3 ---------------
-    def enable_ingest(self, **knobs):
-        """The reference attaches a write path (WAL + memtable +
-        background compactor) here. The port's ingest tier is ROADMAP
-        queue A3; until it lands this raises."""
-        raise NotImplementedError(
-            "FlashSearchSession.enable_ingest needs the port's ingest tier "
-            "(wal, memtable, pipeline), ROADMAP queue A3")
+    # -- live ingestion (DESIGN.md §6) ---------------------------------
+    def enable_ingest(self, **knobs) -> "IngestPipeline":
+        """Attach a write path (WAL + memtable + background compactor)
+        to this session's store and replay any WAL tail a crash left
+        behind. ``knobs`` are ``repro_torch.ingest.IngestConfig``
+        fields. Idempotent; returns the pipeline."""
+        from repro_torch.ingest import IngestConfig, IngestPipeline
+        if self._ingest is None:
+            self._ingest = IngestPipeline(self.store, IngestConfig(**knobs),
+                                          obs=self.obs)
+        return self._ingest
 
     @property
-    def ingest(self):
-        """The attached write path: None until ROADMAP queue A3."""
-        return None
+    def ingest(self) -> Optional["IngestPipeline"]:
+        return self._ingest
 
     def append(self, doc_id: int, pairs: Sequence[Tuple[int, int]]) -> int:
-        """Durably append one document; needs ``enable_ingest()``."""
-        raise RuntimeError(
-            "append() needs enable_ingest() first — the session is "
-            "read-only until a write path is attached")
+        """Durably append one document ([(word, count), ...]) to the live
+        store; it is searchable by the next query. Requires
+        ``enable_ingest()``. Returns the WAL sequence number."""
+        if self._ingest is None:
+            raise RuntimeError(
+                "append() needs enable_ingest() first — the session is "
+                "read-only until a write path is attached")
+        return self._ingest.append(doc_id, pairs)
 
     def flush_ingest(self) -> int:
-        """Seal the memtable into delta segments (0 without ingest)."""
-        return 0
+        """Seal the memtable into delta segments now (0 without ingest)."""
+        return self._ingest.seal() if self._ingest is not None else 0
 
     # ------------------------------------------------------------------
     def search(self, query, q_vals=None, *,
@@ -174,7 +188,7 @@ class FlashSearchSession(ServingSessionMixin):
         ``SearchResult`` (``serve/api.py``). A single store has no
         shards to gather, so of the scheduling options only ``k``
         applies here; deadlines act in the coalescing service's queue
-        (the reference's serve/batcher.py; ROADMAP queue A4)."""
+        (serve/batcher.py)."""
         q, options = coerce_request(query, q_vals, options,
                                     surface="FlashSearchSession.search")
         res = self.search_typed(q, options=options, _span=_span)
@@ -186,8 +200,9 @@ class FlashSearchSession(ServingSessionMixin):
     def search_typed(self, query: Query,
                      options: Optional[QueryOptions] = None, *,
                      _span=None) -> SearchResult:
-        """Query rows [L, Qn] (pad < 0) -> global top-k over the store.
-        Always returns the raw
+        """Query rows [L, Qn] (pad < 0) -> global top-k over the store
+        (plus, with ingest enabled, the sealed deltas and memtable of an
+        atomic snapshot taken now). Always returns the raw
         ``SearchResult`` — wrapping/truncation belong to the public
         ``search`` shim.
 
@@ -210,8 +225,16 @@ class FlashSearchSession(ServingSessionMixin):
             span = _span
         mode, cand = self._query_knobs(options)
         try:
-            res = self._memo_or_search(self.store, None, q_ids, q_vals,
-                                       span, mode, cand)
+            if self._ingest is None:
+                res = self._memo_or_search(self.store, None, q_ids, q_vals,
+                                           span, mode, cand)
+            else:
+                snap = self._ingest.capture()
+                try:
+                    res = self._memo_or_search(snap, snap, q_ids, q_vals,
+                                               span, mode, cand)
+                finally:
+                    snap.close()
         except BaseException:
             if _span is None:
                 # the availability-SLO bad-event stream (§8.4); nested
@@ -342,4 +365,7 @@ class FlashSearchSession(ServingSessionMixin):
             # session's warm set must not be wiped from under it
             if self.store.unregister_cache(self.slab_cache):
                 self.slab_cache.drop_store(self.store.cache_token)
+        if self._ingest is not None:
+            self._ingest.close()
+            self._ingest = None
         self.store.close()

@@ -825,3 +825,95 @@ def test_auto_tiling_tiles_are_staged_in_shared_memory(dev, nnz_pad):
             for Qm in (Lp * tiling.query_tile(Lp), 8192, 1 << 16):
                 assert fused.stages(dev, bd * (1 + nnz_pad), bd, Qm,
                                     Lp) == 1, (bd, Lp, Qm)
+
+
+# ---------------------------------------------------------------------------
+# live ingest and the coalescing service on the card
+# ---------------------------------------------------------------------------
+def _live_copy(store, tmp_path, n_new=100, seal_docs=32):
+    """A copy of the store fixture, and ``n_new`` documents to append
+    (ids after the corpus's), self-queries of 2 base documents, 2 that
+    will be sealed and 2 that stay in the memtable."""
+    import shutil
+    root, corpus, _ = store
+    live = str(tmp_path / "live")
+    shutil.copytree(root, live)
+    cfg = STORE_CFG
+    new = corpus_lib.synthesize(n_new, cfg.vocab_size, cfg.avg_nnz_per_doc,
+                                cfg.nnz_pad, seed=22)
+    new.doc_ids[:] += corpus.n_docs
+    docs = []
+    for r in range(n_new):
+        keep = new.ids[r] >= 0
+        docs.append((int(new.doc_ids[r]), list(zip(
+            new.ids[r][keep].tolist(), new.vals[r][keep].astype(int).tolist()))))
+    picks = [(corpus, 5), (corpus, 2999), (new, 0), (new, seal_docs),
+             (new, n_new - 2), (new, n_new - 1)]
+    qs = [corpus_lib.make_query(c, r, cfg.max_query_nnz) for c, r in picks]
+    want = [int(c.doc_ids[r]) for c, r in picks]
+    return live, docs, qs, want
+
+
+@pytest.mark.parametrize("backend", ["gpu", "gpu_packed", "gpu_fused"])
+def test_appended_documents_search_on_the_card_as_on_torch(dev, store,
+                                                          tmp_path, backend):
+    """Appends land in sealed deltas and the memtable; a kernel session
+    on the card answers as the ``torch`` gather path does after the WAL
+    replays the memtable, launching its kernel once a scored segment and
+    once for the memtable."""
+    from repro_torch.serve import Query
+    from repro_torch.storage import FlashSearchSession, FlashStore
+    live, docs, qs, want = _live_copy(store, tmp_path)
+    counter = {"gpu": sparse_match, "gpu_packed": sparse_match_packed,
+               "gpu_fused": fused.fused_match_topk}[backend]
+    batch = Query(np.stack([q[0] for q in qs]), np.stack([q[1] for q in qs]))
+    with FlashSearchSession(FlashStore.open(live), STORE_CFG, dev,
+                            backend) as sess:
+        sess.enable_ingest(seal_docs=32, auto_compact=False)
+        for d, p in docs:
+            sess.append(d, p)                 # 3 seals, 4 in the memtable
+        before = counter.launches
+        got = sess.search_typed(batch)
+        st = sess.last_stats
+        assert counter.launches - before == st.segments_scored + 1
+        assert st.memtable_docs == 4
+    with FlashSearchSession(FlashStore.open(live), STORE_CFG, dev,
+                            "torch") as ref:
+        assert ref.enable_ingest(auto_compact=False).stats.replayed == 4
+        _same_result(got, ref.search_typed(batch))
+    assert list(got.doc_ids[:, 0]) == want
+
+
+def test_service_over_a_live_gpu_session_equals_serial(dev, store, tmp_path):
+    """16 self-queries from 4 threads through ``submit`` on a live gpu
+    session: each row equals the serial search of its query."""
+    import threading
+    from repro_torch.serve import Query
+    from repro_torch.storage import FlashSearchSession, FlashStore
+    live, docs, qs, want = _live_copy(store, tmp_path)
+    qs = qs * 3
+    rows = [None] * len(qs)
+    with FlashSearchSession(FlashStore.open(live), STORE_CFG, dev,
+                            "gpu") as sess:
+        sess.enable_ingest(seal_docs=32, auto_compact=False)
+        for d, p in docs:
+            sess.append(d, p)
+
+        def client(t):
+            for i in range(t, len(qs), 4):
+                rows[i] = sess.submit(Query(*qs[i])).result(timeout=120)
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        for i, (qi, qv) in enumerate(qs):
+            serial = sess.search_typed(Query(qi[None], qv[None]))
+            np.testing.assert_array_equal(rows[i].doc_ids, serial.doc_ids[0])
+            np.testing.assert_array_equal(rows[i].scores.view(np.uint32),
+                                          serial.scores[0].view(np.uint32))
+        assert sess.service().stats.n_requests == len(qs)
+    assert [int(r.doc_ids[0]) for r in rows] == want * 3

@@ -1,10 +1,11 @@
 """Rules of the port that no differential test would catch:
 
-  - ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
-    the JAX package ``repro`` (only ``repro_torch``);
+  - ``src/repro_torch``, ``chip_smoke.py`` and the port's examples and
+    benchmarks (``examples/port_*.py``, ``benchmarks/port_*.py``) import
+    neither ``jax`` nor the JAX package ``repro`` (only ``repro_torch``);
   - with no CUDA card, the default device is an error, never the CPU
-    (the search engine, the store session, and the LM's init, generate
-    and launcher);
+    (the search engine, the store session, the serving launcher, and the
+    LM's init, generate and launcher);
   - a wrapper given CUDA tensors launches its kernel or raises: it never
     reaches its plain version (checked with fake CUDA tensors and a
     kernel loader that raises);
@@ -25,14 +26,17 @@ from repro_torch.configs import qwen2_0p5b
 from repro_torch.kernels import _build, flash_attention, fused, ops
 from repro_torch.kernels import sparse_match, sparse_match_packed
 from repro_torch.launch import search as launcher
+from repro_torch.launch import search_serve
 from repro_torch.launch import serve as lm_launcher
 from repro_torch.models import model as lm_model
 from repro_torch.serve import step as lm_step
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples").glob("port_*.py"))
+              + sorted((ROOT / "benchmarks").glob("port_*.py"))
+              + [ROOT / "chip_smoke.py"])
 
 
 def _imported_modules(path):
@@ -69,6 +73,11 @@ def test_engine_without_device_raises_without_a_card(no_card):
         PatternSearchEngine(None, smoke())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launcher.main(["--n-docs", "4", "--vocab", "64"])
+
+
+def test_serving_launcher_without_device_raises_without_a_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        search_serve.main(["--n-docs", "4", "--vocab", "64"])
 
 
 def test_store_session_without_device_raises_without_a_card(no_card,

@@ -268,15 +268,16 @@ def test_session_refuses_what_waits_for_queues_a3_a4_a6(tmp_path, corpus):
                               docs_per_segment=200)
     store.append_corpus(corpus)
     sess = FlashSearchSession(store, CFG, "cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        sess.enable_ingest()
     with pytest.raises(RuntimeError, match="enable_ingest"):
         sess.append(1, [(2, 3)])
     assert sess.ingest is None and sess.flush_ingest() == 0
-    with pytest.raises(NotImplementedError, match="A4"):
-        sess.service()
-    with pytest.raises(NotImplementedError, match="A4"):
-        sess.submit(*t_corpus.make_query(corpus, 0, CFG.max_query_nnz))
+    # A3 (ingest) and A4 (the coalescing service) are ported: both work
+    pipe = sess.enable_ingest(auto_compact=False)
+    assert sess.enable_ingest() is pipe and sess.ingest is pipe
+    assert sess.service() is sess.service()
+    row = sess.submit(*t_corpus.make_query(corpus, 0, CFG.max_query_nnz)
+                      ).result(timeout=60)
+    assert int(row.doc_ids[0]) == int(corpus.doc_ids[0])
     with pytest.raises(NotImplementedError, match="A6"):
         sess.start_telemetry()
     sess.close()
