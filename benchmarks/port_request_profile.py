@@ -1,7 +1,8 @@
 """Where a request's time goes in the PyTorch/CUDA port, on one CUDA card.
 
     PYTHONPATH=src python benchmarks/port_request_profile.py [--docs N]
-        [--store [--segment-docs N]] [--json]
+        [--store [--segment-docs N]] [--cluster [--shards N] [--replicas R]
+        [--workers W...]] [--json]
 
 Synthesizes the paper's full-width corpus (SearchConfig defaults, seed
 0; 2^20 docs by default), builds a resident engine per backend and, for
@@ -21,6 +22,16 @@ by the prefetch thread) runs under ``torch.profiler``, then ``--reps``
 warm queries on the host clock (every segment a hit in the slab cache)
 and a profiled window of ``--reps`` more. Each line also gives the
 session's ``stage_ms`` histograms (the registry's median and mean).
+
+``--cluster`` profiles ``FlashClusterSession`` the same way: the corpus
+is written as a ShardedStore of ``--shards`` hash shards x
+``--replicas`` replicas (segments of ``--segment-docs``, under
+``build/cluster-profile``, removed at the end) and, per (backend, router
+worker count in ``--workers``), one session takes the first L's query
+cold under ``torch.profiler``, then each L warm on the host clock and in
+a profiled window. The shard threads launch on the one default stream,
+so the device's busy time is still one timeline; the idle share says
+how much of a warm cluster query the card waits for the host.
 Needs a card; it does not run on the CPU.
 """
 import argparse
@@ -63,6 +74,10 @@ def main(argv=None):
     ap.add_argument("--json", action="store_true")
     ap.add_argument("--store", action="store_true")
     ap.add_argument("--segment-docs", type=int, default=1 << 16)
+    ap.add_argument("--cluster", action="store_true")
+    ap.add_argument("--shards", type=int, default=4)
+    ap.add_argument("--replicas", type=int, default=2)
+    ap.add_argument("--workers", type=int, nargs="+", default=[1, 4])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -83,6 +98,8 @@ def main(argv=None):
                       np.stack([q[1] for q in qs]))
     if args.store:
         return store_profile(args, card, cfg, corpus, batches, dev)
+    if args.cluster:
+        return cluster_profile(args, card, cfg, corpus, batches, dev)
     for backend in args.backends:
         eng = PatternSearchEngine(corpus, cfg, dev, backend)
         for L, (qi, qv) in batches.items():
@@ -215,6 +232,86 @@ def store_profile(args, card, cfg, corpus, batches, dev):
                     "slab_cache_bytes": cache.nbytes}))
             warm.close()
             cold.close()
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def cluster_profile(args, card, cfg, corpus, batches, dev):
+    import shutil
+    from pathlib import Path
+    from repro_torch.cluster import FlashClusterSession, build_sharded_store
+    from repro_torch.obs import Obs
+    root = Path(__file__).resolve().parents[1] / "build" / "cluster-profile"
+    shutil.rmtree(root, ignore_errors=True)
+    root.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    build_sharded_store(str(root), corpus=corpus, n_shards=args.shards,
+                        replicas=args.replicas, policy="hash",
+                        vocab_size=cfg.vocab_size,
+                        docs_per_segment=args.segment_docs).close()
+    print(f"cluster: {args.docs} docs as {args.shards} shards x "
+          f"{args.replicas} replicas, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for backend in args.backends:
+        for workers in args.workers:
+            obs = Obs()
+            sess = FlashClusterSession(str(root), cfg, device=dev,
+                                       backend=backend, max_workers=workers,
+                                       cache_bytes=8 << 30, obs=obs)
+            L0 = next(iter(batches))
+            torch.cuda.synchronize()
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                sess.search(Query(*batches[L0]))
+                torch.cuda.synchronize()
+                cold_ms = (time.perf_counter() - t0) * 1e3
+            _, cold_busy = device_table(prof, 1)
+            print(f"cluster {backend} workers={workers} L={L0}: cold "
+                  f"{cold_ms:.1f} ms (device {cold_busy:.3f} ms, idle share "
+                  f"{1.0 - cold_busy / cold_ms:.3f}; "
+                  f"{sess.last_stats.segments_scored} segments)")
+            for L, (qi, qv) in batches.items():
+                q = Query(qi, qv)
+                sess.search(q)
+                wall = []
+                for _ in range(args.reps):
+                    t0 = time.perf_counter()
+                    sess.search(q)
+                    wall.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                with profile(activities=activities) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(args.reps):
+                        sess.search(q)
+                    torch.cuda.synchronize()
+                    window_ms = (time.perf_counter() - t0) * 1e3
+                table, busy = device_table(prof, args.reps)
+                idle = 1.0 - busy / (window_ms / args.reps)
+                top = "; ".join(f"{k[:60]} {v:.3f}" for k, v in
+                                list(table.items())[:6])
+                print(f"cluster {backend} workers={workers} L={L}: warm "
+                      f"median {statistics.median(wall):.3f} ms, max "
+                      f"{max(wall):.3f} (n={args.reps}); device {busy:.3f} "
+                      f"ms/query, idle share {idle:.3f} (profiled window); "
+                      f"top device: {top}")
+                if args.json:
+                    print(json.dumps({
+                        "cluster": True, "backend": backend, "L": L,
+                        "workers": workers, "shards": args.shards,
+                        "docs": args.docs, "card": card, "cold_ms": cold_ms,
+                        "cold_device_ms": cold_busy,
+                        "warm_ms_median": statistics.median(wall),
+                        "warm_ms_max": max(wall), "n": args.reps,
+                        "warm_device_ms_per_query": busy,
+                        "warm_idle_share": idle,
+                        "warm_device_ms_by_op": table,
+                        "stage_ms": stages_ms(obs)}))
+            print(f"cluster {backend} workers={workers} stage_ms (median, "
+                  f"mean, n): " + "; ".join(
+                      f"{k} {v[0]} {v[1]} {v[2]}"
+                      for k, v in stages_ms(obs).items()))
+            sess.close()
         torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
 

@@ -74,6 +74,36 @@ each of which fails the run (non-zero exit) if it fails:
                the stage_ms histograms, the memtable's score (from the
                traces' spans) apart from a segment's, and its wall time
                beside the card's name and power limit;
+  6d. cluster  the 2^20 documents as a ShardedStore of 4 shards x 2
+               replicas (hash policy, segments of 2^16; build seconds, MB
+               on disk, documents a shard) under ``build/cluster/``,
+               removed at the end, with every launch counter set to 0
+               before and read after: a gpu FlashClusterSession on a 4 GiB
+               slab cache takes the L = 8 request cold, then all 8
+               requests warm, each equal to phase 6's resident result bit
+               for bit (cold and warm ms, skip rate, cache hits, the
+               router's worker count, per-shard launch keys); the same 8
+               requests on a gpu_packed and a gpu_fused cluster session;
+               16 client threads x 32 L = 1 self-queries through
+               ``submit`` (max_batch 8, max_delay_ms 2), each ranking its
+               document first at its resident score bit for bit (QPS,
+               p50/p99); shard 0's primary replaced by a session that
+               raises (same result, one failover, the replica marked
+               down, then health reset); shard 1's primary held on an
+               event until the call returns, with HedgePolicy(fallback_ms
+               1, min_ms 0) (same result, a hedge fired and won, nothing
+               marked down) and then, hedging off, under a deadline with
+               allow_partial (flagged partial, shards_missing (1,), equal
+               to the merge of the other three shards); 512 documents
+               appended through the cluster (seal_docs 256) and flushed,
+               each ranking itself first; ``repro_torch.launch.
+               search_serve.main`` with ``--cluster --hedge-percentile
+               0.95 --allow-partial`` (QPS, p50/p99, hedges fired and
+               won, stage histograms). B1-B3 must each have launched, one
+               launch a slab that any replica attempt scored; where no
+               hedge loser or straggler ran, exactly the sum of scored
+               segments that ClusterStats reports. It prints its wall
+               time beside the card's name and power limit;
   7. times     each search kernel, its plain version and the library
                yardstick (torch.sparse.mm, CSR [D, V] x dense [V, L]) by
                CUDA events, median of repeats, beside the bound the card's
@@ -160,6 +190,10 @@ LIVE_APPENDS = 4096                    # ... and its writer's
 LIVE_SEAL_DOCS = 256
 LIVE_REPLAY = 100
 LIVE_CACHE_MB = 4000                   # search_serve's slab cache
+CLUSTER_ROOT = Path(__file__).resolve().parent / "build" / "cluster"
+CLUSTER_SHARDS, CLUSTER_REPLICAS = 4, 2  # phase 6d's ShardedStore
+CLUSTER_CLIENTS, CLUSTER_REQUESTS = 16, 32
+CLUSTER_APPENDS, CLUSTER_SEAL_DOCS = 512, 256
 STORE_NNZ_PADS = (64, 128, 256, 512)
 NEW_SHAPE_DOCS = (8, 64, 1000)         # an approx pool, a small one, odd
 NEW_SHAPE_BLOCK_DOCS = (8, 32)         # AutoTiling's narrow doc tiles
@@ -457,6 +491,14 @@ def main() -> int:
     for name, n in live_launches.items():
         launches[name] += n
     shutil.rmtree(STORE_ROOT, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- 6d. cluster -------------------------------------------------------------
+    cluster_launches = cluster_phase(torch, dev, cfg, corpus, requests,
+                                     results["gpu"], g, kernels)
+    for name, n in cluster_launches.items():
+        launches[name] += n
+    shutil.rmtree(CLUSTER_ROOT, ignore_errors=True)
     torch.cuda.empty_cache()
 
     # -- 7. times ----------------------------------------------------------
@@ -1038,6 +1080,379 @@ def live_phase(torch, dev, cfg, corpus, resident, kernels):
         if n <= 0:
             fail(f"{name} was not launched in the live phase")
     say(f"live phase: {time.perf_counter() - t_phase:.1f} s wall on "
+        f"{nvidia_smi_line()}")
+    return launches
+
+
+class _Replica:
+    """Stands in for one shard replica's session in phase 6d: it raises
+    (a dead replica), or its searches wait for ``gate`` (a straggler) and
+    set ``done`` when they end."""
+
+    def __init__(self, inner, *, gate=None, dead=False):
+        import threading
+        self.inner = inner
+        self.gate = gate
+        self.dead = dead
+        self.done = threading.Event()
+
+    def search(self, *args, **kwargs):
+        if self.dead:
+            raise OSError("replica storage gone")
+        try:
+            if self.gate is not None:
+                self.gate.wait()
+            return self.inner.search(*args, **kwargs)
+        finally:
+            self.done.set()
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def cluster_phase(torch, dev, cfg, corpus, requests, resident, engine,
+                  kernels):
+    """Phase 6d: the 2^20 documents as a 4-shard x 2-replica ShardedStore,
+    served through FlashClusterSession on gpu, gpu_packed and gpu_fused,
+    by 16 concurrent clients, through failover, a hedge and a partial
+    gather, under live writes, and by ``search_serve --cluster``. Returns
+    the launches the phase made."""
+    import threading
+    from repro_torch.cluster import FlashClusterSession, build_sharded_store
+    from repro_torch.core import corpus as corpus_lib
+    from repro_torch.core.engine import _merge_results
+    from repro_torch.launch import search_serve
+    from repro_torch.obs import Obs
+    from repro_torch.serve import HedgePolicy, Query, QueryOptions
+
+    t_phase = time.perf_counter()
+    n_serve = CLUSTER_CLIENTS * CLUSTER_REQUESTS
+    rng = np.random.default_rng(SEED + 4)
+    idx = rng.integers(0, N_DOCS, n_serve)
+    queries = [corpus_lib.make_query(corpus, int(i), cfg.max_query_nnz)
+               for i in idx]
+    # the resident engine's top-1 of each self-query (phase 6's engine),
+    # before the counters are set to 0
+    top1 = []
+    for lo in range(0, n_serve, 8):
+        q = queries[lo:lo + 8]
+        r = engine.search(Query(np.stack([x[0] for x in q]),
+                                np.stack([x[1] for x in q])))
+        top1 += list(zip(r.doc_ids[:, 0], r.scores[:, 0]))
+    if [int(d) for d, _ in top1] != [int(i) for i in idx]:
+        fail("cluster: a resident self-query did not rank itself first")
+    new = corpus_lib.synthesize(CLUSTER_APPENDS, cfg.vocab_size,
+                                cfg.avg_nnz_per_doc, cfg.nnz_pad,
+                                seed=SEED + 5)
+    new.doc_ids[:] += N_DOCS
+    new_docs = ell_docs(new, range(CLUSTER_APPENDS))
+    by_backend = {"gpu": "sparse_match", "gpu_packed": "sparse_match_packed",
+                  "gpu_fused": "fused_match_topk"}
+
+    for fn in kernels.values():
+        fn.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in kernels.items()}
+
+    def scored(obs):
+        """Slabs scored by any replica attempt under ``obs``: one
+        ``stage_ms{score}`` observation, and one kernel launch, each."""
+        return obs.registry.histogram("stage_ms", stage="score").count
+
+    def reported(obs):
+        """Scored segments summed over the cluster queries' ClusterStats."""
+        return obs.registry.counter("segments_scored_total",
+                                    surface="cluster").value
+
+    def check(step, backend, before, obs, s0, r0, exact):
+        """The step's launches: one a slab any attempt scored and, where
+        no hedge loser or straggler ran (``exact``), the ClusterStats
+        sum."""
+        now = counts()
+        delta = {n: now[n] - before[n] for n in now}
+        n_scored, n_reported = scored(obs) - s0, reported(obs) - r0
+        want = dict.fromkeys(delta, 0)
+        want[by_backend[backend]] = n_scored
+        if delta != want or (exact and n_scored != n_reported):
+            fail(f"cluster {step}: launches {delta}, slabs scored "
+                 f"{n_scored}, ClusterStats segments {n_reported}")
+        return (f"launches {delta[by_backend[backend]]} = slabs scored; "
+                f"ClusterStats segments {n_reported}")
+
+    # -- 2. build --------------------------------------------------------------
+    root = CLUSTER_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    root.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    cl = build_sharded_store(str(root), corpus=corpus,
+                             n_shards=CLUSTER_SHARDS,
+                             replicas=CLUSTER_REPLICAS, policy="hash",
+                             vocab_size=cfg.vocab_size,
+                             docs_per_segment=STORE_SEGMENT_DOCS)
+    build_s = time.perf_counter() - t0
+    per = [[cl.store(s, r).stats() for r in range(CLUSTER_REPLICAS)]
+           for s in range(CLUSTER_SHARDS)]
+    n_seg = sum(reps[0].n_segments for reps in per)
+    mb = [sum(reps[r].n_bytes for reps in per) / 1e6
+          for r in range(CLUSTER_REPLICAS)]
+    say(f"cluster: {N_DOCS} docs as {CLUSTER_SHARDS} shards x "
+        f"{CLUSTER_REPLICAS} replicas (hash) built in {build_s:.1f} s, "
+        f"{' + '.join(f'{m:.1f}' for m in mb)} MB on disk; docs a shard "
+        f"{[reps[0].n_docs for reps in per]}, segments a shard "
+        f"{[reps[0].n_segments for reps in per]} of <= "
+        f"{STORE_SEGMENT_DOCS}, filter {per[0][0].filter_kind}")
+    if cl.n_docs != N_DOCS or any(
+            [dataclasses.asdict(x) for x in reps] != [dataclasses.asdict(
+                reps[0])] * CLUSTER_REPLICAS for reps in per):
+        fail(f"cluster: {cl.n_docs} docs, replicas differ: {per}")
+    cl.close()
+
+    # -- 3-4. cold and warm on gpu, gpu_packed and gpu_fused -------------------
+    def serve_requests(sess, obs, backend):
+        before, s0, r0 = counts(), scored(obs), reported(obs)
+        idx8, qi, qv = requests[-1]
+        t1 = time.perf_counter()
+        r = sess.search_typed(Query(qi, qv))
+        cold_ms = (time.perf_counter() - t1) * 1e3
+        st = sess.last_stats
+        # a shard's last segment may hold a few hundred documents, which
+        # the vocab filter may skip for a query: every other segment and
+        # document is scored
+        if (st.segments_total, st.cache_misses) != (
+                n_seg, st.segments_scored) or st.segments_skipped > 2 or \
+                not same(r, resident[-1]):
+            fail(f"cluster {backend} cold L=8: {st}, or differs from the "
+                 "resident result")
+        n_cold = st.cache_misses
+        warm_ms, skipped, hits = [], [], []
+        for l, (idx_l, qi, qv) in enumerate(requests):
+            t1 = time.perf_counter()
+            r = sess.search_typed(Query(qi, qv))
+            warm_ms.append((time.perf_counter() - t1) * 1e3)
+            st = sess.last_stats
+            if (st.segments_total, st.cache_hits) != (
+                    n_seg, st.segments_scored) or st.segments_skipped > 2:
+                fail(f"cluster {backend} warm L={l + 1}: {st}")
+            skipped.append(st.segments_skipped)
+            hits.append(st.cache_hits)
+            if not same(r, resident[l]) or not np.array_equal(
+                    r.doc_ids[:, 0], idx_l):
+                fail(f"cluster {backend}: warm request L={l + 1} differs "
+                     "from the resident result")
+        line = check(f"{backend} requests", backend, before, obs, s0, r0,
+                     exact=True)
+        say(f"cluster {backend}: cold L=8 {cold_ms:.1f} ms ({n_seg} "
+            f"segments, {n_cold} misses); warm L=1..8 ms "
+            f"{', '.join(f'{t:.1f}' for t in warm_ms)} (cache hits "
+            f"{hits}, skip rate {st.skip_rate:.2f}, segments skipped "
+            f"{skipped}); router workers {sess.router._pool._max_workers}; "
+            f"launch keys {sess.compile_stats}; {line}; stage_ms "
+            f"{stage_summary(obs)}")
+        return warm_ms
+
+    obs = Obs()
+    sess = FlashClusterSession(str(root), cfg, device=dev, backend="gpu",
+                               cache_bytes=STORE_CACHE_BYTES, obs=obs)
+    warm_ms = serve_requests(sess, obs, "gpu")
+    for backend in ("gpu_packed", "gpu_fused"):
+        o = Obs()
+        with FlashClusterSession(str(root), cfg, device=dev, backend=backend,
+                                 cache_bytes=STORE_CACHE_BYTES,
+                                 obs=o) as other:
+            serve_requests(other, o, backend)
+    say("cluster: gpu, gpu_packed and gpu_fused cold and warm results "
+        "equal the resident ones bit for bit")
+
+    # -- 5. 16 clients through submit ------------------------------------------
+    before, s0, r0 = counts(), scored(obs), reported(obs)
+    svc = sess.service(max_batch=8, max_delay_ms=2.0)
+    lats = [[] for _ in range(CLUSTER_CLIENTS)]
+    rows = [None] * n_serve
+    errors = []
+
+    def client(t):
+        try:
+            for j in range(t * CLUSTER_REQUESTS, (t + 1) * CLUSTER_REQUESTS):
+                t1 = time.perf_counter()
+                rows[j] = sess.submit(Query(*queries[j])).result()
+                lats[t].append(time.perf_counter() - t1)
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(CLUSTER_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"cluster clients: {errors[:3]}")
+    for j, (row, (d, sc)) in enumerate(zip(rows, top1)):
+        if int(row.doc_ids[0]) != int(d) or (
+                np.float32(row.scores[0]).view(np.uint32)
+                != np.float32(sc).view(np.uint32)):
+            fail(f"cluster: served self-query {j} (doc {int(d)}) gave "
+                 f"{int(row.doc_ids[0])} at {row.scores[0]!r}, resident "
+                 f"{sc!r}")
+    lat = np.concatenate([np.asarray(x) for x in lats]) * 1e3
+    st = svc.stats
+    line = check("clients", "gpu", before, obs, s0, r0, exact=True)
+    say(f"cluster clients: {n_serve} L=1 self-queries from "
+        f"{CLUSTER_CLIENTS} clients in {wall:.2f} s -> {n_serve / wall:.1f} "
+        f"QPS; latency p50 {np.percentile(lat, 50):.1f} ms p99 "
+        f"{np.percentile(lat, 99):.1f} ms; batches {st.n_batches}, mean "
+        f"occupancy {st.mean_occupancy:.2f}, flushes {st.flushes}; every "
+        f"result ranks its document first at its resident score bit for "
+        f"bit; {line}")
+
+    # -- 6. failover -------------------------------------------------------------
+    router = sess.router
+    idx8, qi, qv = requests[-1]
+    q = Query(qi, qv)
+    before, s0, r0 = counts(), scored(obs), reported(obs)
+    primary = router._session(0, 0)
+    router._sessions[0][0] = _Replica(primary, dead=True)
+    t0 = time.perf_counter()
+    r = sess.search_typed(q)
+    fo_ms = (time.perf_counter() - t0) * 1e3
+    st = sess.last_stats
+    if not same(r, resident[-1]) or st.failovers != 1 or \
+            router.health()[0] != [False, True]:
+        fail(f"cluster failover: failovers {st.failovers}, health "
+             f"{router.health()}, or the result changed")
+    line = check("failover", "gpu", before, obs, s0, r0, exact=True)
+    router._sessions[0][0] = primary
+    router.reset_health()
+    say(f"cluster failover: shard 0's primary raises; the L=8 request "
+        f"served by its replica 1 (cold) in {fo_ms:.1f} ms, equal to the "
+        f"resident result; failovers {st.failovers}, replica marked down, "
+        f"then health reset; {line}")
+
+    # -- 7. a hedge ----------------------------------------------------------------
+    before, s0, r0 = counts(), scored(obs), reported(obs)
+    primary = router._session(1, 0)
+    gate = threading.Event()
+    router._sessions[1][0] = _Replica(primary, gate=gate)
+    router.hedge_policy = HedgePolicy(fallback_ms=1.0, min_ms=0.0)
+    try:
+        t0 = time.perf_counter()
+        r = sess.search_typed(q)
+        hedge_ms = (time.perf_counter() - t0) * 1e3
+        st = sess.last_stats
+        health = router.health()
+    finally:
+        gate.set()
+    router._hedge_executor().shutdown(wait=True)
+    router.hedge_policy = None
+    router._sessions[1][0] = primary
+    if not same(r, resident[-1]) or st.hedges < 1 or st.hedge_wins < 1 \
+            or health[1] != [True, True] or st.partial:
+        fail(f"cluster hedge: {st}, health {health}")
+    line = check("hedge", "gpu", before, obs, s0, r0, exact=False)
+    say(f"cluster hedge: shard 1's primary held until the call returned; "
+        f"the L=8 request in {hedge_ms:.1f} ms, equal to the resident "
+        f"result; hedges {st.hedges}, won {st.hedge_wins}, nothing marked "
+        f"down; {line} (the winners'; the rest are hedge losers')")
+
+    # -- 8. the partial gather -------------------------------------------------
+    # the budget: 50 ms, or 4x the slowest warm request if that is longer,
+    # so that the three shards that are not held answer inside it
+    deadline = max(50.0, 4 * max(warm_ms))
+    before, s0, r0 = counts(), scored(obs), reported(obs)
+    gate = threading.Event()
+    held = _Replica(primary, gate=gate)
+    router._sessions[1][0] = held
+    try:
+        t0 = time.perf_counter()
+        resp = sess.search(q, options=QueryOptions(deadline_ms=deadline,
+                                                   allow_partial=True))
+        part_ms = (time.perf_counter() - t0) * 1e3
+        st = sess.last_stats
+    finally:
+        gate.set()
+    if not held.done.wait(timeout=300):
+        fail("cluster partial: the released straggler did not finish")
+    router._sessions[1][0] = primary
+    want = None
+    for s in (0, 2, 3):
+        part = router._session(s, 0).search_typed(q)
+        want = part if want is None else _merge_results(want, part,
+                                                        cfg.top_k)
+    if not (resp.stats.partial and resp.stats.shards_missing == (1,)
+            and st.shards_missing == (1,) and same(resp.results, want)):
+        fail(f"cluster partial: {resp.stats}, {st}")
+    line = check("partial", "gpu", before, obs, s0, r0, exact=False)
+    say(f"cluster partial: shard 1 held; deadline {deadline:.1f} ms with "
+        f"allow_partial: answered in {part_ms:.1f} ms, partial, "
+        f"shards_missing {resp.stats.shards_missing}, equal to the merge of "
+        f"shards 0, 2 and 3; {line} (the straggler's and the three "
+        f"reference searches' too)")
+
+    # -- 9. live writes ------------------------------------------------------------
+    before, s0, r0 = counts(), scored(obs), reported(obs)
+    sess.enable_ingest(seal_docs=CLUSTER_SEAL_DOCS)
+    t0 = time.perf_counter()
+    owners = [sess.append(d, p) for d, p in new_docs]
+    append_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sealed = sess.flush_ingest()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for lo in range(0, CLUSTER_APPENDS, 8):
+        qs = [corpus_lib.make_query(new, r, cfg.max_query_nnz)
+              for r in range(lo, lo + 8)]
+        r = sess.search_typed(Query(np.stack([x[0] for x in qs]),
+                                    np.stack([x[1] for x in qs])))
+        if not np.array_equal(r.doc_ids[:, 0], new.doc_ids[lo:lo + 8]):
+            fail(f"cluster live: appended documents {lo}..{lo + 7} did not "
+                 f"rank themselves first: {r.doc_ids[:, 0]}")
+    query_s = time.perf_counter() - t0
+    st = sess.last_stats
+    line = check("live", "gpu", before, obs, s0, r0, exact=True)
+    say(f"cluster live: {CLUSTER_APPENDS} appends to both replicas of "
+        f"their owner shards ({np.bincount(owners, minlength=4).tolist()} "
+        f"a shard) in {append_s:.2f} s -> {CLUSTER_APPENDS / append_s:.0f} "
+        f"appends/s; the flush sealed {sealed} documents (both replicas) "
+        f"in {flush_ms:.1f} ms; {CLUSTER_APPENDS // 8} L=8 self-queries in "
+        f"{query_s:.2f} s ({st.segments_scored} segments a query), each "
+        f"ranking its document first; {line}")
+    sess.close()
+
+    # -- 10. the launcher --------------------------------------------------------
+    before = counts()
+    t0 = time.perf_counter()
+    out = search_serve.main([
+        "--cluster", str(root), "--hedge-percentile", "0.95",
+        "--allow-partial", "--backend", "gpu",
+        "--vocab", str(cfg.vocab_size), "--avg-nnz", str(cfg.avg_nnz_per_doc),
+        "--nnz-pad", str(cfg.nnz_pad), "--top-k", str(cfg.top_k),
+        "--query-nnz", str(cfg.nnz_pad), "--cache-mb", str(LIVE_CACHE_MB),
+        "--clients", str(CLUSTER_CLIENTS),
+        "--requests", str(CLUSTER_REQUESTS), "--seed", str(SEED)])
+    ss_s = time.perf_counter() - t0
+    line = check("search_serve", "gpu", before, out["obs"], 0, 0,
+                 exact=out["hedges"] == 0)
+    say(f"cluster search_serve: {ss_s:.1f} s; {out['qps']:.1f} QPS, p50 "
+        f"{out['p50_ms']:.1f} ms, p99 {out['p99_ms']:.1f} ms, batches "
+        f"{out['batches']}, occupancy {out['mean_occupancy']:.2f}; hedges "
+        f"fired {out['hedges']}, won {out['hedge_wins']}; partial "
+        f"{out['partial']}, failovers {out['failovers']}; {line}; stage_ms "
+        f"{stage_summary(out['obs'])}; cluster_shard_ms "
+        f"{hist_line(out['obs'], 'cluster_shard_ms')}")
+    if out["queries"] != n_serve or out["target"] != "cluster":
+        fail(f"cluster search_serve: {out}")
+
+    # -- 11. launches ---------------------------------------------------------------
+    launches = counts()
+    say(f"cluster launches: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"{name} was not launched in the cluster phase")
+    say(f"cluster phase: {time.perf_counter() - t_phase:.1f} s wall on "
         f"{nvidia_smi_line()}")
     return launches
 

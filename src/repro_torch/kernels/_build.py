@@ -23,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -103,6 +104,19 @@ def kernel(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def count_launch(wrapper, design: Optional[str] = None) -> None:
+    """Add one to ``wrapper.launches`` (and to
+    ``wrapper.launches_by_design[design]``) under a lock. Several threads
+    launch at once (the cluster router's shard pool, prefetch loaders,
+    hedge attempts), and a bare ``+= 1`` on an attribute can lose a count
+    between its read and its write. Setting ``wrapper.launches = 0``
+    resets the count."""
+    with _count_lock:
+        wrapper.launches += 1
+        if design is not None:
+            wrapper.launches_by_design[design] += 1
 
 
 def check(name: str, err: int) -> None:

@@ -168,8 +168,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
         S, H, k.shape[2], strides, int(causal), 1.0 / math.sqrt(hd),
         stream_of(out)))
-    flash_attention_gqa.launches += 1
-    flash_attention_gqa.launches_by_design[which] += 1
+    _build.count_launch(flash_attention_gqa, which)
     return out
 
 

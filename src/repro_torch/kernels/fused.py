@@ -221,7 +221,7 @@ def fused_match_topk(tiles: torch.Tensor, q_ids: torch.Tensor,
             vals.device.index, tiles.data_ptr(), q_ids.data_ptr(),
             q_vals.data_ptr(), q_norms.data_ptr(), vals.data_ptr(),
             ids.data_ptr(), T, cap, block_docs, Qm, L, kp, stream_of(vals)))
-        fused_match_topk.launches += 1
+        _build.count_launch(fused_match_topk)
     return vals, ids
 
 

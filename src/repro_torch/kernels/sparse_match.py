@@ -200,7 +200,7 @@ def sparse_match(doc_ids: torch.Tensor, doc_vals: torch.Tensor,
             out.device.index, doc_ids.data_ptr(), doc_vals.data_ptr(),
             q_ids.data_ptr(), q_vals.data_ptr(), out.data_ptr(), D, K, Qm, L,
             stream_of(out)))
-        sparse_match.launches += 1
+        _build.count_launch(sparse_match)
     return out
 
 

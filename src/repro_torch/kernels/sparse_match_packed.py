@@ -86,7 +86,7 @@ def sparse_match_packed(docs_packed: torch.Tensor, q_ids: torch.Tensor,
         _build.check("sparse_match_packed", fn(
             out.device.index, docs_packed.data_ptr(), q_ids.data_ptr(),
             q_vals.data_ptr(), out.data_ptr(), D, K, Qm, L, stream_of(out)))
-        sparse_match_packed.launches += 1
+        _build.count_launch(sparse_match_packed)
     return out
 
 

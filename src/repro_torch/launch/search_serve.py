@@ -14,13 +14,17 @@ aggregate QPS, batch occupancy and the engine's launch shapes.
         --n-docs 20000 --clients 16 --requests 32
 
 Add ``--store PATH`` to serve an existing FlashStore through a
-FlashSearchSession instead of a synthesized resident corpus. With it,
-``--ingest N`` additionally runs a closed-loop writer thread that
-appends N fresh documents through the live-ingestion tier (WAL ->
+FlashSearchSession, or ``--cluster PATH`` to serve a sharded store
+(DESIGN.md §5) through a FlashClusterSession, instead of a synthesized
+resident corpus. With either, ``--ingest N`` additionally runs a
+closed-loop writer thread that appends N fresh documents through the
+live-ingestion tier (WAL ->
 memtable -> delta segments, DESIGN.md §6) *while* the query clients run
 — the serving-under-writes scenario — and reports appends/sec plus
 seal/compaction counts. ``--cache-mb`` sizes the slab cache on the card
-(0 disables it).
+(0 disables it). On a cluster, ``--hedge-percentile P`` arms replica
+hedging and ``--allow-partial`` lets a query that hits ``--deadline-ms``
+return the merged top-k of the shards that answered, flagged partial.
 
 Observability (DESIGN.md §8): every target serves under one ``Obs``
 bundle and prints the same post-run summary. ``--metrics-out PATH``
@@ -32,11 +36,11 @@ time (``torch.cuda.synchronize``).
 
 The port of ``repro.launch.search_serve``. ``--device`` defaults to the
 card; ``--device cpu`` runs the kernels' plain versions. ``--backend``
-takes ``gpu`` (the default), ``gpu_packed`` or ``torch``. The cluster
-target and replica hedging (``--cluster``, ``--hedge-percentile``) wait
-for ROADMAP queue A5, the live telemetry plane (``--telemetry-port``,
-``--profile-dir``) for queue A6: those flags exit with an error naming
-the queue. ``main`` returns the run's numbers as a dict.
+takes ``gpu`` (the default), ``gpu_packed`` or ``torch``. The live
+telemetry plane (``--telemetry-port``, ``--profile-dir``) waits for
+ROADMAP queue A6: those flags exit with an error naming the queue, and
+``--slo-ms`` and ``--slo-target`` are not accepted yet. ``main`` returns
+the run's numbers as a dict.
 """
 import argparse
 import threading
@@ -51,8 +55,8 @@ from repro_torch.device import resolve
 from repro_torch.obs import Obs
 from repro_torch.obs.export import (render_summary, render_trace,
                                     write_metrics, write_traces)
-from repro_torch.serve import (DeadlineExceeded, OverloadError, Query,
-                               QueryOptions, SearchService)
+from repro_torch.serve import (DeadlineExceeded, HedgePolicy, OverloadError,
+                               Query, QueryOptions, SearchService)
 
 
 def run_clients(n_clients, n_requests, do_query):
@@ -123,17 +127,25 @@ def main(argv=None) -> dict:
     ap.add_argument("--tenant-qps", type=float, default=None,
                     help="per-tenant token-bucket quota (tokens/s); "
                          "over-quota submits shed with OverloadError")
+    ap.add_argument("--allow-partial", action="store_true",
+                    help="consent to best-effort gathers: a cluster "
+                         "query that hits --deadline-ms returns the "
+                         "merged top-k of the responsive shards, "
+                         "flagged partial")
     ap.add_argument("--hedge-percentile", type=float, default=None,
                     metavar="P",
-                    help="replica hedging (needs the cluster tier, "
-                         "ROADMAP queue A5)")
+                    help="arm replica hedging on the cluster: fire the "
+                         "next replica once a shard attempt outlives "
+                         "the rolling-window P-quantile of shard "
+                         "latency (e.g. 0.95; needs --cluster with "
+                         "replicas >= 2)")
     # approximate tier (DESIGN.md §15): candidate generation + re-rank
     ap.add_argument("--mode", choices=["exact", "approx", "auto"],
                     default="exact",
-                    help="scoring tier for --store: exact scans every "
-                         "surviving slab (default), approx takes the "
-                         "posting-candidate + exact-re-rank path, auto "
-                         "picks by corpus size")
+                    help="scoring tier for --store/--cluster: exact "
+                         "scans every surviving slab (default), approx "
+                         "takes the posting-candidate + exact-re-rank "
+                         "path, auto picks by corpus size")
     ap.add_argument("--recall-target", type=float, default=None,
                     metavar="R",
                     help="approx-tier recall@k goal in (0, 1]; sizes "
@@ -147,20 +159,21 @@ def main(argv=None) -> dict:
                     help="recurrent-query memo cache: keep the last N "
                          "results keyed by normalized query fingerprint "
                          "(0 = off; invalidated on any store mutation)")
-    ap.add_argument("--store", help="serve this FlashStore path through a "
-                                    "FlashSearchSession")
-    ap.add_argument("--cluster", help="a sharded store (needs the cluster "
-                                      "tier, ROADMAP queue A5)")
+    tgt = ap.add_mutually_exclusive_group()
+    tgt.add_argument("--store", help="serve this FlashStore path through a "
+                                     "FlashSearchSession")
+    tgt.add_argument("--cluster", help="serve this sharded-store path "
+                                       "through a FlashClusterSession")
     ap.add_argument("--ingest", type=int, default=0, metavar="N",
                     help="append N synthesized documents through the "
                          "live write path while the clients run "
-                         "(requires --store)")
+                         "(requires --store or --cluster)")
     ap.add_argument("--seal-docs", type=int, default=256,
                     help="memtable seal threshold for --ingest")
     ap.add_argument("--cache-mb", type=float, default=None,
-                    help="slab cache budget on the card in MB for --store "
-                         "(default: the storage tier's default budget; 0 "
-                         "disables the cache)")
+                    help="slab cache budget on the card in MB for "
+                         "--store/--cluster (default: the storage tier's "
+                         "default budget; 0 disables the cache)")
     ap.add_argument("--metrics-out", metavar="PATH",
                     help="write the metrics registry in Prometheus text "
                          "format here after the run (and the retained "
@@ -182,18 +195,16 @@ def main(argv=None) -> dict:
                          "time — measurement mode, adds a sync")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.cluster is not None or args.hedge_percentile is not None:
-        ap.error("--cluster and --hedge-percentile need the port's cluster "
-                 "tier (router, replica hedging), ROADMAP queue A5")
     if args.telemetry_port is not None or args.profile_dir is not None:
         ap.error("--telemetry-port and --profile-dir need the port's "
                  "telemetry server, ROADMAP queue A6")
-    if args.ingest and not args.store:
-        ap.error("--ingest needs --store (the resident engine has no "
-                 "write path)")
-    if (args.mode != "exact" or args.memo) and not args.store:
-        ap.error("--mode/--memo need --store (the resident engine has no "
-                 "posting tier)")
+    if args.ingest and not (args.store or args.cluster):
+        ap.error("--ingest needs --store or --cluster (the resident "
+                 "engine has no write path)")
+    if (args.mode != "exact" or args.memo) \
+            and not (args.store or args.cluster):
+        ap.error("--mode/--memo need --store or --cluster (the resident "
+                 "engine has no posting tier)")
 
     device = resolve(args.device)
     cfg = SearchConfig(name="serve", vocab_size=args.vocab,
@@ -215,6 +226,19 @@ def main(argv=None) -> dict:
         corpus = store.scan_corpus(cfg.nnz_pad, strict=False)
         print(f"[serve] store {args.store}: {store.n_docs} docs / "
               f"{store.n_segments} segments")
+    elif args.cluster:
+        from repro_torch.cluster import FlashClusterSession, ShardedStore
+        cstore = ShardedStore.open(args.cluster)
+        hedge = (HedgePolicy(percentile=args.hedge_percentile)
+                 if args.hedge_percentile is not None else None)
+        searcher = FlashClusterSession(cstore, cfg, device=device,
+                                       backend=args.backend,
+                                       cache_bytes=cache_bytes, obs=obs,
+                                       hedge_policy=hedge, mode=args.mode,
+                                       memo_entries=args.memo)
+        corpus = cstore.scan_corpus(cfg.nnz_pad, strict=False)
+        print(f"[serve] cluster {args.cluster}: {cstore.n_shards} shards x "
+              f"{cstore.replicas} replicas, {cstore.n_docs} docs")
     else:
         print(f"[serve] synthesizing {args.n_docs} docs "
               f"(vocab {args.vocab}, ~{args.avg_nnz} nnz/doc)...")
@@ -272,14 +296,18 @@ def main(argv=None) -> dict:
     # --recall-target/--candidates ride per query so the session default
     # mode can stay exact while clients opt into the approx tier
     q_opts = None
-    if (args.deadline_ms is not None or args.recall_target is not None
+    if (args.deadline_ms is not None or args.allow_partial
+            or args.hedge_percentile is not None
+            or args.recall_target is not None
             or args.candidates is not None):
         q_opts = QueryOptions(deadline_ms=args.deadline_ms,
+                              allow_partial=args.allow_partial,
                               recall_target=args.recall_target,
                               candidates=args.candidates)
     sched = {"shed": 0, "expired": 0}
     sched_lock = threading.Lock()
-    out = {"target": "store" if args.store else "resident",
+    out = {"target": ("store" if args.store else "cluster" if args.cluster
+                      else "resident"),
            "backend": args.backend, "device": str(device), "obs": obs}
 
     if args.serial:
@@ -341,22 +369,37 @@ def main(argv=None) -> dict:
         done, w_wall = writer_state["done"], writer_state["wall"]
         print(f"  ingest: {done} docs appended in {w_wall:.2f}s "
               f"-> {done / max(w_wall, 1e-9):.0f} appends/s under load")
-        pipe = searcher.ingest
-        print(f"  ingest: {pipe.stats.seals} seal(s), "
-              f"{pipe.stats.compactions} background fold(s); "
-              f"memtable tail {len(pipe.memtable)} docs")
+        pipes = [searcher.ingest] if args.store \
+            else searcher.router.ingest_pipelines()
+        seals = sum(p.stats.seals for p in pipes)
+        folds = sum(p.stats.compactions for p in pipes)
+        tail = sum(len(p.memtable) for p in pipes)
+        print(f"  ingest: {seals} seal(s), {folds} background fold(s); "
+              f"memtable tail {tail} docs")
         qi, qv = corpus_lib.make_query(corpus, 0, args.query_nnz)
         searcher.search(Query(qi[None], qv[None]))  # post-run sanity pass
         st = searcher.last_stats
         print(f"  post-ingest store: {st.docs_scored} docs scored "
               f"(snapshot incl. memtable)")
         out.update(appended=done, appends_per_s=done / max(w_wall, 1e-9),
-                   seals=pipe.stats.seals, folds=pipe.stats.compactions,
-                   memtable_tail=len(pipe.memtable),
+                   seals=seals, folds=folds, memtable_tail=tail,
                    post_docs_scored=st.docs_scored)
     # unified post-run block (DESIGN.md §8.3): one summary whichever
-    # target served — resident engine or store session
+    # target served — resident engine, store session, or cluster
     print(render_summary(searcher, obs))
+    if args.cluster:
+        router = searcher.router
+        down = sum(not ok for row in router.health() for ok in row)
+        print(f"router lifetime: {router.failovers} replicas "
+              f"failed over, {down} out of rotation")
+        # read without creating: an unused counter must not show up in
+        # --metrics-out, whose names are the reference's
+        counts = {name: int(m.value) for name, _, kind, m
+                  in obs.registry.items() if kind == "counter"}
+        out.update(failovers=router.failovers,
+                   hedges=counts.get("cluster_hedges_total", 0),
+                   hedge_wins=counts.get("cluster_hedge_wins_total", 0),
+                   partial=counts.get("cluster_partial_total", 0))
     if args.memo:
         ms = searcher.memo_stats
         total = ms.hits + ms.misses
@@ -373,7 +416,7 @@ def main(argv=None) -> dict:
         if args.trace_sample:
             n = write_traces(obs, args.metrics_out + ".traces.json")
             print(f"traces  -> {args.metrics_out}.traces.json ({n} trace(s))")
-    if args.store:
+    if args.store or args.cluster:
         searcher.close()
     return out
 

@@ -18,6 +18,7 @@ row's largest entry (``ROW_TOL``), which a dropped key tile would fail.
 """
 import ctypes
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -917,3 +918,194 @@ def test_service_over_a_live_gpu_session_equals_serial(dev, store, tmp_path):
                                           serial.scores[0].view(np.uint32))
         assert sess.service().stats.n_requests == len(qs)
     assert [int(r.doc_ids[0]) for r in rows] == want * 3
+
+
+# ---------------------------------------------------------------------------
+# the cluster tier on the card: threads launching at once
+# ---------------------------------------------------------------------------
+def test_launch_counts_are_exact_under_four_threads(dev):
+    """4 threads x 50 launches of B1: the count is exactly 200."""
+    ids, vals, mi, mv = _case(3)
+    _, (d_ids, d_vals, q_ids, q_vals) = _both(dev, ids, vals, mi, mv)
+    sparse_match(d_ids, d_vals, q_ids, q_vals)          # built, loaded
+    sparse_match.launches = 0
+    barrier = threading.Barrier(4)
+
+    def launch():
+        barrier.wait()
+        for _ in range(50):
+            sparse_match(d_ids, d_vals, q_ids, q_vals)
+
+    threads = [threading.Thread(target=launch) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert sparse_match.launches == 200
+
+
+@pytest.fixture(scope="module")
+def cluster(store, tmp_path_factory):
+    """The store fixture's corpus as 4 shards x 2 replicas."""
+    from repro_torch.cluster import build_sharded_store
+    _, corpus, requests = store
+    root = str(tmp_path_factory.mktemp("card-cluster") / "c4x2")
+    build_sharded_store(root, corpus=corpus, n_shards=4, replicas=2,
+                        vocab_size=STORE_CFG.vocab_size,
+                        docs_per_segment=350).close()
+    return root, corpus, requests
+
+
+_COUNTERS = {"gpu": sparse_match, "gpu_packed": sparse_match_packed,
+             "gpu_fused": fused.fused_match_topk}
+
+
+@pytest.mark.parametrize("backend", ["gpu", "gpu_packed", "gpu_fused"])
+def test_cluster_on_the_card_equals_the_cluster_on_torch(dev, cluster,
+                                                         backend):
+    """Each request cold then warm on the card against the same cluster on
+    CPU ``torch``, bit for bit; one launch a scored segment under the
+    router's 4 threads; the store-wide resident engine agrees too."""
+    from repro_torch.cluster import FlashClusterSession
+    from repro_torch.serve import Query
+    root, corpus, requests = cluster
+    counter = _COUNTERS[backend]
+    resident = PatternSearchEngine(corpus, STORE_CFG, dev, backend)
+    with FlashClusterSession(root, STORE_CFG, device=dev, backend=backend,
+                             max_workers=4) as sess, \
+            FlashClusterSession(root, STORE_CFG, device="cpu",
+                                backend="torch") as cpu:
+        for n, (idx, qi, qv) in enumerate(requests + requests):
+            before = counter.launches
+            got = sess.search_typed(Query(qi, qv))
+            torch.cuda.synchronize()
+            st = sess.last_stats
+            assert counter.launches - before == st.segments_scored > 0
+            assert st.docs_scored == corpus.n_docs
+            # the first request is cold, every later one warm
+            assert (st.cache_misses if n == 0 else
+                    st.cache_hits) == st.segments_scored
+            _same_result(got, cpu.search_typed(Query(qi, qv)))
+            _same_result(got, resident.search_typed(Query(qi, qv)))
+            np.testing.assert_array_equal(got.doc_ids[:, 0], idx)
+
+
+class _CountedReplica:
+    """A replica session that adds up the segments its searches scored
+    (a kernel launch each), winners and losers alike, and that waits for
+    ``gate`` first while one is set."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.scored = 0
+        self.gate = None
+        self.done = threading.Event()
+
+    def hold(self, gate):
+        self.gate, self.done = gate, threading.Event()
+
+    def search(self, *a, **k):
+        if self.gate is not None:
+            self.gate.wait()
+        try:
+            return self._inner.search(*a, **k)
+        finally:
+            self.scored += self._inner.last_stats.segments_scored
+            self.done.set()
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def test_a_gated_hedge_and_a_partial_gather_on_the_card(dev, cluster):
+    """Shard 1's primary waits on an event that opens only after each call
+    returns: the hedge to replica 1 wins bit-identically and marks
+    nothing; a deadline-bound gather without hedging drops shard 1 and
+    equals the merge of the other three. B1 launches once a segment that
+    any attempt scored: the winners', which ClusterStats reports, plus
+    hedge losers' and the released straggler's."""
+    from repro_torch.cluster import FlashClusterSession
+    from repro_torch.core.engine import _merge_results
+    from repro_torch.serve import HedgePolicy, Query, QueryOptions
+    root, corpus, requests = cluster
+    _, qi, qv = requests[-1]
+    q = Query(qi, qv)
+    with FlashClusterSession(root, STORE_CFG, device=dev) as sess:
+        router = sess.router
+        full = sess.search_typed(q)
+        reps = {}
+        for s in range(4):
+            for r in range(2):
+                reps[s, r] = _CountedReplica(router._session(s, r))
+                router._sessions[s][r] = reps[s, r]
+        torch.cuda.synchronize()
+        sparse_match.launches = 0
+        # the hedge
+        gate = threading.Event()
+        reps[1, 0].hold(gate)
+        router.hedge_policy = HedgePolicy(fallback_ms=1.0, min_ms=0.0)
+        try:
+            hedged = sess.search_typed(q)
+            st = sess.last_stats
+        finally:
+            gate.set()
+        router._hedge_executor().shutdown(wait=True)
+        _same_result(hedged, full)
+        assert st.hedges >= 1 and st.hedge_wins >= 1 and not st.partial
+        assert reps[1, 0].done.is_set() and reps[1, 1].scored > 0
+        assert router.health() == [[True, True]] * 4
+        # the partial gather
+        router.hedge_policy = None
+        gate = threading.Event()
+        reps[1, 0].hold(gate)
+        try:
+            resp = sess.search(q, options=QueryOptions(
+                deadline_ms=1000.0, allow_partial=True))
+            st = sess.last_stats
+        finally:
+            gate.set()
+        assert reps[1, 0].done.wait(timeout=120)
+        assert resp.stats.partial and resp.stats.shards_missing == (1,)
+        assert st.partial and st.shards_missing == (1,)
+        assert st.per_shard[1] is None
+        want = None
+        for s in (0, 2, 3):
+            part = reps[s, 0].search_typed(q)
+            want = part if want is None else _merge_results(
+                want, part, STORE_CFG.top_k)
+        _same_result(resp.results, want)
+        torch.cuda.synchronize()
+        # the three direct searches above bypass the counting wrappers
+        direct = sum(reps[s, 0]._inner.last_stats.segments_scored
+                     for s in (0, 2, 3))
+        assert sparse_match.launches == direct + sum(
+            r.scored for r in reps.values())
+
+
+def test_cluster_on_the_card_never_reaches_a_plain_version(dev, cluster,
+                                                           monkeypatch):
+    """Every kernel's plain version raises: a cluster search on the card
+    with hedging armed goes through the kernels alone."""
+    from repro_torch.cluster import FlashClusterSession
+    from repro_torch.serve import HedgePolicy, Query
+
+    def plain_called(*args, **kwargs):
+        raise AssertionError("plain version called on the card")
+
+    root, corpus, requests = cluster
+    for backend in ("gpu", "gpu_packed", "gpu_fused"):
+        resident = PatternSearchEngine(corpus, STORE_CFG, dev, backend)
+        want = [resident.search_typed(Query(qi, qv))
+                for _, qi, qv in requests]
+        with monkeypatch.context() as m:
+            m.setattr(sparse_match_mod, "sparse_match_plain", plain_called)
+            m.setattr(sparse_match_packed_mod, "sparse_match_packed_plain",
+                      plain_called)
+            m.setattr(fused, "fused_match_topk_plain", plain_called)
+            with FlashClusterSession(
+                    root, STORE_CFG, device=dev, backend=backend,
+                    hedge_policy=HedgePolicy(fallback_ms=1.0,
+                                             min_ms=0.0)) as sess:
+                for (_, qi, qv), w in zip(requests, want):
+                    _same_result(sess.search_typed(Query(qi, qv)), w)

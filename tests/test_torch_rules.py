@@ -4,8 +4,9 @@
     benchmarks (``examples/port_*.py``, ``benchmarks/port_*.py``) import
     neither ``jax`` nor the JAX package ``repro`` (only ``repro_torch``);
   - with no CUDA card, the default device is an error, never the CPU
-    (the search engine, the store session, the serving launcher, and the
-    LM's init, generate and launcher);
+    (the search engine, the store session, the cluster session and its
+    router, the serving launcher, and the LM's init, generate and
+    launcher);
   - a wrapper given CUDA tensors launches its kernel or raises: it never
     reaches its plain version (checked with fake CUDA tensors and a
     kernel loader that raises);
@@ -89,6 +90,22 @@ def test_store_session_without_device_raises_without_a_card(no_card,
     FlashSearchSession(store, smoke(), device="cpu").close()
 
 
+def test_cluster_without_device_raises_without_a_card(no_card, tmp_path):
+    from repro_torch.cluster import (FlashClusterSession, ShardRouter,
+                                     build_sharded_store)
+    cl = build_sharded_store(str(tmp_path / "c"), [(0, [(1, 2)])],
+                             n_shards=2, replicas=2, vocab_size=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FlashClusterSession(cl, smoke())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardRouter(cl, smoke())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        search_serve.main(["--cluster", cl.root, "--vocab", "64"])
+    sess = FlashClusterSession(cl, smoke(), device="cpu")
+    assert sess.router.device == torch.device("cpu")
+    sess.close()
+
+
 def test_lm_entry_points_without_device_raise_without_a_card(no_card):
     cfg = qwen2_0p5b.smoke_config()
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -108,6 +125,11 @@ def test_default_backend_is_the_ell_kernel():
     assert sig.parameters["device"].default is None
     assert inspect.signature(ops.correlate).parameters[
         "backend"].default == "gpu"
+    from repro_torch.cluster import FlashClusterSession, ShardRouter
+    for cls in (FlashClusterSession, ShardRouter):
+        params = inspect.signature(cls.__init__).parameters
+        assert params["backend"].default == "gpu"
+        assert params["device"].default is None
 
 
 def _cuda_calls():

@@ -458,7 +458,6 @@ def test_search_serve_resident_serial_and_fenced(capsys):
 
 
 @pytest.mark.parametrize("flag,queue", [
-    (["--cluster", "somewhere"], "A5"), (["--hedge-percentile", "0.95"], "A5"),
     (["--telemetry-port", "0"], "A6"), (["--profile-dir", "p"], "A6")])
 def test_search_serve_flags_of_later_queues_exit_naming_them(flag, queue,
                                                             capsys):
@@ -466,3 +465,47 @@ def test_search_serve_flags_of_later_queues_exit_naming_them(flag, queue,
         search_serve.main(["--device", "cpu"] + flag)
     assert ei.value.code == 2
     assert queue in capsys.readouterr().err
+
+
+def test_search_serve_on_a_cluster_writes_the_reference_metric_names(
+        tmp_path, monkeypatch, capsys):
+    """``--cluster`` with ``--hedge-percentile`` and ``--allow-partial``
+    (a 2 x 2 cluster on the CPU, the same directory for both runs) and
+    ``--ingest`` through the cluster's write path: the port's metric
+    names are the reference's."""
+    from repro.cluster import build_sharded_store as j_build
+    corpus = j_corpus.synthesize(96, 64, 12, 16, seed=13)
+    base = str(tmp_path / "base")
+    j_build(base, _corpus_docs(corpus), n_shards=2, replicas=2,
+            vocab_size=64, docs_per_segment=32)
+    roots = {}
+    for who in ("ref", "port"):
+        roots[who] = str(tmp_path / who)
+        shutil.copytree(base, roots[who])
+    flags = ["--hedge-percentile", "0.95", "--allow-partial"]
+    out = search_serve.main(SERVE_ARGS + flags + [
+        "--cluster", roots["port"], "--device", "cpu", "--backend", "torch",
+        "--metrics-out", str(tmp_path / "port.prom")])
+    monkeypatch.setattr(sys, "argv", ["search_serve"] + SERVE_ARGS + flags + [
+        "--cluster", roots["ref"], "--backend", "jnp",
+        "--metrics-out", str(tmp_path / "ref.prom")])
+    j_search_serve.main()
+    text = capsys.readouterr().out
+    assert text.count("2 shards x 2 replicas, 96 docs") == 2
+    assert text.count("router lifetime: 0 replicas failed over") == 2
+    # whether a hedge fires depends on this run's shard times against
+    # their own rolling p95, so its two counters are held to the run's
+    # count, and every other name to the reference's
+    hedge_names = {"repro_cluster_hedges_total",
+                   "repro_cluster_hedge_wins_total"}
+    names = set(_metric_names(tmp_path / "port.prom"))
+    ref_names = set(_metric_names(tmp_path / "ref.prom"))
+    assert names - hedge_names == ref_names - hedge_names
+    assert ("repro_cluster_hedges_total" in names) == (out["hedges"] > 0)
+    assert ("repro_cluster_hedge_wins_total" in names) == (
+        out["hedge_wins"] > 0)
+    assert "repro_cluster_shard_ms" in names
+    assert out["target"] == "cluster" and out["queries"] == 12
+    assert out["appended"] == 40 and out["post_docs_scored"] == 96 + 40
+    assert out["failovers"] == 0 and out["partial"] == 0
+    assert 0 <= out["hedge_wins"] <= out["hedges"]
