@@ -73,7 +73,21 @@ each of which fails the run (non-zero exit) if it fails:
                appends/s, seals, folds, seal and fold ms, replay seconds,
                the stage_ms histograms, the memtable's score (from the
                traces' spans) apart from a segment's, and its wall time
-               beside the card's name and power limit;
+               beside the card's name and power limit. The live
+               telemetry plane runs through the serving under writes:
+               the session's ``start_telemetry`` with the stock store
+               SLOs (250 ms) and a profile directory, a scraper thread
+               GETting /metrics, /healthz, /slo and /debug/traces in
+               turn every 50 ms, every answer 200 (the body printed
+               otherwise), and one /debug/profile?ms=500 under the load,
+               whose trace must name B1's kernel and hold CPU ops of a
+               thread other than the HTTP one; the phase's stderr must
+               not hold Kineto's ``External init callback`` error. It
+               prints scrapes by route and code, scrape ms p50/p99 by
+               route, /metrics bytes, the capture's size, kernel launches
+               and threads, and each objective's state, burn rate and
+               window events; ``search_serve`` adds ``--telemetry-port 0
+               --slo-ms 250 --profile-dir build/profile``;
   6d. cluster  the 2^20 documents as a ShardedStore of 4 shards x 2
                replicas (hash policy, segments of 2^16; build seconds, MB
                on disk, documents a shard) under ``build/cluster/``,
@@ -102,8 +116,12 @@ each of which fails the run (non-zero exit) if it fails:
                won, stage histograms). B1-B3 must each have launched, one
                launch a slab that any replica attempt scored; where no
                hedge loser or straggler ran, exactly the sum of scored
-               segments that ClusterStats reports. It prints its wall
-               time beside the card's name and power limit;
+               segments that ClusterStats reports. The gpu session's
+               ``start_telemetry()``: /healthz ok before the failover,
+               degraded with replicas_down 1 once shard 0's primary is
+               marked down, ok after the health reset, and a scraper
+               answered 200 throughout the 16-client load. It prints its
+               wall time beside the card's name and power limit;
   7. times     each search kernel, its plain version and the library
                yardstick (torch.sparse.mm, CSR [D, V] x dense [V, L]) by
                CUDA events, median of repeats, beside the bound the card's
@@ -136,13 +154,23 @@ each of which fails the run (non-zero exit) if it fails:
                eager calls printed beside), beside its bound: causal
                FLOPs 2·B·H·S²·hd over the bf16 tensor-core peak, or the
                bytes of q, k, v and o over the memory rate, the larger.
+ 12. graph     GraphBLAS (``repro_torch.core.graphblas``, plain PyTorch)
+               on a graph of 2^20 vertices and 2^24 edges, in-neighbours
+               uniform from seed 0, as an incoming-edges ELL on the card:
+               PageRank (50 iterations, damping 0.85) sums to 1 within
+               1e-3 and equals the same call on the CPU within rtol 1e-5;
+               BFS levels from vertex 0 (32 iterations) equal a numpy BFS
+               exactly; ms a PageRank iteration beside its bytes bound,
+               and the phase's wall time.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the repo beside it, it
 exits non-zero and prints no result.
 """
+import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -194,6 +222,14 @@ CLUSTER_ROOT = Path(__file__).resolve().parent / "build" / "cluster"
 CLUSTER_SHARDS, CLUSTER_REPLICAS = 4, 2  # phase 6d's ShardedStore
 CLUSTER_CLIENTS, CLUSTER_REQUESTS = 16, 32
 CLUSTER_APPENDS, CLUSTER_SEAL_DOCS = 512, 256
+TELEMETRY_ROUTES = ("/metrics", "/healthz", "/slo", "/debug/traces")
+SCRAPE_EVERY_S = 0.05                  # the scraper's pace, ~20 GETs a second
+PROFILE_MS = 500                       # phase 6c's /debug/profile capture
+PROFILE_ROOT = Path(__file__).resolve().parent / "build" / "profile"
+B1_TRACE_NAME = ("table_kernel", "EllDocs")  # B1's kernel in a CUDA trace
+KINETO_THREAD_ERROR = "External init callback"
+GRAPH_VERTICES, GRAPH_EDGES = 1 << 20, 1 << 24
+GRAPH_PR_ITERS, GRAPH_BFS_ITERS = 50, 32
 STORE_NNZ_PADS = (64, 128, 256, 512)
 NEW_SHAPE_DOCS = (8, 64, 1000)         # an approx pool, a small one, odd
 NEW_SHAPE_BLOCK_DOCS = (8, 32)         # AutoTiling's narrow doc tiles
@@ -267,6 +303,100 @@ def bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def http_get(url, timeout=300):
+    """(status, body, ms) of one GET; a 4xx/5xx answer is returned, not
+    raised."""
+    import urllib.error
+    import urllib.request
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            code, body = resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read().decode()
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+class Scraper:
+    """GETs the telemetry routes in turn, one every SCRAPE_EVERY_S, on a
+    thread of its own between ``start`` and ``stop``; keeps each answer's
+    route, code, ms and bytes, and the body of any that is not 200."""
+
+    def __init__(self, server):
+        import threading
+        self.server = server
+        self.seen = []
+        self.bad = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="scraper")
+
+    def _run(self):
+        i = 0
+        while not self._stop.is_set():
+            route = TELEMETRY_ROUTES[i % len(TELEMETRY_ROUTES)]
+            code, body, ms = http_get(self.server.url(route))
+            self.seen.append((route, code, ms, len(body.encode())))
+            if code != 200:
+                self.bad.append((route, code, body))
+            i += 1
+            self._stop.wait(SCRAPE_EVERY_S)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self, where):
+        """Stop, join, and fail the run on any answer that was not 200."""
+        self._stop.set()
+        self._thread.join()
+        if self.bad:
+            route, code, body = self.bad[0]
+            fail(f"{where}: {len(self.bad)} scrapes were not 200; the "
+                 f"first, {route} {code}:\n{body}")
+        if not self.seen:
+            fail(f"{where}: no scrape was answered")
+
+    def summary(self) -> str:
+        parts = []
+        for route in TELEMETRY_ROUTES:
+            rows = [r for r in self.seen if r[0] == route]
+            codes = {}
+            for r in rows:
+                codes[r[1]] = codes.get(r[1], 0) + 1
+            ms = [r[2] for r in rows]
+            parts.append(f"{route} {codes} ms p50 "
+                         f"{np.percentile(ms, 50):.2f} p99 "
+                         f"{np.percentile(ms, 99):.2f}" if rows else
+                         f"{route} none")
+        sizes = [r[3] for r in self.seen if r[0] == "/metrics"]
+        return (f"{len(self.seen)} scrapes: " + "; ".join(parts)
+                + f"; /metrics {int(np.median(sizes)) if sizes else 0} bytes"
+                  f" (median, max {max(sizes, default=0)})")
+
+
+@contextlib.contextmanager
+def fd2_copied(path):
+    """Send file descriptor 2, where Kineto prints past Python's
+    ``sys.stderr``, to ``path`` for the block; then write what it caught
+    to the real stderr and into the yielded dict's ``text``."""
+    out = {"text": ""}
+    sys.stderr.flush()
+    saved = os.dup(2)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w+b") as f:
+        os.dup2(f.fileno(), 2)
+        try:
+            yield out
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+            f.seek(0)
+            out["text"] = f.read().decode(errors="replace")
+            sys.stderr.write(out["text"])
+            sys.stderr.flush()
+
+
 def same(a, b) -> bool:
     return (np.array_equal(a.doc_ids, b.doc_ids)
             and np.array_equal(a.scores.view(np.uint32),
@@ -274,6 +404,7 @@ def same(a, b) -> bool:
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -487,10 +618,16 @@ def main() -> int:
         launches[name] += n
 
     # -- 6c. live --------------------------------------------------------------
-    live_launches = live_phase(torch, dev, cfg, corpus, g, kernels)
+    with fd2_copied(STORE_ROOT.parent / "live.stderr") as err:
+        live_launches = live_phase(torch, dev, cfg, corpus, g, kernels)
+    if KINETO_THREAD_ERROR in err["text"]:
+        fail(f"live: the phase's stderr holds {KINETO_THREAD_ERROR!r}")
+    say(f"live: the phase's stderr ({len(err['text'])} bytes) holds no "
+        f"{KINETO_THREAD_ERROR!r}")
     for name, n in live_launches.items():
         launches[name] += n
     shutil.rmtree(STORE_ROOT, ignore_errors=True)
+    shutil.rmtree(PROFILE_ROOT, ignore_errors=True)
     torch.cuda.empty_cache()
 
     # -- 6d. cluster -------------------------------------------------------------
@@ -560,6 +697,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rows.append(lm_phases(torch, dev))
+    graph_phase(torch, dev)
+    say(f"run: {time.perf_counter() - t_run:.1f} s wall")
     say(nvidia_smi_line())
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
@@ -833,6 +972,36 @@ def trace_parts(trace):
     return {k: round(v, 3) for k, v in parts.items()}
 
 
+def profile_summary(answer) -> str:
+    """Check phase 6c's /debug/profile answer: 200, and a trace that
+    names B1's kernel and holds CPU ops of a thread other than the HTTP
+    one that captured it. Returns what the trace holds."""
+    if answer is None:
+        fail("live profile: the capture never ran")
+    code, body, ms = answer
+    if code != 200:
+        fail(f"live profile: /debug/profile answered {code}:\n{body}")
+    ans = json.loads(body)
+    events = json.load(open(ans["file"]))["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    b1 = sum(all(p in k for p in B1_TRACE_NAME) for k in kernels)
+    ops = {}
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            ops[e.get("tid")] = ops.get(e.get("tid"), 0) + 1
+    others = {t: n for t, n in ops.items() if t != ans["thread"]}
+    if not b1 or not others:
+        fail(f"live profile: {b1} launches of B1's kernel and CPU ops of "
+             f"{len(others)} threads other than the HTTP one in "
+             f"{ans['file']}")
+    return (f"/debug/profile?ms={ans['captured_ms']} answered 200 in "
+            f"{ms:.0f} ms; {ans['file']} {os.path.getsize(ans['file'])} "
+            f"bytes, {len(kernels)} kernel launches ({b1} of B1), CPU ops "
+            f"of {len(ops)} threads (HTTP thread {ans['thread']}: "
+            f"{ops.get(ans['thread'], 0)}; the others "
+            f"{sorted(others.values(), reverse=True)})")
+
+
 def med(xs):
     return f"{statistics.median(xs):.3f}" if xs else "none"
 
@@ -844,13 +1013,15 @@ def hist_line(obs, name, **labels):
 
 def live_phase(torch, dev, cfg, corpus, resident, kernels):
     """Phase 6c: phase 6b's store served through the coalescing
-    SearchService while a writer appends, seals and the compactor folds;
-    batched against serial on four backends; WAL replay; the launcher.
-    Returns the launches the phase made."""
+    SearchService while a writer appends, seals and the compactor folds,
+    scraped and profiled through the live telemetry plane; batched
+    against serial on four backends; WAL replay; the launcher. Returns
+    the launches the phase made."""
     import threading
     from repro_torch.core import corpus as corpus_lib
     from repro_torch.launch import search_serve
     from repro_torch.obs import Obs
+    from repro_torch.obs.slo import SLOMonitor, default_slos
     from repro_torch.serve import Query
     from repro_torch.storage import FlashSearchSession, FlashStore, SlabCache
 
@@ -889,6 +1060,16 @@ def live_phase(torch, dev, cfg, corpus, resident, kernels):
                       np.stack([x[1] for x in queries[:8]])))
     say(f"live: store reopened, {store.n_segments} segments; first (cold) "
         f"L=8 request {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    # the telemetry plane, built on this thread: the profiler's first
+    # session runs here (and loads CUPTI), so a capture from the HTTP
+    # thread covers every thread
+    t0 = time.perf_counter()
+    srv = sess.start_telemetry(
+        slo_monitor=SLOMonitor(obs, default_slos("store", latency_ms=250.0)),
+        profile_dir=str(PROFILE_ROOT))
+    say(f"live telemetry: {srv.url('/')} up in "
+        f"{time.perf_counter() - t0:.2f} s (the profiler's first session "
+        f"on the thread that built it)")
 
     # -- 2. serve under writes ----------------------------------------------
     svc = sess.service(max_batch=8, max_delay_ms=2.0)
@@ -896,6 +1077,15 @@ def live_phase(torch, dev, cfg, corpus, resident, kernels):
     rows = [None] * n_serve
     errors = []
     writer_s = {}
+    capture = {}
+    load_done = threading.Event()
+
+    def profile():
+        # once the load is under way: a /debug/profile over its middle
+        while sum(map(len, lats)) < 64 and not load_done.is_set():
+            load_done.wait(0.01)
+        capture["answer"] = http_get(
+            srv.url(f"/debug/profile?ms={PROFILE_MS}"))
 
     def client(t):
         try:
@@ -918,12 +1108,18 @@ def live_phase(torch, dev, cfg, corpus, resident, kernels):
     threads = [threading.Thread(target=writer, name="live-writer")] + [
         threading.Thread(target=client, args=(t,))
         for t in range(LIVE_CLIENTS)]
+    profiler = threading.Thread(target=profile, name="live-profile")
+    scraper = Scraper(srv).start()
+    profiler.start()
     t0 = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     wall = time.perf_counter() - t0
+    load_done.set()
+    profiler.join()
+    scraper.stop("live telemetry")
     if errors:
         fail(f"live: serving under writes: {errors[:3]}")
     for j, (row, (d, sc)) in enumerate(zip(rows, top1)):
@@ -962,6 +1158,13 @@ def live_phase(torch, dev, cfg, corpus, resident, kernels):
         f"slowest three in parts: "
         + "; ".join(str(trace_parts(t)) for t in sorted(
             traces[1:], key=lambda t: -t["root"]["dur_ms"])[:3]))
+    say(f"live telemetry (the QPS and p50/p99 above are under it): "
+        f"{scraper.summary()}")
+    say(f"live profile: {profile_summary(capture.get('answer'))}")
+    say("live slo: " + "; ".join(
+        f"{st.name} {st.state} burn {st.burn_rate:.3f} window_events "
+        f"{st.window_events} good {st.good_fraction}"
+        for st in srv.slo_monitor.evaluate()))
 
     # -- 3. batched against serial on four backends --------------------------
     sess.flush_ingest()
@@ -1060,7 +1263,9 @@ def live_phase(torch, dev, cfg, corpus, resident, kernels):
         "--nnz-pad", str(cfg.nnz_pad), "--top-k", str(cfg.top_k),
         "--query-nnz", str(cfg.nnz_pad), "--cache-mb", str(LIVE_CACHE_MB),
         "--clients", str(LIVE_CLIENTS), "--requests", str(LIVE_REQUESTS),
-        "--trace-sample", "1", "--seed", str(SEED)])
+        "--trace-sample", "1", "--seed", str(SEED),
+        "--telemetry-port", "0", "--slo-ms", "250",
+        "--profile-dir", str(PROFILE_ROOT)])
     mem, seg = score_spans(out["obs"].tracer.export())
     say(f"live search_serve: {time.perf_counter() - t0:.1f} s; "
         f"{out['qps']:.1f} QPS, p50 {out['p50_ms']:.1f} ms, p99 "
@@ -1071,7 +1276,11 @@ def live_phase(torch, dev, cfg, corpus, resident, kernels):
         f"spans of the last {len(out['obs'].tracer.recent)} traces: memtable "
         f"median {med(mem)} ms (n={len(mem)}), a segment's {med(seg)} ms "
         f"(n={len(seg)})")
-    if out["queries"] != n_serve or out["seals"] < 1 or not mem:
+    say(f"live search_serve telemetry {out['telemetry_url']}: " + "; ".join(
+        f"{name} {d['state']} burn {d['burn_rate']} window_events "
+        f"{d['window_events']}" for name, d in out["slo"].items()))
+    if out["queries"] != n_serve or out["seals"] < 1 or not mem or sorted(
+            out["slo"]) != ["store-availability", "store-latency"]:
         fail(f"live search_serve: {out}")
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
@@ -1265,7 +1474,16 @@ def cluster_phase(torch, dev, cfg, corpus, requests, resident, engine,
     say("cluster: gpu, gpu_packed and gpu_fused cold and warm results "
         "equal the resident ones bit for bit")
 
-    # -- 5. 16 clients through submit ------------------------------------------
+    # -- 5. 16 clients through submit, scraped -------------------------------
+    srv = sess.start_telemetry()
+
+    def healthz():
+        code, body, _ = http_get(srv.url("/healthz"))
+        if code != 200:
+            fail(f"cluster /healthz answered {code}:\n{body}")
+        router = json.loads(body)["components"]["router"]
+        return json.loads(body)["status"], router["replicas_down"]
+
     before, s0, r0 = counts(), scored(obs), reported(obs)
     svc = sess.service(max_batch=8, max_delay_ms=2.0)
     lats = [[] for _ in range(CLUSTER_CLIENTS)]
@@ -1283,12 +1501,14 @@ def cluster_phase(torch, dev, cfg, corpus, requests, resident, engine,
 
     threads = [threading.Thread(target=client, args=(t,))
                for t in range(CLUSTER_CLIENTS)]
+    scraper = Scraper(srv).start()
     t0 = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     wall = time.perf_counter() - t0
+    scraper.stop("cluster telemetry")
     if errors:
         fail(f"cluster clients: {errors[:3]}")
     for j, (row, (d, sc)) in enumerate(zip(rows, top1)):
@@ -1308,12 +1528,15 @@ def cluster_phase(torch, dev, cfg, corpus, requests, resident, engine,
         f"occupancy {st.mean_occupancy:.2f}, flushes {st.flushes}; every "
         f"result ranks its document first at its resident score bit for "
         f"bit; {line}")
+    say(f"cluster telemetry (the QPS and p50/p99 above are under it): "
+        f"{scraper.summary()}")
 
     # -- 6. failover -------------------------------------------------------------
     router = sess.router
     idx8, qi, qv = requests[-1]
     q = Query(qi, qv)
     before, s0, r0 = counts(), scored(obs), reported(obs)
+    flips = [healthz()]
     primary = router._session(0, 0)
     router._sessions[0][0] = _Replica(primary, dead=True)
     t0 = time.perf_counter()
@@ -1325,8 +1548,15 @@ def cluster_phase(torch, dev, cfg, corpus, requests, resident, engine,
         fail(f"cluster failover: failovers {st.failovers}, health "
              f"{router.health()}, or the result changed")
     line = check("failover", "gpu", before, obs, s0, r0, exact=True)
+    flips.append(healthz())
     router._sessions[0][0] = primary
     router.reset_health()
+    flips.append(healthz())
+    if flips != [("ok", 0), ("degraded", 1), ("ok", 0)]:
+        fail(f"cluster /healthz (status, replicas_down) around the "
+             f"failover: {flips}")
+    say(f"cluster /healthz around the failover, all 200: "
+        f"{' -> '.join(f'{h} (replicas_down {n})' for h, n in flips)}")
     say(f"cluster failover: shard 0's primary raises; the L=8 request "
         f"served by its replica 1 (cold) in {fo_ms:.1f} ms, equal to the "
         f"resident result; failovers {st.failovers}, replica marked down, "
@@ -1679,6 +1909,92 @@ def lm_phases(torch, dev):
             "max_abs_err": attn_err["prefill bf16 causal"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms}
+
+
+def graph_phase(torch, dev):
+    """Phase 12: GraphBLAS's PageRank and BFS on the card at 2^20
+    vertices, against the same PageRank call on the CPU and a numpy BFS.
+
+    The edge factor of 16 (2^24 edges) is the Graph500 / PageRank
+    Pipeline Benchmark's (Kepner et al., arXiv:1603.01876). Its Kronecker
+    generator is not used: its skewed in-degree would make the ELL's row
+    width (the largest in-degree) tens of thousands; uniform
+    in-neighbours give ~40-48."""
+    from repro_torch.core import graphblas as gb
+
+    t_phase = time.perf_counter()
+    n, m = GRAPH_VERTICES, GRAPH_EDGES
+    rng = np.random.default_rng(SEED)
+    src = rng.integers(0, n, m)                 # edge src -> dst
+    dst = rng.integers(0, n, m)
+    # the incoming-edges ELL, built on the card: row v lists the sources
+    # of v's edges in edge order, -1 padded to the largest in-degree K
+    s_t, d_t = torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
+    order = torch.argsort(d_t, stable=True)
+    indeg = torch.bincount(d_t, minlength=n)
+    K = int(indeg.max())
+    rows = d_t[order]
+    slot = torch.arange(m, device=dev) - (torch.cumsum(indeg, 0) - indeg)[rows]
+    ids = torch.full((n, K), -1, dtype=torch.int32, device=dev)
+    ids[rows, slot] = s_t[order].to(torch.int32)
+    vals = (ids >= 0).to(torch.float32)
+    out_deg = torch.bincount(s_t, minlength=n)
+    del s_t, d_t, order, rows, slot
+    torch.cuda.synchronize()
+    say(f"graph: {n} vertices, {m} edges (in-neighbours uniform from seed "
+        f"{SEED}) as an incoming-edges ELL [{n}, {K}] on the card "
+        f"({nbytes(ids, vals) / 1e9:.3f} GB of ids and values), built in "
+        f"{time.perf_counter() - t_phase:.1f} s; {int((out_deg == 0).sum())}"
+        f" vertices without an out-edge")
+
+    run = lambda: gb.pagerank(ids, vals, out_deg, damping=0.85,  # noqa: E731
+                              iters=GRAPH_PR_ITERS)
+    pr = run()
+    total = float(pr.sum())
+    t0 = time.perf_counter()
+    on_cpu = gb.pagerank(ids.cpu(), vals.cpu(), out_deg.cpu(), damping=0.85,
+                         iters=GRAPH_PR_ITERS)
+    cpu_s = time.perf_counter() - t0
+    rel = float(((pr.cpu() - on_cpu).abs() / on_cpu.abs()).max())
+    if abs(total - 1.0) > 1e-3 or rel > 1e-5:
+        fail(f"graph pagerank: sums to {total!r}; max relative difference "
+             f"to the CPU run {rel:.3e} (limit 1e-5)")
+    it_ms = cuda_ms(torch, run, 3) / GRAPH_PR_ITERS
+    # an iteration reads the ids, the values and the gathered x once
+    b_ms, b_by = bound(3 * ids.numel() * 4, 2 * ids.numel())
+    say(f"graph pagerank ({GRAPH_PR_ITERS} iterations, damping 0.85): sums "
+        f"to {total:.7f}; max relative difference to the same call on the "
+        f"CPU {rel:.3e} (rtol 1e-5; sums in another order; the CPU run "
+        f"{cpu_s:.1f} s); {it_ms:.4f} ms an iteration on the card, bound "
+        f"{b_ms:.4f} ms by {b_by} ({3 * ids.numel() * 4 / 1e9:.3f} GB), "
+        f"{it_ms / b_ms:.1f}x; top vertex {int(pr.argmax())} at "
+        f"{float(pr.max()):.3e}")
+
+    t0 = time.perf_counter()
+    levels = gb.bfs_levels(ids, 0, max_iters=GRAPH_BFS_ITERS).cpu().numpy()
+    bfs_ms = (time.perf_counter() - t0) * 1e3
+    want = np.full(n, np.inf, np.float32)
+    want[0] = 0
+    frontier = np.zeros(n, bool)
+    frontier[0] = True
+    for d in range(1, GRAPH_BFS_ITERS + 1):
+        nxt = np.zeros(n, bool)
+        nxt[dst[frontier[src]]] = True
+        nxt &= np.isinf(want)
+        want[nxt] = d
+        frontier = nxt
+    if not np.array_equal(levels, want):
+        fail(f"graph bfs: {int((levels != want).sum())} levels differ from "
+             "the numpy BFS")
+    reached = np.isfinite(want)
+    say(f"graph bfs from vertex 0 ({GRAPH_BFS_ITERS} iterations): "
+        f"{bfs_ms:.1f} ms on the card, equal to a numpy BFS; "
+        f"{int(reached.sum())} vertices reached, deepest level "
+        f"{int(want[reached].max())}")
+    say(f"graph phase: {time.perf_counter() - t_phase:.1f} s wall on "
+        f"{nvidia_smi_line()}")
+    del ids, vals, out_deg, pr
+    torch.cuda.empty_cache()
 
 
 def _launch_counters():

@@ -24,6 +24,10 @@ card is done).
 
 On the CPU (``device="cpu"``) every kernel wrapper runs its plain PyTorch
 version; that is how the tests hold this engine against the JAX one.
+
+Every upload, launch and readback holds ``repro_torch.device.LAUNCHES``
+shared, so a profiler session can start and stop with no launch in
+flight (ROADMAP C16).
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from repro_torch.configs.paper_search import SearchConfig
 from repro_torch.core import topk as topk_lib
 from repro_torch.core.corpus import Corpus
 from repro_torch.core.stream_format import VAL_MASK
-from repro_torch.device import DeviceLike, resolve
+from repro_torch.device import LAUNCHES, DeviceLike, resolve
 from repro_torch.kernels import fused as kfused
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.fused import PackedSlab
@@ -194,6 +198,12 @@ class PatternSearchEngine:
         if L_ == 0:
             return self.empty_result(0)
         Lp, mi, mv, q_norms = self.merged_stream(q_ids, q_vals)
+        with LAUNCHES.launching():
+            return self._score(L_, Lp, mi, mv, q_norms)
+
+    def _score(self, L_, Lp, mi, mv, q_norms) -> SearchResult:
+        """Upload the merged stream, launch, take the top-k and read it
+        back: the device half of ``_search_arrays``."""
         # optional device-stage split (DESIGN.md §8.5): with the fence
         # on, the uploads and launches are timed apart from the device
         # work they enqueue. Off by default — the synchronize serializes
@@ -288,7 +298,8 @@ class PatternSearchEngine:
         return "ell"
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        with LAUNCHES.launching():
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def put_slab(self, slab: Corpus) -> SlabLike:
         """Upload a host slab. The fused backend re-encodes the rows into

@@ -4,9 +4,14 @@ Every entry point takes a ``device`` argument and passes it through
 ``resolve``. With none given it is ``cuda:0``; a machine without a card
 is an error, never a quiet move to the CPU (the CPU runs the kernels'
 plain versions, which is what tests ask for by name).
+
+``LAUNCHES`` is the process's launch gate: the search engine's device
+work holds it shared, a profiler session's start and stop hold it alone.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Union
 
 import torch
@@ -30,3 +35,66 @@ def resolve(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"device must be 'cuda' or 'cpu', got {dev}")
     return dev
+
+
+class LaunchGate:
+    """Who may put work on the card right now.
+
+    Every thread that launches device work for the search engine holds
+    the gate shared (``launching``; the engine's searches and uploads do,
+    re-entrantly); a profiler session's start and stop hold it alone
+    (``quiesced``): no shared holder is inside, none may enter, and the
+    card has finished what was enqueued. On the card's torch 2.11 with
+    CUDA 12.8, a ``torch.profiler`` session started or stopped while
+    other threads launch kernels records no kernel in about one capture
+    of four to eight, and often none in the captures after it (ROADMAP
+    C16; ``benchmarks/port_profile_threads.py`` counts them)."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._inside = 0                 # shared holders
+        self._closing = False            # an exclusive holder waits or holds
+        self._exclusive = threading.Lock()
+        self._depth = threading.local()  # this thread's shared depth
+
+    @contextlib.contextmanager
+    def launching(self):
+        depth = getattr(self._depth, "n", 0)
+        if depth == 0:                   # a nested call never waits
+            with self._cond:
+                while self._closing:
+                    self._cond.wait()
+                self._inside += 1
+        self._depth.n = depth + 1
+        try:
+            yield
+        finally:
+            self._depth.n = depth
+            if depth == 0:
+                with self._cond:
+                    self._inside -= 1
+                    if not self._inside:
+                        self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def quiesced(self, device: DeviceLike = None):
+        """Hold the gate alone, with ``device``'s queue drained when it is
+        a card. Not re-entrant, and not for a thread inside
+        ``launching``."""
+        with self._exclusive:
+            with self._cond:
+                self._closing = True
+                while self._inside:
+                    self._cond.wait()
+            try:
+                if device is not None and torch.device(device).type == "cuda":
+                    torch.cuda.synchronize(device)
+                yield
+            finally:
+                with self._cond:
+                    self._closing = False
+                    self._cond.notify_all()
+
+
+# the process's one gate: CUPTI's state, which it guards, is process-wide
+LAUNCHES = LaunchGate()

@@ -32,15 +32,17 @@ dumps the registry in Prometheus text format (plus
 ``PATH.traces.json`` when tracing); ``--trace-sample N`` samples every
 Nth query into a QueryTrace and prints the last one;
 ``--device-fence`` splits the engine's score into dispatch vs device
-time (``torch.cuda.synchronize``).
+time (``torch.cuda.synchronize``). ``--telemetry-port PORT`` serves the
+live plane (/metrics, /healthz, /slo, /debug/traces; DESIGN.md §8.5) for
+the run, with the stock SLOs of ``--slo-ms`` and ``--slo-target``;
+``--profile-dir DIR`` arms /debug/profile, a ``torch.profiler`` capture
+of every thread and, on the card, its kernels.
 
 The port of ``repro.launch.search_serve``. ``--device`` defaults to the
 card; ``--device cpu`` runs the kernels' plain versions. ``--backend``
-takes ``gpu`` (the default), ``gpu_packed`` or ``torch``. The live
-telemetry plane (``--telemetry-port``, ``--profile-dir``) waits for
-ROADMAP queue A6: those flags exit with an error naming the queue, and
-``--slo-ms`` and ``--slo-target`` are not accepted yet. ``main`` returns
-the run's numbers as a dict.
+takes ``gpu`` (the default), ``gpu_packed`` or ``torch``. ``main``
+returns the run's numbers as a dict (with ``--telemetry-port``, the
+server's URL and each objective's final state).
 """
 import argparse
 import threading
@@ -186,18 +188,25 @@ def main(argv=None) -> dict:
                     help="slow-query log threshold for the summary")
     ap.add_argument("--telemetry-port", type=int, default=None,
                     metavar="PORT",
-                    help="the live telemetry plane (ROADMAP queue A6)")
+                    help="serve the live telemetry plane (/metrics, "
+                         "/healthz, /slo, /debug/traces — DESIGN.md "
+                         "§8.5) on 127.0.0.1:PORT for the run's "
+                         "duration (0 picks a free port)")
+    ap.add_argument("--slo-ms", type=float, default=250.0,
+                    help="latency-SLO threshold for the telemetry "
+                         "plane's stock objectives")
+    ap.add_argument("--slo-target", type=float, default=0.99,
+                    help="latency-SLO good fraction target")
     ap.add_argument("--profile-dir", metavar="DIR",
-                    help="/debug/profile captures (ROADMAP queue A6)")
+                    help="arm /debug/profile: GET it to capture a "
+                         "torch.profiler trace into DIR (needs "
+                         "--telemetry-port)")
     ap.add_argument("--device-fence", action="store_true",
                     help="synchronize after the score dispatch so "
                          "stage_ms splits score into dispatch vs device "
                          "time — measurement mode, adds a sync")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.telemetry_port is not None or args.profile_dir is not None:
-        ap.error("--telemetry-port and --profile-dir need the port's "
-                 "telemetry server, ROADMAP queue A6")
     if args.ingest and not (args.store or args.cluster):
         ap.error("--ingest needs --store or --cluster (the resident "
                  "engine has no write path)")
@@ -246,6 +255,28 @@ def main(argv=None) -> dict:
                                        args.nnz_pad, seed=args.seed)
         searcher = PatternSearchEngine(corpus, cfg, device,
                                        backend=args.backend, obs=obs)
+
+    # live telemetry plane (DESIGN.md §8.5): HTTP thread on the shared
+    # Obs bundle, up for the whole run so an operator (or the cluster
+    # stress test) can scrape mid-load
+    telemetry = None
+    slo_monitor = None
+    if args.telemetry_port is not None:
+        from repro_torch.obs.server import (TelemetryServer,
+                                            register_searcher_health)
+        from repro_torch.obs.slo import SLOMonitor, default_slos
+        surface = ("cluster" if args.cluster
+                   else "store" if args.store else "serve")
+        slo_monitor = SLOMonitor(obs, default_slos(
+            surface, latency_ms=args.slo_ms,
+            latency_target=args.slo_target))
+        telemetry = TelemetryServer(obs, port=args.telemetry_port,
+                                    slo_monitor=slo_monitor,
+                                    profile_dir=args.profile_dir,
+                                    device=device)
+        register_searcher_health(telemetry, searcher)
+        print(f"[serve] telemetry: {telemetry.url('/metrics')}  "
+              f"{telemetry.url('/healthz')}  {telemetry.url('/slo')}")
 
     def draw_query(rng):
         qi, qv = corpus_lib.make_query(corpus, int(rng.integers(corpus.n_docs)),
@@ -386,7 +417,7 @@ def main(argv=None) -> dict:
                    post_docs_scored=st.docs_scored)
     # unified post-run block (DESIGN.md §8.3): one summary whichever
     # target served — resident engine, store session, or cluster
-    print(render_summary(searcher, obs))
+    print(render_summary(searcher, obs, slo_monitor=slo_monitor))
     if args.cluster:
         router = searcher.router
         down = sum(not ok for row in router.health() for ok in row)
@@ -416,6 +447,11 @@ def main(argv=None) -> dict:
         if args.trace_sample:
             n = write_traces(obs, args.metrics_out + ".traces.json")
             print(f"traces  -> {args.metrics_out}.traces.json ({n} trace(s))")
+    if telemetry is not None:
+        out.update(telemetry_url=telemetry.url("/"),
+                   slo={st.name: st.to_dict()
+                        for st in slo_monitor.evaluate()})
+        telemetry.close()
     if args.store or args.cluster:
         searcher.close()
     return out

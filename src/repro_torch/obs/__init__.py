@@ -14,13 +14,15 @@ registry across a cluster's shard sessions needs no plumbing, while a
 benchmark that wants clean numbers passes its own ``Obs()`` (or
 ``Obs.disabled()`` to measure the instrumentation floor).
 
-A copy of ``repro.obs`` (``metrics``, ``trace``, ``window``, ``export``
-and this bundle): numpy and threads, no device work. Every counter and
-histogram carries a rolling-window twin (``obs/window.py``).
+A copy of ``repro.obs`` (``metrics``, ``trace``, ``window``, ``export``,
+``slo``, ``server`` and this bundle): numpy and threads, no device work
+but ``server``'s ``/debug/profile`` capture (``torch.profiler``). Every
+counter and histogram carries a rolling-window twin (``obs/window.py``),
+SLO burn states evaluate against those windows (``obs/slo.py``), and
+``obs/server.py`` serves the whole bundle over HTTP.
 ``device_fence=True`` opts the engine into ``torch.cuda.synchronize``
 fencing so ``stage_ms`` splits score time into dispatch vs device
-(default off: fencing serializes the pipeline). The reference's live
-plane (``slo``, ``server``) waits for ROADMAP queue A6.
+(default off: fencing serializes the pipeline).
 """
 from __future__ import annotations
 

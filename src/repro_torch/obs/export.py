@@ -19,9 +19,7 @@ The file writers are atomic (write a ``.tmp`` sibling, fsync, then
 of ``metrics.prom`` sees the previous complete file or the new one,
 never a torn prefix.
 
-A copy of ``repro.obs.export``. ``slo_monitor`` stays an argument of
-``render_summary``; the port's callers pass None until ROADMAP queue A6
-brings the SLO monitor.
+A copy of ``repro.obs.export``.
 """
 from __future__ import annotations
 

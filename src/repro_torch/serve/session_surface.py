@@ -7,9 +7,9 @@ mixin is that surface, so the two cannot drift. Host classes implement
 ``search(q_ids [L, Qn], q_vals [L, Qn]) -> SearchResult`` and
 ``_close_resources()`` and call ``_init_serving()`` from ``__init__``.
 
-A copy of ``repro.serve.session_surface``. The telemetry server is not
-in the port yet: ``start_telemetry()`` raises ``NotImplementedError``
-naming ROADMAP queue A6.
+A copy of ``repro.serve.session_surface``; ``start_telemetry()`` serves
+the port's telemetry server (``repro_torch.obs.server``), whose
+``/debug/profile`` records the session's device.
 """
 from __future__ import annotations
 
@@ -27,17 +27,21 @@ class ServingSessionMixin:
     def start_telemetry(self, *, port: int = 0, host: str = "127.0.0.1",
                         slo_monitor=None, profile_dir=None):
         """Start the live telemetry plane for this session (DESIGN.md
-        §8.5): an HTTP thread serving /metrics, /healthz, /slo, and
-        /debug/traces off the session's ``Obs`` bundle, with the
+        §8.5): an HTTP thread serving /metrics, /healthz, /slo,
+        /debug/traces and, with ``profile_dir``, /debug/profile off the
+        session's ``Obs`` bundle, with the
         session's health surfaces (router replicas, ingest liveness)
         registered. One server per session; a second call returns the
         running one. Closed with the session."""
         with self._service_lock:
             if self._closed:
                 raise RuntimeError(f"{type(self).__name__} is closed")
-            raise NotImplementedError(
-                "start_telemetry needs the port's telemetry server "
-                "(obs/server.py), ROADMAP queue A6")
+            if self._telemetry is None:
+                from repro_torch.obs.server import start_telemetry
+                self._telemetry = start_telemetry(
+                    self, port=port, host=host, slo_monitor=slo_monitor,
+                    profile_dir=profile_dir)
+            return self._telemetry
 
     @property
     def telemetry(self):

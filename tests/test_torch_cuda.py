@@ -1109,3 +1109,156 @@ def test_cluster_on_the_card_never_reaches_a_plain_version(dev, cluster,
                                              min_ms=0.0)) as sess:
                 for (_, qi, qv), w in zip(requests, want):
                     _same_result(sess.search_typed(Query(qi, qv)), w)
+
+
+# ---------------------------------------------------------------------------
+# the live telemetry plane and GraphBLAS on the card
+# ---------------------------------------------------------------------------
+def _http(url):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=120) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def test_scrapes_stay_200_under_writes_on_the_card(dev, store, tmp_path):
+    """/metrics, /healthz, /slo and /debug/traces scraped in a loop while
+    4 clients submit to a live gpu session and a writer appends 400
+    documents (a seal every 16) until the compactor has folded: every
+    answer is 200."""
+    import json
+    from pathlib import Path
+    from repro_torch.obs import Obs
+    from repro_torch.obs.slo import SLOMonitor, default_slos
+    from repro_torch.serve import Query
+    from repro_torch.storage import FlashSearchSession, FlashStore
+    live, docs, qs, _ = _live_copy(store, tmp_path, n_new=400, seal_docs=16)
+    obs = Obs(trace_sample=1)
+    with FlashSearchSession(FlashStore.open(Path(live)), STORE_CFG, dev,
+                            "gpu", obs=obs) as sess:
+        pipe = sess.enable_ingest(seal_docs=16, compact_poll_s=0.01)
+        srv = sess.start_telemetry(slo_monitor=SLOMonitor(
+            obs, default_slos("store", latency_ms=250.0)))
+        stop = threading.Event()
+        codes = []
+
+        def scraper():
+            while not stop.is_set():
+                for route in ("/metrics", "/healthz", "/slo",
+                              "/debug/traces"):
+                    code, body = _http(srv.url(route))
+                    codes.append((route, code, body[:300]))
+
+        def client(t):
+            for i in range(8):
+                sess.submit(Query(*qs[(t + i) % 2])).result(timeout=120)
+
+        scrape = threading.Thread(target=scraper, daemon=True)
+        scrape.start()
+        clients = [threading.Thread(target=client, args=(t,))
+                   for t in range(4)]
+        for t in clients:
+            t.start()
+        try:
+            for d, p in docs:
+                sess.append(d, p)
+            for t in clients:
+                t.join(timeout=300)
+            for _ in range(600):                # the fold: <= 60 s
+                if pipe.stats.compactions >= 1:
+                    break
+                stop.wait(0.1)
+        finally:
+            stop.set()
+            scrape.join(timeout=120)
+        assert not scrape.is_alive()
+        assert not any(t.is_alive() for t in clients)
+        assert pipe.stats.seals >= 25 and pipe.stats.compactions >= 1
+        bad = [c for c in codes if c[1] != 200]
+        assert codes and not bad, bad[:3]
+        health = json.loads(_http(srv.url("/healthz"))[1])
+        assert health["components"]["ingest"]["detail"][0]["root"] == live
+
+
+def test_profile_capture_on_the_card_holds_a_b1_launch(dev, store, tmp_path,
+                                                       capfd):
+    """/debug/profile on a gpu session while a thread searches: the trace
+    names B1's kernel (``table_kernel`` over ``EllDocs``), holds CPU ops
+    of a thread other than the HTTP one, and Kineto prints no
+    ``External init callback`` error."""
+    import json
+    from repro_torch.obs import Obs
+    from repro_torch.serve import Query
+    from repro_torch.storage import FlashSearchSession, FlashStore
+    root, _, requests = store
+    _, qi, qv = requests[-1]
+    with FlashSearchSession(FlashStore.open(root), STORE_CFG, dev, "gpu",
+                            obs=Obs()) as sess:
+        srv = sess.start_telemetry(profile_dir=str(tmp_path / "prof"))
+        stop, searched = threading.Event(), []
+
+        def load():
+            while not stop.is_set():
+                searched.append(sess.search_typed(Query(qi, qv)))
+
+        t = threading.Thread(target=load, name="search-load")
+        t.start()
+        try:
+            while not searched:
+                stop.wait(0.01)
+            code, body = _http(srv.url("/debug/profile?ms=500"))
+        finally:
+            stop.set()
+            t.join(timeout=120)
+    assert code == 200, body
+    ans = json.loads(body)
+    events = json.load(open(ans["file"]))["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    seen = (f"{len(searched)} searches, {len(events)} events, kernels "
+            f"{sorted(set(kernels))[:8]}, categories "
+            f"{sorted({str(e.get('cat')) for e in events})}")
+    assert any("table_kernel" in k and "EllDocs" in k for k in kernels), seen
+    assert any(e.get("cat") == "cpu_op" and e.get("tid") != ans["thread"]
+               for e in events), seen
+    assert "External init callback" not in capfd.readouterr().err
+
+
+def test_pagerank_and_bfs_on_the_card_equal_the_cpu(dev):
+    """A graph of 2^14 vertices and 2^18 edges (in-neighbours uniform
+    from seed 0): PageRank on the card within rtol 1e-5 of the same call
+    on the CPU (sums in another order), BFS levels exactly, and equal to
+    a numpy BFS."""
+    from repro_torch.core import graphblas as gb
+    n, m = 1 << 14, 1 << 18
+    rng = np.random.default_rng(0)
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    order = np.argsort(dst, kind="stable")
+    indeg = np.bincount(dst, minlength=n)
+    ids = np.full((n, indeg.max()), -1, np.int32)
+    ids[dst[order], np.arange(m) - np.repeat(np.cumsum(indeg) - indeg,
+                                             indeg)] = src[order]
+    vals = (ids >= 0).astype(np.float32)
+    out_deg = np.bincount(src, minlength=n)
+    cpu = [torch.from_numpy(a) for a in (ids, vals, out_deg)]
+    card = [a.to(dev) for a in cpu]
+    pr = gb.pagerank(*card)
+    assert pr.device == dev
+    torch.testing.assert_close(pr.cpu(), gb.pagerank(*cpu), rtol=1e-5,
+                               atol=0)
+    assert abs(float(pr.sum()) - 1.0) < 1e-3
+    levels = gb.bfs_levels(card[0], 0, max_iters=32)
+    assert torch.equal(levels.cpu(), gb.bfs_levels(cpu[0], 0, max_iters=32))
+    want = np.full(n, np.inf, np.float32)
+    want[0] = 0
+    frontier = np.zeros(n, bool)
+    frontier[0] = True
+    for d in range(1, 33):
+        nxt = np.zeros(n, bool)
+        nxt[dst[frontier[src]]] = True
+        nxt &= np.isinf(want)
+        want[nxt] = d
+        frontier = nxt
+    np.testing.assert_array_equal(levels.cpu().numpy(), want)

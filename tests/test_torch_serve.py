@@ -460,11 +460,33 @@ def test_search_serve_resident_serial_and_fenced(capsys):
 @pytest.mark.parametrize("flag,queue", [
     (["--telemetry-port", "0"], "A6"), (["--profile-dir", "p"], "A6")])
 def test_search_serve_flags_of_later_queues_exit_naming_them(flag, queue,
-                                                            capsys):
-    with pytest.raises(SystemExit) as ei:
-        search_serve.main(["--device", "cpu"] + flag)
-    assert ei.value.code == 2
-    assert queue in capsys.readouterr().err
+                                                            capsys,
+                                                            tmp_path):
+    """Queue A6 is ported: its flags no longer exit naming it. With
+    ``--telemetry-port`` the run serves the plane and returns its URL
+    and each stock objective's final state; ``--profile-dir`` alone arms
+    nothing, as in the reference (it needs ``--telemetry-port``)."""
+    if flag[0] == "--profile-dir":
+        flag = [flag[0], str(tmp_path / flag[1])]
+    out = search_serve.main(["--n-docs", "200", "--vocab", "512",
+                             "--avg-nnz", "12", "--nnz-pad", "16",
+                             "--query-nnz", "12", "--clients", "2",
+                             "--requests", "3", "--device", "cpu",
+                             "--slo-ms", "60000", "--slo-target", "0.9"]
+                            + flag)
+    captured = capsys.readouterr()
+    assert queue not in captured.err and out["queries"] == 6
+    served = flag[0] == "--telemetry-port"
+    assert ("telemetry_url" in out) == served
+    assert ("[serve] telemetry: http://127.0.0.1:" in captured.out) == served
+    assert ("slo serve-latency: ok" in captured.out) == served
+    if served:
+        assert sorted(out["slo"]) == ["serve-availability", "serve-latency"]
+        lat = out["slo"]["serve-latency"]
+        assert lat["state"] == "ok" and lat["target"] == 0.9
+        assert lat["window_events"] == 6
+        assert lat["detail"] == "query_ms p<= 60000ms"
+    assert not (tmp_path / "p").exists()
 
 
 def test_search_serve_on_a_cluster_writes_the_reference_metric_names(

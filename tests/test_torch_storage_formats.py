@@ -3,8 +3,8 @@ package's, on the CPU: segment files byte for byte (bitmap and Bloom
 filters), stores that each package opens from the other, filter
 verdicts, posting candidates and gathers, memo keys, the vectorized
 encoder, the prefetcher, the slab cache's device-byte budget and the
-planner's verdicts; and what the session refuses until queues A3, A4
-and A6 land."""
+planner's verdicts; and the session's surfaces of queues A3, A4 and A6
+(ingest, the coalescing service, the telemetry plane), which work now."""
 import dataclasses
 import filecmp
 import os
@@ -278,9 +278,13 @@ def test_session_refuses_what_waits_for_queues_a3_a4_a6(tmp_path, corpus):
     row = sess.submit(*t_corpus.make_query(corpus, 0, CFG.max_query_nnz)
                       ).result(timeout=60)
     assert int(row.doc_ids[0]) == int(corpus.doc_ids[0])
-    with pytest.raises(NotImplementedError, match="A6"):
-        sess.start_telemetry()
+    # A6 (the telemetry plane) is ported: one server a session, closed
+    # with it
+    srv = sess.start_telemetry()
+    assert sess.start_telemetry() is srv and sess.telemetry is srv
+    assert srv.healthz()[0] == "ok"
     sess.close()
+    assert sess.telemetry is None
     sess.close()
     with pytest.raises(RuntimeError, match="closed"):
         sess.service()
