@@ -143,7 +143,8 @@ each of which fails the run (non-zero exit) if it fails:
  10. LM checks the model with prefill attention by the kernel and then by
                its plain version, same weights and prompts, first in bf16
                (the main path's weights; the wgmma instance) within
-               LM_ATOL["bfloat16"], then in f32 (the simt instance) within
+               lm_atol (0.1, or six bf16 ulps at the largest logit where
+               that is more), then in f32 (the simt instance) within
                LM_ATOL["float32"]: last-position prefill logits within the
                tolerance, and the greedy tokens equal or, at the first
                difference, the plain path's top-2 margin below it;
@@ -154,6 +155,22 @@ each of which fails the run (non-zero exit) if it fails:
                eager calls printed beside), beside its bound: causal
                FLOPs 2·B·H·S²·hd over the bf16 tensor-core peak, or the
                bytes of q, k, v and o over the memory rate, the larger.
+ 8b-11b. hd 128, phases 8-11 again for the Qwen3 family and internlm2:
+               B4 at qwen3-4b's prefill shape (B 4, S 1024, 32 heads over
+               8, hd 128) against its plain version as in 8; qwen3-4b
+               (36 layers) and internlm2-20b (48) at full width and depth
+               through ``serve.main``, and qwen3-moe-235b-a22b at full
+               width cut to 8 of 94 layers through ``M.init`` and
+               ``step.generate`` (what ``serve.main`` calls), each with
+               the launch counts set to 0 before and read after (B4 once
+               a layer, all wgmma), in-vocab tokens equal on warm calls,
+               and, for the MoE, the tokens each layer dropped by
+               capacity in prefill and decode; each against plain
+               attention in bf16 as in 10, the MoE's plain run holding the
+               kernel run's routing, a flip of it allowed only below the
+               logits' limit (lm_atol); f32 at 4 (qwen3-4b) and 2
+               (qwen3-moe) layers; B4's hd-128 times as in 11. Each phase
+               prints its wall time.
  12. graph     GraphBLAS (``repro_torch.core.graphblas``, plain PyTorch)
                on a graph of 2^20 vertices and 2^24 edges, in-neighbours
                uniform from seed 0, as an incoming-edges ELL on the card:
@@ -208,6 +225,15 @@ ATTN_ROW_TOL = 2.0 ** -6
 # 2-4), so 0.1, ~3% of the logits' scale; a wrong tile or mask moves
 # them by O(1).
 LM_ATOL = {"float32": 1e-3, "bfloat16": 0.1}
+# ... in bf16, 0.1 is six bf16 ulps at qwen2's |logit| 2-4 (2^-6 each;
+# its max is 2.77); where the plain run's logits reach past 4 (qwen3-4b,
+# internlm2 and qwen3-moe: 4.9-5.1), an ulp is 2^-5 and the limit is six
+# of them (lm_atol); 48 layers (internlm2) carry more roundings than 24
+LM_ULPS = 6
+# phases 8b-11b: B4 at head dim 128 and the archs it serves
+LM128_ARCHS = ("qwen3-4b", "internlm2-20b")   # full width and depth
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8  # full width, 8 of 94 layers
+LM128_F32_LAYERS = {"qwen3-4b": 4, "qwen3-moe-235b-a22b": 2}
 STORE_SEGMENT_DOCS = 1 << 16           # 16 segments of the 2^20 documents
 STORE_CACHE_BYTES = 4 << 30            # room for every backend's 16 slabs
 APPROX_CANDIDATES = 64
@@ -697,6 +723,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rows.append(lm_phases(torch, dev))
+    rows.append(lm128_phases(torch, dev))
     graph_phase(torch, dev)
     say(f"run: {time.perf_counter() - t_run:.1f} s wall")
     say(nvidia_smi_line())
@@ -1715,25 +1742,51 @@ def greedy_with_margins(torch, step, params, cfg, prompt, max_new):
 
 
 def lm_check(torch, step, layers, fa, params, cfg, prompt, label):
-    """Phase 10 in ``cfg.dtype``: the model with kernel B4 against the
-    same model with its plain version. Returns the logits' max error."""
+    """Phase 10 (10b) in ``cfg.dtype``: the model with kernel B4 against
+    the same model with its plain version. Returns the logits' max error.
+
+    With experts, the plain run replays the kernel run's routing
+    (``moe_apply.replay``): a one-ulp attention difference can flip a
+    near-tie routing choice, and a flipped expert changes a token's FFN
+    wholly, so the two runs are held to one routing and then differ by
+    attention alone, under the dense rule (``lm_atol`` on the logits,
+    greedy tokens equal up to a plain top-2 margin below it). Where the
+    plain run's own router chose another expert set (a flip), its routing
+    margin, the router-logit gap between its k-th and (k+1)-th expert,
+    must be below the same limit: the router reads the same RMS-normed
+    hidden state as the unembedding, at the same scale (both give
+    ~N(0, 1) logits at this init), so attention's differences move the
+    two alike, while a wrong tile or mask moves them by O(1). Flips are
+    counted up to the first step whose greedy tokens differ."""
+    from repro_torch.models import moe
     by = fa.flash_attention_gqa.launches_by_design
     before = dict(by)
-    tok_k, _, logit_k = greedy_with_margins(torch, step, params, cfg,
-                                            prompt, LM_NEW)
+    moe_run = cfg.n_experts > 0
+    moe.moe_apply.record = [] if moe_run else None
+    try:
+        tok_k, _, logit_k = greedy_with_margins(torch, step, params, cfg,
+                                                prompt, LM_NEW)
+        routing = moe.moe_apply.record
+    finally:
+        moe.moe_apply.record = None
     which = fa.design(getattr(torch, cfg.dtype), cfg.head_dim)
     if by[which] - before[which] != cfg.n_layers:
         fail(f"LM check {label}: the prefill did not run B4's {which} "
              "instance once a layer")
     kernel_attn = layers.flash_attention_gqa
     layers.flash_attention_gqa = fa.flash_attention_gqa_plain
+    if moe_run:
+        moe.moe_apply.replay = [r["expert_id"] for r in routing]
+        moe.moe_apply.record = []
     try:
         tok_p, margin_p, logit_p = greedy_with_margins(
             torch, step, params, cfg, prompt, LM_NEW)
+        replayed = moe.moe_apply.record
     finally:
         layers.flash_attention_gqa = kernel_attn
+        moe.moe_apply.replay = moe.moe_apply.record = None
     torch.cuda.synchronize()
-    atol = LM_ATOL[cfg.dtype]
+    atol = lm_atol(cfg.dtype, logit_p)
     err = float((logit_k.float() - logit_p.float()).abs().max())
     say(f"LM check {label} ({which}): last-position prefill logits max "
         f"|kernel - plain| {err:.3e} (tolerance {atol}; max |logit| "
@@ -1741,36 +1794,65 @@ def lm_check(torch, step, layers, fa, params, cfg, prompt, label):
     if not (err <= atol and torch.isfinite(logit_k).all()):
         fail(f"{label} prefill logits differ by {err} > {atol}")
     diff = (tok_k != tok_p).nonzero()
+    first = int(diff[:, 1].min()) if len(diff) else LM_NEW
     if len(diff):
-        t = int(diff[:, 1].min())
-        rows_t = diff[diff[:, 1] == t][:, 0].tolist()
-        margins = [float(margin_p[r, t]) for r in rows_t]
-        say(f"LM check {label}: greedy tokens first differ at step {t} in "
-            f"rows {rows_t}; plain top-2 margins there {margins}")
+        rows_t = diff[diff[:, 1] == first][:, 0].tolist()
+        margins = [float(margin_p[r, first]) for r in rows_t]
+        say(f"LM check {label}: greedy tokens first differ at step {first} "
+            f"in rows {rows_t}; plain top-2 margins there {margins}")
         if max(margins) >= atol:
             fail("greedy tokens differ where the margin exceeds tolerance")
     else:
         say(f"LM check {label}: the {tok_k.shape[0]} x {LM_NEW} greedy "
             f"tokens agree; smallest plain top-2 margin "
             f"{float(margin_p.min()):.3e}")
+    if moe_run:
+        route_flips(torch, cfg, replayed, first, label, atol)
     return err
 
 
-def lm_phases(torch, dev):
-    """Phases 8-11: kernel B4 and the LM serving path. Returns B4's row
-    of the kernels line."""
-    from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import serve as serve_launcher
-    from repro_torch.models import layers, model as M
-    from repro_torch.serve import step
+def lm_atol(dtype, logits) -> float:
+    """LM_ATOL[dtype], or in bf16 LM_ULPS ulps of bf16 at the largest
+    |logit| where that is more."""
+    if dtype != "bfloat16":
+        return LM_ATOL[dtype]
+    top = max(float(logits.float().abs().max()), 2.0 ** -126)
+    return max(LM_ATOL[dtype], LM_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7))
 
-    cfg = get_config(LM_ARCH)
-    B, S, H, KV, hd = (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim)
+
+def route_flips(torch, cfg, records, first_diff, label, limit):
+    """Phase 10b's routing rule over the plain run's records (a prefill
+    call a layer, then a call a layer for each decode step; decode step
+    i feeds greedy token i, so steps from ``first_diff`` on are not
+    compared): every flip's routing margin below ``limit``."""
+    n = cfg.n_layers
+    calls = records[:n * (1 + min(first_diff, LM_NEW - 1))]
+    flips = {"prefill": [0] * n, "decode": [0] * n}
+    margins, checked = [], 0
+    for c, r in enumerate(calls):
+        own = r["own_id"].sort(dim=-1).values
+        forced = r["expert_id"].sort(dim=-1).values
+        flip = (own != forced).any(-1)
+        checked += flip.numel()
+        flips["prefill" if c < n else "decode"][c % n] += int(flip.sum())
+        margins.extend(r["margin"][flip].float().tolist())
+    say(f"LM check {label}: routing of the plain run against the kernel "
+        f"run's over {checked} (token, layer) choices: expert sets differ "
+        f"in {len(margins)} (prefill by layer {flips['prefill']}, decode "
+        f"{flips['decode']}); their routing margins "
+        f"{sorted(margins)[-8:] if margins else []} (largest last; "
+        f"limit {limit}); smallest margin of all "
+        f"{min(float(r['margin'].min()) for r in calls):.3e}")
+    if margins and max(margins) >= limit:
+        fail(f"{label}: a routing choice flipped at margin {max(margins)} "
+             f">= {limit}")
+
+
+def b4_cases(torch, dev, fa, B, S, H, KV, hd):
+    """Phase 8 (8b): B4 against its plain version at a prefill shape, in
+    bf16 and f32, non-causal, at an S that no tile divides and through
+    the [BH, S, hd] entry. Returns each case's max error."""
     by = fa.flash_attention_gqa.launches_by_design
-
-    # -- 8. B4 against its plain version -----------------------------------
     cases = [("prefill bf16 causal", B, S, "bfloat16", True),
              ("prefill f32 causal", B, S, "float32", True),
              ("prefill bf16 non-causal", B, S, "bfloat16", False),
@@ -1809,27 +1891,40 @@ def lm_phases(torch, dev):
     if row_err > ATTN_ROW_TOL:
         fail(f"B4 [BH, S, hd] entry: row-scaled error {row_err} > "
              f"{ATTN_ROW_TOL}")
-    del q, k, v, got, want, bh
+    return attn_err
 
-    # -- 9. LM main path ---------------------------------------------------
-    argv = ["--arch", LM_ARCH, "--batch", str(B), "--prompt-len", str(S),
-            "--max-new", str(LM_NEW), "--seed", str(SEED)]
+
+def serve_counted(torch, fa, cfg, call):
+    """Phase 9 (9b): ``call()`` (one serving run) with every launch count
+    set to 0 just before it and read just after; B4 must have launched
+    once a layer, all on its wgmma instance. Returns (what ``call``
+    returns, the launch counts)."""
     counted = _launch_counters()
     for fn in counted.values():
         fn.launches = 0
+    by = fa.flash_attention_gqa.launches_by_design
     for name in by:
         by[name] = 0
-    run = serve_launcher.main(argv)
+    out = call()
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counted.items()}
     by_design = dict(by)
-    say(f"LM main path launches: {launches}; B4 by instance {by_design}")
+    say(f"LM main path ({cfg.name}) launches: {launches}; B4 by instance "
+        f"{by_design}")
     if launches["flash_attention"] != cfg.n_layers:
         fail(f"B4 launched {launches['flash_attention']} times in one "
              f"prefill, want {cfg.n_layers} (one a layer)")
     if by_design["wgmma"] != cfg.n_layers:
         fail(f"{by_design['wgmma']} of B4's {cfg.n_layers} prefill launches "
              "ran the wgmma instance, want all")
+    return out, launches
+
+
+def serve_checked(torch, step, fa, dev, cfg, run, B, S):
+    """Phase 9 (9b) after the counted run: in-vocab tokens of the right
+    shape, the model's size, then three warm calls that must give the
+    same greedy tokens; prints and returns the median prefill and decode
+    ms."""
     tokens = run.tokens
     if tuple(tokens.shape) != (B, LM_NEW) or int(tokens.min()) < 0 \
             or int(tokens.max()) >= cfg.vocab_size:
@@ -1856,26 +1951,17 @@ def lm_phases(torch, dev):
     pre = statistics.median(w["prefill_s"] for w in warm) * 1e3
     dec = statistics.median(w["decode_s"] for w in warm) * 1e3
     total_s = (pre + dec) / 1e3
-    say(f"LM warm (median of 3): prefill + first token {pre:.2f} ms "
-        f"({B * S / (pre / 1e3):.0f} prompt tok/s), decode "
+    say(f"LM warm ({cfg.name}, median of 3): prefill + first token "
+        f"{pre:.2f} ms ({B * S / (pre / 1e3):.0f} prompt tok/s), decode "
         f"{dec / (LM_NEW - 1):.3f} ms/step of {B} tokens "
         f"({B * (LM_NEW - 1) / (dec / 1e3):.1f} tok/s); "
         f"{B * LM_NEW / total_s:.1f} generated tok/s end to end")
+    return pre, dec / (LM_NEW - 1)
 
-    # -- 10. whole model: kernel against plain attention, bf16 then f32 ------
-    lm_check(torch, step, layers, fa, run.params, cfg,
-             torch.as_tensor(run.prompt, device=dev), "bf16")
-    del run, again
-    torch.cuda.empty_cache()
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = M.init(cfg32, seed=SEED, device=dev)
-    prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (B, S)).astype(np.int32), device=dev)
-    lm_check(torch, step, layers, fa, params32, cfg32, prompt, "f32")
-    del params32
-    torch.cuda.empty_cache()
 
-    # -- 11. B4 times --------------------------------------------------------
+def b4_times(torch, dev, fa, B, S, H, KV, hd):
+    """Phase 11 (11b): B4, its plain version and the library yardstick at
+    a bf16 prefill shape, beside the bound. Returns the row's numbers."""
     q, k, v = attention_inputs(torch, dev, B, S, H, KV, hd, torch.bfloat16)
     which = fa.design(q.dtype, hd)
     # device times from CUDA-graph replays: the wrapper's host work is
@@ -1902,13 +1988,164 @@ def lm_phases(torch, dev):
         f"{lib_eager_ms:.4f} ms eager, max |diff| "
         f"{lib_err:.3e}); kernel / library {ms / lib_ms:.2f}x, kernel / "
         f"bound {ms / b_ms:.1f}x")
-    return {"name": "flash_attention", "route": "cuda", "design": which,
+    return {"design": which, "head_dim": hd, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def b4_row(name, launches, max_abs_err, times):
+    return {"name": name, "route": "cuda", "design": times["design"],
+            "head_dim": times["head_dim"],
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:29",
-            "launches": launches["flash_attention"],
-            "max_abs_err": attn_err["prefill bf16 causal"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+            "launches": launches, "max_abs_err": max_abs_err,
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+            "library_ms": times["library_ms"]}
+
+
+def lm_phases(torch, dev):
+    """Phases 8-11: kernel B4 and the LM serving path. Returns B4's row
+    of the kernels line."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models import layers, model as M
+    from repro_torch.serve import step
+
+    cfg = get_config(LM_ARCH)
+    B, S, H, KV, hd = (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+
+    # -- 8. B4 against its plain version -----------------------------------
+    attn_err = b4_cases(torch, dev, fa, B, S, H, KV, hd)
+
+    # -- 9. LM main path ---------------------------------------------------
+    argv = ["--arch", LM_ARCH, "--batch", str(B), "--prompt-len", str(S),
+            "--max-new", str(LM_NEW), "--seed", str(SEED)]
+    run, launches = serve_counted(torch, fa, cfg,
+                                  lambda: serve_launcher.main(argv))
+    serve_checked(torch, step, fa, dev, cfg, run, B, S)
+
+    # -- 10. whole model: kernel against plain attention, bf16 then f32 ------
+    lm_check(torch, step, layers, fa, run.params, cfg,
+             torch.as_tensor(run.prompt, device=dev), "bf16")
+    del run
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = M.init(cfg32, seed=SEED, device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32), device=dev)
+    lm_check(torch, step, layers, fa, params32, cfg32, prompt, "f32")
+    del params32
+    torch.cuda.empty_cache()
+
+    # -- 11. B4 times --------------------------------------------------------
+    times = b4_times(torch, dev, fa, B, S, H, KV, hd)
+    return b4_row("flash_attention", launches["flash_attention"],
+                  attn_err["prefill bf16 causal"], times)
+
+
+def lm128_phases(torch, dev):
+    """Phases 8b-11b: B4 at head dim 128 and the three archs it serves.
+    Returns B4's hd-128 row of the kernels line, its launches the sum
+    of the three serving runs'."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models import layers, model as M, moe
+    from repro_torch.serve import step
+
+    lead = get_config(LM128_ARCHS[0])
+    B, S, H, KV, hd = (LM_BATCH, LM_PROMPT, lead.n_heads, lead.n_kv_heads,
+                       lead.head_dim)
+
+    # -- 8b. B4 at hd 128 against its plain version --------------------------
+    t_phase = time.perf_counter()
+    attn_err = b4_cases(torch, dev, fa, B, S, H, KV, hd)
+    say(f"phase 8b (B4 at hd {hd}): {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 9b/10b. serving at full width, then kernel against plain ------------
+    served = 0
+    for arch in LM128_ARCHS:
+        t_phase = time.perf_counter()
+        cfg = get_config(arch)
+        argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(S),
+                "--max-new", str(LM_NEW), "--seed", str(SEED)]
+        run, launches = serve_counted(torch, fa, cfg,
+                                      lambda: serve_launcher.main(argv))
+        served += launches["flash_attention"]
+        serve_checked(torch, step, fa, dev, cfg, run, B, S)
+        lm_check(torch, step, layers, fa, run.params, cfg,
+                 torch.as_tensor(run.prompt, device=dev), f"{arch} bf16")
+        del run
+        torch.cuda.empty_cache()
+        say(f"phase 9b/10b ({arch}): {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    say(f"LM cut: {MOE_ARCH} at {MOE_LAYERS} of its {full.n_layers} layers "
+        f"(~470 GB of bf16 weights at full depth, ~42 GB at "
+        f"{MOE_LAYERS}); width, experts, top-k and capacity as published")
+
+    def moe_serve():
+        stats = {}
+        t0 = time.perf_counter()
+        params = M.init(cfg, seed=SEED, device=dev)
+        stats["init_s"] = time.perf_counter() - t0
+        prompt = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int32)
+        moe.moe_apply.record = []
+        try:
+            tokens = step.generate(params, cfg, prompt, max_new=LM_NEW,
+                                   max_len=S + LM_NEW, device=dev,
+                                   stats=stats)
+            records = moe.moe_apply.record
+        finally:
+            moe.moe_apply.record = None
+        return serve_launcher.ServeRun(tokens, prompt, params, stats), \
+            records
+
+    (run, records), launches = serve_counted(torch, fa, cfg, moe_serve)
+    served += launches["flash_attention"]
+    n = cfg.n_layers
+    pre_drop = [r["dropped"] for r in records[:n]]
+    dec_drop = [sum(r["dropped"] for r in records[n + i::n])
+                for i in range(n)]
+    _, cap_pre = moe.capacities(B * S, cfg)
+    _, cap_dec = moe.capacities(B, cfg)
+    say(f"MoE drops by capacity, by layer: prefill {pre_drop} of "
+        f"{B * S * cfg.top_k} assignments a layer (cap_exp {cap_pre}); "
+        f"decode {dec_drop} of {(LM_NEW - 1) * B * cfg.top_k} over "
+        f"{LM_NEW - 1} steps (cap_exp {cap_dec}: "
+        f"{sum(dec_drop) / (n * (LM_NEW - 1)):.2f} a layer a step)")
+    serve_checked(torch, step, fa, dev, cfg, run, B, S)
+    lm_check(torch, step, layers, fa, run.params, cfg,
+             torch.as_tensor(run.prompt, device=dev), f"{MOE_ARCH} bf16")
+    del run, records
+    torch.cuda.empty_cache()
+    say(f"phase 9b/10b ({MOE_ARCH}): {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 10b. f32 at a depth the card holds ---------------------------------
+    t_phase = time.perf_counter()
+    for arch, depth in LM128_F32_LAYERS.items():
+        cfg32 = dataclasses.replace(get_config(arch), dtype="float32",
+                                    n_layers=depth)
+        params32 = M.init(cfg32, seed=SEED, device=dev)
+        prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
+            0, cfg32.vocab_size, (B, S)).astype(np.int32), device=dev)
+        lm_check(torch, step, layers, fa, params32, cfg32, prompt,
+                 f"{arch} f32 at {depth} layers")
+        del params32
+        torch.cuda.empty_cache()
+    say(f"phase 10b (f32): {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 11b. B4 times at hd 128 ----------------------------------------------
+    t_phase = time.perf_counter()
+    times = b4_times(torch, dev, fa, B, S, H, KV, hd)
+    say(f"phase 11b: {time.perf_counter() - t_phase:.1f} s")
+    return b4_row("flash_attention_hd128", served,
+                  attn_err["prefill bf16 causal"], times)
 
 
 def graph_phase(torch, dev):

@@ -63,11 +63,13 @@ def _tensor(arr, device: torch.device) -> torch.Tensor:
 
 def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
                              device: DeviceLike = None) -> dict:
-    """The reference's dense-transformer param tree, as numpy arrays
+    """The reference's transformer param tree, as numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's params on
-    ``device``: the ``[n_layers, ...]`` stacks of ``blocks`` become one
-    dict a layer; every array keeps its dtype (f32 biases and norm scales,
-    weights in the config's dtype) and its ``x @ W`` orientation."""
+    ``device``: the ``[n_layers, ...]`` stacks of ``blocks`` (dense) or
+    ``moe_blocks`` (router, experts, the shared expert where there is
+    one) become one dict a layer; every array keeps its dtype (f32
+    biases, norm and qk-norm scales and router, weights in the config's
+    dtype) and its ``x @ W`` orientation."""
     check_supported(cfg)
     device = resolve(device)
 
@@ -77,7 +79,7 @@ def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
         arr = np.asarray(tree)
         return _tensor(arr if index is None else arr[index], device)
 
-    blocks = params["blocks"]
+    blocks = params["moe_blocks" if cfg.n_experts > 0 else "blocks"]
     n = np.asarray(blocks["ln1"]).shape[0]
     if n != cfg.n_layers:
         raise ValueError(f"{n} stacked layers, config has {cfg.n_layers}")

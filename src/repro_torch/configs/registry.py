@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the LM launcher.
 
-Only the archs the port serves are registered. The reference knows ten;
-the others wait for ROADMAP item A9 and raise ``KeyError`` saying so.
+Only the archs the port serves are registered: four of the reference's
+ten. The others (gemma3, kimi-k2, rwkv6, zamba2, llama-3.2-vision,
+musicgen) wait for ROADMAP item A9 and raise ``KeyError`` saying so.
 """
 from __future__ import annotations
 
@@ -11,7 +12,10 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig
 
 _MODULES: Dict[str, str] = {
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
     "qwen2-0.5b": "repro_torch.configs.qwen2_0p5b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "qwen3-4b": "repro_torch.configs.qwen3_4b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -30,11 +30,11 @@
 // Two instances; kernels/flash_attention.py::design picks one from the
 // dtype and head dim alone, and never falls back from one to the other.
 //
-// wgmma (bfloat16, hd 16, 32, 64), the main path's. The first design ran
-// one thread a query row on the CUDA cores: scalar f32 products with a
-// shared-memory load per multiply-add, K and V converted to f32 and
-// staged synchronously, scores written to shared memory and read back,
-// 198 registers a thread in 64-thread blocks. Here:
+// wgmma (bfloat16, hd 16, 32, 64 and 128), the main path's. The first
+// design ran one thread a query row on the CUDA cores: scalar f32
+// products with a shared-memory load per multiply-add, K and V converted
+// to f32 and staged synchronously, scores written to shared memory and
+// read back, 198 registers a thread in 64-thread blocks. Here:
 //  - Both products run on the tensor cores, one warpgroup (128 threads)
 //    a 64-row query tile: s = q·kᵀ as wgmma m64n64k16 with q and k from
 //    shared memory (K-major, k in its natural [keys, hd] layout), then
@@ -45,13 +45,16 @@
 //    stages: tile j+1's copy is issued before tile j's products and
 //    waited for only when j+1 is consumed. cp.async and not TMA: the
 //    model hands over q, k and v as strided views of one projection, a
-//    row is only 32-128 bytes, and a tensor map would have to be encoded
+//    row is only 32-256 bytes, and a tensor map would have to be encoded
 //    on the host for every call and view; 128 threads issue a tile's
-//    16-byte chunks in 2-8 instructions each, zero-filling rows past S
+//    16-byte chunks in 2-16 instructions each, zero-filling rows past S
 //    (src-size 0), which is the ragged-edge mask for free. Each 16-byte
 //    chunk goes where the 32/64/128-byte swizzle of the wgmma descriptor
 //    expects it (rows of 2·hd bytes), so wgmma reads without bank
-//    conflicts.
+//    conflicts. At hd 128 a row is 256 bytes, two 128-byte swizzle
+//    atoms, so each tile is stored as two 64-column sub-tiles (Tile<HD>):
+//    q·kᵀ's k-steps 4-7 start in the second, and p·v reads v's N = 128
+//    across both through the MN-major descriptor's leading byte offset.
 //  - The online softmax stays in registers on the accumulator layout: a
 //    thread holds 2 rows x 16 scores, and a row's max and sum are reduced
 //    over the 4 threads of a lane quad by shuffles; nothing is staged in
@@ -74,13 +77,23 @@
 //    row) measured slower, and so did three: the loop is bound by the
 //    softmax's instruction issue (34 accurate expf a thread a tile, 32
 //    for p and 2 for the rescale), not by copies.
+//  - At hd 128 (qwen3, internlm2, qwen3-moe): 64 accumulator and 32
+//    score registers a thread, 169 registers in all (ptxas -v, no
+//    spills), so three blocks an SM by registers; smem_bytes<128>() =
+//    82,944 bytes (five 16 KB tiles) above the 48 KB default, so two
+//    by shared memory. The 2048 query tiles of qwen3-4b's prefill shape
+//    (B 4, S 1024, 32 heads over 8) are ~7.8 waves of 2 x 132 = 264
+//    blocks; the bound there is 34.4 GFLOP, 0.035 ms at 989 TFLOP/s.
 //
 // simt (float32 at every head dim, and bfloat16 at hd 8, below wgmma's
 // bf16 depth of 16): one thread a query row holding its q row and f32
 // accumulator in registers; 64-key K and V tiles staged in shared memory
 // as f32, and each thread keeps its row of a tile's scores in a
 // shared-memory column. The f32 path is the accuracy reference of the
-// whole-model check in chip_smoke.py.
+// whole-model check in chip_smoke.py. At hd 128 its 256 floats of q and
+// accumulator a thread exceed the 255 registers and spill to local
+// memory, and its 81,920 bytes of shared memory need the opt-in above
+// 48 KB; it stays the reference, untuned.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -231,6 +244,9 @@ cudaError_t launch_f32(int hd, const void* q, const void* k, const void* v,
     case 64:
       return launch<float, 64>(q, k, v, o, B, S, H, KV, st, causal, scale,
                                stream);
+    case 128:
+      return launch<float, 128>(q, k, v, o, B, S, H, KV, st, causal, scale,
+                                stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -238,7 +254,7 @@ cudaError_t launch_f32(int hd, const void* q, const void* k, const void* v,
 
 
 // ---------------------------------------------------------------------------
-// The tensor-core instance: bf16, head dims 16, 32 and 64.
+// The tensor-core instance: bf16, head dims 16, 32, 64 and 128.
 // ---------------------------------------------------------------------------
 namespace wg {
 
@@ -247,19 +263,37 @@ constexpr int kBlockK = 64;         // keys a tile: N of q·kᵀ, K of p·v
 constexpr int kThreads = 128;       // one warpgroup
 constexpr int kStages = 2;          // K/V tiles in flight
 
-// A [64 rows][HD] bf16 tile in shared memory: rows of W = 2·HD bytes
-// (32, 64 or 128), 16-byte chunks swizzled as wgmma's 32/64/128-byte
-// modes read them: address bits [4, 4 + log2(W/16)) ^= bits [7, ...).
+// A [64 rows][HD] bf16 tile in shared memory. A row is W = 2·HD bytes;
+// the widest swizzle atom row is 128 bytes, so a tile is stored as
+// kAtoms sub-tiles of [64 rows][A bytes], A = min(W, 128): one at hd 16,
+// 32 and 64, two 64-column halves at hd 128, each 8 KB. In a sub-tile
+// the 16-byte chunks are swizzled as wgmma's 32/64/128-byte modes read
+// them: address bits [4, 4 + log2(A/16)) ^= bits [7, ...).
 template <int HD>
 struct Tile {
   static constexpr int W = 2 * HD;
-  static constexpr int kChunks = W / 16;
-  static constexpr int kBytes = kBlockQ * W;     // 2, 4 or 8 KB
+  static constexpr int A = W < 128 ? W : 128;    // bytes a sub-tile row
+  static constexpr int kAtoms = W / A;           // sub-tiles along hd
+  static constexpr int kChunks = W / 16;         // 16-byte chunks a row
+  static constexpr int kAtomChunks = A / 16;
+  static constexpr int kAtomBytes = kBlockQ * A;
+  static constexpr int kBytes = kBlockQ * W;     // 2, 4, 8 or 16 KB
   // descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
-  static constexpr int kLayout = HD == 64 ? 1 : HD == 32 ? 2 : 3;
-  static constexpr int kSBO = 8 * W;             // between 8-row groups
-  __device__ static uint32_t swizzle(uint32_t off) {
-    return off ^ ((off >> 3) & ((kChunks - 1) << 4));
+  static constexpr int kLayout = A == 128 ? 1 : A == 64 ? 2 : 3;
+  static constexpr int kSBO = 8 * A;             // between 8-row groups
+  // MN-major (v in p·v, N = hd): bytes between the sub-tiles along N;
+  // K-major reads and a single sub-tile leave it unused (16, field 1)
+  static constexpr int kLBO = kAtoms > 1 ? kAtomBytes : 16;
+  // where chunk c of row r lies
+  __device__ static uint32_t offset(int r, int c) {
+    const uint32_t off = r * A + (c % kAtomChunks) * 16;
+    return (c / kAtomChunks) * kAtomBytes +
+           (off ^ ((off >> 3) & ((kAtomChunks - 1) << 4)));
+  }
+  // K-major start of columns [16 kk, 16 kk + 16): 32 bytes into a row,
+  // in the sub-tile that holds them
+  __device__ static uint32_t kstep(int kk) {
+    return (kk * 32 / A) * kAtomBytes + (kk * 32) % A;
   }
 };
 
@@ -304,11 +338,16 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
 }
 
 // Shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), layout type (bits 62-63).
+// byte offsets (16-byte units), layout type (bits 62-63). With a swizzle,
+// K-major: SBO steps 8-row groups along M/N, LBO is unused; MN-major:
+// SBO steps 8-row groups along K, LBO steps swizzle atoms along M/N (the
+// PTX ISA's canonical layouts, ((T,8,m),(8,k)) : ((1,T,LBO),(8T,SBO))
+// for 128 bytes).
 __device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t sbo,
-                                               int layout) {
+                                               int layout,
+                                               uint32_t lbo = 16) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(1) << 16 |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
          static_cast<uint64_t>(layout) << 62;
 }
@@ -384,6 +423,38 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]),
+        "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]),
+        "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b);
@@ -405,6 +476,12 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
                                              uint64_t b) {
   wgmma_rs_m64n64(d, a, b);
 }
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  wgmma_rs_m64n128(d, a, b);
+}
 
 // Rows row0.. of a [S, HD] slice (row stride `stride` elements) into a
 // swizzled tile; rows at or past S are zeros.
@@ -421,7 +498,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
     const bool live = row0 + r < S;
     const __nv_bfloat16* src =
         base + (live ? (row0 + r) * stride + c * 8 : 0);
-    cp_async16(dst + T::swizzle(r * T::W + c * 16), src, live ? 16 : 0);
+    cp_async16(dst + T::offset(r, c), src, live ? 16 : 0);
   }
 }
 
@@ -488,7 +565,8 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     fence_proxy_async();
     __syncthreads();
 
-    // s = q kᵀ: [64, HD] x [HD, 64], HD / 16 steps of K 16
+    // s = q kᵀ: [64, HD] x [HD, 64], HD / 16 steps of K 16 (at hd 128
+    // steps 4-7 read the second 64-column sub-tile)
     const uint32_t kt = s_k + stage * T::kBytes;
     float s[kBlockK / 2];
 #pragma unroll
@@ -497,8 +575,10 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_m64n64(s, descriptor(s_q + kk * 32, T::kSBO, T::kLayout),
-                      descriptor(kt + kk * 32, T::kSBO, T::kLayout), kk > 0);
+      wgmma_ss_m64n64(s,
+                      descriptor(s_q + T::kstep(kk), T::kSBO, T::kLayout),
+                      descriptor(kt + T::kstep(kk), T::kSBO, T::kLayout),
+                      kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     pin(s);
@@ -556,7 +636,8 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
     // acc += p v: [64, 64] x [64, HD], 4 steps of 16 keys; v's tile is
-    // read MN-major (transposed by the instruction, not in memory)
+    // read MN-major (transposed by the instruction, not in memory); at
+    // hd 128 N spans both sub-tiles, kLBO apart
     const uint32_t vt = s_v + stage * T::kBytes;
     pin(acc);
     wgmma_fence();
@@ -564,8 +645,8 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
       const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                              pa[4 * kk + 3]};
-      wgmma_rs<HD>(acc, a, descriptor(vt + kk * 16 * T::W, T::kSBO,
-                                      T::kLayout));
+      wgmma_rs<HD>(acc, a, descriptor(vt + kk * 16 * T::A, T::kSBO,
+                                      T::kLayout, T::kLBO));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -614,8 +695,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace wg
 }  // namespace
 
-// The CUDA-core instance. dtype 0: float32 at hd 8, 16, 32 or 64;
-// 1: bfloat16 at hd 8 only (the wgmma instance takes bf16 at 16-64).
+// The CUDA-core instance. dtype 0: float32 at hd 8, 16, 32, 64 or 128;
+// 1: bfloat16 at hd 8 only (the wgmma instance takes bf16 at 16-128).
 // strides: 12 element strides, (b, s, head) of q, k, v and o in turn.
 // Returns cudaGetLastError() of the launch.
 extern "C" int flash_attention_launch(int device, int dtype, int hd,
@@ -638,8 +719,8 @@ extern "C" int flash_attention_launch(int device, int dtype, int hd,
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core instance: bfloat16 only, hd 16, 32 or 64; q, k, v and o
-// 16-byte aligned with (b, s, head) strides that are multiples of 8
+// The tensor-core instance: bfloat16 only, hd 16, 32, 64 or 128; q, k, v
+// and o 16-byte aligned with (b, s, head) strides that are multiples of 8
 // elements. Arguments as flash_attention_launch without the dtype.
 extern "C" int flash_attention_wgmma_launch(int device, int hd,
                                             const void* q, const void* k,
@@ -664,6 +745,9 @@ extern "C" int flash_attention_wgmma_launch(int device, int hd,
     case 64:
       return (int)wg::launch<64>(q, k, v, o, B, S, H, KV, strides, causal,
                                  scale, stream);
+    case 128:
+      return (int)wg::launch<128>(q, k, v, o, B, S, H, KV, strides, causal,
+                                  scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

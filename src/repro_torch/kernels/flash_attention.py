@@ -10,9 +10,9 @@ steps in PyTorch, tile by tile, and is what the wrappers run for CPU
 tensors and what the kernel is held against.
 
 The source holds two instances, and ``design(dtype, head_dim)`` picks
-one: ``"wgmma"`` (tensor cores) for bfloat16 at head dims 16, 32 and 64,
-``"simt"`` (CUDA cores, f32 arithmetic) for float32 at every head dim and
-bfloat16 at 8, which is below wgmma's bf16 depth of 16. A launch that
+one: ``"wgmma"`` (tensor cores) for bfloat16 at head dims 16, 32, 64 and
+128, ``"simt"`` (CUDA cores, f32 arithmetic) for float32 at every head
+dim and bfloat16 at 8, which is below wgmma's bf16 depth of 16. A launch that
 fails raises; neither instance stands in for the other.
 
 Two entry points, as in the reference:
@@ -23,11 +23,12 @@ Two entry points, as in the reference:
     kernel reads the heads by stride.
   - ``flash_attention``: q, k, v ``[BH, S, hd]``.
 
-Head dims 8, 16, 32 and 64 (the kernel is compiled for each); any other
-raises. Any S: partial tiles are masked, not resized. The wgmma instance
-reads 16-byte chunks, so it needs q, k and v 16-byte aligned with (batch,
-position, head) strides that are multiples of 8 elements (any view of
-the model's projections is); it raises on others.
+Head dims 8, 16, 32, 64 and 128 (the kernel is compiled for each); any
+other raises, 256 (gemma3) among them. Any S: partial tiles are masked,
+not resized. The wgmma instance reads 16-byte chunks, so it needs q, k
+and v 16-byte aligned with (batch, position, head) strides that are
+multiples of 8 elements (any view of the model's projections is); it
+raises on others.
 """
 from __future__ import annotations
 
@@ -40,19 +41,19 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.sparse_match import on_cpu, stream_of
 
 NEG_INF = -1e30
-HEAD_DIMS = (8, 16, 32, 64)
+HEAD_DIMS = (8, 16, 32, 64, 128)
 BLOCK_Q = 64                  # csrc/flash_attention.cu: kBlockQ (both)
 BLOCK_K = 64                  # csrc/flash_attention.cu: kBlockK (both)
 DESIGNS = ("wgmma", "simt")
-WGMMA_HEAD_DIMS = (16, 32, 64)
+WGMMA_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def design(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel instance runs these inputs: ``"wgmma"`` for bfloat16
-    at head dims 16, 32 and 64 (the tensor cores: bf16 operands, K 16
-    deep), else ``"simt"`` (float32, the accuracy reference, and bf16 at
-    head dim 8)."""
+    at head dims 16, 32, 64 and 128 (the tensor cores: bf16 operands, K
+    16 deep), else ``"simt"`` (float32, the accuracy reference, and bf16
+    at head dim 8)."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"

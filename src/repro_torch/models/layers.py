@@ -34,7 +34,8 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """One layer's attention params (biases f32 zeros, as the reference)."""
+    """One layer's attention params (biases f32 zeros and qk-norm scales
+    f32 ones of ``[head_dim]``, as the reference)."""
     dtype = getattr(torch, cfg.dtype)
     p = {
         "wq": dense_init(gen, cfg.d_model, cfg.q_dim, dtype),
@@ -48,6 +49,10 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
                           ("bv", cfg.kv_dim)):
             p[name] = torch.zeros(dim, dtype=torch.float32,
                                   device=gen.device)
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[name] = torch.ones(cfg.head_dim, dtype=torch.float32,
+                                 device=gen.device)
     return p
 
 
@@ -133,16 +138,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def attn_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """Project to q [B, S, H, hd] and k, v [B, S, KV, hd]; the f32 biases
-    are added in the activation dtype."""
+    are added in the activation dtype; with qk-norm, q and k are RMS-
+    normalised per head (before RoPE, which the caller applies)."""
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
     B, S = x.shape[:2]
-    return (q.reshape(B, S, cfg.n_heads, cfg.head_dim),
-            k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@
     logits, _, kv     = apply_prefill(params, cfg, batch)
     logits, _, cache  = apply_decode(params, cfg, batch, cache, idx)
 
-Transformer families only; ``ssm`` (rwkv6) and ``hybrid`` (zamba2) raise
-``NotImplementedError`` (ROADMAP A9).
+Transformer families (``dense`` and ``moe`` run; ``transformer.
+check_supported`` says what else raises); ``ssm`` (rwkv6) and ``hybrid``
+(zamba2) raise ``NotImplementedError`` (ROADMAP A9).
 """
 from __future__ import annotations
 

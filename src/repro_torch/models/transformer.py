@@ -1,17 +1,20 @@
-"""Decoder-only transformer, dense family: the port of
-``repro.models.transformer`` for the archs the port serves (qwen2).
+"""Decoder-only transformer, dense and MoE families: the port of
+``repro.models.transformer`` for the archs the port serves (qwen2,
+qwen3, internlm2, qwen3-moe).
 
-GQA attention with RoPE and QKV bias, SwiGLU FFN, RMS norms, tied or
+GQA attention with RoPE, optional QKV bias and qk-norm, a SwiGLU FFN or
+an MoE block (``models/moe.py``) in every layer, RMS norms, tied or
 untied unembedding. Prefill runs every layer's attention through kernel
 B4; decode writes the new position into a preallocated cache in place
 and attends over the positions ``<= cur_index``.
 
 On one card the reference's mesh context (``distributed/meshctx``), its
 perf flags (``models/perfcfg``: the ones on this path act only on a mesh
-or on gemma3) and its remat policy (``models/rematcfg``: training only)
-have nothing to do, so ``forward`` takes no ``ctx``. MoE, VLM, audio,
-sliding-window, softcap and qk-norm configs raise ``NotImplementedError``
-(ROADMAP A9).
+or on gemma3, but for ``router_bf16_matmul``, whose default the MoE
+block keeps) and its remat policy (``models/rematcfg``: training only)
+have nothing to do, so ``forward`` takes no ``ctx``. Leading dense
+layers in an MoE model (kimi-k2), VLM, audio, sliding-window and softcap
+configs raise ``NotImplementedError`` (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 MODES = ("prefill", "decode")
 
@@ -29,11 +33,10 @@ MODES = ("prefill", "decode")
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
     missing = [name for name, off in (
-        (f"family {cfg.family!r}", cfg.family == "dense"),
-        ("MoE", cfg.n_experts == 0),
+        (f"family {cfg.family!r}", cfg.family in ("dense", "moe")),
+        ("leading dense layers", cfg.first_k_dense == 0),
         ("cross-attention", cfg.cross_attn_every == 0),
         ("embeddings input", not cfg.embeds_input),
-        ("qk-norm", not cfg.qk_norm),
         ("sliding window", cfg.sliding_window == 0),
         ("logit softcap", cfg.attn_logit_softcap == 0.0),
         (f"ffn {cfg.ffn_kind!r}", cfg.ffn_kind == "swiglu")) if not off]
@@ -46,11 +49,17 @@ def check_supported(cfg: ModelConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 def _block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """One layer: ``"moe"`` in every layer of a config with experts (the
+    reference's ``moe_blocks``), else ``"mlp"``."""
     d = cfg.d_model
-    return {"ln1": torch.ones(d, dtype=torch.float32, device=gen.device),
-            "attn": L.attn_init(gen, cfg),
-            "ln2": torch.ones(d, dtype=torch.float32, device=gen.device),
-            "mlp": L.ffn_init(gen, cfg)}
+    p = {"ln1": torch.ones(d, dtype=torch.float32, device=gen.device),
+         "attn": L.attn_init(gen, cfg),
+         "ln2": torch.ones(d, dtype=torch.float32, device=gen.device)}
+    if cfg.n_experts > 0:
+        p["moe"] = moe_lib.moe_init(gen, cfg)
+    else:
+        p["mlp"] = L.ffn_init(gen, cfg)
+    return p
 
 
 def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -86,8 +95,13 @@ def _self_attn(pb, x, cfg, *, positions, mode, cache=None, cur_index=None):
     return out.reshape(B, S, cfg.q_dim) @ ap["wo"], new_kv
 
 
-def _mlp(pb, x, cfg):
-    return x + L.ffn_apply(pb["mlp"], L.rms_norm(x, pb["ln2"], cfg.norm_eps))
+def _mlp_or_moe(pb, x, cfg):
+    """(x + FFN or MoE of the normed x, the layer's f32 aux or None)."""
+    h = L.rms_norm(x, pb["ln2"], cfg.norm_eps)
+    if "moe" in pb:
+        y, aux = moe_lib.moe_apply(pb["moe"], h, cfg)
+        return x + y, aux
+    return x + L.ffn_apply(pb["mlp"], h), None
 
 
 # ---------------------------------------------------------------------------
@@ -97,10 +111,11 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             mode: str = "prefill", caches: Optional[dict] = None,
             cur_index: Optional[int] = None, last_only: bool = False):
     """batch: ``{"tokens": [B, S]}`` (``S == 1`` in decode). Returns
-    (logits, aux, kv): in prefill ``kv`` stacks every layer's rotated k
-    and v, ``[n_layers, B, S, KV, hd]``; in decode it is ``caches``,
-    updated in place at ``cur_index``. ``last_only`` unembeds only the
-    last position (its logits are the same)."""
+    (logits, aux, kv): ``aux`` is the f32 scalar sum of the MoE layers'
+    load-balancing losses (0 without experts); in prefill ``kv`` stacks
+    every layer's rotated k and v, ``[n_layers, B, S, KV, hd]``; in decode
+    it is ``caches``, updated in place at ``cur_index``. ``last_only``
+    unembeds only the last position (its logits are the same)."""
     check_supported(cfg)
     if mode not in MODES:
         raise NotImplementedError(f"mode {mode!r}: training is not ported "
@@ -113,12 +128,15 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     else:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, pb in enumerate(params["blocks"]):
         cache = (caches["k"][i], caches["v"][i]) if mode == "decode" else None
         attn_out, (k, v) = _self_attn(pb, x, cfg, positions=positions,
                                       mode=mode, cache=cache,
                                       cur_index=cur_index)
-        x = _mlp(pb, x + attn_out, cfg)
+        x, aux_l = _mlp_or_moe(pb, x + attn_out, cfg)
+        if aux_l is not None:
+            aux = aux + aux_l
         if mode == "prefill":
             ks.append(k)
             vs.append(v)
@@ -127,7 +145,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed_apply(params["embed"], x), 0.0, kv
+    return L.unembed_apply(params["embed"], x), aux, kv
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,

@@ -1262,3 +1262,94 @@ def test_pagerank_and_bfs_on_the_card_equal_the_cpu(dev):
         want[nxt] = d
         frontier = nxt
     np.testing.assert_array_equal(levels.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gqa_at_the_qwen3_prefill_shape(dev, dtype):
+    """hd 128 at qwen3-4b's prefill shape: bf16 on the wgmma instance (two
+    64-column sub-tiles a tile), f32 on the simt one, each within its
+    tolerance of the plain version and counted under its instance."""
+    q, k, v = _gqa_on_card(dev, 2, 4, 1024, 32, 8, 128, dtype)
+    which = fa.design(dtype, 128)
+    assert which == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    before = dict(fa.flash_attention_gqa.launches_by_design)
+    got = fa.flash_attention_gqa(q, k, v)
+    after = fa.flash_attention_gqa.launches_by_design
+    assert after[which] == before[which] + 1
+    want = fa.flash_attention_gqa_plain(q, k, v)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _row_scaled_err(got, want) <= ROW_TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 64, 100, 130])
+def test_simt_instance_at_head_dim_128(dev, S, causal):
+    """f32 at hd 128 (the instance whose q row and accumulator spill to
+    local memory) against the plain version on the CPU."""
+    cpu = _attn_inputs(S, (2, S, 4, 128), (2, S, 2, 128), torch.float32)
+    want = fa.flash_attention_gqa(*cpu, causal=causal)
+    before = fa.flash_attention_gqa.launches_by_design["simt"]
+    got = fa.flash_attention_gqa(*(t.to(dev) for t in cpu), causal=causal)
+    assert fa.flash_attention_gqa.launches_by_design["simt"] == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_head_dim_256_is_refused_on_the_card(dev):
+    q, k, v = _gqa_on_card(dev, 0, 1, 64, 2, 1, 256)
+    before = dict(fa.flash_attention_gqa.launches_by_design)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        fa.flash_attention_gqa(q, k, v)
+    assert fa.flash_attention_gqa.launches_by_design == before
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_qwen3_moe_smoke_on_the_card_matches_the_cpu(dev):
+    """The smoke qwen3-moe in f32: prefill and one decode step on the card
+    (B4 at every layer, the MoE's gathers, sorts and batched products on
+    the card) within 1e-4 of the CPU port's logits, the same expert ids
+    and the same kept assignments in every layer, and the same aux."""
+    import dataclasses
+    from repro_torch.configs import qwen3_moe_235b_a22b
+    from repro_torch.models import model as M, moe
+    cfg = dataclasses.replace(qwen3_moe_235b_a22b.smoke_config(),
+                              dtype="float32")
+    params = M.init(cfg, seed=0, device="cpu")
+    on_card = _to(params, dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 100)).astype(np.int32))
+    runs = {}
+    try:
+        for where, p, t in (("cpu", params, tokens),
+                            ("card", on_card, tokens.to(dev))):
+            moe.moe_apply.record = []
+            before = fa.flash_attention_gqa.launches
+            logits, aux, kv = M.apply_prefill(p, cfg, {"tokens": t})
+            launched = fa.flash_attention_gqa.launches - before
+            cache = M.init_cache(cfg, 4, 101, t.device)
+            cache["k"][:, :, :100] = kv["k"]
+            cache["v"][:, :, :100] = kv["v"]
+            step, _, _ = M.apply_decode(p, cfg, {"tokens": t[:, -1:]}, cache,
+                                        100)
+            runs[where] = (logits.cpu(), float(aux), step.cpu(), launched,
+                           [(r["expert_id"].cpu(), r["kept"].cpu())
+                            for r in moe.moe_apply.record])
+    finally:
+        moe.moe_apply.record = None
+    cpu, card = runs["cpu"], runs["card"]
+    assert cpu[3] == 0 and card[3] == cfg.n_layers
+    torch.testing.assert_close(card[0], cpu[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(card[2], cpu[2], rtol=1e-4, atol=1e-4)
+    assert abs(card[1] - cpu[1]) <= 1e-5 * max(1.0, abs(cpu[1]))
+    assert len(card[4]) == 2 * cfg.n_layers          # prefill and decode
+    for (ids_c, kept_c), (ids_g, kept_g) in zip(cpu[4], card[4]):
+        assert torch.equal(ids_c, ids_g) and torch.equal(kept_c, kept_g)

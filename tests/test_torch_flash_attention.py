@@ -169,3 +169,41 @@ def test_cuda_tensors_load_the_symbol_of_their_design(monkeypatch, dtype, hd):
         with pytest.raises(RuntimeError, match="kernel loader called"):
             fa.flash_attention_gqa(q, kv, kv)
     assert asked == [fa._SYMBOLS[fa.design(dtype, hd)][0]]
+
+
+@pytest.mark.parametrize("B,S,H,KV,causal", [
+    (1, 64, 1, 1, True),            # one whole tile
+    (2, 100, 4, 2, True),           # the Qwen3 family's hd, S past a tile
+    (1, 70, 8, 1, False),
+])
+def test_head_dim_128_plain_matches_pallas(B, S, H, KV, causal):
+    """hd 128 (qwen3, internlm2, qwen3-moe): the plain version against
+    the Pallas kernel in interpret mode, float32 and bfloat16."""
+    import ml_dtypes
+    q, k, v = _qkv(S + H, (B, S, H, 128), (B, S, KV, 128))
+    want = ref_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=causal, interpret=True)
+    got = fa.flash_attention_gqa(*_torch(q, k, v), causal=causal)
+    assert got.shape == (B, S, H, 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=F32_TOL, atol=F32_TOL)
+    bq, bk, bv = (a.astype(ml_dtypes.bfloat16) for a in (q, k, v))
+    want = ref_gqa(jnp.asarray(bq), jnp.asarray(bk), jnp.asarray(bv),
+                   causal=causal, interpret=True)
+    got = fa.flash_attention_gqa(*(torch.from_numpy(a.astype(np.float32))
+                                   .bfloat16() for a in (bq, bk, bv)),
+                                 causal=causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_head_dim_256_is_refused_naming_the_supported_dims():
+    """gemma3's hd 256 has no instance yet (ROADMAP C19): a ValueError
+    that lists the head dims the kernel takes, never the plain path."""
+    q, k, v = _torch(*_qkv(0, (1, 8, 2, 256), (1, 8, 1, 256)))
+    with pytest.raises(ValueError, match=r"head_dim 256 is not one of "
+                                         r"\(8, 16, 32, 64, 128\)"):
+        fa.flash_attention_gqa(q, k, v)
+    assert 128 in fa.WGMMA_HEAD_DIMS and 256 not in fa.HEAD_DIMS
