@@ -1,11 +1,14 @@
 """Where an LM serving call's time goes in the PyTorch/CUDA port, on one card.
 
     PYTHONPATH=src python benchmarks/port_serve_profile.py \
-        [--arch qwen2-0.5b] [--batch 4] [--prompt-len 1024] [--max-new 32] \
-        [--reps 5] [--json]
+        [--arch qwen2-0.5b] [--layers N] [--batch 4] [--prompt-len 1024] \
+        [--max-new 32] [--reps 5] [--json]
 
 Builds the model at full width from seed 0 (random weights, the config's
-dtype) on the card and serves one batch of random prompts through
+dtype) on the card, at full depth or cut to its first ``--layers N``
+(kimi-k2 at 2: its dense lead and one MoE layer, ~40 GB; qwen3-moe at 8,
+~42 GB; at full depth they do not fit one card), and serves one batch of
+random prompts through
 ``repro_torch.serve.step.generate``: a warm-up call, then ``--reps``
 calls on the host clock (prefill with the first token, and the decode
 steps; each ends with the card synchronized), then one more call of
@@ -14,6 +17,7 @@ device's idle share of the phase's wall time (profiler on). Needs a
 card; it does not run on the CPU.
 """
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -52,6 +56,8 @@ def profiled(fn):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ARCH_NAMES), default="qwen2-0.5b")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to its first N layers (0: all)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--max-new", type=int, default=32)
@@ -66,6 +72,13 @@ def main(argv=None):
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
     cfg = get_config(args.arch)
+    if args.layers:
+        if not 0 < args.layers <= cfg.n_layers:
+            raise SystemExit(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.n_layers}")
+        print(f"cut: {cfg.name} at {args.layers} of its {cfg.n_layers} "
+              "layers, full width")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     B, S, N = args.batch, args.prompt_len, args.max_new
     params = M.init(cfg, seed=0, device=dev)
     prompt = torch.as_tensor(np.random.default_rng(0).integers(
@@ -108,7 +121,8 @@ def main(argv=None):
               f"copies, idle share {idle:.3f}; top device ms: {top}")
         if args.json:
             print(json.dumps({
-                "phase": name, "arch": cfg.name, "batch": B,
+                "phase": name, "arch": cfg.name, "layers": cfg.n_layers,
+                "batch": B,
                 "prompt_len": S, "max_new": N, "card": card,
                 "host_ms_median": host,
                 "n": args.reps, "profiled_wall_ms": wall / per,

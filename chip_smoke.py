@@ -171,6 +171,25 @@ each of which fails the run (non-zero exit) if it fails:
                logits' limit (lm_atol); f32 at 4 (qwen3-4b) and 2
                (qwen3-moe) layers; B4's hd-128 times as in 11. Each phase
                prints its wall time.
+ 8c-11c. hd 256 and the sliding window, for gemma3-4b and kimi-k2: B4
+               at gemma3's prefill shape (B 4, S 2048, 8 heads over 4,
+               hd 256) against its plain version, bf16 (wgmma) and f32
+               (simt), causal global and causal with its window of 1024
+               (prompts of two windows, so the band bites); gemma3-4b at
+               full width and depth (34 layers: 29 local, 5 global)
+               through ``serve.main`` with 4 prompts of 2048 tokens, B4
+               once a layer, all wgmma, 29 of them windowed; against
+               plain attention in bf16 and, at 6 layers (one whole 5:1
+               superblock), in f32; kimi-k2 at full width cut to 2 of 61
+               layers (its dense lead of d_ff 18 432 and one MoE layer of
+               384 experts, top-8, a shared expert) through ``M.init``
+               and ``step.generate``, 4 prompts of 1024 tokens, B4 at hd
+               128 once a layer, per-layer capacity drops, bf16 against
+               plain attention with routing replayed (no f32: its MoE
+               layer alone is ~68 GB in f32); B4's hd-256 times, global
+               and windowed, beside their bounds (the band's pairs only)
+               and SDPA (causal; a boolean band mask, its backend named).
+               Each phase prints its wall time, and the run its total.
  12. graph     GraphBLAS (``repro_torch.core.graphblas``, plain PyTorch)
                on a graph of 2^20 vertices and 2^24 edges, in-neighbours
                uniform from seed 0, as an incoming-edges ELL on the card:
@@ -234,6 +253,12 @@ LM_ULPS = 6
 LM128_ARCHS = ("qwen3-4b", "internlm2-20b")   # full width and depth
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8  # full width, 8 of 94 layers
 LM128_F32_LAYERS = {"qwen3-4b": 4, "qwen3-moe-235b-a22b": 2}
+# phases 8c-11c: B4 at head dim 256 with the sliding window (gemma3), and
+# kimi-k2's leading dense layer ahead of its MoE layers
+GEMMA_ARCH = "gemma3-4b"               # full width and depth, 34 layers
+GEMMA_PROMPT = 2048                    # two windows: the band bites
+GEMMA_F32_LAYERS = 6                   # one whole 5:1 superblock
+KIMI_ARCH, KIMI_LAYERS = "kimi-k2-1t-a32b", 2  # the dense lead + 1 MoE
 STORE_SEGMENT_DOCS = 1 << 16           # 16 segments of the 2^20 documents
 STORE_CACHE_BYTES = 4 << 30            # room for every backend's 16 slabs
 APPROX_CANDIDATES = 64
@@ -723,7 +748,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rows.append(lm_phases(torch, dev))
+    t0 = time.perf_counter()
     rows.append(lm128_phases(torch, dev))
+    say(f"phases 8b-11b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hd256_rows, kimi_launches = lm256_phases(torch, dev)
+    rows[-1]["launches"] += kimi_launches      # kimi-k2 runs B4 at hd 128
+    rows.extend(hd256_rows)
+    say(f"phases 8c-11c: {time.perf_counter() - t0:.1f} s")
     graph_phase(torch, dev)
     say(f"run: {time.perf_counter() - t_run:.1f} s wall")
     say(nvidia_smi_line())
@@ -1822,10 +1854,10 @@ def lm_atol(dtype, logits) -> float:
 
 def route_flips(torch, cfg, records, first_diff, label, limit):
     """Phase 10b's routing rule over the plain run's records (a prefill
-    call a layer, then a call a layer for each decode step; decode step
-    i feeds greedy token i, so steps from ``first_diff`` on are not
-    compared): every flip's routing margin below ``limit``."""
-    n = cfg.n_layers
+    call an MoE layer, then a call an MoE layer for each decode step;
+    decode step i feeds greedy token i, so steps from ``first_diff`` on
+    are not compared): every flip's routing margin below ``limit``."""
+    n = cfg.n_layers - cfg.first_k_dense
     calls = records[:n * (1 + min(first_diff, LM_NEW - 1))]
     flips = {"prefill": [0] * n, "decode": [0] * n}
     margins, checked = [], 0
@@ -1848,24 +1880,33 @@ def route_flips(torch, cfg, records, first_diff, label, limit):
              f">= {limit}")
 
 
-def b4_cases(torch, dev, fa, B, S, H, KV, hd):
+def b4_cases(torch, dev, fa, B, S, H, KV, hd, window=0):
     """Phase 8 (8b): B4 against its plain version at a prefill shape, in
     bf16 and f32, non-causal, at an S that no tile divides and through
-    the [BH, S, hd] entry. Returns each case's max error."""
+    the [BH, S, hd] entry; with ``window`` (8c), bf16 and f32 causal,
+    global and windowed. Returns each case's max error."""
     by = fa.flash_attention_gqa.launches_by_design
-    cases = [("prefill bf16 causal", B, S, "bfloat16", True),
-             ("prefill f32 causal", B, S, "float32", True),
-             ("prefill bf16 non-causal", B, S, "bfloat16", False),
-             ("bf16 causal S=1000 (no 64-tile divides)", 2, 1000,
-              "bfloat16", True)]
+    if window:
+        cases = [("prefill bf16 causal", B, S, "bfloat16", True, 0),
+                 ("prefill f32 causal", B, S, "float32", True, 0),
+                 (f"prefill bf16 causal window {window}", B, S, "bfloat16",
+                  True, window),
+                 (f"prefill f32 causal window {window}", B, S, "float32",
+                  True, window)]
+    else:
+        cases = [("prefill bf16 causal", B, S, "bfloat16", True, 0),
+                 ("prefill f32 causal", B, S, "float32", True, 0),
+                 ("prefill bf16 non-causal", B, S, "bfloat16", False, 0),
+                 ("bf16 causal S=1000 (no 64-tile divides)", 2, 1000,
+                  "bfloat16", True, 0)]
     attn_err = {}
-    for name, b, s_len, dtype, causal in cases:
+    for name, b, s_len, dtype, causal, w in cases:
         q, k, v = attention_inputs(torch, dev, b, s_len, H, KV, hd,
                                    getattr(torch, dtype))
         which = fa.design(q.dtype, hd)
         before = by[which]
-        got = fa.flash_attention_gqa(q, k, v, causal=causal)
-        want = fa.flash_attention_gqa_plain(q, k, v, causal=causal)
+        got = fa.flash_attention_gqa(q, k, v, causal=causal, window=w)
+        want = fa.flash_attention_gqa_plain(q, k, v, causal=causal, window=w)
         torch.cuda.synchronize()
         if by[which] != before + 1:
             fail(f"B4 {name}: not counted under its {which} instance")
@@ -1880,12 +1921,14 @@ def b4_cases(torch, dev, fa, B, S, H, KV, hd):
         if dtype == "bfloat16" and row_err > ATTN_ROW_TOL:
             fail(f"B4 {name}: row-scaled error {row_err} > {ATTN_ROW_TOL}")
         attn_err[name] = err
+        del q, k, v, got, want
     bh = attention_inputs(torch, dev, B * H, S, 1, 1, hd, torch.bfloat16)
-    got = fa.flash_attention(*(t[:, :, 0] for t in bh))
-    want = fa.flash_attention_plain(*(t[:, :, 0] for t in bh))
+    got = fa.flash_attention(*(t[:, :, 0] for t in bh), window=window)
+    want = fa.flash_attention_plain(*(t[:, :, 0] for t in bh), window=window)
     torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
     row_err = row_scaled_err(got, want)
-    say(f"B4 vs plain, [BH, S, hd] entry [{B * H}, {S}, {hd}] bf16: "
+    say(f"B4 vs plain, [BH, S, hd] entry [{B * H}, {S}, {hd}] bf16"
+        + (f" window {window}" if window else "") + ": "
         f"max_abs_err {float((got.float() - want.float()).abs().max()):.3e}"
         f", row-scaled {row_err:.3e}")
     if row_err > ATTN_ROW_TOL:
@@ -1959,33 +2002,63 @@ def serve_checked(torch, step, fa, dev, cfg, run, B, S):
     return pre, dec / (LM_NEW - 1)
 
 
-def b4_times(torch, dev, fa, B, S, H, KV, hd):
-    """Phase 11 (11b): B4, its plain version and the library yardstick at
-    a bf16 prefill shape, beside the bound. Returns the row's numbers."""
+def band_pairs(S, window) -> int:
+    """(query, key) pairs a causal mask with ``window`` keeps: row r sees
+    min(r + 1, window) keys."""
+    return sum(min(r + 1, window) for r in range(S))
+
+
+def sdpa_backend(torch, q, k, v, **kw) -> str:
+    """The backend scaled_dot_product_attention picks for these inputs."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, dropout_p=0.0,
+                                              scale=None, **kw)).name
+
+
+def b4_times(torch, dev, fa, B, S, H, KV, hd, window=0):
+    """Phase 11 (11b, 11c): B4, its plain version and the library
+    yardstick at a bf16 prefill shape, causal and with ``window``, beside
+    the bound. Returns the row's numbers."""
     q, k, v = attention_inputs(torch, dev, B, S, H, KV, hd, torch.bfloat16)
     which = fa.design(q.dtype, hd)
+    kern = lambda: fa.flash_attention_gqa(q, k, v, window=window)  # noqa
     # device times from CUDA-graph replays: the wrapper's host work is
     # longer than the kernel, so one eager call would time the host
-    eager_ms = cuda_ms(torch, lambda: fa.flash_attention_gqa(q, k, v), 20)
-    ms = graph_ms(torch, lambda: fa.flash_attention_gqa(q, k, v), 20)
-    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_gqa_plain(q, k, v),
-                       3)
+    eager_ms = cuda_ms(torch, kern, 20)
+    ms = graph_ms(torch, kern, 20)
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_gqa_plain(
+        q, k, v, window=window), 3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    if window:
+        # the band as a boolean mask (True: attend): causal and dq - dk <
+        # window; no fused SDPA takes a window of its own
+        d = (torch.arange(S, device=dev)[:, None]
+             - torch.arange(S, device=dev)[None, :])
+        kw = {"attn_mask": (d >= 0) & (d < window), "is_causal": False,
+              "enable_gqa": True}
+    else:
+        kw = {"attn_mask": None, "is_causal": True, "enable_gqa": True}
+    backend = sdpa_backend(torch, qt, kt, vt, **kw)
+    lib = lambda: sdpa(qt, kt, vt, **kw)  # noqa: E731
     lib_eager_ms = cuda_ms(torch, lib, 20)
     lib_ms = graph_ms(torch, lib, 20)
     lib_err = float((lib().transpose(1, 2).float()
-                     - fa.flash_attention_gqa(q, k, v).float()).abs().max())
-    flops = 2 * B * H * S * S * hd
+                     - kern().float()).abs().max())
+    # operations: q·kᵀ and p·v, 2·hd each a kept (query, key) pair a head;
+    # causal is the usual 2·B·H·S²·hd, a window only its band's pairs
+    flops = 4 * B * H * hd * band_pairs(S, window) if window \
+        else 2 * B * H * S * S * hd
     b_ms, b_by = bound(nbytes(q, k, v) + nbytes(q), flops, BF16_OPS_PER_S)
     say(f"time flash_attention ({which}) [{B}, {S}, {H}/{KV}, {hd}] bf16 "
-        f"causal: {ms:.4f} ms a launch in a CUDA graph, {eager_ms:.4f} ms "
-        f"an eager call (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
-        f"{b_by}: {flops / 1e9:.2f} GFLOP, "
+        f"causal{f' window {window}' if window else ''}: {ms:.4f} ms a "
+        f"launch in a CUDA graph, {eager_ms:.4f} ms an eager call (plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: "
+        f"{flops / 1e9:.2f} GFLOP, "
         f"{(nbytes(q, k, v) + nbytes(q)) / 1e6:.1f} MB; library "
-        f"scaled_dot_product_attention {lib_ms:.4f} ms in a graph, "
-        f"{lib_eager_ms:.4f} ms eager, max |diff| "
+        f"scaled_dot_product_attention ({backend}"
+        f"{', boolean band mask' if window else ''}) {lib_ms:.4f} ms in a "
+        f"graph, {lib_eager_ms:.4f} ms eager, max |diff| "
         f"{lib_err:.3e}); kernel / library {ms / lib_ms:.2f}x, kernel / "
         f"bound {ms / b_ms:.1f}x")
     return {"design": which, "head_dim": hd, "ms": ms, "plain_ms": plain_ms,
@@ -2045,14 +2118,56 @@ def lm_phases(torch, dev):
                   attn_err["prefill bf16 causal"], times)
 
 
+def moe_served(torch, dev, fa, cfg, B, S):
+    """Phase 9b (9c): an MoE model cut in depth served through ``M.init``
+    and ``step.generate`` (what ``serve.main`` calls), counted as
+    ``serve_counted`` counts; prints the tokens each MoE layer dropped by
+    capacity in prefill and decode. Returns (the run, the counts)."""
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models import model as M, moe
+    from repro_torch.serve import step
+
+    def serve():
+        stats = {}
+        t0 = time.perf_counter()
+        params = M.init(cfg, seed=SEED, device=dev)
+        stats["init_s"] = time.perf_counter() - t0
+        prompt = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int32)
+        moe.moe_apply.record = []
+        try:
+            tokens = step.generate(params, cfg, prompt, max_new=LM_NEW,
+                                   max_len=S + LM_NEW, device=dev,
+                                   stats=stats)
+            records = moe.moe_apply.record
+        finally:
+            moe.moe_apply.record = None
+        return serve_launcher.ServeRun(tokens, prompt, params, stats), \
+            records
+
+    (run, records), launches = serve_counted(torch, fa, cfg, serve)
+    n = cfg.n_layers - cfg.first_k_dense
+    pre_drop = [r["dropped"] for r in records[:n]]
+    dec_drop = [sum(r["dropped"] for r in records[n + i::n])
+                for i in range(n)]
+    _, cap_pre = moe.capacities(B * S, cfg)
+    _, cap_dec = moe.capacities(B, cfg)
+    say(f"MoE drops by capacity, by MoE layer: prefill {pre_drop} of "
+        f"{B * S * cfg.top_k} assignments a layer (cap_exp {cap_pre}); "
+        f"decode {dec_drop} of {(LM_NEW - 1) * B * cfg.top_k} over "
+        f"{LM_NEW - 1} steps (cap_exp {cap_dec}: "
+        f"{sum(dec_drop) / (n * (LM_NEW - 1)):.2f} a layer a step)")
+    return run, launches
+
+
 def lm128_phases(torch, dev):
     """Phases 8b-11b: B4 at head dim 128 and the three archs it serves.
     Returns B4's hd-128 row of the kernels line, its launches the sum
-    of the three serving runs'."""
+    of the three serving runs' (``main`` adds kimi-k2's, phase 9c)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve as serve_launcher
-    from repro_torch.models import layers, model as M, moe
+    from repro_torch.models import layers, model as M
     from repro_torch.serve import step
 
     lead = get_config(LM128_ARCHS[0])
@@ -2087,42 +2202,12 @@ def lm128_phases(torch, dev):
     say(f"LM cut: {MOE_ARCH} at {MOE_LAYERS} of its {full.n_layers} layers "
         f"(~470 GB of bf16 weights at full depth, ~42 GB at "
         f"{MOE_LAYERS}); width, experts, top-k and capacity as published")
-
-    def moe_serve():
-        stats = {}
-        t0 = time.perf_counter()
-        params = M.init(cfg, seed=SEED, device=dev)
-        stats["init_s"] = time.perf_counter() - t0
-        prompt = np.random.default_rng(SEED).integers(
-            0, cfg.vocab_size, (B, S)).astype(np.int32)
-        moe.moe_apply.record = []
-        try:
-            tokens = step.generate(params, cfg, prompt, max_new=LM_NEW,
-                                   max_len=S + LM_NEW, device=dev,
-                                   stats=stats)
-            records = moe.moe_apply.record
-        finally:
-            moe.moe_apply.record = None
-        return serve_launcher.ServeRun(tokens, prompt, params, stats), \
-            records
-
-    (run, records), launches = serve_counted(torch, fa, cfg, moe_serve)
+    run, launches = moe_served(torch, dev, fa, cfg, B, S)
     served += launches["flash_attention"]
-    n = cfg.n_layers
-    pre_drop = [r["dropped"] for r in records[:n]]
-    dec_drop = [sum(r["dropped"] for r in records[n + i::n])
-                for i in range(n)]
-    _, cap_pre = moe.capacities(B * S, cfg)
-    _, cap_dec = moe.capacities(B, cfg)
-    say(f"MoE drops by capacity, by layer: prefill {pre_drop} of "
-        f"{B * S * cfg.top_k} assignments a layer (cap_exp {cap_pre}); "
-        f"decode {dec_drop} of {(LM_NEW - 1) * B * cfg.top_k} over "
-        f"{LM_NEW - 1} steps (cap_exp {cap_dec}: "
-        f"{sum(dec_drop) / (n * (LM_NEW - 1)):.2f} a layer a step)")
     serve_checked(torch, step, fa, dev, cfg, run, B, S)
     lm_check(torch, step, layers, fa, run.params, cfg,
              torch.as_tensor(run.prompt, device=dev), f"{MOE_ARCH} bf16")
-    del run, records
+    del run
     torch.cuda.empty_cache()
     say(f"phase 9b/10b ({MOE_ARCH}): {time.perf_counter() - t_phase:.1f} s")
 
@@ -2146,6 +2231,96 @@ def lm128_phases(torch, dev):
     say(f"phase 11b: {time.perf_counter() - t_phase:.1f} s")
     return b4_row("flash_attention_hd128", served,
                   attn_err["prefill bf16 causal"], times)
+
+
+def lm256_phases(torch, dev):
+    """Phases 8c-11c: B4 at head dim 256 with gemma3's sliding window,
+    gemma3-4b at full width and depth, and kimi-k2 at full width cut to
+    its dense lead and one MoE layer. Returns the two hd-256 rows of the
+    kernels line and kimi-k2's B4 launches (hd 128, which join that
+    row's)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models import layers, model as M, transformer
+    from repro_torch.serve import step
+
+    cfg = get_config(GEMMA_ARCH)
+    B, S, H, KV, hd = (LM_BATCH, GEMMA_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    window = cfg.sliding_window
+    windows = transformer.window_schedule(cfg, cfg.n_layers)
+    say(f"{GEMMA_ARCH}: {windows.count(window)} local layers (window "
+        f"{window}) and {windows.count(0)} global, prompts of {S} tokens")
+
+    # -- 8c. B4 at hd 256, global and windowed, against its plain version ---
+    t_phase = time.perf_counter()
+    attn_err = b4_cases(torch, dev, fa, B, S, H, KV, hd, window=window)
+    say(f"phase 8c (B4 at hd {hd}): {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 9c/10c. gemma3-4b through serve.main, then kernel against plain ----
+    t_phase = time.perf_counter()
+    argv = ["--arch", GEMMA_ARCH, "--batch", str(B), "--prompt-len", str(S),
+            "--max-new", str(LM_NEW), "--seed", str(SEED)]
+    fa.flash_attention_gqa.launches_windowed = 0
+    run, launches = serve_counted(torch, fa, cfg,
+                                  lambda: serve_launcher.main(argv))
+    n_windowed = fa.flash_attention_gqa.launches_windowed
+    say(f"LM main path ({GEMMA_ARCH}): {n_windowed} of B4's "
+        f"{launches['flash_attention']} launches windowed")
+    if n_windowed != windows.count(window):
+        fail(f"{GEMMA_ARCH}: {n_windowed} windowed B4 launches in one "
+             f"prefill, want {windows.count(window)} (one a local layer)")
+    serve_checked(torch, step, fa, dev, cfg, run, B, S)
+    lm_check(torch, step, layers, fa, run.params, cfg,
+             torch.as_tensor(run.prompt, device=dev), f"{GEMMA_ARCH} bf16")
+    del run
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=GEMMA_F32_LAYERS)
+    params32 = M.init(cfg32, seed=SEED, device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg32.vocab_size, (B, S)).astype(np.int32), device=dev)
+    lm_check(torch, step, layers, fa, params32, cfg32, prompt,
+             f"{GEMMA_ARCH} f32 at {GEMMA_F32_LAYERS} layers (windows "
+             f"{transformer.window_schedule(cfg32, GEMMA_F32_LAYERS)})")
+    del params32, prompt
+    torch.cuda.empty_cache()
+    say(f"phase 9c/10c ({GEMMA_ARCH}): {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 9c/10c. kimi-k2 at its dense lead and one MoE layer -----------------
+    t_phase = time.perf_counter()
+    full = get_config(KIMI_ARCH)
+    kcfg = dataclasses.replace(full, n_layers=KIMI_LAYERS)
+    kS = LM_PROMPT
+    say(f"LM cut: {KIMI_ARCH} at {KIMI_LAYERS} of its {full.n_layers} layers"
+        f" ({full.first_k_dense} dense, d_ff {full.d_ff_dense}, then "
+        f"{KIMI_LAYERS - full.first_k_dense} MoE of {full.n_experts} experts"
+        f" top-{full.top_k} and {full.n_shared_experts} shared; ~2 TB of "
+        f"bf16 weights at full depth, ~40 GB at {KIMI_LAYERS}); width, "
+        "experts, top-k and capacity as published")
+    run, k_launches = moe_served(torch, dev, fa, kcfg, B, kS)
+    serve_checked(torch, step, fa, dev, kcfg, run, B, kS)
+    lm_check(torch, step, layers, fa, run.params, kcfg,
+             torch.as_tensor(run.prompt, device=dev), f"{KIMI_ARCH} bf16")
+    del run
+    torch.cuda.empty_cache()
+    say(f"LM check {KIMI_ARCH}: no f32 run (its MoE layer alone is ~68 GB "
+        "in f32, beside the card's 80 GB); the f32 path of a dense lead "
+        "and an MoE layer is held on the CPU (tests/test_torch_lm.py)")
+    say(f"phase 9c/10c ({KIMI_ARCH}): {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 11c. B4 times at hd 256, global and windowed ------------------------
+    t_phase = time.perf_counter()
+    rows = []
+    for name, w, n in (("flash_attention_hd256", 0,
+                        launches["flash_attention"] - n_windowed),
+                       ("flash_attention_hd256_window", window, n_windowed)):
+        times = b4_times(torch, dev, fa, B, S, H, KV, hd, window=w)
+        err = attn_err["prefill bf16 causal" + (f" window {w}" if w else "")]
+        rows.append(b4_row(name, n, err, times))
+    say(f"phase 11c: {time.perf_counter() - t_phase:.1f} s")
+    return rows, k_launches["flash_attention"]
 
 
 def graph_phase(torch, dev):

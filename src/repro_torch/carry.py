@@ -65,11 +65,12 @@ def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
                              device: DeviceLike = None) -> dict:
     """The reference's transformer param tree, as numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's params on
-    ``device``: the ``[n_layers, ...]`` stacks of ``blocks`` (dense) or
+    ``device``: the ``[n, ...]`` stacks of ``blocks`` (dense), or of
+    ``dense_blocks`` (kimi-k2's leading dense layers) followed by
     ``moe_blocks`` (router, experts, the shared expert where there is
-    one) become one dict a layer; every array keeps its dtype (f32
-    biases, norm and qk-norm scales and router, weights in the config's
-    dtype) and its ``x @ W`` orientation."""
+    one), become one dict a layer in layer order; every array keeps its
+    dtype (f32 biases, norm and qk-norm scales and router, weights in the
+    config's dtype) and its ``x @ W`` orientation."""
     check_supported(cfg)
     device = resolve(device)
 
@@ -79,10 +80,13 @@ def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
         arr = np.asarray(tree)
         return _tensor(arr if index is None else arr[index], device)
 
-    blocks = params["moe_blocks" if cfg.n_experts > 0 else "blocks"]
-    n = np.asarray(blocks["ln1"]).shape[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"{n} stacked layers, config has {cfg.n_layers}")
+    stacks = ("dense_blocks", "moe_blocks") if cfg.n_experts > 0 \
+        else ("blocks",)
+    layers = [conv(params[name], i) for name in stacks if name in params
+              for i in range(np.asarray(params[name]["ln1"]).shape[0])]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} stacked layers, config has "
+                         f"{cfg.n_layers}")
     return {"embed": conv(params["embed"]),
             "final_norm": conv(params["final_norm"]),
-            "blocks": [conv(blocks, i) for i in range(n)]}
+            "blocks": layers}

@@ -1,5 +1,5 @@
-// Flash attention, forward: softmax(q k^T / sqrt(hd), causal mask) v with
-// an online softmax, the port's kernel for LM prefill.
+// Flash attention, forward: softmax(q k^T / sqrt(hd), causal and window
+// mask) v with an online softmax, the port's kernel for LM prefill.
 //
 // Replaces src/repro/kernels/flash_attention.py::_kernel (driven there by
 // flash_attention and flash_attention_gqa), which walks a (bh, q block,
@@ -22,6 +22,20 @@
 // expf (not __expf), IEEE division, and no FMA contraction (built with
 // -fmad=false).
 //
+// Sliding window (gemma3's local layers; the reference's _attn_mask in
+// src/repro/models/layers.py, which the TPU kernel does not have): with
+// window w > 0 a key at position dk is kept for the query at dq iff
+// dq - dk < w, on top of the causal test when causal. Both instances
+// start a block's key loop at the tile that holds key q0 - w + 1, so the
+// tiles below the band are never loaded, and mask per element only the
+// tiles that cross the band's lower edge. The window is a template
+// flag of each instance (kWindow): w = 0 launches the global instance,
+// whose loop is the one without a window, test for test. A row that sees no key of a tile (below its own band, in a
+// tile another row of the block needs) gets p = 1 from -1e30 - -1e30
+// there; its first real score then sets alpha = exp(-1e30 - m) = 0,
+// which clears that tile's sum and accumulator exactly, as in the plain
+// version and the reference.
+//
 // Bound on the H100 at the qwen2-0.5b prefill shape (B 4, S 1024, 14 heads
 // over 2 kv heads, hd 64, bf16): operations. Causal attention needs
 // 2·B·H·S²·hd = 7.5 GFLOP against 16.8 MB of q, k, v and o: 7.6 us on the
@@ -30,7 +44,7 @@
 // Two instances; kernels/flash_attention.py::design picks one from the
 // dtype and head dim alone, and never falls back from one to the other.
 //
-// wgmma (bfloat16, hd 16, 32, 64 and 128), the main path's. The first
+// wgmma (bfloat16, hd 16, 32, 64, 128 and 256), the main path's. The first
 // design ran one thread a query row on the CUDA cores: scalar f32
 // products with a shared-memory load per multiply-add, K and V converted
 // to f32 and staged synchronously, scores written to shared memory and
@@ -55,6 +69,9 @@
 //    atoms, so each tile is stored as two 64-column sub-tiles (Tile<HD>):
 //    q·kᵀ's k-steps 4-7 start in the second, and p·v reads v's N = 128
 //    across both through the MN-major descriptor's leading byte offset.
+//    At hd 256 a row is four atoms: four sub-tiles, and q·kᵀ's 16 k-steps
+//    walk them; p·v's N = 256 is split over two warpgroups (Split), the
+//    first reading sub-tiles 0-1, the second 2-3.
 //  - The online softmax stays in registers on the accumulator layout: a
 //    thread holds 2 rows x 16 scores, and a row's max and sum are reduced
 //    over the 4 threads of a lane quad by shuffles; nothing is staged in
@@ -84,6 +101,17 @@
 //    by shared memory. The 2048 query tiles of qwen3-4b's prefill shape
 //    (B 4, S 1024, 32 heads over 8) are ~7.8 waves of 2 x 132 = 264
 //    blocks; the bound there is 34.4 GFLOP, 0.035 ms at 989 TFLOP/s.
+//  - At hd 256 (gemma3): smem_bytes<256>() = 164,864 bytes (five 32 KB
+//    tiles), one block an SM. With one warpgroup a block, a thread held
+//    128 accumulator floats beside the 32 scores: 255 registers and 160
+//    bytes spilled, and 4 warps an SM. So a block runs two warpgroups
+//    that share each K/V tile: both compute the block's 64 x 64 scores
+//    and softmax (the q·kᵀ products twice, 1.5x the tensor work of one),
+//    and each accumulates half of p·v's N = 256, 64 floats a thread: 170
+//    registers, no spills, 8 warps an SM, one warpgroup's softmax beside
+//    the other's products. Measured 13% faster than one warpgroup at
+//    gemma3's prefill shape, 6% with its window
+//    (benchmarks/port_b4_times.py, H100 80GB HBM3 at 700 W).
 //
 // simt (float32 at every head dim, and bfloat16 at hd 8, below wgmma's
 // bf16 depth of 16): one thread a query row holding its q row and f32
@@ -93,7 +121,8 @@
 // whole-model check in chip_smoke.py. At hd 128 its 256 floats of q and
 // accumulator a thread exceed the 255 registers and spill to local
 // memory, and its 81,920 bytes of shared memory need the opt-in above
-// 48 KB; it stays the reference, untuned.
+// 48 KB; at hd 256, 512 floats a thread and 147,456 bytes. It stays the
+// reference, untuned.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -126,12 +155,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kWindow>
 __global__ void __launch_bounds__(kBlockQ)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int S, int G,
           Strides sq, Strides sk, Strides sv, Strides so, int causal,
-          float scale) {
+          int window, float scale) {
   extern __shared__ float smem[];
   float* ks = smem;                   // [kBlockK][HD]
   float* vs = ks + kBlockK * HD;      // [kBlockK][HD]
@@ -159,9 +188,12 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * sk.b + kvh * sk.h;
   const T* vb = v + b * sv.b + kvh * sv.h;
   // causal: a tile runs iff its first key is at or below the block's
-  // last row (the TPU kernel's `run`)
+  // last row (the TPU kernel's `run`); window: from the tile that holds
+  // the block's first row's first key, q0 - window + 1
   const int k_end = causal ? min(S, q0 + kBlockQ) : S;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
+  const int k_begin =
+      kWindow ? max(0, q0 - window + 1) / kBlockK * kBlockK : 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
     const int nk = min(kBlockK, S - k0);
     __syncthreads();                  // the previous tile is consumed
     for (int e = tid; e < nk * HD; e += kBlockQ) {
@@ -179,7 +211,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int d = 0; d < HD; ++d) s += qr[d] * kr[d];
       s *= scale;
-      if (causal && k0 + j > row) s = kNegInf;
+      if ((causal && k0 + j > row) || (kWindow && row - k0 - j >= window))
+        s = kNegInf;
       ss[j * kBlockQ + tid] = s;
       m_tile = fmaxf(m_tile, s);
     }
@@ -207,46 +240,62 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, const long long* st,
-                   int causal, float scale, cudaStream_t stream) {
+template <typename T, int HD, bool kWindow>
+cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
+                      int B, int S, int H, int KV, const long long* st,
+                      int causal, int window, float scale,
+                      cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * kBlockK * HD + kBlockK * kBlockQ);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<T, HD, kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd<T, HD><<<grid, kBlockQ, smem, stream>>>(
+  flash_fwd<T, HD, kWindow><<<grid, kBlockQ, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, H / KV,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
-      scale);
+      window, scale);
   return cudaGetLastError();
+}
+
+// the global instance for window 0, the windowed one otherwise
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int S, int H, int KV, const long long* st,
+                   int causal, int window, float scale, cudaStream_t stream) {
+  return window > 0
+             ? launch_as<T, HD, true>(q, k, v, o, B, S, H, KV, st, causal,
+                                      window, scale, stream)
+             : launch_as<T, HD, false>(q, k, v, o, B, S, H, KV, st, causal,
+                                       window, scale, stream);
 }
 
 // float32 at every head dim
 cudaError_t launch_f32(int hd, const void* q, const void* k, const void* v,
                        void* o, int B, int S, int H, int KV,
-                       const long long* st, int causal, float scale,
-                       cudaStream_t stream) {
+                       const long long* st, int causal, int window,
+                       float scale, cudaStream_t stream) {
   switch (hd) {
     case 8:
-      return launch<float, 8>(q, k, v, o, B, S, H, KV, st, causal, scale,
-                              stream);
+      return launch<float, 8>(q, k, v, o, B, S, H, KV, st, causal, window,
+                              scale, stream);
     case 16:
-      return launch<float, 16>(q, k, v, o, B, S, H, KV, st, causal, scale,
-                               stream);
+      return launch<float, 16>(q, k, v, o, B, S, H, KV, st, causal, window,
+                               scale, stream);
     case 32:
-      return launch<float, 32>(q, k, v, o, B, S, H, KV, st, causal, scale,
-                               stream);
+      return launch<float, 32>(q, k, v, o, B, S, H, KV, st, causal, window,
+                               scale, stream);
     case 64:
-      return launch<float, 64>(q, k, v, o, B, S, H, KV, st, causal, scale,
-                               stream);
+      return launch<float, 64>(q, k, v, o, B, S, H, KV, st, causal, window,
+                               scale, stream);
     case 128:
-      return launch<float, 128>(q, k, v, o, B, S, H, KV, st, causal, scale,
-                                stream);
+      return launch<float, 128>(q, k, v, o, B, S, H, KV, st, causal, window,
+                                scale, stream);
+    case 256:
+      return launch<float, 256>(q, k, v, o, B, S, H, KV, st, causal, window,
+                                scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -254,7 +303,7 @@ cudaError_t launch_f32(int hd, const void* q, const void* k, const void* v,
 
 
 // ---------------------------------------------------------------------------
-// The tensor-core instance: bf16, head dims 16, 32, 64 and 128.
+// The tensor-core instance: bf16, head dims 16, 32, 64, 128 and 256.
 // ---------------------------------------------------------------------------
 namespace wg {
 
@@ -266,7 +315,8 @@ constexpr int kStages = 2;          // K/V tiles in flight
 // A [64 rows][HD] bf16 tile in shared memory. A row is W = 2·HD bytes;
 // the widest swizzle atom row is 128 bytes, so a tile is stored as
 // kAtoms sub-tiles of [64 rows][A bytes], A = min(W, 128): one at hd 16,
-// 32 and 64, two 64-column halves at hd 128, each 8 KB. In a sub-tile
+// 32 and 64, two 64-column halves at hd 128 and four 64-column quarters
+// at hd 256, each 8 KB. In a sub-tile
 // the 16-byte chunks are swizzled as wgmma's 32/64/128-byte modes read
 // them: address bits [4, 4 + log2(A/16)) ^= bits [7, ...).
 template <int HD>
@@ -277,12 +327,13 @@ struct Tile {
   static constexpr int kChunks = W / 16;         // 16-byte chunks a row
   static constexpr int kAtomChunks = A / 16;
   static constexpr int kAtomBytes = kBlockQ * A;
-  static constexpr int kBytes = kBlockQ * W;     // 2, 4, 8 or 16 KB
+  static constexpr int kBytes = kBlockQ * W;     // 2, 4, 8, 16 or 32 KB
   // descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
   static constexpr int kLayout = A == 128 ? 1 : A == 64 ? 2 : 3;
   static constexpr int kSBO = 8 * A;             // between 8-row groups
-  // MN-major (v in p·v, N = hd): bytes between the sub-tiles along N;
-  // K-major reads and a single sub-tile leave it unused (16, field 1)
+  // MN-major (v in p·v, N = hd, or 128 at hd 256): bytes between the
+  // sub-tiles along N; K-major reads and a single sub-tile leave it
+  // unused (16, field 1)
   static constexpr int kLBO = kAtoms > 1 ? kAtomBytes : 16;
   // where chunk c of row r lies
   __device__ static uint32_t offset(int r, int c) {
@@ -483,6 +534,16 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
   wgmma_rs_m64n128(d, a, b);
 }
 
+// Warpgroups a block: one up to hd 128; two at hd 256, each computing
+// the block's scores and owning half of p·v's N, so that a thread holds
+// 64 accumulator floats, as at hd 128, and not 128.
+template <int HD>
+struct Split {
+  static constexpr int kGroups = HD == 256 ? 2 : 1;
+  static constexpr int kN = HD / kGroups;       // p·v's N a warpgroup
+  static constexpr int kBlockThreads = kThreads * kGroups;
+};
+
 // Rows row0.. of a [S, HD] slice (row stride `stride` elements) into a
 // swizzled tile; rows at or past S are zeros.
 template <int HD>
@@ -491,9 +552,10 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
                                           long long stride, int row0, int S,
                                           int tid) {
   using T = Tile<HD>;
+  constexpr int kNT = Split<HD>::kBlockThreads;
 #pragma unroll
-  for (int i = 0; i < T::kChunks / 2; ++i) {      // 64·kChunks / 128
-    const int e = tid + i * kThreads;
+  for (int i = 0; i < T::kChunks * kBlockQ / kNT; ++i) {
+    const int e = tid + i * kNT;
     const int r = e / T::kChunks, c = e % T::kChunks;
     const bool live = row0 + r < S;
     const __nv_bfloat16* src =
@@ -507,17 +569,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// One block a (head, batch, 64-row query tile), one warpgroup. Thread t
-// of warp w owns query rows 16w + t%32/4 and that + 8 of the tile, and
-// in each 8-column group of an accumulator the columns 2(t%4) and + 1.
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
+// One block a (head, batch, 64-row query tile), one warpgroup (two at hd
+// 256, Split). Thread t of warp w of a warpgroup owns query rows 16w +
+// t%32/4 and that + 8 of the tile, and in each 8-column group of an
+// accumulator the columns 2(t%4) and + 1.
+template <int HD, bool kWindow>
+__global__ void __launch_bounds__(Split<HD>::kBlockThreads)
 flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
                 __nv_bfloat16* __restrict__ o, int S, int G, Strides sq,
-                Strides sk, Strides sv, Strides so, int causal, float scale) {
+                Strides sk, Strides sv, Strides so, int causal, int window,
+                float scale) {
   using T = Tile<HD>;
+  using P = Split<HD>;
   extern __shared__ unsigned char smem_raw[];
   // swizzled tiles start on 1024-byte boundaries (the 128-byte mode's
   // pattern repeats every 8 rows of 128 bytes)
@@ -525,34 +590,39 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   const uint32_t s_k = s_q + T::kBytes;                    // kStages tiles
   const uint32_t s_v = s_k + kStages * T::kBytes;          // kStages tiles
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid % 32;
+  // this thread's warpgroup and its index there
+  const int g = P::kGroups > 1 ? tid / kThreads : 0;
+  const int warp = (P::kGroups > 1 ? tid % kThreads : tid) / 32;
   const int h = blockIdx.x, b = blockIdx.y, kvh = h / G;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockQ;   // longest first
   const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
   const __nv_bfloat16* kb = k + b * sk.b + kvh * sk.h;
   const __nv_bfloat16* vb = v + b * sv.b + kvh * sv.h;
   // causal: a tile runs iff its first key is at or below the block's
-  // last row (the TPU kernel's `run`)
+  // last row (the TPU kernel's `run`); window: tiles [t0, t_end) from
+  // the one that holds key q0 - window + 1, the band's first
   const int k_end = causal ? min(S, q0 + kBlockQ) : S;
-  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
+  const int t_end = (k_end + kBlockK - 1) / kBlockK;
+  const int t0 = kWindow ? max(0, q0 - window + 1) / kBlockK : 0;
 
   load_tile<HD>(s_q, qb, sq.s, q0, S, tid);
-  load_tile<HD>(s_k, kb, sk.s, 0, S, tid);
-  load_tile<HD>(s_v, vb, sv.s, 0, S, tid);
+  load_tile<HD>(s_k, kb, sk.s, t0 * kBlockK, S, tid);
+  load_tile<HD>(s_v, vb, sv.s, t0 * kBlockK, S, tid);
   cp_async_commit();
 
   const int r_lo = warp * 16 + lane / 4;    // this thread's first row
   const int c_lo = 2 * (lane % 4);          // its first column of a group
-  float acc[HD / 2];                        // o: [64, HD] f32 fragment
+  float acc[P::kN / 2];     // o: this warpgroup's [64, kN] f32 fragment
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < P::kN / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t % kStages;
+  for (int t = t0; t < t_end; ++t) {
+    const int stage = (t - t0) % kStages;
     // the next tile's copy is issued before this tile's products
-    if (t + 1 < n_tiles) {
-      const int next = (t + 1) % kStages;
+    if (t + 1 < t_end) {
+      const int next = (t - t0 + 1) % kStages;
       load_tile<HD>(s_k + next * T::kBytes, kb, sk.s, (t + 1) * kBlockK, S,
                     tid);
       load_tile<HD>(s_v + next * T::kBytes, vb, sv.s, (t + 1) * kBlockK, S,
@@ -565,8 +635,8 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     fence_proxy_async();
     __syncthreads();
 
-    // s = q kᵀ: [64, HD] x [HD, 64], HD / 16 steps of K 16 (at hd 128
-    // steps 4-7 read the second 64-column sub-tile)
+    // s = q kᵀ: [64, HD] x [HD, 64], HD / 16 steps of K 16 (each four
+    // steps read the next 64-column sub-tile)
     const uint32_t kt = s_k + stage * T::kBytes;
     float s[kBlockK / 2];
 #pragma unroll
@@ -583,9 +653,11 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     wgmma_wait_all();
     pin(s);
 
-    // scale; -1e30 only on a tile that crosses the diagonal or S
+    // scale; -1e30 only on a tile that crosses the diagonal, S or the
+    // window band's lower edge
     const int k0 = t * kBlockK;
-    const bool edge = (causal && k0 + kBlockK - 1 > q0) || k0 + kBlockK > S;
+    const bool edge = (causal && k0 + kBlockK - 1 > q0) || k0 + kBlockK > S ||
+                      (kWindow && q0 + kBlockQ - 1 - k0 >= window);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int i = 0; i < kBlockK / 8; ++i) {
@@ -595,7 +667,9 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
         if (edge) {
           const int col = k0 + 8 * i + c_lo + (e & 1);
           const int row = q0 + r_lo + 8 * (e >> 1);
-          if (col >= S || (causal && col > row)) x = kNegInf;
+          if (col >= S || (causal && col > row) ||
+              (kWindow && row - col >= window))
+            x = kNegInf;
         }
         s[4 * i + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -633,20 +707,22 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
       m[j] = m_new[j];
     }
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < P::kN / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-    // acc += p v: [64, 64] x [64, HD], 4 steps of 16 keys; v's tile is
+    // acc += p v: [64, 64] x [64, kN], 4 steps of 16 keys; v's tile is
     // read MN-major (transposed by the instruction, not in memory); at
-    // hd 128 N spans both sub-tiles, kLBO apart
-    const uint32_t vt = s_v + stage * T::kBytes;
+    // hd 128 N spans both sub-tiles, kLBO apart, and at hd 256 warpgroup
+    // g reads sub-tiles 2g and 2g + 1
+    const uint32_t vt = s_v + stage * T::kBytes +
+                        g * (2 * P::kN / T::A) * T::kAtomBytes;
     pin(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
       const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                              pa[4 * kk + 3]};
-      wgmma_rs<HD>(acc, a, descriptor(vt + kk * 16 * T::A, T::kSBO,
-                                      T::kLayout, T::kLBO));
+      wgmma_rs<P::kN>(acc, a, descriptor(vt + kk * 16 * T::A, T::kSBO,
+                                         T::kLayout, T::kLBO));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -659,9 +735,10 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     const int row = q0 + r_lo + 8 * j;
     if (row >= S) continue;
     const float denom = fmaxf(l[j], 1e-30f);
-    __nv_bfloat16* op = o + b * so.b + row * so.s + h * so.h + c_lo;
+    __nv_bfloat16* op =
+        o + b * so.b + row * so.s + h * so.h + g * P::kN + c_lo;
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i)
+    for (int i = 0; i < P::kN / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(op + 8 * i) = __floats2bfloat162_rn(
           acc[4 * i + 2 * j] / denom, acc[4 * i + 2 * j + 1] / denom);
   }
@@ -672,65 +749,80 @@ size_t smem_bytes() {
   return 1024 + (1 + 2 * kStages) * Tile<HD>::kBytes;  // + alignment slack
 }
 
-template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, const long long* st,
-                   int causal, float scale, cudaStream_t stream) {
+template <int HD, bool kWindow>
+cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
+                      int B, int S, int H, int KV, const long long* st,
+                      int causal, int window, float scale,
+                      cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_wgmma<HD, kWindow>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B, (S + kBlockQ - 1) / kBlockQ);
-  flash_fwd_wgmma<HD><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_wgmma<HD, kWindow>
+      <<<grid, Split<HD>::kBlockThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       S, H / KV, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
-      scale);
+      window, scale);
   return cudaGetLastError();
+}
+
+// the global instance for window 0, the windowed one otherwise
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int S, int H, int KV, const long long* st,
+                   int causal, int window, float scale, cudaStream_t stream) {
+  return window > 0 ? launch_as<HD, true>(q, k, v, o, B, S, H, KV, st,
+                                          causal, window, scale, stream)
+                    : launch_as<HD, false>(q, k, v, o, B, S, H, KV, st,
+                                           causal, window, scale, stream);
 }
 
 }  // namespace wg
 }  // namespace
 
-// The CUDA-core instance. dtype 0: float32 at hd 8, 16, 32, 64 or 128;
-// 1: bfloat16 at hd 8 only (the wgmma instance takes bf16 at 16-128).
+// The CUDA-core instance. dtype 0: float32 at hd 8, 16, 32, 64, 128 or
+// 256; 1: bfloat16 at hd 8 only (the wgmma instance takes bf16 at 16-256).
 // strides: 12 element strides, (b, s, head) of q, k, v and o in turn.
+// window: 0 for global attention, else keys with dq - dk < window only.
 // Returns cudaGetLastError() of the launch.
 extern "C" int flash_attention_launch(int device, int dtype, int hd,
                                       const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int H, int KV, const long long* strides,
-                                      int causal, float scale,
+                                      int causal, int window, float scale,
                                       cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || H > 65535 || B > 65535)
+  if (KV <= 0 || H % KV != 0 || H > 65535 || B > 65535 || window < 0)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (dtype == 0)
     return (int)launch_f32(hd, q, k, v, o, B, S, H, KV, strides, causal,
-                           scale, stream);
+                           window, scale, stream);
   if (dtype == 1 && hd == 8)
     return (int)launch<__nv_bfloat16, 8>(q, k, v, o, B, S, H, KV, strides,
-                                         causal, scale, stream);
+                                         causal, window, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core instance: bfloat16 only, hd 16, 32, 64 or 128; q, k, v
-// and o 16-byte aligned with (b, s, head) strides that are multiples of 8
-// elements. Arguments as flash_attention_launch without the dtype.
+// The tensor-core instance: bfloat16 only, hd 16, 32, 64, 128 or 256; q,
+// k, v and o 16-byte aligned with (b, s, head) strides that are multiples
+// of 8 elements. Arguments as flash_attention_launch without the dtype.
 extern "C" int flash_attention_wgmma_launch(int device, int hd,
                                             const void* q, const void* k,
                                             const void* v, void* o, int B,
                                             int S, int H, int KV,
                                             const long long* strides,
-                                            int causal, float scale,
+                                            int causal, int window,
+                                            float scale,
                                             cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || B > 65535 ||
+  if (KV <= 0 || H % KV != 0 || B > 65535 || window < 0 ||
       (S + wg::kBlockQ - 1) / wg::kBlockQ > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
@@ -738,16 +830,19 @@ extern "C" int flash_attention_wgmma_launch(int device, int hd,
   switch (hd) {
     case 16:
       return (int)wg::launch<16>(q, k, v, o, B, S, H, KV, strides, causal,
-                                 scale, stream);
+                                 window, scale, stream);
     case 32:
       return (int)wg::launch<32>(q, k, v, o, B, S, H, KV, strides, causal,
-                                 scale, stream);
+                                 window, scale, stream);
     case 64:
       return (int)wg::launch<64>(q, k, v, o, B, S, H, KV, strides, causal,
-                                 scale, stream);
+                                 window, scale, stream);
     case 128:
       return (int)wg::launch<128>(q, k, v, o, B, S, H, KV, strides, causal,
-                                  scale, stream);
+                                  window, scale, stream);
+    case 256:
+      return (int)wg::launch<256>(q, k, v, o, B, S, H, KV, strides, causal,
+                                  window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,6 +1,6 @@
 """Flash attention, forward: the port of ``repro.kernels.flash_attention``.
 
-    o = softmax(q kᵀ / sqrt(hd), causal mask at -1e30) v
+    o = softmax(q kᵀ / sqrt(hd), causal and window mask at -1e30) v
 
 with an online softmax over key tiles: running max and sum in f32, ``p``
 rounded to v's dtype before ``p·v``, f32 accumulation, and the output
@@ -10,8 +10,8 @@ steps in PyTorch, tile by tile, and is what the wrappers run for CPU
 tensors and what the kernel is held against.
 
 The source holds two instances, and ``design(dtype, head_dim)`` picks
-one: ``"wgmma"`` (tensor cores) for bfloat16 at head dims 16, 32, 64 and
-128, ``"simt"`` (CUDA cores, f32 arithmetic) for float32 at every head
+one: ``"wgmma"`` (tensor cores) for bfloat16 at head dims 16, 32, 64,
+128 and 256, ``"simt"`` (CUDA cores, f32 arithmetic) for float32 at every head
 dim and bfloat16 at 8, which is below wgmma's bf16 depth of 16. A launch that
 fails raises; neither instance stands in for the other.
 
@@ -23,12 +23,19 @@ Two entry points, as in the reference:
     kernel reads the heads by stride.
   - ``flash_attention``: q, k, v ``[BH, S, hd]``.
 
-Head dims 8, 16, 32, 64 and 128 (the kernel is compiled for each); any
-other raises, 256 (gemma3) among them. Any S: partial tiles are masked,
-not resized. The wgmma instance reads 16-byte chunks, so it needs q, k
-and v 16-byte aligned with (batch, position, head) strides that are
-multiples of 8 elements (any view of the model's projections is); it
-raises on others.
+``window`` (both entry points, both instances): 0 is global attention;
+``w > 0`` keeps a key at position dk for the query at dq only where
+``dq - dk < w``, on top of the causal test where ``causal`` (the
+reference's ``_attn_mask`` in ``repro.models.layers``, which gemma3's
+local layers use; the reference's Pallas kernel has no window). The key
+loop starts at the tile that holds the block's first key of the band, so
+tiles below it cost nothing.
+
+Head dims 8, 16, 32, 64, 128 and 256 (the kernel is compiled for each);
+any other raises. Any S: partial tiles are masked, not resized. The
+wgmma instance reads 16-byte chunks, so it needs q, k and v 16-byte
+aligned with (batch, position, head) strides that are multiples of 8
+elements (any view of the model's projections is); it raises on others.
 """
 from __future__ import annotations
 
@@ -41,27 +48,33 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.sparse_match import on_cpu, stream_of
 
 NEG_INF = -1e30
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 BLOCK_Q = 64                  # csrc/flash_attention.cu: kBlockQ (both)
 BLOCK_K = 64                  # csrc/flash_attention.cu: kBlockK (both)
 DESIGNS = ("wgmma", "simt")
-WGMMA_HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def design(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel instance runs these inputs: ``"wgmma"`` for bfloat16
-    at head dims 16, 32, 64 and 128 (the tensor cores: bf16 operands, K
-    16 deep), else ``"simt"`` (float32, the accuracy reference, and bf16
+    at head dims 16 to 256 (the tensor cores: bf16 operands, K 16 deep),
+    else ``"simt"`` (float32, the accuracy reference, and bf16
     at head dim 8)."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
 
 
+def _band_start(q0: int, window: int) -> int:
+    """The first key tile a query tile at ``q0`` reads: the one that
+    holds key ``q0 - window + 1`` with a window, else 0."""
+    return max(0, q0 - window + 1) // BLOCK_K * BLOCK_K if window > 0 else 0
+
+
 def flash_attention_gqa_plain(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, *, causal: bool = True
-                              ) -> torch.Tensor:
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int = 0) -> torch.Tensor:
     """The kernel's function in PyTorch, in its tiles: q [B, S, H, hd],
     k, v [B, S, KV, hd] -> [B, S, H, hd] in q's dtype."""
     B, S, H, hd = q.shape
@@ -79,12 +92,17 @@ def flash_attention_gqa_plain(q: torch.Tensor, k: torch.Tensor,
         l = torch.zeros((B, KV, G, bq), device=q.device)
         acc = torch.zeros((B, KV, G, bq, hd), device=q.device)
         k_end = min(S, q0 + BLOCK_Q) if causal else S
-        for k0 in range(0, k_end, BLOCK_K):
+        for k0 in range(_band_start(q0, window), k_end, BLOCK_K):
             kt, vt = kf[:, k0:k0 + BLOCK_K], vf[:, k0:k0 + BLOCK_K]
             s = torch.einsum("bqkgd,bskd->bkgqs", qt, kt) * scale
-            if causal:
+            if causal or window > 0:
                 kpos = torch.arange(k0, k0 + kt.shape[1], device=q.device)
-                s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+                d = qpos[:, None] - kpos[None, :]
+                keep = (d >= 0 if causal
+                        else torch.ones_like(d, dtype=torch.bool))
+                if window > 0:
+                    keep &= d < window
+                s = torch.where(keep, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
@@ -99,15 +117,17 @@ def flash_attention_gqa_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
+                          *, causal: bool = True, window: int = 0
+                          ) -> torch.Tensor:
     """``flash_attention_gqa_plain`` on [BH, S, hd] (one head a row)."""
     return flash_attention_gqa_plain(q.unsqueeze(2), k.unsqueeze(2),
-                                     v.unsqueeze(2), causal=causal).squeeze(2)
+                                     v.unsqueeze(2), causal=causal,
+                                     window=window).squeeze(2)
 
 
 _TAIL = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
-    ctypes.c_void_p]
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_void_p]
 # design -> (C symbol, argtypes): simt takes (device, dtype, hd, ...),
 # wgmma (device, hd, ...), bf16 only
 _SYMBOLS = {"simt": ("flash_attention_launch", [ctypes.c_int] * 3 + _TAIL),
@@ -115,7 +135,8 @@ _SYMBOLS = {"simt": ("flash_attention_launch", [ctypes.c_int] * 3 + _TAIL),
                       [ctypes.c_int] * 2 + _TAIL)}
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int) -> None:
     B, S, H, hd = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[1] != S or k.shape[3] != hd:
@@ -127,25 +148,32 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"{H} query heads do not group over {KV} kv heads")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} is not one of {HEAD_DIMS}")
+    if window < 0:
+        raise ValueError(f"window {window} must be 0 (global) or positive")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
+                        *, causal: bool = True, window: int = 0
+                        ) -> torch.Tensor:
     """q [B, S, H, hd], k, v [B, S, KV, hd] (float32 or bfloat16, hd in
-    ``HEAD_DIMS``, each with a contiguous last dim) -> [B, S, H, hd].
+    ``HEAD_DIMS``, each with a contiguous last dim) -> [B, S, H, hd];
+    ``window`` 0 (global) or the sliding window's width.
 
     CPU tensors run ``flash_attention_gqa_plain``; CUDA tensors launch
     the instance ``design`` names (counted in
     ``flash_attention_gqa.launches`` and, by design, in
-    ``flash_attention_gqa.launches_by_design``) or raise."""
+    ``flash_attention_gqa.launches_by_design``; those with a window
+    narrower than S also in ``flash_attention_gqa.launches_windowed``)
+    or raise."""
     if q.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} must be [B, S, H, hd]")
-    _check(q, k, v)
+    _check(q, k, v, window)
     if on_cpu(q, k, v, contiguous=False):
-        return flash_attention_gqa_plain(q, k, v, causal=causal)
+        return flash_attention_gqa_plain(q, k, v, causal=causal,
+                                         window=window)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("kernel inputs need a contiguous head_dim")
     B, S, H, hd = q.shape
@@ -165,24 +193,27 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *(st for t in (q, k, v, out) for st in t.stride()[:3]))
     head = (q.device.index, hd) if which == "wgmma" else (
         q.device.index, _DTYPES[q.dtype], hd)
+    # a window as wide as S keeps every key: the global path, unchanged
     _build.check("flash_attention", fn(
         *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-        S, H, k.shape[2], strides, int(causal), 1.0 / math.sqrt(hd),
-        stream_of(out)))
-    _build.count_launch(flash_attention_gqa, which)
+        S, H, k.shape[2], strides, int(causal), window if window < S else 0,
+        1.0 / math.sqrt(hd), stream_of(out)))
+    _build.count_launch(flash_attention_gqa, which,
+                        "launches_windowed" if 0 < window < S else None)
     return out
 
 
 flash_attention_gqa.launches = 0
 flash_attention_gqa.launches_by_design = dict.fromkeys(DESIGNS, 0)
+flash_attention_gqa.launches_windowed = 0   # of them, with a window < S
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """q, k, v [BH, S, hd] -> [BH, S, hd]: ``flash_attention_gqa`` with
     one head a row (its launches count there)."""
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} must all be [BH, S, hd]")
     return flash_attention_gqa(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
-                               causal=causal).squeeze(2)
+                               causal=causal, window=window).squeeze(2)

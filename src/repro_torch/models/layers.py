@@ -56,14 +56,17 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
-def ffn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """One layer's SwiGLU params."""
+def ffn_init(gen: torch.Generator, cfg: ModelConfig,
+             d_ff: int = 0) -> dict:
+    """One layer's SwiGLU params, ``d_ff`` wide (default the config's;
+    kimi-k2's leading dense layers take ``d_ff_dense``)."""
     dtype = getattr(torch, cfg.dtype)
+    d_ff = d_ff or cfg.d_ff
     down_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
     return {
-        "w_gate": dense_init(gen, cfg.d_model, cfg.d_ff, dtype),
-        "w_up": dense_init(gen, cfg.d_model, cfg.d_ff, dtype),
-        "w_down": dense_init(gen, cfg.d_ff, cfg.d_model, dtype,
+        "w_gate": dense_init(gen, cfg.d_model, d_ff, dtype),
+        "w_up": dense_init(gen, cfg.d_model, d_ff, dtype),
+        "w_down": dense_init(gen, d_ff, cfg.d_model, dtype,
                              scale=down_scale),
     }
 
@@ -110,24 +113,31 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # attention
 # ---------------------------------------------------------------------------
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
+                        *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
     """Prefill attention, q [B, S, H, hd], k, v [B, S, KV, hd] ->
-    [B, S, H, hd]: kernel B4 (the reference computes the same function
-    with its jnp blockwise attention)."""
-    return flash_attention_gqa(q, k, v, causal=causal)
+    [B, S, H, hd]; ``window > 0`` keeps only the last ``window``
+    positions (gemma3's local layers): kernel B4 (the reference computes
+    the same function with its jnp blockwise attention)."""
+    return flash_attention_gqa(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cur_index: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, cur_index: int, *,
+                     window: int = 0) -> torch.Tensor:
     """q: [B, 1, H, hd]; caches: [B, S, KV, hd]; cache entries at
-    positions <= cur_index are valid. Scores and p·v in f32; p / l in
+    positions <= cur_index are valid, and with ``window > 0`` only those
+    with ``cur_index - pos < window``. Scores and p·v in f32; p / l in
     the cache dtype, as the reference."""
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     scale = 1.0 / math.sqrt(hd)
     qh = q.reshape(B, KV, H // KV, hd).float()
     s = torch.einsum("bkgd,bskd->bkgs", qh, k_cache.float()) * scale
-    valid = torch.arange(S, device=q.device) <= cur_index
+    pos = torch.arange(S, device=q.device)
+    valid = pos <= cur_index
+    if window > 0:
+        valid &= cur_index - pos < window
     s = torch.where(valid, s, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)

@@ -1,20 +1,29 @@
 """Decoder-only transformer, dense and MoE families: the port of
 ``repro.models.transformer`` for the archs the port serves (qwen2,
-qwen3, internlm2, qwen3-moe).
+qwen3, internlm2, qwen3-moe, gemma3, kimi-k2).
 
 GQA attention with RoPE, optional QKV bias and qk-norm, a SwiGLU FFN or
 an MoE block (``models/moe.py``) in every layer, RMS norms, tied or
-untied unembedding. Prefill runs every layer's attention through kernel
-B4; decode writes the new position into a preallocated cache in place
-and attends over the positions ``<= cur_index``.
+untied unembedding. A layer's attention is global or, where the config
+has a sliding window, local to the last ``window`` positions as
+``window_schedule`` says (gemma3: five local layers to one global).
+An MoE config with ``first_k_dense`` (kimi-k2) leads with that many
+dense layers of FFN width ``d_ff_dense`` (the reference's
+``dense_blocks``, ahead of its ``moe_blocks``). Prefill runs every
+layer's attention through kernel B4; decode writes the new position into
+a preallocated cache in place and attends over the positions ``<=
+cur_index`` (within the window on a local layer). Local layers keep a
+cache of ``max_len`` positions, as the reference's do.
 
 On one card the reference's mesh context (``distributed/meshctx``), its
 perf flags (``models/perfcfg``: the ones on this path act only on a mesh
 or on gemma3, but for ``router_bf16_matmul``, whose default the MoE
 block keeps) and its remat policy (``models/rematcfg``: training only)
-have nothing to do, so ``forward`` takes no ``ctx``. Leading dense
-layers in an MoE model (kimi-k2), VLM, audio, sliding-window and softcap
-configs raise ``NotImplementedError`` (ROADMAP A9).
+have nothing to do, so ``forward`` takes no ``ctx``; nor does its
+``banded_local`` flag (off by default), so local layers run the
+reference's default path, blockwise attention with the window mask. VLM,
+audio and logit-softcap configs raise ``NotImplementedError`` (ROADMAP
+A9; no config of the repo sets a softcap).
 """
 from __future__ import annotations
 
@@ -34,10 +43,8 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
     missing = [name for name, off in (
         (f"family {cfg.family!r}", cfg.family in ("dense", "moe")),
-        ("leading dense layers", cfg.first_k_dense == 0),
         ("cross-attention", cfg.cross_attn_every == 0),
         ("embeddings input", not cfg.embeds_input),
-        ("sliding window", cfg.sliding_window == 0),
         ("logit softcap", cfg.attn_logit_softcap == 0.0),
         (f"ffn {cfg.ffn_kind!r}", cfg.ffn_kind == "swiglu")) if not off]
     if missing:
@@ -48,48 +55,77 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """One layer: ``"moe"`` in every layer of a config with experts (the
-    reference's ``moe_blocks``), else ``"mlp"``."""
+def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
+    """One layer of ``kind``: ``"moe"`` (the reference's ``moe_blocks``),
+    ``"dense_lead"`` (its ``dense_blocks``: an ``"mlp"`` of width
+    ``d_ff_dense``) or ``"dense"``."""
     d = cfg.d_model
     p = {"ln1": torch.ones(d, dtype=torch.float32, device=gen.device),
          "attn": L.attn_init(gen, cfg),
          "ln2": torch.ones(d, dtype=torch.float32, device=gen.device)}
-    if cfg.n_experts > 0:
+    if kind == "moe":
         p["moe"] = moe_lib.moe_init(gen, cfg)
     else:
-        p["mlp"] = L.ffn_init(gen, cfg)
+        p["mlp"] = L.ffn_init(gen, cfg, cfg.d_ff_dense
+                              if kind == "dense_lead" else 0)
     return p
+
+
+def layer_kinds(cfg: ModelConfig) -> list:
+    """Each layer's kind in order: with experts, ``first_k_dense``
+    ``"dense_lead"`` layers and then ``"moe"``, else ``"dense"``."""
+    if cfg.n_experts > 0:
+        nd = cfg.first_k_dense
+        return ["dense_lead"] * nd + ["moe"] * (cfg.n_layers - nd)
+    return ["dense"] * cfg.n_layers
+
+
+def window_schedule(cfg: ModelConfig, n: int) -> list:
+    """Each of ``n`` layers' sliding window (0 = global), as the
+    reference's: with ``local_global_ratio`` r, layer i is global iff
+    ``i % (r + 1) == r`` (gemma3: five local to one global)."""
+    if cfg.local_global_ratio > 0 and cfg.sliding_window > 0:
+        per = cfg.local_global_ratio + 1
+        return [cfg.sliding_window if i % per != per - 1 else 0
+                for i in range(n)]
+    if cfg.sliding_window > 0:
+        return [cfg.sliding_window] * n
+    return [0] * n
 
 
 def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random params on the generator's device: ``{"embed", "final_norm",
-    "blocks": [one dict a layer]}``."""
+    "blocks": [one dict a layer]}``, the layers in ``layer_kinds``'
+    order."""
     check_supported(cfg)
     return {"embed": L.embed_init(gen, cfg),
             "final_norm": torch.ones(cfg.d_model, dtype=torch.float32,
                                      device=gen.device),
-            "blocks": [_block_init(gen, cfg) for _ in range(cfg.n_layers)]}
+            "blocks": [_block_init(gen, cfg, kind)
+                       for kind in layer_kinds(cfg)]}
 
 
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------
-def _self_attn(pb, x, cfg, *, positions, mode, cache=None, cur_index=None):
+def _self_attn(pb, x, cfg, *, positions, window, mode, cache=None,
+               cur_index=None):
     """Returns (attn_out, (k, v)): the rotated k and v of this call in
-    prefill, the updated caches in decode."""
+    prefill, the updated caches in decode. ``window``: the layer's
+    (0 = global)."""
     ap = pb["attn"]
     q, k, v = L.attn_qkv(ap, L.rms_norm(x, pb["ln1"], cfg.norm_eps), cfg)
     q = L.rope(q, positions, cfg.rope_theta)
     k_rot = L.rope(k, positions, cfg.rope_theta)
     if mode == "prefill":
-        out = L.blockwise_attention(q, k_rot, v, causal=True)
+        out = L.blockwise_attention(q, k_rot, v, causal=True, window=window)
         new_kv = (k_rot, v)
     else:           # decode: cache = (k_cache, v_cache) [B, S_max, KV, hd]
         k_cache, v_cache = cache
         k_cache[:, cur_index] = k_rot[:, 0]
         v_cache[:, cur_index] = v[:, 0]
-        out = L.decode_attention(q, k_cache, v_cache, cur_index)
+        out = L.decode_attention(q, k_cache, v_cache, cur_index,
+                                 window=window)
         new_kv = (k_cache, v_cache)
     B, S = x.shape[:2]
     return out.reshape(B, S, cfg.q_dim) @ ap["wo"], new_kv
@@ -129,11 +165,14 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     ks, vs = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # the reference gives MoE stacks no window, whatever the config says
+    windows = window_schedule(cfg, len(params["blocks"])) \
+        if cfg.n_experts == 0 else [0] * len(params["blocks"])
     for i, pb in enumerate(params["blocks"]):
         cache = (caches["k"][i], caches["v"][i]) if mode == "decode" else None
         attn_out, (k, v) = _self_attn(pb, x, cfg, positions=positions,
-                                      mode=mode, cache=cache,
-                                      cur_index=cur_index)
+                                      window=windows[i], mode=mode,
+                                      cache=cache, cur_index=cur_index)
         x, aux_l = _mlp_or_moe(pb, x + attn_out, cfg)
         if aux_l is not None:
             aux = aux + aux_l

@@ -11,8 +11,9 @@ Integral counts must agree bit for bit; float values within a stated
 tolerance. Flash attention (B4): float32 within 2e-5 and bfloat16 within
 3e-2 of its plain version, the tolerances ``tests/test_flash_kernel.py``
 holds the Pallas kernel to (sums in another order; bf16 outputs rounded
-to 8 bits). bf16 at head dims 16, 32 and 64 runs its tensor-core (wgmma)
-instance, float32 and hd 8 its CUDA-core (simt) one; the wgmma instance
+to 8 bits). bf16 at head dims 16 to 256 runs its tensor-core (wgmma)
+instance, float32 and hd 8 its CUDA-core (simt) one, each with and
+without a sliding window; the wgmma instance
 is also held, output row by output row, within two bf16 ulps of the
 row's largest entry (``ROW_TOL``), which a dropped key tile would fail.
 """
@@ -1297,12 +1298,125 @@ def test_simt_instance_at_head_dim_128(dev, S, causal):
     torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
 
 
-def test_head_dim_256_is_refused_on_the_card(dev):
-    q, k, v = _gqa_on_card(dev, 0, 1, 64, 2, 1, 256)
+@pytest.mark.parametrize("hd", [96, 512])
+def test_head_dims_outside_the_kernel_are_refused_on_the_card(dev, hd):
+    q, k, v = _gqa_on_card(dev, 0, 1, 64, 2, 1, hd)
     before = dict(fa.flash_attention_gqa.launches_by_design)
-    with pytest.raises(ValueError, match="head_dim 256"):
+    with pytest.raises(ValueError, match=f"head_dim {hd}"):
         fa.flash_attention_gqa(q, k, v)
     assert fa.flash_attention_gqa.launches_by_design == before
+
+
+# ---------------------------------------------------------------------------
+# head dim 256 and the sliding window (gemma3)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("window", [0, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gqa_at_the_gemma3_prefill_shape(dev, dtype, window):
+    """hd 256 at gemma3-4b's prefill shape (B 4, S 2048, 8 heads over 4),
+    global and with its local layers' window of 1024: bf16 on the wgmma
+    instance (four 64-column sub-tiles a tile), f32 on the simt one."""
+    q, k, v = _gqa_on_card(dev, 3, 4, 2048, 8, 4, 256, dtype)
+    which = fa.design(dtype, 256)
+    assert which == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    before = dict(fa.flash_attention_gqa.launches_by_design)
+    got = fa.flash_attention_gqa(q, k, v, window=window)
+    assert fa.flash_attention_gqa.launches_by_design[which] == \
+        before[which] + 1
+    want = fa.flash_attention_gqa_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _row_scaled_err(got, want) <= ROW_TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [1, 16, 63, 64, 65, 150])
+@pytest.mark.parametrize("hd", [8, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_on_both_instances_matches_plain(dev, dtype, hd, window,
+                                                causal):
+    """The band mask on each instance against the plain version (run on
+    the card, the same tensors): windows inside a tile, on its edges and
+    across several, causal and not, S that no tile divides."""
+    q, k, v = _gqa_on_card(dev, hd + window, 2, 300, 4, 2, hd, dtype)
+    which = fa.design(dtype, hd)
+    before = fa.flash_attention_gqa.launches_by_design[which]
+    got = fa.flash_attention_gqa(q, k, v, causal=causal, window=window)
+    assert fa.flash_attention_gqa.launches_by_design[which] == before + 1
+    want = fa.flash_attention_gqa_plain(q, k, v, causal=causal,
+                                        window=window)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _row_scaled_err(got, want) <= ROW_TOL
+    if window == 1 and causal:       # each row sees its own key alone
+        G = q.shape[2] // k.shape[2]
+        torch.testing.assert_close(
+            got, v.repeat_interleave(G, dim=2), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_a_window_as_wide_as_s_is_the_global_path(dev, hd, dtype):
+    """window >= S keeps every key: bit for bit the global launch."""
+    q, k, v = _gqa_on_card(dev, 7, 2, 200, 4, 2, hd, dtype)
+    want = fa.flash_attention_gqa(q, k, v)
+    for window in (200, 1000):
+        torch.testing.assert_close(
+            fa.flash_attention_gqa(q, k, v, window=window), want, rtol=0,
+            atol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 64, 100, 130])
+def test_simt_instance_at_head_dim_256(dev, S, causal):
+    """f32 at hd 256 (512 floats a thread, spilled to local memory;
+    147,456 bytes of shared memory) against the plain version on the
+    CPU, global and with a window of 40."""
+    cpu = _attn_inputs(S, (2, S, 4, 256), (2, S, 2, 256), torch.float32)
+    for window in (0, 40):
+        want = fa.flash_attention_gqa(*cpu, causal=causal, window=window)
+        before = fa.flash_attention_gqa.launches_by_design["simt"]
+        got = fa.flash_attention_gqa(*(t.to(dev) for t in cpu),
+                                     causal=causal, window=window)
+        assert fa.flash_attention_gqa.launches_by_design["simt"] == \
+            before + 1
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_gemma3_smoke_on_the_card_matches_the_cpu(dev):
+    """The smoke gemma3 in f32 (local layers of window 16 beside a global
+    one) at S 100: prefill logits on the card within 1e-4 of the CPU's,
+    one B4 launch a layer, and three decode steps past the window."""
+    import dataclasses
+    from repro_torch.configs import gemma3_4b
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(gemma3_4b.smoke_config(), dtype="float32")
+    params = M.init(cfg, seed=0, device="cpu")
+    on_card = _to(params, dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32))
+    runs = {}
+    for where, p, t in (("cpu", params, tokens),
+                        ("card", on_card, tokens.to(dev))):
+        before = fa.flash_attention_gqa.launches
+        logits, _, kv = M.apply_prefill(p, cfg, {"tokens": t})
+        launched = fa.flash_attention_gqa.launches - before
+        cache = M.init_cache(cfg, 2, 103, t.device)
+        cache["k"][:, :, :100] = kv["k"]
+        cache["v"][:, :, :100] = kv["v"]
+        steps = []
+        for i in range(3):
+            step, _, cache = M.apply_decode(p, cfg, {"tokens": t[:, i:i + 1]},
+                                            cache, 100 + i)
+            steps.append(step.cpu())
+        runs[where] = (logits.cpu(), torch.cat(steps, 1), launched)
+    assert runs["cpu"][2] == 0 and runs["card"][2] == cfg.n_layers
+    for a, b in zip(runs["card"][:2], runs["cpu"][:2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 def _to(tree, dev):

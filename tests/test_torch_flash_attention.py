@@ -140,7 +140,7 @@ def test_cpu_tensors_do_not_count_as_launches():
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_design_rule_picks_the_instance_by_dtype_and_head_dim(dtype, hd):
-    """bf16 at head dims 16, 32 and 64 runs on the tensor cores (wgmma);
+    """bf16 at head dims 16 to 256 runs on the tensor cores (wgmma);
     f32 at every head dim, and bf16 at 8 (below wgmma's bf16 K of 16),
     on the CUDA cores (simt)."""
     want = "wgmma" if dtype == torch.bfloat16 and hd >= 16 else "simt"
@@ -199,11 +199,114 @@ def test_head_dim_128_plain_matches_pallas(B, S, H, KV, causal):
                                rtol=BF16_TOL, atol=BF16_TOL)
 
 
-def test_head_dim_256_is_refused_naming_the_supported_dims():
-    """gemma3's hd 256 has no instance yet (ROADMAP C19): a ValueError
-    that lists the head dims the kernel takes, never the plain path."""
-    q, k, v = _torch(*_qkv(0, (1, 8, 2, 256), (1, 8, 1, 256)))
-    with pytest.raises(ValueError, match=r"head_dim 256 is not one of "
-                                         r"\(8, 16, 32, 64, 128\)"):
+@pytest.mark.parametrize("hd", [96, 512])
+def test_head_dims_outside_the_kernel_are_refused_naming_the_supported_dims(
+        hd):
+    """A head dim the kernel has no instance for (ROADMAP C19): a
+    ValueError that lists the head dims it takes, never the plain path."""
+    q, k, v = _torch(*_qkv(0, (1, 8, 2, hd), (1, 8, 1, hd)))
+    with pytest.raises(ValueError, match=rf"head_dim {hd} is not one of "
+                                         r"\(8, 16, 32, 64, 128, 256\)"):
         fa.flash_attention_gqa(q, k, v)
-    assert 128 in fa.WGMMA_HEAD_DIMS and 256 not in fa.HEAD_DIMS
+    assert 256 in fa.WGMMA_HEAD_DIMS and hd not in fa.HEAD_DIMS
+
+
+# ---------------------------------------------------------------------------
+# head dim 256 (gemma3) and the sliding window
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,S,H,KV,causal", [
+    (1, 64, 2, 1, True),            # one whole tile
+    (2, 100, 8, 4, True),           # gemma3's heads over kv, S past a tile
+    (1, 70, 4, 2, False),
+])
+def test_head_dim_256_plain_matches_pallas(B, S, H, KV, causal):
+    """hd 256 (gemma3): the plain version against the Pallas kernel in
+    interpret mode, float32 and bfloat16, with GQA."""
+    import ml_dtypes
+    q, k, v = _qkv(S + H + 256, (B, S, H, 256), (B, S, KV, 256))
+    want = ref_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=causal, interpret=True)
+    got = fa.flash_attention_gqa(*_torch(q, k, v), causal=causal)
+    assert got.shape == (B, S, H, 256)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=F32_TOL, atol=F32_TOL)
+    bq, bk, bv = (a.astype(ml_dtypes.bfloat16) for a in (q, k, v))
+    want = ref_gqa(jnp.asarray(bq), jnp.asarray(bk), jnp.asarray(bv),
+                   causal=causal, interpret=True)
+    got = fa.flash_attention_gqa(*(torch.from_numpy(a.astype(np.float32))
+                                   .bfloat16() for a in (bq, bk, bv)),
+                                 causal=causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [48, 150])
+@pytest.mark.parametrize("w", ["1", "16", "S-1", "S"])
+def test_windowed_plain_matches_blockwise_attention(w, S, causal):
+    """The window against the reference's ``models.layers.
+    blockwise_attention(..., window=w)`` (its ``_attn_mask``: a key is
+    kept iff dq - dk < w, on top of the causal test), f32, with GQA:
+    one key, a band inside a tile, and bands as wide as S."""
+    from repro.models import layers as RL
+    window = {"1": 1, "16": 16, "S-1": S - 1, "S": S}[w]
+    q, k, v = _qkv(S + window, (2, S, 4, 16), (2, S, 2, 16))
+    want = RL.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal,
+                                  window=window)
+    got = fa.flash_attention_gqa(*_torch(q, k, v), causal=causal,
+                                 window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=F32_TOL, atol=F32_TOL)
+    if window == 1 and causal:          # each row sees its own key alone
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.repeat(v, 2, axis=2))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_windowed_plain_at_head_dim_256_matches_blockwise_attention(dtype):
+    """gemma3's local layers in small: hd 256, 8 heads over 4, a window
+    of 40 over S 130, float32 and bfloat16."""
+    import ml_dtypes
+    from repro.models import layers as RL
+    np_dt = ml_dtypes.bfloat16 if dtype == "bfloat16" else dtype
+    q, k, v = _qkv(3, (1, 130, 8, 256), (1, 130, 4, 256), np_dt)
+    want = RL.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=True, window=40)
+    got = fa.flash_attention_gqa(*(torch.from_numpy(a.astype(np.float32))
+                                   .to(getattr(torch, str(np.dtype(np_dt))))
+                                   for a in (q, k, v)), window=40)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_window_starts_the_key_loop_at_the_band():
+    """A window as wide as S is global, bit for bit; a narrower one skips
+    the key tiles below each query tile's band (the plain version reads
+    the tiles the kernel reads): rows that see only keys of their own
+    tile give the same output whatever lies in the tiles below."""
+    S = 3 * fa.BLOCK_K
+    q, k, v = _torch(*_qkv(4, (1, S, 2, 8), (1, S, 1, 8)))
+    glob = fa.flash_attention_gqa(q, k, v)
+    for window in (S, S + 5):
+        assert torch.equal(fa.flash_attention_gqa(q, k, v, window=window),
+                           glob)
+    assert fa._band_start(2 * fa.BLOCK_K, 1) == 2 * fa.BLOCK_K
+    assert fa._band_start(2 * fa.BLOCK_K, fa.BLOCK_K + 1) == fa.BLOCK_K
+    assert fa._band_start(fa.BLOCK_K, 0) == 0
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :fa.BLOCK_K] = float("nan")      # below the last tile's band
+    v2[:, :fa.BLOCK_K] = float("nan")
+    got = fa.flash_attention_gqa(q, k2, v2, window=fa.BLOCK_K // 2)
+    want = fa.flash_attention_gqa(q, k, v, window=fa.BLOCK_K // 2)
+    assert torch.equal(got[:, 2 * fa.BLOCK_K:], want[:, 2 * fa.BLOCK_K:])
+
+
+def test_negative_windows_are_refused():
+    q, k, v = _torch(*_qkv(0, (1, 8, 2, 16), (1, 8, 1, 16)))
+    with pytest.raises(ValueError, match="window -1"):
+        fa.flash_attention_gqa(q, k, v, window=-1)
