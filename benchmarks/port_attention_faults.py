@@ -1,20 +1,25 @@
 """How far the checks of flash attention (B4) see: plant a fault in the
 kernel's wgmma instance and read what ``chip_smoke.py``'s checks read.
 
-    PYTHONPATH=src python benchmarks/port_attention_faults.py [--json]
+    PYTHONPATH=src python benchmarks/port_attention_faults.py \
+        [--arch qwen2-0.5b] [--json]
 
 For each fault in ``FAULTS`` it writes an edited copy of
 ``kernels/csrc/flash_attention.cu`` to ``build/faults/`` (the sources
 stay as they are), builds the copies with the port's flags, one nvcc
 each, in parallel, and loads each in turn in place of the built library.
-For the unchanged kernel and each fault it prints, at the qwen2-0.5b
-prefill shape (q [4, 1024, 14, 64], k, v [4, 1024, 2, 64], bf16, causal,
-``chip_smoke``'s seeded inputs), the max |kernel - plain| of B4 (against
-``ATTN_TOL``, as atol and rtol), its row-scaled error (against
-``ATTN_ROW_TOL``), and the max |logit| difference of the full-width bf16
-model's last-position prefill logits with the kernel against plain
-attention, seed 0 weights and prompts (against ``LM_ATOL``). Needs a
-card and nvcc.
+For the unchanged kernel and each fault it prints, at the arch's
+prefill shape (qwen2-0.5b: q [4, 1024, 14, 64], k, v [4, 1024, 2, 64];
+zamba2-1.2b: 32 heads over 32; bf16, causal, ``chip_smoke``'s seeded
+inputs), the max |kernel - plain| of B4 (against ``ATTN_TOL``, as atol
+and rtol), its row-scaled error (against ``ATTN_ROW_TOL``), and the max
+|logit| difference of the full-width, full-depth bf16 model's
+last-position prefill logits with the kernel against plain attention,
+seed 0 weights and prompts (against ``chip_smoke.lm_atol``: LM_ULPS
+ulps, ZAMBA_ULPS for the hybrid). One more row reads the model's own
+response to rounding: plain attention with its bf16 outputs moved one
+ulp up or down at the rate the unchanged kernel's differ from plain's
+at this shape. Needs a card and nvcc.
 """
 import argparse
 import contextlib
@@ -39,16 +44,16 @@ from repro_torch.serve import step  # noqa: E402
 # name -> (a line of the wgmma instance, what it becomes)
 FAULTS = {
     "skip key tile 1 for query tiles from row 512": (
-        "    // s = q kᵀ: [64, HD] x [HD, 64], HD / 16 steps of K 16\n",
+        "    // s = q kᵀ: [64, HD] x [HD, 64], HD / 16 steps of K 16 (each",
         "    if (t == 1 && q0 >= 512) continue;\n"
-        "    // s = q kᵀ: [64, HD] x [HD, 64], HD / 16 steps of K 16\n"),
+        "    // s = q kᵀ: [64, HD] x [HD, 64], HD / 16 steps of K 16 (each"),
     "row sum counts key tile 0 twice for query tiles from row 512": (
         "      l[j] = l[j] * alpha[j] + ps[j];\n",
         "      l[j] = l[j] * alpha[j]"
         " + ps[j] * (t == 0 && q0 >= 512 ? 2 : 1);\n"),
     "causal mask one key late": (
-        "if (col >= S || (causal && col > row)) x = kNegInf;",
-        "if (col >= S || (causal && col > row + 1)) x = kNegInf;"),
+        "          if (col >= S || (causal && col > row) ||",
+        "          if (col >= S || (causal && col > row + 1) ||"),
 }
 
 
@@ -93,8 +98,27 @@ def loaded(path):
         _build._libs[fa_lib] = saved
 
 
+def ulp_noise(rate, seed=1):
+    """Plain attention whose bf16 outputs each move one ulp, up or down
+    at even odds, with probability ``rate``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def attn(q, k, v, **kw):
+        out = fa.flash_attention_gqa_plain(q, k, v, **kw)
+        hit = torch.rand(out.shape, generator=gen, device=out.device) < rate
+        up = torch.rand(out.shape, generator=gen, device=out.device) < 0.5
+        step_ = torch.where(up, 1, -1).to(torch.int16)
+        bits = out.view(torch.int16)
+        bits[hit] += step_[hit]
+        return out
+    return attn
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=[chip_smoke.LM_ARCH,
+                                       chip_smoke.ZAMBA_ARCH],
+                    default=chip_smoke.LM_ARCH)
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -104,7 +128,7 @@ def main(argv=None):
     _build.build(["flash_attention"])
     libs = {"none": None, **build_faults(_build.BUILD_DIR.parent / "faults")}
 
-    cfg = get_config(chip_smoke.LM_ARCH)
+    cfg = get_config(args.arch)
     B, S = chip_smoke.LM_BATCH, chip_smoke.LM_PROMPT
     q, k, v = chip_smoke.attention_inputs(torch, dev, B, S, cfg.n_heads,
                                           cfg.n_kv_heads, cfg.head_dim,
@@ -121,14 +145,33 @@ def main(argv=None):
     finally:
         layers.flash_attention_gqa = kernel_attn
 
+    ulps = chip_smoke.ZAMBA_ULPS if cfg.family == "hybrid" \
+        else chip_smoke.LM_ULPS
     limits = {"max_abs_err": chip_smoke.ATTN_TOL["bfloat16"],
               "row_scaled_err": chip_smoke.ATTN_ROW_TOL,
-              "lm_logit_err": chip_smoke.LM_ATOL["bfloat16"]}
+              "lm_logit_err": chip_smoke.lm_atol("bfloat16", logits_plain,
+                                                 ulps)}
+    with loaded(None):
+        rate = float((fa.flash_attention_gqa(q, k, v) != want).float()
+                     .mean())
+    print(f"{cfg.name}: the unchanged kernel's bf16 outputs differ from "
+          f"plain in {rate:.3e} of the entries")
+    runs = [(name, path, None) for name, path in libs.items()]
+    runs.append(("plain, one-ulp flips at the kernel's rate", None,
+                 ulp_noise(rate)))
     rows = []
-    for name, path in libs.items():
+    for name, path, attn in runs:
         with loaded(path):
-            got = fa.flash_attention_gqa(q, k, v)
-            logits = prefill(params, {"tokens": prompt})[0].float()
+            if attn is None:
+                got = fa.flash_attention_gqa(q, k, v)
+                logits = prefill(params, {"tokens": prompt})[0].float()
+            else:
+                got = attn(q, k, v)
+                layers.flash_attention_gqa = attn
+                try:
+                    logits = prefill(params, {"tokens": prompt})[0].float()
+                finally:
+                    layers.flash_attention_gqa = kernel_attn
             torch.cuda.synchronize()
         row = {"fault": name,
                "max_abs_err": float((got.float() - want.float()).abs().max()),
@@ -148,7 +191,8 @@ def main(argv=None):
               f"{row['lm_logit_err']:.4e} (limit {limits['lm_logit_err']});"
               f" caught by {row['caught_by'] or 'none'}")
     if args.json:
-        print(json.dumps({"limits": limits, "rows": rows}))
+        print(json.dumps({"arch": cfg.name, "flip_rate": rate,
+                          "limits": limits, "rows": rows}))
 
 
 if __name__ == "__main__":

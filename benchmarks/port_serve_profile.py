@@ -13,8 +13,12 @@ random prompts through
 calls on the host clock (prefill with the first token, and the decode
 steps; each ends with the card synchronized), then one more call of
 each phase under ``torch.profiler``: device time by kernel and the
-device's idle share of the phase's wall time (profiler on). Needs a
-card; it does not run on the CPU.
+device's idle share of the phase's wall time (profiler on). For the
+recurrent archs (``--arch rwkv6-7b``, ``zamba2-1.2b``) one more prefill
+times their chunked scans (rwkv6's ``_wkv_chunked``, mamba2's
+``_ssd_chunked``) by CUDA events around each call: the scans' device
+span, summed over the layers, beside the prefill's. Needs a card; it
+does not run on the CPU.
 """
 import argparse
 import dataclasses
@@ -29,8 +33,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.registry import ARCH_NAMES, get_config
-from repro_torch.models import model as M
+from repro_torch.models import mamba2, model as M, rwkv6
 from repro_torch.serve import step
+
+# the chunked scans of the recurrent families: (module, function name)
+SCANS = {"ssm": (rwkv6, "_wkv_chunked"), "hybrid": (mamba2, "_ssd_chunked")}
 
 
 def profiled(fn):
@@ -51,6 +58,34 @@ def profiled(fn):
             n_events += ev.count
     table = dict(sorted(table.items(), key=lambda kv: -kv[1]))
     return wall, table, sum(table.values()), n_events
+
+
+def scan_span(cfg, fn):
+    """Run ``fn`` with the family's chunked scan wrapped in CUDA events:
+    (wall ms of ``fn``, the scans' device span in ms summed over their
+    calls, the number of calls). A span runs from the scan's first
+    kernel to its last, gaps the host leaves between them included."""
+    mod, name = SCANS[cfg.family]
+    scan, events = getattr(mod, name), []
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = scan(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+    setattr(mod, name, timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        setattr(mod, name, scan)
+    return wall, sum(s.elapsed_time(e) for s, e in events), len(events)
 
 
 def main(argv=None):
@@ -95,9 +130,8 @@ def main(argv=None):
 
     prefill, decode = step.make_prefill(cfg), step.make_decode_step(cfg)
     logits, kv = prefill(params, {"tokens": prompt})
-    cache = M.init_cache(cfg, B, S + N, dev)
-    cache["k"][:, :, :S] = kv["k"]
-    cache["v"][:, :, :S] = kv["v"]
+    cache = step.decode_cache(cfg, kv, B, S, S + N, dev)
+    del kv
     tok = step.sample(logits)
     phases = {"prefill": lambda: prefill(params, {"tokens": prompt})}
 
@@ -129,6 +163,17 @@ def main(argv=None):
                 "device_ms": busy / per, "device_events": n_events / per,
                 "idle_share": idle,
                 "device_ms_by_op": {k: v / per for k, v in table.items()}}))
+    if cfg.family in SCANS:
+        wall, span, calls = scan_span(
+            cfg, lambda: prefill(params, {"tokens": prompt}))
+        print(f"scan: {SCANS[cfg.family][1]} x {calls} in one prefill, "
+              f"device span {span:.3f} ms of the prefill's {wall:.3f} ms "
+              f"wall ({span / wall:.3f})")
+        if args.json:
+            print(json.dumps({"phase": "scan", "arch": cfg.name,
+                              "layers": cfg.n_layers, "card": card,
+                              "scan": SCANS[cfg.family][1], "calls": calls,
+                              "span_ms": span, "prefill_wall_ms": wall}))
     print(f"tokens/s: {B * N / (pre_ms + dec_ms * (N - 1)) * 1e3:.1f} "
           f"generated end to end, {B * S / pre_ms * 1e3:.0f} prompt tokens "
           f"in prefill, {B / dec_ms * 1e3:.1f} while decoding")

@@ -190,6 +190,32 @@ each of which fails the run (non-zero exit) if it fails:
                and windowed, beside their bounds (the band's pairs only)
                and SDPA (causal; a boolean band mask, its backend named).
                Each phase prints its wall time, and the run its total.
+ 8d-11d. the recurrent archs, rwkv6-7b and zamba2-1.2b: B4 at zamba2's
+               prefill shape (B 4, S 1024, 32 heads over 32, hd 64: G = 1,
+               full multi-head) against its plain version as in 8;
+               rwkv6-7b (32 layers, the WKV scan, no attention) and
+               zamba2-1.2b (38 Mamba-2 layers, the SSD scan, and a shared
+               attention block at 6 sites) at full width and depth
+               through ``serve.main``, 4 prompts of 1024 tokens (16 chunks
+               of 64), 32 greedy tokens, with the launch counts set to 0
+               before and read after: B4 6 times a zamba2 prefill, all
+               wgmma, and never for rwkv6; in-vocab tokens equal on warm
+               calls; prefill and decode ms and, from one profiled
+               prefill and IDLE_DECODE_STEPS decode steps, the card's idle
+               share; zamba2 against plain attention in bf16 (logits
+               within ZAMBA_ULPS bf16 ulps, and B4 at each of the 6 sites
+               against its plain version on the model's own q, k, v
+               within phase 8's limits) and at 12 layers (two sites) in
+               f32; for both, the recurrent rule of
+               ``tests/test_recurrent_consistency.py`` (a prefill over
+               S+1 tokens ends in the logits of a prefill over S and one
+               decode step): in f32 within 1e-3 at full depth (S 63) and
+               at 4 layers with S 1024 (the S+1 prefill in 25 chunks of
+               41), in bf16 within that test's rtol 3e-2 and atol 5e-2 at
+               4 layers (S 63) and within lm_atol at full depth (S 63);
+               rwkv6 in f32 at 4 layers with chunks of 16 against 64
+               within 1e-3; B4's times at zamba2's shape beside its bound
+               and SDPA (causal). Each phase prints its wall time.
  12. graph     GraphBLAS (``repro_torch.core.graphblas``, plain PyTorch)
                on a graph of 2^20 vertices and 2^24 edges, in-neighbours
                uniform from seed 0, as an incoming-edges ELL on the card:
@@ -249,6 +275,15 @@ LM_ATOL = {"float32": 1e-3, "bfloat16": 0.1}
 # internlm2 and qwen3-moe: 4.9-5.1), an ulp is 2^-5 and the limit is six
 # of them (lm_atol); 48 layers (internlm2) carry more roundings than 24
 LM_ULPS = 6
+# ... but zamba2's bf16 logits (38 Mamba-2 layers behind 6 attention
+# sites) move 8.3 ulps from kernel against plain attention, and 8.5 from
+# plain attention with one-ulp flips at the kernel's own rate (1.4e-3 of
+# its outputs), while the planted faults move them 8.7-12.3 ulps
+# (benchmarks/port_attention_faults.py --arch zamba2-1.2b, H100): the
+# logits cannot tell a fault from rounding there, so their limit is 12
+# ulps, and the sharp checks are B4 at each site on the model's own
+# inputs (``site_checked``, which flags every planted fault) and f32
+ZAMBA_ULPS = 12
 # phases 8b-11b: B4 at head dim 128 and the archs it serves
 LM128_ARCHS = ("qwen3-4b", "internlm2-20b")   # full width and depth
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8  # full width, 8 of 94 layers
@@ -259,6 +294,16 @@ GEMMA_ARCH = "gemma3-4b"               # full width and depth, 34 layers
 GEMMA_PROMPT = 2048                    # two windows: the band bites
 GEMMA_F32_LAYERS = 6                   # one whole 5:1 superblock
 KIMI_ARCH, KIMI_LAYERS = "kimi-k2-1t-a32b", 2  # the dense lead + 1 MoE
+# phases 8d-11d: the recurrent archs, at full width and depth
+RWKV_ARCH, ZAMBA_ARCH = "rwkv6-7b", "zamba2-1.2b"
+ZAMBA_F32_LAYERS = 12                  # two shared-attention sites
+RULE_F32_LAYERS = 4                    # the rule at S 1024 (f32), bf16
+RULE_CHUNK = 41                        # 1025 = 25 x 41: the S+1 prefill
+RULE_BF16_PROMPT = 63                  # S and S+1 each one chunk (bf16,
+#                                        and f32 at full depth)
+RULE_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (3e-2, 5e-2)}  # rtol, atol
+CHUNKS = (16, 64)                      # rwkv6's chunk-size invariance
+IDLE_DECODE_STEPS = 8                  # decode steps profiled for idle share
 STORE_SEGMENT_DOCS = 1 << 16           # 16 segments of the 2^20 documents
 STORE_CACHE_BYTES = 4 << 30            # room for every backend's 16 slabs
 APPROX_CANDIDATES = 64
@@ -756,6 +801,9 @@ def main() -> int:
     rows[-1]["launches"] += kimi_launches      # kimi-k2 runs B4 at hd 128
     rows.extend(hd256_rows)
     say(f"phases 8c-11c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows.append(recurrent_phases(torch, dev))
+    say(f"phases 8d-11d: {time.perf_counter() - t0:.1f} s")
     graph_phase(torch, dev)
     say(f"run: {time.perf_counter() - t_run:.1f} s wall")
     say(nvidia_smi_line())
@@ -1755,13 +1803,10 @@ def attention_inputs(torch, dev, B, S, H, KV, hd, dtype, seed=SEED):
 def greedy_with_margins(torch, step, params, cfg, prompt, max_new):
     """``generate``'s greedy loop, also returning each step's top-2 logit
     margin [B, max_new] and the last-position prefill logits."""
-    from repro_torch.models import model as M
     B, S = prompt.shape
     logits, kv = step.make_prefill(cfg)(params, {"tokens": prompt})
     first = logits[:, 0].clone()
-    cache = M.init_cache(cfg, B, S + max_new, prompt.device)
-    cache["k"][:, :, :S] = kv["k"]
-    cache["v"][:, :, :S] = kv["v"]
+    cache = step.decode_cache(cfg, kv, B, S, S + max_new, prompt.device)
     decode = step.make_decode_step(cfg)
     toks, margins = [], []
     for i in range(max_new):
@@ -1789,23 +1834,34 @@ def lm_check(torch, step, layers, fa, params, cfg, prompt, label):
     hidden state as the unembedding, at the same scale (both give
     ~N(0, 1) logits at this init), so attention's differences move the
     two alike, while a wrong tile or mask moves them by O(1). Flips are
-    counted up to the first step whose greedy tokens differ."""
+    counted up to the first step whose greedy tokens differ.
+
+    For the hybrid, whose bf16 logits at full depth tell a planted fault
+    from rounding only faintly (ZAMBA_ULPS), each B4 call of the kernel
+    run is also held against the plain version on the model's own q, k
+    and v (``site_checked``), under phase 8's limits."""
     from repro_torch.models import moe
     by = fa.flash_attention_gqa.launches_by_design
     before = dict(by)
     moe_run = cfg.n_experts > 0
     moe.moe_apply.record = [] if moe_run else None
+    kernel_attn = layers.flash_attention_gqa
+    sites = [] if cfg.family == "hybrid" else None
+    if sites is not None:
+        layers.flash_attention_gqa = site_checked(torch, fa, sites)
     try:
         tok_k, _, logit_k = greedy_with_margins(torch, step, params, cfg,
                                                 prompt, LM_NEW)
         routing = moe.moe_apply.record
     finally:
         moe.moe_apply.record = None
+        layers.flash_attention_gqa = kernel_attn
+    if sites is not None:
+        sites_held(sites, cfg.dtype, label)
     which = fa.design(getattr(torch, cfg.dtype), cfg.head_dim)
-    if by[which] - before[which] != cfg.n_layers:
+    if by[which] - before[which] != b4_per_prefill(cfg):
         fail(f"LM check {label}: the prefill did not run B4's {which} "
-             "instance once a layer")
-    kernel_attn = layers.flash_attention_gqa
+             f"instance {b4_per_prefill(cfg)} times")
     layers.flash_attention_gqa = fa.flash_attention_gqa_plain
     if moe_run:
         moe.moe_apply.replay = [r["expert_id"] for r in routing]
@@ -1818,7 +1874,8 @@ def lm_check(torch, step, layers, fa, params, cfg, prompt, label):
         layers.flash_attention_gqa = kernel_attn
         moe.moe_apply.replay = moe.moe_apply.record = None
     torch.cuda.synchronize()
-    atol = lm_atol(cfg.dtype, logit_p)
+    atol = lm_atol(cfg.dtype, logit_p,
+                   ZAMBA_ULPS if cfg.family == "hybrid" else LM_ULPS)
     err = float((logit_k.float() - logit_p.float()).abs().max())
     say(f"LM check {label} ({which}): last-position prefill logits max "
         f"|kernel - plain| {err:.3e} (tolerance {atol}; max |logit| "
@@ -1843,13 +1900,43 @@ def lm_check(torch, step, layers, fa, params, cfg, prompt, label):
     return err
 
 
-def lm_atol(dtype, logits) -> float:
-    """LM_ATOL[dtype], or in bf16 LM_ULPS ulps of bf16 at the largest
+def lm_atol(dtype, logits, ulps=LM_ULPS) -> float:
+    """LM_ATOL[dtype], or in bf16 ``ulps`` ulps of bf16 at the largest
     |logit| where that is more."""
     if dtype != "bfloat16":
         return LM_ATOL[dtype]
     top = max(float(logits.float().abs().max()), 2.0 ** -126)
-    return max(LM_ATOL[dtype], LM_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7))
+    return max(LM_ATOL[dtype], ulps * 2.0 ** (np.floor(np.log2(top)) - 7))
+
+
+def site_checked(torch, fa, records):
+    """B4 as the model calls it, each call also run through the plain
+    version on the same inputs; the model gets the kernel's result.
+    Appends (max |kernel - plain|, row-scaled error, within ATTN_TOL) a
+    call to ``records``."""
+    def attn(q, k, v, **kw):
+        got = fa.flash_attention_gqa(q, k, v, **kw)
+        want = fa.flash_attention_gqa_plain(q, k, v, **kw)
+        tol = ATTN_TOL[str(q.dtype).split(".")[1]]
+        records.append((float((got.float() - want.float()).abs().max()),
+                        row_scaled_err(got, want),
+                        bool(torch.allclose(got.float(), want.float(),
+                                            rtol=tol, atol=tol))))
+        return got
+    return attn
+
+
+def sites_held(records, dtype, label):
+    """``site_checked``'s records against phase 8's limits."""
+    errs = ", ".join(f"{e:.3e}/{r:.3e}" for e, r, _ in records)
+    say(f"LM check {label}: B4 at each of {len(records)} sites against its "
+        f"plain version on the model's own q, k, v (max_abs_err/row-scaled):"
+        f" {errs} (tolerance {ATTN_TOL[dtype]}"
+        + (f", row-scaled {ATTN_ROW_TOL})" if dtype == "bfloat16" else ")"))
+    for e, r, ok in records:
+        if not ok or (dtype == "bfloat16" and r > ATTN_ROW_TOL):
+            fail(f"LM check {label}: B4 at a site differs from plain by "
+                 f"{e} (row-scaled {r})")
 
 
 def route_flips(torch, cfg, records, first_diff, label, limit):
@@ -1937,11 +2024,21 @@ def b4_cases(torch, dev, fa, B, S, H, KV, hd, window=0):
     return attn_err
 
 
+def b4_per_prefill(cfg) -> int:
+    """B4's launches in one prefill: one a layer (transformers), one a
+    shared-attention site (hybrid), none (ssm)."""
+    from repro_torch.models import hybrid
+    if cfg.family == "ssm":
+        return 0
+    return hybrid.n_attn_sites(cfg) if cfg.family == "hybrid" \
+        else cfg.n_layers
+
+
 def serve_counted(torch, fa, cfg, call):
-    """Phase 9 (9b): ``call()`` (one serving run) with every launch count
-    set to 0 just before it and read just after; B4 must have launched
-    once a layer, all on its wgmma instance. Returns (what ``call``
-    returns, the launch counts)."""
+    """Phase 9 (9b-9d): ``call()`` (one serving run) with every launch
+    count set to 0 just before it and read just after; B4 must have
+    launched ``b4_per_prefill`` times, all on its wgmma instance. Returns
+    (what ``call`` returns, the launch counts)."""
     counted = _launch_counters()
     for fn in counted.values():
         fn.launches = 0
@@ -1954,12 +2051,13 @@ def serve_counted(torch, fa, cfg, call):
     by_design = dict(by)
     say(f"LM main path ({cfg.name}) launches: {launches}; B4 by instance "
         f"{by_design}")
-    if launches["flash_attention"] != cfg.n_layers:
+    want = b4_per_prefill(cfg)
+    if launches["flash_attention"] != want:
         fail(f"B4 launched {launches['flash_attention']} times in one "
-             f"prefill, want {cfg.n_layers} (one a layer)")
-    if by_design["wgmma"] != cfg.n_layers:
-        fail(f"{by_design['wgmma']} of B4's {cfg.n_layers} prefill launches "
-             "ran the wgmma instance, want all")
+             f"prefill, want {want}")
+    if by_design["wgmma"] != want:
+        fail(f"{by_design['wgmma']} of B4's {want} prefill launches ran "
+             "the wgmma instance, want all")
     return out, launches
 
 
@@ -1986,7 +2084,7 @@ def serve_checked(torch, step, fa, dev, cfg, run, B, S):
         fa.flash_attention_gqa.launches = 0
         again = step.generate(run.params, cfg, run.prompt, max_new=LM_NEW,
                               max_len=S + LM_NEW, device=dev, stats=stats)
-        if fa.flash_attention_gqa.launches != cfg.n_layers:
+        if fa.flash_attention_gqa.launches != b4_per_prefill(cfg):
             fail("B4 launch count differs on the warm call")
         if not torch.equal(again, tokens):
             fail("the warm call's greedy tokens differ from the first's")
@@ -2321,6 +2419,191 @@ def lm256_phases(torch, dev):
         rows.append(b4_row(name, n, err, times))
     say(f"phase 11c: {time.perf_counter() - t_phase:.1f} s")
     return rows, k_launches["flash_attention"]
+
+
+def idle_share(torch, fn):
+    """``fn`` once under torch.profiler: (wall ms, device busy ms, the
+    card's idle share of the wall). One stream, so the device events'
+    self times sum to the time the card was busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type != DeviceType.CPU) / 1e3
+    if busy <= 0:
+        fail("the profiler recorded no device time")
+    return wall, busy, 1.0 - busy / wall
+
+
+def served_idle(torch, step, dev, cfg, params, prompt):
+    """Phase 9d: one prefill, then IDLE_DECODE_STEPS decode steps, each
+    under torch.profiler; prints wall and busy ms and the idle share."""
+    prefill, decode = step.make_prefill(cfg), step.make_decode_step(cfg)
+    B, S = prompt.shape
+    out = {}
+    pre = idle_share(torch, lambda: out.update(
+        kv=prefill(params, {"tokens": prompt})))
+    logits, kv = out.pop("kv")
+    cache = step.decode_cache(cfg, kv, B, S, S + LM_NEW, dev)
+    del kv
+
+    def decode_steps():
+        tok = step.sample(logits)
+        for i in range(IDLE_DECODE_STEPS):
+            lg, _ = decode(params, {"tokens": tok}, cache, S + i)
+            tok = step.sample(lg)
+    dec = idle_share(torch, decode_steps)
+    n = IDLE_DECODE_STEPS
+    say(f"LM profiled ({cfg.name}): prefill wall {pre[0]:.3f} ms, device "
+        f"busy {pre[1]:.3f} ms, idle share {pre[2]:.3f}; decode wall "
+        f"{dec[0] / n:.3f} ms/step, busy {dec[1] / n:.3f} ms/step, idle "
+        f"share {dec[2]:.3f} (profiler on)")
+
+
+def recurrent_rule(torch, step, params, cfg, tokens, label, ulps=0):
+    """Phase 10d: ``tests/test_recurrent_consistency.py``'s rule on the
+    card. tokens [B, S+1]: the last logits of a prefill over all S+1
+    must equal those of a prefill over S followed by one decode step,
+    within RULE_TOL, or with ``ulps`` within ``lm_atol`` (bf16 at full
+    depth, where that test's limits for 2 layers do not hold: roundings
+    compound over the layers). The port splits a prompt into chunks that
+    divide it and never pads, so an S+1 past 64 that 64 does not divide
+    is prefilled in chunks of RULE_CHUNK."""
+    from repro_torch.models import hybrid, model as M, rwkv6
+    B, S1 = tokens.shape
+    S = S1 - 1
+    mod = rwkv6 if cfg.family == "ssm" else hybrid
+    chunk = 64 if S1 <= 64 or S1 % 64 == 0 else RULE_CHUNK
+    full, _, _ = mod.forward(params, cfg, {"tokens": tokens}, chunk=chunk,
+                             last_only=True)
+    _, _, kv = M.apply_prefill(params, cfg, {"tokens": tokens[:, :S]},
+                               last_only=True)
+    cache = step.decode_cache(cfg, kv, B, S, S1, tokens.device)
+    got, _, _ = M.apply_decode(params, cfg, {"tokens": tokens[:, S:]}, cache,
+                               S)
+    got, want = got[:, 0].float(), full[:, -1].float()
+    rtol, atol = (0.0, lm_atol(cfg.dtype, want, ulps)) if ulps \
+        else RULE_TOL[cfg.dtype]
+    err = float((got - want).abs().max())
+    excess = float(((got - want).abs() / (atol + rtol * want.abs())).max())
+    say(f"recurrent rule {label}: prefill over {S1} (chunks of "
+        f"{min(chunk, S1)}) against prefill over {S} (chunks of "
+        f"{min(64, S)}) + one decode step: last logits max |diff| "
+        f"{err:.3e}, {excess:.3f} of the limit (rtol {rtol}, atol {atol}; "
+        f"max |logit| {float(want.abs().max()):.3f})")
+    if not (excess <= 1.0 and torch.isfinite(got).all()):
+        fail(f"recurrent rule {label}: decode parts from prefill by {err}")
+
+
+def recurrent_phases(torch, dev):
+    """Phases 8d-11d: B4 at zamba2's shape (G = 1), rwkv6-7b and
+    zamba2-1.2b at full width and depth through ``serve.main`` with their
+    checks, and B4's times there. Returns B4's row at zamba2's shape."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models import hybrid, layers, model as M, rwkv6
+    from repro_torch.serve import step
+
+    zcfg = get_config(ZAMBA_ARCH)
+    B, S, H, KV, hd = (LM_BATCH, LM_PROMPT, zcfg.n_heads, zcfg.n_kv_heads,
+                       zcfg.head_dim)
+    say(f"{ZAMBA_ARCH}: {zcfg.n_layers} Mamba-2 layers, segments "
+        f"{hybrid.segments(zcfg)}, {hybrid.n_attn_sites(zcfg)} shared-"
+        f"attention sites ({H} heads over {KV}, hd {hd})")
+
+    # -- 8d. B4 at G = 1 against its plain version ---------------------------
+    t_phase = time.perf_counter()
+    attn_err = b4_cases(torch, dev, fa, B, S, H, KV, hd)
+    say(f"phase 8d (B4 at G = {H // KV}, hd {hd}): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -- 9d/10d. serving at full width and depth, then the checks -----------
+    served = 0
+    for arch in (RWKV_ARCH, ZAMBA_ARCH):
+        t_phase = time.perf_counter()
+        cfg = get_config(arch)
+        argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(S),
+                "--max-new", str(LM_NEW), "--seed", str(SEED)]
+        run, launches = serve_counted(torch, fa, cfg,
+                                      lambda: serve_launcher.main(argv))
+        served += launches["flash_attention"]
+        serve_checked(torch, step, fa, dev, cfg, run, B, S)
+        prompt = torch.as_tensor(run.prompt, device=dev)
+        served_idle(torch, step, dev, cfg, run.params, prompt)
+        if cfg.family == "hybrid":
+            lm_check(torch, step, layers, fa, run.params, cfg, prompt,
+                     f"{arch} bf16")
+        recurrent_rule(torch, step, run.params, cfg,
+                       prompt[:, :RULE_BF16_PROMPT + 1], f"{arch} bf16",
+                       ulps=LM_ULPS)
+        del run, prompt
+        torch.cuda.empty_cache()
+        say(f"phase 9d/10d ({arch}): {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 10d. f32: zamba2 against plain attention; the recurrent rule in f32
+    # at full depth (S 63) and at 4 layers (S 1024), in bf16 at 4 layers
+    # (S 63); rwkv6's chunk-size invariance ------------------------------------
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    cfg32 = dataclasses.replace(zcfg, dtype="float32",
+                                n_layers=ZAMBA_F32_LAYERS)
+    params32 = M.init(cfg32, seed=SEED, device=dev)
+    prompt = torch.as_tensor(rng.integers(0, zcfg.vocab_size, (B, S))
+                             .astype(np.int32), device=dev)
+    lm_check(torch, step, layers, fa, params32, cfg32, prompt,
+             f"{ZAMBA_ARCH} f32 at {ZAMBA_F32_LAYERS} layers")
+    del params32
+    torch.cuda.empty_cache()
+    for arch in (RWKV_ARCH, ZAMBA_ARCH):
+        for dtype, depth in (("float32", 0), ("bfloat16", RULE_F32_LAYERS)):
+            cfg_r = dataclasses.replace(get_config(arch), dtype=dtype)
+            cfg_r = dataclasses.replace(cfg_r,
+                                        n_layers=depth or cfg_r.n_layers)
+            params_r = M.init(cfg_r, seed=SEED, device=dev)
+            tokens = torch.as_tensor(rng.integers(
+                0, cfg_r.vocab_size, (B, RULE_BF16_PROMPT + 1)).astype(
+                    np.int32), device=dev)
+            recurrent_rule(torch, step, params_r, cfg_r, tokens,
+                           f"{arch} {dtype} at {cfg_r.n_layers} layers")
+            del params_r, tokens
+            torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(get_config(arch), dtype="float32",
+                                    n_layers=RULE_F32_LAYERS)
+        params32 = M.init(cfg32, seed=SEED, device=dev)
+        tokens = torch.as_tensor(rng.integers(0, cfg32.vocab_size, (B, S + 1))
+                                 .astype(np.int32), device=dev)
+        recurrent_rule(torch, step, params32, cfg32, tokens,
+                       f"{arch} f32 at {RULE_F32_LAYERS} layers")
+        if cfg32.family == "ssm":
+            outs = [rwkv6.forward(params32, cfg32, {"tokens": tokens[:, :S]},
+                                  chunk=c) for c in CHUNKS]
+            err = float((outs[0][0] - outs[1][0]).abs().max())
+            s_err = float((outs[0][2]["wkv"] - outs[1][2]["wkv"]).abs().max())
+            say(f"chunk size ({arch} f32 at {RULE_F32_LAYERS} layers, S "
+                f"{S}): logits with chunks of {CHUNKS[0]} against "
+                f"{CHUNKS[1]} max |diff| {err:.3e}, final WKV state "
+                f"{s_err:.3e} (tolerance {LM_ATOL['float32']})")
+            if not err <= LM_ATOL["float32"]:
+                fail(f"{arch}: the logits depend on the chunk size ({err})")
+            del outs
+        del params32, tokens
+        torch.cuda.empty_cache()
+    say(f"phase 10d (f32 and the rule): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -- 11d. B4 times at zamba2's shape --------------------------------------
+    t_phase = time.perf_counter()
+    times = b4_times(torch, dev, fa, B, S, H, KV, hd)
+    say(f"phase 11d: {time.perf_counter() - t_phase:.1f} s")
+    return b4_row("flash_attention_g1", served,
+                  attn_err["prefill bf16 causal"], times)
 
 
 def graph_phase(torch, dev):

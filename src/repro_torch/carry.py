@@ -63,15 +63,23 @@ def _tensor(arr, device: torch.device) -> torch.Tensor:
 
 def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
                              device: DeviceLike = None) -> dict:
-    """The reference's transformer param tree, as numpy arrays
-    (``jax.tree.map(np.asarray, params)``), as the port's params on
-    ``device``: the ``[n, ...]`` stacks of ``blocks`` (dense), or of
-    ``dense_blocks`` (kimi-k2's leading dense layers) followed by
-    ``moe_blocks`` (router, experts, the shared expert where there is
-    one), become one dict a layer in layer order; every array keeps its
-    dtype (f32 biases, norm and qk-norm scales and router, weights in the
-    config's dtype) and its ``x @ W`` orientation."""
-    check_supported(cfg)
+    """The reference's LM param tree, as numpy arrays (``jax.tree.map(
+    np.asarray, params)``), as the port's params on ``device``. Every
+    stack of layers becomes one dict a layer, in layer order:
+
+      - transformers: the ``[n, ...]`` stacks of ``blocks`` (dense), or of
+        ``dense_blocks`` (kimi-k2's leading dense layers) followed by
+        ``moe_blocks`` (router, experts, the shared expert where there is
+        one), as ``"blocks"``;
+      - ``ssm`` (rwkv6): ``blocks`` (``ln1``, ``ln2``, ``tm``, ``cm``) as
+        ``"blocks"``;
+      - ``hybrid`` (zamba2): the ``mamba`` stack as ``"mamba"``; the
+        ``shared_attn`` block stays one dict.
+
+    Every array keeps its dtype and bits (f32 biases, norms, qk-norm
+    scales, router, lerp coefficients, decays, ``conv_w``, ``A_log``,
+    ``D`` and ``dt_bias``; weights in the config's dtype) and its ``x @
+    W`` orientation."""
     device = resolve(device)
 
     def conv(tree, index=None):
@@ -80,13 +88,24 @@ def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
         arr = np.asarray(tree)
         return _tensor(arr if index is None else arr[index], device)
 
-    stacks = ("dense_blocks", "moe_blocks") if cfg.n_experts > 0 \
-        else ("blocks",)
-    layers = [conv(params[name], i) for name in stacks if name in params
-              for i in range(np.asarray(params[name]["ln1"]).shape[0])]
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{len(layers)} stacked layers, config has "
-                         f"{cfg.n_layers}")
-    return {"embed": conv(params["embed"]),
-            "final_norm": conv(params["final_norm"]),
-            "blocks": layers}
+    def unstack(names, first_leaf):
+        layers = [conv(params[name], i) for name in names if name in params
+                  for i in range(np.asarray(
+                      params[name][first_leaf]).shape[0])]
+        if len(layers) != cfg.n_layers:
+            raise ValueError(f"{len(layers)} stacked layers, config has "
+                             f"{cfg.n_layers}")
+        return layers
+
+    out = {"embed": conv(params["embed"]),
+           "final_norm": conv(params["final_norm"])}
+    if cfg.family == "ssm":
+        out["blocks"] = unstack(("blocks",), "ln1")
+    elif cfg.family == "hybrid":
+        out["mamba"] = unstack(("mamba",), "norm")
+        out["shared_attn"] = conv(params["shared_attn"])
+    else:
+        check_supported(cfg)
+        out["blocks"] = unstack(("dense_blocks", "moe_blocks")
+                                if cfg.n_experts > 0 else ("blocks",), "ln1")
+    return out

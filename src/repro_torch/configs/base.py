@@ -1,7 +1,8 @@
 """Model configuration: the port's copy of ``repro.configs.base.ModelConfig``.
 
-The dataclass and its field defaults are the reference's, so a config
-built here compares field for field with the JAX package's. The shapes
+The dataclass, its field defaults and the properties the models read
+are the reference's, so a config built here compares field for field
+with the JAX package's. The shapes
 table and the analytic parameter counters stay with the dry-run tools
 (ROADMAP A9), which the port does not have yet.
 """
@@ -69,3 +70,11 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    @property
+    def d_inner(self) -> int:
+        return self.d_inner_mult * self.d_model
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"

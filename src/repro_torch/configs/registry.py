@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the LM launcher.
 
-Only the archs the port serves are registered: six of the reference's
-ten. The others (rwkv6, zamba2, llama-3.2-vision, musicgen) wait for
-ROADMAP item A9 and raise ``KeyError`` saying so.
+Only the archs the port serves are registered: eight of the reference's
+ten. The other two (llama-3.2-vision, musicgen) wait for ROADMAP item
+A9 and raise ``KeyError`` saying so.
 """
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ _MODULES: Dict[str, str] = {
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -5,7 +5,10 @@
         [--temperature 0] [--seed 0] [--device cuda]
 
 The port of ``repro.launch.serve``: random weights from ``--seed`` (no
-checkpoint is loaded), random prompt tokens from the same seed. Prints
+checkpoint is loaded), random prompt tokens from the same seed.
+``--arch`` takes every arch of ``configs/registry.py``: the dense and
+MoE transformers, rwkv6-7b and zamba2-1.2b (whose prefill splits the
+prompt into chunks of 64: a longer prompt must be a multiple of 64). Prints
 the tokens, and the time split into prefill (with the first token) and
 decode, on the host clock; the first call includes the card's warm-up.
 ``--device`` defaults to the CUDA card; ``--device cpu`` runs the

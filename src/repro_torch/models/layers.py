@@ -9,7 +9,9 @@ Numerics follow the reference: norms and RoPE in f32, cast back to the
 activation dtype; biases and norm scales are f32 and cast to the
 activation dtype where they are added. Prefill attention is kernel B4
 (``kernels/flash_attention.py``); decode attention, the projections and
-the FFN are plain PyTorch, as the reference leaves them to XLA.
+the FFN are plain PyTorch, as the reference leaves them to XLA. The
+recurrent archs (``rwkv6``, ``mamba2``) share ``silu`` and
+``chunk_split``.
 """
 from __future__ import annotations
 
@@ -165,14 +167,31 @@ def attn_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return q, k, v
 
 
+def chunk_split(T: int, chunk: int) -> int:
+    """The chunk length of the recurrent scans (rwkv6's WKV, mamba2's
+    SSD), min(chunk, T); it must divide T (the reference asserts so; the
+    port raises, and never pads)."""
+    C = min(chunk, T)
+    if C <= 0 or T % C:
+        raise ValueError(f"{T} tokens do not split into chunks of {C} "
+                         f"(chunk {chunk}); the prompt length must be a "
+                         "multiple of the chunk, or shorter than it")
+    return C
+
+
 # ---------------------------------------------------------------------------
 # FFN, embedding
 # ---------------------------------------------------------------------------
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x · 1 / (1 + exp(-x)) with each step rounded to x's dtype: the
+    reference's ``jax.nn.silu`` lowers so (torch's fused ``F.silu``
+    rounds once, and differs in bf16; ROADMAP C7)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def ffn_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU. silu(g) is g · 1 / (1 + exp(-g)) with each step rounded to
-    the activation dtype: the reference's ``jax.nn.silu`` lowers so."""
-    g = x @ p["w_gate"]
-    return (g * (1.0 / (1.0 + torch.exp(-g))) * (x @ p["w_up"])) @ p["w_down"]
+    """SwiGLU: silu(x W_gate) · (x W_up), then W_down."""
+    return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
 def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,169 @@
+"""Mamba-2 (SSD) block: the port of ``repro.models.mamba2``
+[arXiv:2405.21060], the backbone of the Zamba2 hybrid.
+
+State-space recurrence per head, with a scalar decay a_t per head:
+
+    h_t = a_t h_{t-1} + (dt_t x_t) B_tᵀ,    y_t = C_t h_t + D x_t
+
+Prefill runs the chunked SSD form (``_ssd_chunked``): within a chunk the
+decay couples only (t, s) scalars per head, so the intra-chunk term is a
+product of G = C Bᵀ, the masked decay Dm and dt; an hd x N state crosses
+chunks. The reference computes every term inside one ``lax.scan`` step
+per chunk. Here the chunk-local terms (G, Dm, the intra-chunk output and
+each chunk's state increment) depend on no carried state, so they are
+computed for all chunks at once (Dm is [B, n, C, C, nh] f32: 64 MB for
+16 chunks at zamba2's width and B 4), a Python loop over the chunks
+carries only the state, h <- exp(cum_last) h + increment, and the
+state's share of the output, exp(cum_t) C_t · h_in, is one batched
+product after it. Decode is the O(1) recurrence (``_ssd_step``).
+
+A layer's params are one dict (the reference stacks them); ``conv_w``,
+``A_log``, ``D``, ``dt_bias`` and the norms are f32, the projections in
+the config's dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve
+from repro_torch.models import layers as L
+
+CONV_K = 4  # depthwise causal conv kernel size
+
+
+def _dims(cfg: ModelConfig):
+    """(d_inner, N, head dim, heads, conv channels)."""
+    d_in, N, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_headdim
+    return d_in, N, hd, d_in // hd, d_in + 2 * N
+
+
+def layer_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """One Mamba2 layer's params on the generator's device."""
+    d = cfg.d_model
+    d_in, N, _, nh, conv_dim = _dims(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    dev = gen.device
+    conv_w = torch.empty((CONV_K, conv_dim), dtype=torch.float32, device=dev)
+    conv_w.normal_(0.0, 1.0, generator=gen)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "norm": torch.ones(d, **f32),
+        "in_proj": L.dense_init(gen, d, 2 * d_in + 2 * N + nh, dtype),
+        "conv_w": conv_w * (1.0 / math.sqrt(CONV_K)),
+        "A_log": torch.zeros(nh, **f32),      # a = exp(-exp(A_log) * dt)
+        "D": torch.ones(nh, **f32),
+        "dt_bias": torch.zeros(nh, **f32),
+        "gate_norm": torch.ones(d_in, **f32),
+        "out_proj": L.dense_init(gen, d_in, d, dtype,
+                                 scale=1.0 / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def init_state(cfg: ModelConfig, n: int, batch_size: int,
+               dtype: Optional[torch.dtype] = None,
+               device: DeviceLike = None) -> dict:
+    """Zeroed state of ``n`` layers: ``h`` f32 ``[n, B, nh, hd, N]`` and
+    ``conv`` ``[n, B, CONV_K - 1, conv channels]`` in ``dtype`` (default
+    the config's)."""
+    _, N, hd, nh, conv_dim = _dims(cfg)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    device = resolve(device)
+    return {"h": torch.zeros((n, batch_size, nh, hd, N), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((n, batch_size, CONV_K - 1, conv_dim),
+                                dtype=dtype, device=device)}
+
+
+def _causal_conv(x, w, conv_state):
+    """Depthwise causal conv, then silu. x: [B, T, C]; w: [K, C] f32;
+    conv_state: [B, K-1, C]. One form serves prefill and a decode step
+    (T = 1). The reference's einsum over the K taps in x's dtype sums the
+    products in f32 and rounds once: so here, taps in order."""
+    ctx = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    T = x.shape[1]
+    wx = w.to(x.dtype).float()
+    out = ctx[:, :T].float() * wx[0]
+    for i in range(1, CONV_K):
+        out = out + ctx[:, i:i + T].float() * wx[i]
+    return L.silu(out.to(x.dtype)), ctx[:, -(CONV_K - 1):]
+
+
+def _ssd_chunked(x, dt, B_, C_, a_log, h0, chunk: int):
+    """x: [B, T, nh, hd]; dt, a_log (log a): [B, T, nh]; B_, C_: [B, T,
+    N]; h0: [B, nh, hd, N]. Returns (y [B, T, nh, hd] in x's dtype, h)."""
+    Bb, T, nh, hd = x.shape
+    N = B_.shape[-1]
+    Cn = L.chunk_split(T, chunk)
+    n = T // Cn
+
+    def resh(t):  # [B, T, ...] -> [B, n, Cn, ...], f32
+        return t.float().reshape((Bb, n, Cn) + t.shape[2:])
+
+    xc, dtc, Bc, Cc, alc = (resh(t) for t in (x, dt, B_, C_, a_log))
+    cum = torch.cumsum(alc, dim=2)                       # [B, n, Cn, nh]
+    # intra: score[t, s] = (C_t . B_s) exp(cum_t - cum_s) dt_s, s <= t
+    G = Cc @ Bc.transpose(-1, -2)                        # [B, n, t, s]
+    tri = torch.ones((Cn, Cn), dtype=torch.bool, device=x.device).tril()
+    Dm = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [B, n, t, s, nh]
+    Dm.masked_fill_(~tri[:, :, None], -math.inf).exp_()
+    scores = G[..., None] * Dm * dtc[:, :, None, :, :]
+    y = (scores.permute(0, 1, 4, 2, 3) @ xc.permute(0, 1, 3, 2, 4)
+         ).permute(0, 1, 3, 2, 4)                        # [B, n, t, nh, hd]
+    # each chunk's state increment: sum_s exp(cum_last - cum_s) dt_s x_s B_sᵀ
+    cum_last = cum[:, :, -1:, :]
+    w_s = torch.exp(cum_last - cum) * dtc                # [B, n, Cn, nh]
+    inc = (w_s[..., None] * xc).permute(0, 1, 3, 4, 2) @ Bc[:, :, None]
+    decay = torch.exp(cum_last[:, :, 0])[..., None, None]  # [B, n, nh, 1, 1]
+    h = h0.float()
+    h_in = torch.empty_like(inc)                         # [B, n, nh, hd, N]
+    for c in range(n):
+        h_in[:, c] = h
+        h = decay[:, c] * h + inc[:, c]
+    # inter: y_t += exp(cum_t) C_t . h_in
+    inter = h_in.reshape(Bb, n, nh * hd, N) @ Cc.transpose(-1, -2)
+    inter = inter.reshape(Bb, n, nh, hd, Cn).permute(0, 1, 4, 2, 3)
+    y = y + inter * torch.exp(cum)[..., None]
+    return y.reshape(Bb, T, nh, hd).to(x.dtype), h
+
+
+def _ssd_step(x, dt, B_, C_, a_log, h):
+    """One token. x: [B, nh, hd]; dt, a_log: [B, nh]; B_, C_: [B, N]."""
+    xf = x.float()
+    a = torch.exp(a_log.float())                          # [B, nh]
+    h = a[:, :, None, None] * h + (dt.float()[:, :, None] * xf)[..., None] \
+        * B_.float()[:, None, None, :]
+    y = (h @ C_.float()[:, None, :, None]).squeeze(-1)    # [B, nh, hd]
+    return y.to(x.dtype), h
+
+
+def block_apply(pb, x, cfg: ModelConfig, state, *, chunk: int = 64,
+                single: bool = False):
+    """One Mamba2 block. x: [B, T, d]; state: this layer's ``{"h",
+    "conv"}``. Returns (x, the layer's new state)."""
+    B, T, d = x.shape
+    d_in, N, hd, nh, _ = _dims(cfg)
+    xn = L.rms_norm(x, pb["norm"], cfg.norm_eps)
+    proj = xn @ pb["in_proj"]
+    z, xbc, dt_raw = (proj[..., :d_in], proj[..., d_in:2 * d_in + 2 * N],
+                      proj[..., 2 * d_in + 2 * N:])
+    xbc, conv_state = _causal_conv(xbc, pb["conv_w"], state["conv"])
+    xs = xbc[..., :d_in].reshape(B, T, nh, hd)
+    B_, C_ = xbc[..., d_in:d_in + N], xbc[..., d_in + N:]
+    # softplus as jax.nn.softplus: logaddexp(v, 0), in f32
+    v = dt_raw.float() + pb["dt_bias"][None, None, :]
+    dt = torch.logaddexp(v, torch.zeros_like(v))          # [B, T, nh]
+    a_log = -torch.exp(pb["A_log"])[None, None, :] * dt   # log a_t
+    if single:
+        y, h = _ssd_step(xs[:, 0], dt[:, 0], B_[:, 0], C_[:, 0], a_log[:, 0],
+                         state["h"])
+        y = y[:, None]
+    else:
+        y, h = _ssd_chunked(xs, dt, B_, C_, a_log, state["h"], chunk)
+    y = y + xs * pb["D"][None, None, :, None].to(y.dtype)
+    y = L.rms_norm(y.reshape(B, T, d_in) * L.silu(z), pb["gate_norm"],
+                   cfg.norm_eps)
+    return x + y @ pb["out_proj"], {"h": h, "conv": conv_state}

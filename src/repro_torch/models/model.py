@@ -5,8 +5,12 @@
     logits, _, cache  = apply_decode(params, cfg, batch, cache, idx)
 
 Transformer families (``dense`` and ``moe`` run; ``transformer.
-check_supported`` says what else raises); ``ssm`` (rwkv6) and ``hybrid``
-(zamba2) raise ``NotImplementedError`` (ROADMAP A9).
+check_supported`` says what else raises), ``ssm`` (rwkv6,
+``models/rwkv6.py``) and ``hybrid`` (zamba2, ``models/hybrid.py``).
+A prefill's third result is what its family carries into decode: every
+layer's k and v (transformers), the recurrent state (ssm), or the Mamba
+state and every site's k and v (hybrid); ``serve.step.generate`` turns
+it into a decode cache.
 """
 from __future__ import annotations
 
@@ -14,13 +18,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, rwkv6, transformer
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is "
-                                  "not ported yet (ROADMAP A9)")
+    if cfg.family == "ssm":
+        return rwkv6
+    if cfg.family == "hybrid":
+        return hybrid
     return transformer
 
 
@@ -45,4 +50,8 @@ def apply_decode(params, cfg: ModelConfig, batch, caches, cur_index: int):
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device: DeviceLike = None):
+    """A zeroed decode cache: the recurrent state for ``ssm`` (which needs
+    no length), else one of ``max_len`` positions."""
+    if cfg.family == "ssm":
+        return rwkv6.init_state(cfg, batch_size, device=device)
     return _mod(cfg).init_cache(cfg, batch_size, max_len, device)

@@ -99,11 +99,6 @@ def capacities(T: int, cfg: ModelConfig):
     return cap_send, min(int(math.ceil(cap_send / max(E, 1) * cf)), cap_send)
 
 
-def _silu_glu(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    # jax.nn.silu's steps, each rounded to the activation dtype (C7)
-    return g * (1.0 / (1.0 + torch.exp(-g))) * u
-
-
 def _dispatch(x: torch.Tensor, p: dict, cfg: ModelConfig, expert_id=None):
     """x [T, d] -> (y [T, d] in x's dtype, aux f32 scalar, expert ids
     [T, k], kept [T, k] bool, the router's (own ids, logits)).
@@ -141,7 +136,7 @@ def _dispatch(x: torch.Tensor, p: dict, cfg: ModelConfig, expert_id=None):
     first = torch.clamp(starts, 0, max(N - cap, 0))
     window = first[:, None] + torch.arange(cap, device=dev)      # [E, cap]
     rows = send_x[order[window]]                                 # [E, cap, d]
-    h = _silu_glu(torch.bmm(rows, p["w_gate"]), torch.bmm(rows, p["w_up"]))
+    h = L.silu(torch.bmm(rows, p["w_gate"])) * torch.bmm(rows, p["w_up"])
     out = torch.bmm(h, p["w_down"])                              # [E, cap, d]
     # sorted row n is its expert's row n - first: kept if inside the
     # window (it is inside the expert's own range by construction)

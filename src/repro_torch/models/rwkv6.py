@@ -1,0 +1,268 @@
+"""RWKV-6 "Finch": the port of ``repro.models.rwkv6`` [arXiv:2404.05892].
+
+An attention-free LM with data-dependent decay. Time-mix runs the WKV
+recurrence
+
+    o_t = r_tᵀ (diag(u) k_t v_tᵀ + S_t),   S_{t+1} = diag(w_t) S_t + k_t v_tᵀ
+
+with per-channel decay w_t = exp(-exp(w0 + tanh(x W_A) W_B)), in f32;
+channel-mix is RWKV's r/k/v form (sigmoid gate, squared ReLU). Same
+simplifications as the reference: static token-shift lerp coefficients
+(the LoRA kept only for the decay) and a per-head RMS norm in place of
+GroupNorm. Params hold one dict a layer (the reference stacks them for
+``lax.scan``; the port loops), every leaf with the reference's dtype.
+
+Prefill runs the chunked WKV (``_wkv_chunked``). Within a chunk of C
+tokens the pairwise decay D[t, s, d] = exp(cum_{t-1} - cum_s) is
+materialized (no exp of a large positive number where it is used), the
+scores A[t, s] = sum_d r_t k_s D are masked strictly below the diagonal,
+and the bonus u goes on the diagonal; an hd x hd state
+crosses chunks. The reference computes every term inside one
+``lax.scan`` step per chunk. Here the chunk-local terms (D, the scores
+A, the intra-chunk output, the decayed k and r) depend on no carried
+state, so they are computed for many chunks at once (D for as many
+chunks as fit ``D_BYTES``: 4 of 268 MB at rwkv6-7b's 64 heads and B 4),
+a Python loop over the chunks carries only the state, S <- exp(cum_last)
+S + k_decᵀ v, and the state's share of the output, (r exp(cum_{t-1}))
+S_in, is one batched product after it. Each term is the reference's,
+summed in f32. Decode is the O(1)-state step (``_wkv_step``).
+
+No Pallas kernel runs here in the reference, and none in the port: the
+scans are plain PyTorch on the card.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve
+from repro_torch.models import layers as L
+
+LORA_DIM = 64
+MODES = ("prefill", "decode")
+D_BYTES = 1 << 30            # the pairwise decay tensor's size a group
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def _layer_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """One layer's params: f32 lerp coefficients, decay base, bonus and
+    norms; the projections in the config's dtype, ``x @ W``."""
+    d, ff = cfg.d_model, cfg.d_ff
+    hd = cfg.rwkv_head_size
+    H = d // hd
+    dtype = getattr(torch, cfg.dtype)
+    dev = gen.device
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=dev)
+
+    def mat(i, o, scale=1.0):
+        return L.dense_init(gen, i, o, dtype, scale)
+
+    out_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
+    tm = {
+        "mu_r": full((d,), 0.5), "mu_k": full((d,), 0.5),
+        "mu_v": full((d,), 0.5), "mu_g": full((d,), 0.5),
+        "mu_w": full((d,), 0.5),
+        "w0": full((d,), -2.0),          # base decay ~exp(-exp(-2))
+        "wA": mat(d, LORA_DIM) * 0.1,
+        "wB": mat(LORA_DIM, d) * 0.1,
+        "u": full((H, hd), 0.0),
+        "wr": mat(d, d), "wk": mat(d, d), "wv": mat(d, d), "wg": mat(d, d),
+        "wo": mat(d, d, out_scale),
+        "ln_x": full((d,), 1.0),
+    }
+    cm = {
+        "mu_r": full((d,), 0.5), "mu_k": full((d,), 0.5),
+        "wr": mat(d, d), "wk": mat(d, ff), "wv": mat(ff, d, out_scale),
+    }
+    return {"ln1": full((d,), 1.0), "ln2": full((d,), 1.0), "tm": tm,
+            "cm": cm}
+
+
+def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random params on the generator's device: ``{"embed", "blocks":
+    [one dict a layer], "final_norm"}``."""
+    return {"embed": L.embed_init(gen, cfg),
+            "blocks": [_layer_init(gen, cfg) for _ in range(cfg.n_layers)],
+            "final_norm": torch.ones(cfg.d_model, dtype=torch.float32,
+                                     device=gen.device)}
+
+
+# ---------------------------------------------------------------------------
+# WKV
+# ---------------------------------------------------------------------------
+def _wkv_chunked(r, k, v, lw, u, state, chunk: int):
+    """r, k, v: [B, T, H, hd]; lw: [B, T, H, hd] log-decay (<= 0); u:
+    [H, hd]; state: [B, H, hd, hd]. Returns (out [B, T, H, hd] in r's
+    dtype, state f32)."""
+    B, T, H, hd = r.shape
+    C = L.chunk_split(T, chunk)
+    n = T // C
+
+    def resh(x):  # [B, T, H, hd] -> [B, H, n, C, hd], f32
+        return x.float().reshape(B, n, C, H, hd).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, lwc = resh(r), resh(k), resh(v), resh(lw)
+    cum = torch.cumsum(lwc, dim=3)                       # inclusive
+    cum_prev = cum - lwc                                 # cum_{t-1}
+    below = torch.ones((C, C), dtype=torch.bool, device=r.device).tril(-1)
+    bonus = (rc * u[None, :, None, None, :] * kc).sum(-1)  # [B, H, n, C]
+    y = torch.empty_like(vc)
+    group = max(1, D_BYTES // (B * H * C * C * hd * 4))
+    for c0 in range(0, n, group):
+        g = slice(c0, c0 + group)
+        # D[t, s, d] = exp(cum_prev[t] - cum[s]), used only for s < t: the
+        # mask goes on A, 1/hd of D's size (an entry at s >= t may
+        # overflow, and only its own A[t, s] sees it)
+        D = (cum_prev[:, :, g, :, None, :] - cum[:, :, g, None, :, :]).exp_()
+        D.mul_(kc[:, :, g, None, :, :])                  # k_s D[t, s]
+        A = (D @ rc[:, :, g, :, :, None]).squeeze(-1)    # [B, H, g, t, s]
+        del D
+        A.masked_fill_(~below, 0.0)
+        A.diagonal(dim1=-2, dim2=-1).add_(bonus[:, :, g])
+        y[:, :, g] = A @ vc[:, :, g]
+    # the carry: S_in of each chunk, then its share of the output
+    cum_last = cum[:, :, :, -1:, :]                      # [B, H, n, 1, hd]
+    kv = (kc * torch.exp(cum_last - cum)).transpose(-1, -2) @ vc
+    decay = torch.exp(cum_last[:, :, :, 0, :, None])     # [B, H, n, hd, 1]
+    S = state.float()
+    s_in = torch.empty_like(kv)                          # [B, H, n, hd, hd]
+    for c in range(n):
+        s_in[:, :, c] = S
+        S = decay[:, :, c] * S + kv[:, :, c]
+    y = y + (rc * torch.exp(cum_prev)) @ s_in
+    out = y.permute(0, 2, 3, 1, 4).reshape(B, T, H, hd)
+    return out.to(r.dtype), S
+
+
+def _wkv_step(r, k, v, lw, u, state):
+    """One decode step. r, k, v, lw: [B, H, hd]; state: [B, H, hd, hd]."""
+    rf, kf, vf = r.float(), k.float(), v.float()
+    att = state + u[None, :, :, None] * kf[..., None] * vf[..., None, :]
+    out = (rf[..., None, :] @ att).squeeze(-2)
+    state = torch.exp(lw.float())[..., None] * state + \
+        kf[..., None] * vf[..., None, :]
+    return out.to(r.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+def _shift(x, last):
+    """Token shift: the previous token's value. last: [B, 1, d] carried."""
+    return torch.cat([last, x[:, :-1]], dim=1)
+
+
+def _lerp(x, xprev, mu):
+    return x + (xprev - x) * mu.to(x.dtype)
+
+
+def _time_mix(p, x, cfg: ModelConfig, state, chunk: int = 64,
+              single: bool = False):
+    B, T, d = x.shape
+    hd = cfg.rwkv_head_size
+    H = d // hd
+    last = state["tm_x"][:, None, :]
+    xprev = last if single else _shift(x, last)
+    r = _lerp(x, xprev, p["mu_r"]) @ p["wr"]
+    k = _lerp(x, xprev, p["mu_k"]) @ p["wk"]
+    v = _lerp(x, xprev, p["mu_v"]) @ p["wv"]
+    g = L.silu(_lerp(x, xprev, p["mu_g"]) @ p["wg"])
+    xw = _lerp(x, xprev, p["mu_w"]).float()
+    lw = -torch.exp(p["w0"][None, None] + torch.tanh(xw @ p["wA"].float())
+                    @ p["wB"].float())                  # log w_t <= 0
+    r, k, v, lw = (t.reshape(B, T, H, hd) for t in (r, k, v, lw))
+    if single:
+        o, s_new = _wkv_step(r[:, 0], k[:, 0], v[:, 0], lw[:, 0], p["u"],
+                             state["wkv"])
+        o = o[:, None]
+    else:
+        o, s_new = _wkv_chunked(r, k, v, lw, p["u"], state["wkv"], chunk)
+    # per-head norm, then the gate
+    o = L.rms_norm(o, torch.ones(hd, dtype=torch.float32, device=x.device),
+                   cfg.norm_eps)
+    o = o.reshape(B, T, d) * p["ln_x"].to(o.dtype)
+    return (o * g) @ p["wo"], {"wkv": s_new, "tm_x": x[:, -1, :]}
+
+
+def _channel_mix(p, x, state, single: bool = False):
+    last = state["cm_x"][:, None, :]
+    xprev = last if single else _shift(x, last)
+    r = torch.sigmoid(_lerp(x, xprev, p["mu_r"]) @ p["wr"])
+    k = torch.square(torch.relu(_lerp(x, xprev, p["mu_k"]) @ p["wk"]))
+    return r * (k @ p["wv"]), {"cm_x": x[:, -1, :]}
+
+
+def block_apply(pb, x, cfg: ModelConfig, state, *, chunk: int = 64,
+                single: bool = False):
+    """One layer. x: [B, T, d]; state: this layer's ``{"wkv", "tm_x",
+    "cm_x"}``. Returns (x, the layer's new state)."""
+    y, tm_state = _time_mix(pb["tm"], L.rms_norm(x, pb["ln1"], cfg.norm_eps),
+                            cfg, state, chunk=chunk, single=single)
+    x = x + y
+    y, cm_state = _channel_mix(pb["cm"],
+                               L.rms_norm(x, pb["ln2"], cfg.norm_eps),
+                               state, single=single)
+    return x + y, {**tm_state, **cm_state}
+
+
+# ---------------------------------------------------------------------------
+# model-level forward
+# ---------------------------------------------------------------------------
+def init_state(cfg: ModelConfig, batch_size: int,
+               dtype: Optional[torch.dtype] = None,
+               device: DeviceLike = None) -> dict:
+    """Zeroed recurrent state of every layer: ``wkv`` f32 ``[n, B, H,
+    hd, hd]``, ``tm_x`` and ``cm_x`` ``[n, B, d]`` in ``dtype`` (default
+    the config's)."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+    device = resolve(device)
+    d, hd, n = cfg.d_model, cfg.rwkv_head_size, cfg.n_layers
+    return {"wkv": torch.zeros((n, batch_size, d // hd, hd, hd),
+                               dtype=torch.float32, device=device),
+            "tm_x": torch.zeros((n, batch_size, d), dtype=dtype,
+                                device=device),
+            "cm_x": torch.zeros((n, batch_size, d), dtype=dtype,
+                                device=device)}
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict, *,
+            mode: str = "prefill", caches: Optional[dict] = None,
+            cur_index: Optional[int] = None, last_only: bool = False,
+            chunk: int = 64):
+    """batch: ``{"tokens": [B, T]}`` (``T == 1`` in decode). Returns
+    (logits, aux, state): ``aux`` is an f32 zero (no experts); in prefill
+    ``state`` is the new recurrent state, stacked ``[n, ...]`` as
+    ``init_state``'s, from ``caches`` or zeros; in decode it is
+    ``caches``, updated in place. ``cur_index`` is unused (the state is
+    the position). ``last_only`` unembeds only the last position."""
+    if mode not in MODES:
+        raise NotImplementedError(f"mode {mode!r}: training is not ported "
+                                  "yet (ROADMAP A9)")
+    x = L.embed_apply(params["embed"], batch["tokens"])
+    B = x.shape[0]
+    state = caches if caches is not None else \
+        init_state(cfg, B, x.dtype, x.device)
+    single = mode == "decode"
+    layers = []
+    for i, pb in enumerate(params["blocks"]):
+        x, st = block_apply(pb, x, cfg, {k: t[i] for k, t in state.items()},
+                            chunk=chunk, single=single)
+        if single:
+            for k, t in st.items():
+                state[k][i].copy_(t)
+        else:
+            layers.append(st)
+    if not single:
+        state = {k: torch.stack([st[k] for st in layers]) for k in state}
+    if last_only:
+        x = x[:, -1:]
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.unembed_apply(params["embed"], x), aux, state

@@ -40,7 +40,9 @@ MODES = ("prefill", "decode")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    """Raise ``NotImplementedError`` for what this module does not run
+    yet. ``models/model.py`` sends ``ssm`` and ``hybrid`` configs to
+    ``rwkv6`` and ``hybrid``, never here; VLM and audio stay refused."""
     missing = [name for name, off in (
         (f"family {cfg.family!r}", cfg.family in ("dense", "moe")),
         ("cross-attention", cfg.cross_attn_every == 0),

@@ -36,6 +36,25 @@ def make_decode_step(cfg: ModelConfig):
     return decode
 
 
+def decode_cache(cfg: ModelConfig, kv: dict, batch_size: int, S: int,
+                 max_len: int, device: DeviceLike = None) -> dict:
+    """The decode cache after a prefill of ``S`` positions whose third
+    result is ``kv``: for ``ssm`` the prefill's state itself; for
+    ``hybrid`` its Mamba state as it is, and its k and v copied into a
+    cache of ``max_len`` positions (ROADMAP C20: the reference hands the
+    prompt-sized cache on, and its decode writes clamp onto position
+    S-1); for the transformer families the k and v so copied."""
+    if cfg.family == "ssm":
+        return kv
+    cache = M.init_cache(cfg, batch_size, max_len, device)
+    if cfg.family == "hybrid":
+        cache["mamba"] = kv["mamba"]
+    if "k" in kv:                   # a hybrid with no site holds none
+        cache["k"][:, :, :S] = kv["k"]
+        cache["v"][:, :, :S] = kv["v"]
+    return cache
+
+
 def sample(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
            temperature: float = 0.0) -> torch.Tensor:
     """logits: [B, 1, V] -> token ids [B, 1] int32. Greedy (the first of
@@ -72,9 +91,7 @@ def generate(params, cfg: ModelConfig, prompt, max_new: int, max_len: int,
     gen = torch.Generator(device=device).manual_seed(seed)
     t0 = time.perf_counter()
     logits, kv = prefill(params, {"tokens": prompt})
-    cache = M.init_cache(cfg, B, max_len, device)
-    cache["k"][:, :, :S] = kv["k"]
-    cache["v"][:, :, :S] = kv["v"]
+    cache = decode_cache(cfg, kv, B, S, max_len, device)
     del kv
     toks = [sample(logits, gen, temperature)]
     if stats is not None:

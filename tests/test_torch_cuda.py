@@ -1467,3 +1467,57 @@ def test_qwen3_moe_smoke_on_the_card_matches_the_cpu(dev):
     assert len(card[4]) == 2 * cfg.n_layers          # prefill and decode
     for (ids_c, kept_c), (ids_g, kept_g) in zip(cpu[4], card[4]):
         assert torch.equal(ids_c, ids_g) and torch.equal(kept_c, kept_g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gqa_at_the_zamba2_prefill_shape(dev, dtype):
+    """zamba2's shared attention: 32 heads over 32 (G = 1) at hd 64, B 4,
+    S 1024: bf16 on the wgmma instance, f32 on the simt one, each within
+    its tolerance of the plain version and counted under its instance."""
+    q, k, v = _gqa_on_card(dev, 3, 4, 1024, 32, 32, 64, dtype)
+    which = fa.design(dtype, 64)
+    before = dict(fa.flash_attention_gqa.launches_by_design)
+    got = fa.flash_attention_gqa(q, k, v)
+    assert fa.flash_attention_gqa.launches_by_design[which] == \
+        before[which] + 1
+    want = fa.flash_attention_gqa_plain(q, k, v)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _row_scaled_err(got, want) <= ROW_TOL
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-1.2b"])
+def test_recurrent_smoke_on_the_card_matches_the_cpu(dev, arch):
+    """The smoke rwkv6 and zamba2 in f32 at S 128 (two chunks of 64):
+    prefill logits and three decode steps on the card (the WKV and SSD
+    scans in f32, not TF32; B4 at each of zamba2's shared-attention
+    sites, never for rwkv6) within 1e-4 of the CPU's."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import hybrid, model as M
+    from repro_torch.serve import step
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              dtype="float32")
+    params = M.init(cfg, seed=0, device="cpu")
+    on_card = _to(params, dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 131)).astype(np.int32))
+    runs = {}
+    for where, p, t in (("cpu", params, tokens),
+                        ("card", on_card, tokens.to(dev))):
+        before = fa.flash_attention_gqa.launches
+        logits, _, kv = M.apply_prefill(p, cfg, {"tokens": t[:, :128]})
+        launched = fa.flash_attention_gqa.launches - before
+        cache = step.decode_cache(cfg, kv, 2, 128, 131, t.device)
+        steps = []
+        for i in range(3):
+            lg, _, cache = M.apply_decode(
+                p, cfg, {"tokens": t[:, 128 + i:129 + i]}, cache, 128 + i)
+            steps.append(lg.cpu())
+        runs[where] = (logits.cpu(), torch.cat(steps, 1), launched)
+    want = hybrid.n_attn_sites(cfg) if cfg.family == "hybrid" else 0
+    assert runs["cpu"][2] == 0 and runs["card"][2] == want
+    for a, b in zip(runs["card"][:2], runs["cpu"][:2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
