@@ -10,7 +10,8 @@ stay as they are), builds the copies with the port's flags, one nvcc
 each, in parallel, and loads each in turn in place of the built library.
 For the unchanged kernel and each fault it prints, at the arch's
 prefill shape (qwen2-0.5b: q [4, 1024, 14, 64], k, v [4, 1024, 2, 64];
-zamba2-1.2b: 32 heads over 32; bf16, causal, ``chip_smoke``'s seeded
+zamba2-1.2b: 32 heads over 32; musicgen-medium: 24 over 24, 48 layers
+on tokens; bf16, causal, ``chip_smoke``'s seeded
 inputs), the max |kernel - plain| of B4 (against ``ATTN_TOL``, as atol
 and rtol), its row-scaled error (against ``ATTN_ROW_TOL``), and the max
 |logit| difference of the full-width, full-depth bf16 model's
@@ -52,8 +53,8 @@ FAULTS = {
         "      l[j] = l[j] * alpha[j]"
         " + ps[j] * (t == 0 && q0 >= 512 ? 2 : 1);\n"),
     "causal mask one key late": (
-        "          if (col >= S || (causal && col > row) ||",
-        "          if (col >= S || (causal && col > row + 1) ||"),
+        "          if (col >= Sk || (causal && col > row) ||",
+        "          if (col >= Sk || (causal && col > row + 1) ||"),
 }
 
 
@@ -117,7 +118,8 @@ def ulp_noise(rate, seed=1):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=[chip_smoke.LM_ARCH,
-                                       chip_smoke.ZAMBA_ARCH],
+                                       chip_smoke.ZAMBA_ARCH,
+                                       chip_smoke.MUSICGEN_ARCH],
                     default=chip_smoke.LM_ARCH)
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)

@@ -216,6 +216,32 @@ each of which fails the run (non-zero exit) if it fails:
                rwkv6 in f32 at 4 layers with chunks of 16 against 64
                within 1e-3; B4's times at zamba2's shape beside its bound
                and SDPA (causal). Each phase prints its wall time.
+ 8e-11e. the multimodal archs, musicgen-medium and llama-3.2-vision-90b:
+               B4 at musicgen's prefill shape (B 4, S 1024, 24 heads over
+               24, hd 64: G = 1) as in 8, and at keys of their own length
+               (cross-attention, non-causal): the VLM's q [4, 1024, 64,
+               128] over the image's k, v [4, 1600, 8, 128] in bf16
+               (wgmma) and f32 (simt), one query over 1600 keys (a decode
+               step) in both, and 1000 keys (no 64-key tile divides), each
+               within phase 8's limits; musicgen-medium at full width and
+               depth (48 layers) and the VLM at full width cut to 4 of its
+               20 superblocks (16 self-attention and 4 cross-attention
+               layers, ~38 GB) through ``M.init`` and ``step.generate``
+               (``serve.main`` refuses both: frame embeddings, and ROADMAP
+               C21), the VLM with seeded bf16 image embeddings [4, 1600,
+               8192] (normal x 0.02); launch counts set to 0 before and
+               read after: B4 48 times for musicgen (prefill only) and 144
+               for the VLM (16 + 4 in the prefill, 4 in each of 31 decode
+               steps), all wgmma; warm calls as in 9; each against plain
+               attention (self and cross) in bf16 as in 10 and in f32 at
+               12 layers (musicgen) and one superblock (the VLM, f32
+               image embeddings on the simt instance); musicgen's own
+               path, a prefill on seeded frame embeddings [4, 1024, 1536]
+               and 8 decode steps on [4, 1, 1536] through ``make_prefill``
+               and ``make_decode_step`` (B4 48 times, all in the
+               prefill), against plain attention; B4's times at both
+               shapes beside their bounds and SDPA (causal; non-causal
+               with GQA). Each phase prints its wall time.
  12. graph     GraphBLAS (``repro_torch.core.graphblas``, plain PyTorch)
                on a graph of 2^20 vertices and 2^24 edges, in-neighbours
                uniform from seed 0, as an incoming-edges ELL on the card:
@@ -275,6 +301,12 @@ LM_ATOL = {"float32": 1e-3, "bfloat16": 0.1}
 # internlm2 and qwen3-moe: 4.9-5.1), an ulp is 2^-5 and the limit is six
 # of them (lm_atol); 48 layers (internlm2) carry more roundings than 24
 LM_ULPS = 6
+# musicgen-medium's 48 layers at G = 1 keep LM_ULPS and need no site
+# check: its logits move 5.86e-02 from kernel against plain attention
+# and as much from one-ulp flips of plain attention at the kernel's rate
+# (1.43e-3 of its outputs), while the three planted faults move them
+# 0.172, 0.234 and 0.641, all past the limit of 0.1
+# (benchmarks/port_attention_faults.py --arch musicgen-medium, H100)
 # ... but zamba2's bf16 logits (38 Mamba-2 layers behind 6 attention
 # sites) move 8.3 ulps from kernel against plain attention, and 8.5 from
 # plain attention with one-ulp flips at the kernel's own rate (1.4e-3 of
@@ -303,6 +335,13 @@ RULE_BF16_PROMPT = 63                  # S and S+1 each one chunk (bf16,
 #                                        and f32 at full depth)
 RULE_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (3e-2, 5e-2)}  # rtol, atol
 CHUNKS = (16, 64)                      # rwkv6's chunk-size invariance
+# phases 8e-11e: the multimodal archs
+MUSICGEN_ARCH = "musicgen-medium"      # full width and depth, 48 layers
+MUSICGEN_F32_LAYERS = 12
+EMBEDS_DECODE_STEPS = 8                # decode steps on frame embeddings
+VLM_ARCH = "llama-3.2-vision-90b"      # full width, 4 of 20 superblocks
+VLM_SUPERBLOCKS, VLM_F32_SUPERBLOCKS = 4, 1
+NONDIVIDING_SK = 1000                  # keys that no 64-key tile divides
 IDLE_DECODE_STEPS = 8                  # decode steps profiled for idle share
 STORE_SEGMENT_DOCS = 1 << 16           # 16 segments of the 2^20 documents
 STORE_CACHE_BYTES = 4 << 30            # room for every backend's 16 slabs
@@ -804,6 +843,12 @@ def main() -> int:
     t0 = time.perf_counter()
     rows.append(recurrent_phases(torch, dev))
     say(f"phases 8d-11d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mm_rows, vlm_self = multimodal_phases(torch, dev)
+    next(r for r in rows if r["name"] == "flash_attention_hd128")[
+        "launches"] += vlm_self                # the VLM's self-attention
+    rows.extend(mm_rows)
+    say(f"phases 8e-11e: {time.perf_counter() - t0:.1f} s")
     graph_phase(torch, dev)
     say(f"run: {time.perf_counter() - t_run:.1f} s wall")
     say(nvidia_smi_line())
@@ -1800,11 +1845,22 @@ def attention_inputs(torch, dev, B, S, H, KV, hd, dtype, seed=SEED):
             for h in (H, KV, KV)]
 
 
-def greedy_with_margins(torch, step, params, cfg, prompt, max_new):
+def cross_kv(torch, dev, B, Sk, KV, hd, dtype):
+    """Cross-attention's k and v, [B, Sk, KV, hd] each, drawn apart from
+    ``attention_inputs``' q."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    return [torch.randn((B, Sk, KV, hd), generator=gen, device=dev).to(dtype)
+            for _ in range(2)]
+
+
+def greedy_with_margins(torch, step, params, cfg, prompt, max_new,
+                        extra=None):
     """``generate``'s greedy loop, also returning each step's top-2 logit
-    margin [B, max_new] and the last-position prefill logits."""
+    margin [B, max_new] and the last-position prefill logits. ``extra``
+    joins the prefill batch (the VLM's ``image_embeds``)."""
     B, S = prompt.shape
-    logits, kv = step.make_prefill(cfg)(params, {"tokens": prompt})
+    logits, kv = step.make_prefill(cfg)(params,
+                                        {"tokens": prompt, **(extra or {})})
     first = logits[:, 0].clone()
     cache = step.decode_cache(cfg, kv, B, S, S + max_new, prompt.device)
     decode = step.make_decode_step(cfg)
@@ -1818,7 +1874,8 @@ def greedy_with_margins(torch, step, params, cfg, prompt, max_new):
     return torch.cat(toks, 1), torch.stack(margins, 1), first
 
 
-def lm_check(torch, step, layers, fa, params, cfg, prompt, label):
+def lm_check(torch, step, layers, fa, params, cfg, prompt, label,
+             extra=None):
     """Phase 10 (10b) in ``cfg.dtype``: the model with kernel B4 against
     the same model with its plain version. Returns the logits' max error.
 
@@ -1836,10 +1893,13 @@ def lm_check(torch, step, layers, fa, params, cfg, prompt, label):
     two alike, while a wrong tile or mask moves them by O(1). Flips are
     counted up to the first step whose greedy tokens differ.
 
-    For the hybrid, whose bf16 logits at full depth tell a planted fault
-    from rounding only faintly (ZAMBA_ULPS), each B4 call of the kernel
-    run is also held against the plain version on the model's own q, k
-    and v (``site_checked``), under phase 8's limits."""
+    For the hybrid (whose bf16 logits at
+    full depth tell a planted fault from rounding only faintly,
+    ZAMBA_ULPS), each B4 call of the kernel run is also held against the
+    plain version on the model's own q, k and v (``site_checked``), under
+    phase 8's limits. ``extra`` joins each prefill batch (the VLM's
+    image embeddings); the plain run then takes cross-attention's plain
+    version too."""
     from repro_torch.models import moe
     by = fa.flash_attention_gqa.launches_by_design
     before = dict(by)
@@ -1851,7 +1911,7 @@ def lm_check(torch, step, layers, fa, params, cfg, prompt, label):
         layers.flash_attention_gqa = site_checked(torch, fa, sites)
     try:
         tok_k, _, logit_k = greedy_with_margins(torch, step, params, cfg,
-                                                prompt, LM_NEW)
+                                                prompt, LM_NEW, extra)
         routing = moe.moe_apply.record
     finally:
         moe.moe_apply.record = None
@@ -1859,16 +1919,16 @@ def lm_check(torch, step, layers, fa, params, cfg, prompt, label):
     if sites is not None:
         sites_held(sites, cfg.dtype, label)
     which = fa.design(getattr(torch, cfg.dtype), cfg.head_dim)
-    if by[which] - before[which] != b4_per_prefill(cfg):
-        fail(f"LM check {label}: the prefill did not run B4's {which} "
-             f"instance {b4_per_prefill(cfg)} times")
+    if by[which] - before[which] != b4_per_generate(cfg):
+        fail(f"LM check {label}: the greedy run did not run B4's {which} "
+             f"instance {b4_per_generate(cfg)} times")
     layers.flash_attention_gqa = fa.flash_attention_gqa_plain
     if moe_run:
         moe.moe_apply.replay = [r["expert_id"] for r in routing]
         moe.moe_apply.record = []
     try:
         tok_p, margin_p, logit_p = greedy_with_margins(
-            torch, step, params, cfg, prompt, LM_NEW)
+            torch, step, params, cfg, prompt, LM_NEW, extra)
         replayed = moe.moe_apply.record
     finally:
         layers.flash_attention_gqa = kernel_attn
@@ -1972,7 +2032,6 @@ def b4_cases(torch, dev, fa, B, S, H, KV, hd, window=0):
     bf16 and f32, non-causal, at an S that no tile divides and through
     the [BH, S, hd] entry; with ``window`` (8c), bf16 and f32 causal,
     global and windowed. Returns each case's max error."""
-    by = fa.flash_attention_gqa.launches_by_design
     if window:
         cases = [("prefill bf16 causal", B, S, "bfloat16", True, 0),
                  ("prefill f32 causal", B, S, "float32", True, 0),
@@ -1990,25 +2049,9 @@ def b4_cases(torch, dev, fa, B, S, H, KV, hd, window=0):
     for name, b, s_len, dtype, causal, w in cases:
         q, k, v = attention_inputs(torch, dev, b, s_len, H, KV, hd,
                                    getattr(torch, dtype))
-        which = fa.design(q.dtype, hd)
-        before = by[which]
-        got = fa.flash_attention_gqa(q, k, v, causal=causal, window=w)
-        want = fa.flash_attention_gqa_plain(q, k, v, causal=causal, window=w)
-        torch.cuda.synchronize()
-        if by[which] != before + 1:
-            fail(f"B4 {name}: not counted under its {which} instance")
-        err = float((got.float() - want.float()).abs().max())
-        row_err = row_scaled_err(got, want)
-        tol = ATTN_TOL[dtype]
-        say(f"B4 ({which}) vs plain, {name} [{b}, {s_len}, {H}/{KV}, {hd}]: "
-            f"max_abs_err {err:.3e} (tolerance {tol}, rtol {tol}); "
-            f"row-scaled {row_err:.3e}"
-            + (f" (tolerance {ATTN_ROW_TOL})" if dtype == "bfloat16" else ""))
-        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
-        if dtype == "bfloat16" and row_err > ATTN_ROW_TOL:
-            fail(f"B4 {name}: row-scaled error {row_err} > {ATTN_ROW_TOL}")
-        attn_err[name] = err
-        del q, k, v, got, want
+        attn_err[name] = b4_held(torch, fa, name, q, k, v, causal=causal,
+                                 window=w)
+        del q, k, v
     bh = attention_inputs(torch, dev, B * H, S, 1, 1, hd, torch.bfloat16)
     got = fa.flash_attention(*(t[:, :, 0] for t in bh), window=window)
     want = fa.flash_attention_plain(*(t[:, :, 0] for t in bh), window=window)
@@ -2024,48 +2067,118 @@ def b4_cases(torch, dev, fa, B, S, H, KV, hd, window=0):
     return attn_err
 
 
+def b4_held(torch, fa, name, q, k, v, **kw) -> float:
+    """One B4 call against its plain version on the same inputs: counted
+    once under the instance ``design`` names, within ATTN_TOL (atol and
+    rtol) and, in bf16, ATTN_ROW_TOL row by row. Returns the max error."""
+    by = fa.flash_attention_gqa.launches_by_design
+    which = fa.design(q.dtype, q.shape[-1])
+    before = by[which]
+    got = fa.flash_attention_gqa(q, k, v, **kw)
+    want = fa.flash_attention_gqa_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if by[which] != before + 1:
+        fail(f"B4 {name}: not counted under its {which} instance")
+    err = float((got.float() - want.float()).abs().max())
+    row_err = row_scaled_err(got, want)
+    dtype = str(q.dtype).split(".")[1]
+    tol = ATTN_TOL[dtype]
+    B, S, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    say(f"B4 ({which}) vs plain, {name} [{B}, {S}, {H}/{KV}, {hd}]"
+        + (f" Sk {Sk}" if Sk != S else "") + f": max_abs_err {err:.3e} "
+        f"(tolerance {tol}, rtol {tol}); row-scaled {row_err:.3e}"
+        + (f" (tolerance {ATTN_ROW_TOL})" if dtype == "bfloat16" else ""))
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if dtype == "bfloat16" and row_err > ATTN_ROW_TOL:
+        fail(f"B4 {name}: row-scaled error {row_err} > {ATTN_ROW_TOL}")
+    return err
+
+
+def b4_cross_cases(torch, dev, fa, B, S, Sk, H, KV, hd):
+    """Phase 8e: B4 at keys of their own length (cross-attention,
+    non-causal) against its plain version: the VLM's prefill shape in
+    bf16 (wgmma) and f32 (simt), one query over the Sk keys (a decode
+    step) in both, and NONDIVIDING_SK keys. Returns each case's max
+    error."""
+    cases = [("cross bf16", B, S, Sk, torch.bfloat16),
+             ("cross f32", B, S, Sk, torch.float32),
+             ("cross bf16 Sq=1", B, 1, Sk, torch.bfloat16),
+             ("cross f32 Sq=1", B, 1, Sk, torch.float32),
+             (f"cross bf16 Sk={NONDIVIDING_SK} (no 64-tile divides)", 2, S,
+              NONDIVIDING_SK, torch.bfloat16)]
+    errs = {}
+    for name, b, s_len, sk_len, dtype in cases:
+        q = attention_inputs(torch, dev, b, s_len, H, KV, hd, dtype)[0]
+        k, v = cross_kv(torch, dev, b, sk_len, KV, hd, dtype)
+        errs[name] = b4_held(torch, fa, name, q, k, v, causal=False)
+        del q, k, v
+    return errs
+
+
 def b4_per_prefill(cfg) -> int:
-    """B4's launches in one prefill: one a layer (transformers), one a
-    shared-attention site (hybrid), none (ssm)."""
-    from repro_torch.models import hybrid
+    """B4's launches in one prefill: one a layer (transformers; the VLM's
+    cross layers too), one a shared-attention site (hybrid), none
+    (ssm)."""
+    from repro_torch.models import hybrid, transformer
     if cfg.family == "ssm":
         return 0
     return hybrid.n_attn_sites(cfg) if cfg.family == "hybrid" \
-        else cfg.n_layers
+        else cfg.n_layers + transformer.n_superblocks(cfg)
+
+
+def b4_per_generate(cfg) -> int:
+    """B4's launches in one ``generate`` of LM_NEW tokens: the prefill's,
+    and for the VLM one a cross layer in each of the LM_NEW - 1 decode
+    steps (decode self-attention is plain PyTorch)."""
+    from repro_torch.models import transformer
+    return b4_per_prefill(cfg) + (LM_NEW - 1) * transformer.n_superblocks(
+        cfg)
 
 
 def serve_counted(torch, fa, cfg, call):
-    """Phase 9 (9b-9d): ``call()`` (one serving run) with every launch
+    """Phase 9 (9b-9e): ``call()`` (one serving run) with every launch
     count set to 0 just before it and read just after; B4 must have
-    launched ``b4_per_prefill`` times, all on its wgmma instance. Returns
-    (what ``call`` returns, the launch counts)."""
+    launched ``b4_per_generate`` times, all on its wgmma instance, and
+    ``n_superblocks * LM_NEW`` of them at Sk != S (the VLM's
+    cross-attention; none elsewhere). Returns (what ``call`` returns, the
+    launch counts, B4's cross-attention ones as
+    ``flash_attention_cross``)."""
+    from repro_torch.models import transformer
     counted = _launch_counters()
     for fn in counted.values():
         fn.launches = 0
     by = fa.flash_attention_gqa.launches_by_design
     for name in by:
         by[name] = 0
+    fa.flash_attention_gqa.launches_cross = 0
     out = call()
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counted.items()}
+    launches["flash_attention_cross"] = fa.flash_attention_gqa.launches_cross
     by_design = dict(by)
     say(f"LM main path ({cfg.name}) launches: {launches}; B4 by instance "
         f"{by_design}")
-    want = b4_per_prefill(cfg)
+    want = b4_per_generate(cfg)
     if launches["flash_attention"] != want:
         fail(f"B4 launched {launches['flash_attention']} times in one "
-             f"prefill, want {want}")
+             f"serving run, want {want}")
     if by_design["wgmma"] != want:
-        fail(f"{by_design['wgmma']} of B4's {want} prefill launches ran "
-             "the wgmma instance, want all")
+        fail(f"{by_design['wgmma']} of B4's {want} launches ran the wgmma "
+             "instance, want all")
+    want_cross = transformer.n_superblocks(cfg) * LM_NEW
+    if launches["flash_attention_cross"] != want_cross:
+        fail(f"{launches['flash_attention_cross']} of B4's launches in one "
+             f"serving run were cross-attention (Sk != S), want "
+             f"{want_cross}")
     return out, launches
 
 
-def serve_checked(torch, step, fa, dev, cfg, run, B, S):
+def serve_checked(torch, step, fa, dev, cfg, run, B, S, **gen_kw):
     """Phase 9 (9b) after the counted run: in-vocab tokens of the right
     shape, the model's size, then three warm calls that must give the
     same greedy tokens; prints and returns the median prefill and decode
-    ms."""
+    ms. ``gen_kw`` goes to ``generate`` (the VLM's ``image_embeds``)."""
     tokens = run.tokens
     if tuple(tokens.shape) != (B, LM_NEW) or int(tokens.min()) < 0 \
             or int(tokens.max()) >= cfg.vocab_size:
@@ -2083,8 +2196,9 @@ def serve_checked(torch, step, fa, dev, cfg, run, B, S):
         stats = {}
         fa.flash_attention_gqa.launches = 0
         again = step.generate(run.params, cfg, run.prompt, max_new=LM_NEW,
-                              max_len=S + LM_NEW, device=dev, stats=stats)
-        if fa.flash_attention_gqa.launches != b4_per_prefill(cfg):
+                              max_len=S + LM_NEW, device=dev, stats=stats,
+                              **gen_kw)
+        if fa.flash_attention_gqa.launches != b4_per_generate(cfg):
             fail("B4 launch count differs on the warm call")
         if not torch.equal(again, tokens):
             fail("the warm call's greedy tokens differ from the first's")
@@ -2113,19 +2227,24 @@ def sdpa_backend(torch, q, k, v, **kw) -> str:
                                               scale=None, **kw)).name
 
 
-def b4_times(torch, dev, fa, B, S, H, KV, hd, window=0):
-    """Phase 11 (11b, 11c): B4, its plain version and the library
-    yardstick at a bf16 prefill shape, causal and with ``window``, beside
-    the bound. Returns the row's numbers."""
+def b4_times(torch, dev, fa, B, S, H, KV, hd, window=0, Sk=None):
+    """Phase 11 (11b-11e): B4, its plain version and the library
+    yardstick at a bf16 prefill shape, causal and with ``window``, or
+    with ``Sk`` keys non-causal (cross-attention), beside the bound.
+    Returns the row's numbers."""
     q, k, v = attention_inputs(torch, dev, B, S, H, KV, hd, torch.bfloat16)
+    causal = Sk is None
+    if not causal:
+        k, v = cross_kv(torch, dev, B, Sk, KV, hd, torch.bfloat16)
     which = fa.design(q.dtype, hd)
-    kern = lambda: fa.flash_attention_gqa(q, k, v, window=window)  # noqa
+    kern = lambda: fa.flash_attention_gqa(q, k, v, causal=causal,  # noqa
+                                          window=window)
     # device times from CUDA-graph replays: the wrapper's host work is
     # longer than the kernel, so one eager call would time the host
     eager_ms = cuda_ms(torch, kern, 20)
     ms = graph_ms(torch, kern, 20)
     plain_ms = cuda_ms(torch, lambda: fa.flash_attention_gqa_plain(
-        q, k, v, window=window), 3)
+        q, k, v, causal=causal, window=window), 3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if window:
@@ -2136,7 +2255,7 @@ def b4_times(torch, dev, fa, B, S, H, KV, hd, window=0):
         kw = {"attn_mask": (d >= 0) & (d < window), "is_causal": False,
               "enable_gqa": True}
     else:
-        kw = {"attn_mask": None, "is_causal": True, "enable_gqa": True}
+        kw = {"attn_mask": None, "is_causal": causal, "enable_gqa": True}
     backend = sdpa_backend(torch, qt, kt, vt, **kw)
     lib = lambda: sdpa(qt, kt, vt, **kw)  # noqa: E731
     lib_eager_ms = cuda_ms(torch, lib, 20)
@@ -2144,12 +2263,19 @@ def b4_times(torch, dev, fa, B, S, H, KV, hd, window=0):
     lib_err = float((lib().transpose(1, 2).float()
                      - kern().float()).abs().max())
     # operations: q·kᵀ and p·v, 2·hd each a kept (query, key) pair a head;
-    # causal is the usual 2·B·H·S²·hd, a window only its band's pairs
-    flops = 4 * B * H * hd * band_pairs(S, window) if window \
-        else 2 * B * H * S * S * hd
+    # causal is the usual 2·B·H·S²·hd, a window only its band's pairs,
+    # cross-attention all S·Sk pairs
+    if not causal:
+        flops = 4 * B * H * S * Sk * hd
+    elif window:
+        flops = 4 * B * H * hd * band_pairs(S, window)
+    else:
+        flops = 2 * B * H * S * S * hd
     b_ms, b_by = bound(nbytes(q, k, v) + nbytes(q), flops, BF16_OPS_PER_S)
-    say(f"time flash_attention ({which}) [{B}, {S}, {H}/{KV}, {hd}] bf16 "
-        f"causal{f' window {window}' if window else ''}: {ms:.4f} ms a "
+    shape = f"[{B}, {S}, {H}/{KV}, {hd}]" + ("" if causal else f" Sk {Sk}")
+    mask = (f"causal{f' window {window}' if window else ''}" if causal
+            else "non-causal")
+    say(f"time flash_attention ({which}) {shape} bf16 {mask}: {ms:.4f} ms a "
         f"launch in a CUDA graph, {eager_ms:.4f} ms an eager call (plain "
         f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: "
         f"{flops / 1e9:.2f} GFLOP, "
@@ -2604,6 +2730,176 @@ def recurrent_phases(torch, dev):
     say(f"phase 11d: {time.perf_counter() - t_phase:.1f} s")
     return b4_row("flash_attention_g1", served,
                   attn_err["prefill bf16 causal"], times)
+
+
+def embeds_served(torch, step, fa, dev, cfg, params, B, S, layers):
+    """Phase 9e: the audio stub's own path, seeded frame embeddings
+    (normal x 0.02, as tests/test_arch_smoke.py draws them): a prefill on
+    ``embeds`` [B, S, d] and EMBEDS_DECODE_STEPS decode steps on [B, 1, d]
+    through ``make_prefill`` and ``make_decode_step``, counted (B4 once a
+    layer in the prefill, never in decode), finite logits of the right
+    shape, and the prefill's logits against the same prefill with plain
+    attention within ``lm_atol``. Prints the prefill and decode ms."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    frames = (torch.randn((B, S + EMBEDS_DECODE_STEPS, cfg.d_model),
+                          generator=gen, device=dev) * 0.02).to(
+        getattr(torch, cfg.dtype))
+    prefill, decode = step.make_prefill(cfg), step.make_decode_step(cfg)
+    fa.flash_attention_gqa.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, kv = prefill(params, {"embeds": frames[:, :S]})
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    n_pre = fa.flash_attention_gqa.launches
+    cache = step.decode_cache(cfg, kv, B, S, S + EMBEDS_DECODE_STEPS, dev)
+    del kv
+    t0 = time.perf_counter()
+    for i in range(EMBEDS_DECODE_STEPS):
+        lg, cache = decode(params, {"embeds": frames[:, S + i:S + i + 1]},
+                           cache, S + i)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) * 1e3 / EMBEDS_DECODE_STEPS
+    n_dec = fa.flash_attention_gqa.launches - n_pre
+    kernel_attn = layers.flash_attention_gqa
+    layers.flash_attention_gqa = fa.flash_attention_gqa_plain
+    try:
+        plain, _ = prefill(params, {"embeds": frames[:, :S]})
+    finally:
+        layers.flash_attention_gqa = kernel_attn
+    atol = lm_atol(cfg.dtype, plain,
+                   ZAMBA_ULPS if cfg.family == "hybrid" else LM_ULPS)
+    err = float((logits.float() - plain.float()).abs().max())
+    say(f"LM embeds ({cfg.name}): prefill on frame embeddings [{B}, {S}, "
+        f"{cfg.d_model}] {pre_ms:.2f} ms with {n_pre} B4 launches, then "
+        f"{EMBEDS_DECODE_STEPS} decode steps on [{B}, 1, {cfg.d_model}] "
+        f"{dec_ms:.3f} ms/step with {n_dec}; last-position logits "
+        f"{tuple(lg.shape)}, prefill's max |kernel - plain attention| "
+        f"{err:.3e} (tolerance {atol})")
+    if n_pre != b4_per_prefill(cfg) or n_dec:
+        fail(f"{cfg.name} embeds: B4 launched {n_pre} times in the prefill "
+             f"and {n_dec} in decode, want {b4_per_prefill(cfg)} and 0")
+    if tuple(lg.shape) != (B, 1, cfg.vocab_size) or not (
+            torch.isfinite(lg).all() and torch.isfinite(logits).all()):
+        fail(f"{cfg.name} embeds: logits {tuple(lg.shape)} or not finite")
+    if not err <= atol:
+        fail(f"{cfg.name} embeds: prefill logits differ from plain "
+             f"attention's by {err} > {atol}")
+
+
+def multimodal_phases(torch, dev):
+    """Phases 8e-11e: B4 at musicgen's shape (G = 1, hd 64) and at the
+    VLM's cross shape (Sk != S); musicgen-medium at full width and depth
+    on tokens and on frame embeddings; llama-3.2-vision-90b at full width
+    cut to VLM_SUPERBLOCKS superblocks with image embeddings; B4's times
+    at both shapes. Returns (B4's two rows, the VLM's self-attention B4
+    launches, which join the hd-128 row's)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models import layers, model as M, transformer
+    from repro_torch.serve import step
+
+    mcfg = get_config(MUSICGEN_ARCH)
+    vfull = get_config(VLM_ARCH)
+    per = vfull.cross_attn_every
+    vcfg = dataclasses.replace(vfull, n_layers=VLM_SUPERBLOCKS * per)
+    B, S, n_img = LM_BATCH, LM_PROMPT, vfull.n_image_tokens
+
+    # -- 8e. B4 at musicgen's shape and at the cross shape ---------------------
+    t_phase = time.perf_counter()
+    m_err = b4_cases(torch, dev, fa, B, S, mcfg.n_heads, mcfg.n_kv_heads,
+                     mcfg.head_dim)
+    x_err = b4_cross_cases(torch, dev, fa, B, S, n_img, vfull.n_heads,
+                           vfull.n_kv_heads, vfull.head_dim)
+    say(f"phase 8e (B4 at G = 1 and at Sk {n_img}): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    def served(cfg, **gen_kw):
+        """``M.init`` and ``step.generate``, what ``serve.main`` calls for
+        the archs it serves (it refuses these two)."""
+        def serve():
+            stats = {}
+            t0 = time.perf_counter()
+            params = M.init(cfg, seed=SEED, device=dev)
+            stats["init_s"] = time.perf_counter() - t0
+            prompt = np.random.default_rng(SEED).integers(
+                0, cfg.vocab_size, (B, S)).astype(np.int32)
+            tokens = step.generate(params, cfg, prompt, max_new=LM_NEW,
+                                   max_len=S + LM_NEW, device=dev,
+                                   stats=stats, **gen_kw)
+            return serve_launcher.ServeRun(tokens, prompt, params, stats)
+        return serve_counted(torch, fa, cfg, serve)
+
+    # -- 9e/10e. musicgen-medium: tokens, frame embeddings, kernel vs plain --
+    t_phase = time.perf_counter()
+    run, m_launches = served(mcfg)
+    serve_checked(torch, step, fa, dev, mcfg, run, B, S)
+    lm_check(torch, step, layers, fa, run.params, mcfg,
+             torch.as_tensor(run.prompt, device=dev), f"{MUSICGEN_ARCH} bf16")
+    embeds_served(torch, step, fa, dev, mcfg, run.params, B, S, layers)
+    del run
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(mcfg, dtype="float32",
+                                n_layers=MUSICGEN_F32_LAYERS)
+    params32 = M.init(cfg32, seed=SEED, device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg32.vocab_size, (B, S)).astype(np.int32), device=dev)
+    lm_check(torch, step, layers, fa, params32, cfg32, prompt,
+             f"{MUSICGEN_ARCH} f32 at {MUSICGEN_F32_LAYERS} layers")
+    del params32, prompt
+    torch.cuda.empty_cache()
+    say(f"phase 9e/10e ({MUSICGEN_ARCH}): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -- 9e/10e. llama-3.2-vision-90b at VLM_SUPERBLOCKS superblocks ---------
+    t_phase = time.perf_counter()
+    n_sb = transformer.n_superblocks(vcfg)
+    say(f"LM cut: {VLM_ARCH} at {n_sb} of its "
+        f"{transformer.n_superblocks(vfull)} superblocks ({vcfg.n_layers} "
+        f"self-attention and {n_sb} cross-attention layers of "
+        f"{vfull.n_layers} and {transformer.n_superblocks(vfull)}; ~175 GB "
+        f"of bf16 weights at full depth, ~38 GB at {n_sb}); width, heads, "
+        f"d_ff, vocab and the {n_img} image tokens as published")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    img = (torch.randn((B, n_img, vfull.d_model), generator=gen, device=dev)
+           * 0.02).to(torch.bfloat16)
+    run, v_launches = served(vcfg, image_embeds=img)
+    n_cross = v_launches["flash_attention_cross"]
+    n_self = v_launches["flash_attention"] - n_cross
+    say(f"LM main path ({VLM_ARCH}): B4 {n_self} self-attention and "
+        f"{n_cross} cross-attention launches (Sk {n_img}) in one "
+        f"generate: {n_sb} cross in the prefill and {n_sb} in each of the "
+        f"{LM_NEW - 1} decode steps (Sq 1)")
+    serve_checked(torch, step, fa, dev, vcfg, run, B, S, image_embeds=img)
+    lm_check(torch, step, layers, fa, run.params, vcfg,
+             torch.as_tensor(run.prompt, device=dev), f"{VLM_ARCH} bf16",
+             extra={"image_embeds": img})
+    prompt = torch.as_tensor(run.prompt, device=dev)
+    del run
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(vfull, dtype="float32",
+                                n_layers=VLM_F32_SUPERBLOCKS * per)
+    params32 = M.init(cfg32, seed=SEED, device=dev)
+    lm_check(torch, step, layers, fa, params32, cfg32, prompt,
+             f"{VLM_ARCH} f32 at {VLM_F32_SUPERBLOCKS} superblock",
+             extra={"image_embeds": img.float()})
+    del params32, prompt, img
+    torch.cuda.empty_cache()
+    say(f"phase 9e/10e ({VLM_ARCH}): {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 11e. B4 times at musicgen's shape and at the cross shape ------------
+    t_phase = time.perf_counter()
+    m_times = b4_times(torch, dev, fa, B, S, mcfg.n_heads, mcfg.n_kv_heads,
+                       mcfg.head_dim)
+    x_times = b4_times(torch, dev, fa, B, S, vfull.n_heads, vfull.n_kv_heads,
+                       vfull.head_dim, Sk=n_img)
+    say(f"phase 11e: {time.perf_counter() - t_phase:.1f} s")
+    rows = [b4_row("flash_attention_musicgen", m_launches["flash_attention"],
+                   m_err["prefill bf16 causal"], m_times),
+            b4_row("flash_attention_cross", n_cross, x_err["cross bf16"],
+                   x_times)]
+    return rows, n_self
 
 
 def graph_phase(torch, dev):

@@ -67,10 +67,11 @@ def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
     np.asarray, params)``), as the port's params on ``device``. Every
     stack of layers becomes one dict a layer, in layer order:
 
-      - transformers: the ``[n, ...]`` stacks of ``blocks`` (dense), or of
-        ``dense_blocks`` (kimi-k2's leading dense layers) followed by
-        ``moe_blocks`` (router, experts, the shared expert where there is
-        one), as ``"blocks"``;
+      - transformers: the ``[n, ...]`` stacks of ``blocks`` (dense and
+        audio), or of ``dense_blocks`` (kimi-k2's leading dense layers)
+        followed by ``moe_blocks`` (router, experts, the shared expert
+        where there is one), as ``"blocks"``; the VLM's ``self_blocks``
+        as ``"blocks"`` and its ``cross_blocks`` as ``"cross_blocks"``;
       - ``ssm`` (rwkv6): ``blocks`` (``ln1``, ``ln2``, ``tm``, ``cm``) as
         ``"blocks"``;
       - ``hybrid`` (zamba2): the ``mamba`` stack as ``"mamba"``; the
@@ -88,13 +89,13 @@ def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
         arr = np.asarray(tree)
         return _tensor(arr if index is None else arr[index], device)
 
-    def unstack(names, first_leaf):
+    def unstack(names, first_leaf, n=cfg.n_layers):
         layers = [conv(params[name], i) for name in names if name in params
                   for i in range(np.asarray(
                       params[name][first_leaf]).shape[0])]
-        if len(layers) != cfg.n_layers:
-            raise ValueError(f"{len(layers)} stacked layers, config has "
-                             f"{cfg.n_layers}")
+        if len(layers) != n:
+            raise ValueError(f"{len(layers)} stacked layers in "
+                             f"{' + '.join(names)}, config has {n}")
         return layers
 
     out = {"embed": conv(params["embed"]),
@@ -104,6 +105,11 @@ def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
     elif cfg.family == "hybrid":
         out["mamba"] = unstack(("mamba",), "norm")
         out["shared_attn"] = conv(params["shared_attn"])
+    elif cfg.family == "vlm":
+        check_supported(cfg)
+        out["blocks"] = unstack(("self_blocks",), "ln1")
+        out["cross_blocks"] = unstack(("cross_blocks",), "ln1",
+                                      cfg.n_layers // cfg.cross_attn_every)
     else:
         check_supported(cfg)
         out["blocks"] = unstack(("dense_blocks", "moe_blocks")

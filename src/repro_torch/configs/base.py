@@ -3,8 +3,8 @@
 The dataclass, its field defaults and the properties the models read
 are the reference's, so a config built here compares field for field
 with the JAX package's. The shapes
-table and the analytic parameter counters stay with the dry-run tools
-(ROADMAP A9), which the port does not have yet.
+table and the analytic parameter counters stay with the dry-run tools,
+which the port does not have yet (ROADMAP A9.6).
 """
 from __future__ import annotations
 

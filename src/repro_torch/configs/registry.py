@@ -1,8 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution for the LM launcher.
 
-Only the archs the port serves are registered: eight of the reference's
-ten. The other two (llama-3.2-vision, musicgen) wait for ROADMAP item
-A9 and raise ``KeyError`` saying so.
+All ten of the reference's archs. An unknown name raises ``KeyError``
+listing them.
 """
 from __future__ import annotations
 
@@ -20,6 +19,8 @@ _MODULES: Dict[str, str] = {
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
+    "llama-3.2-vision-90b": "repro_torch.configs.llama32_vision_90b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
 }
 
 ARCH_NAMES = tuple(_MODULES)
@@ -27,8 +28,8 @@ ARCH_NAMES = tuple(_MODULES)
 
 def _module(name: str):
     if name not in _MODULES:
-        raise KeyError(f"arch {name!r} is not ported (ROADMAP A9); the port "
-                       f"serves {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {name!r}; the port serves "
+                       f"{sorted(_MODULES)}")
     return importlib.import_module(_MODULES[name])
 
 

@@ -9,11 +9,15 @@
 // query tile); tiles wholly above the diagonal are skipped (the TPU
 // kernel's `run`), and the grid starts with the longest query tiles.
 //
-// Layout: q and o are [B, S, H, hd], k and v [B, S, KV, hd], read by
+// Layout: q and o are [B, S, H, hd], k and v [B, Sk, KV, hd], read by
 // element strides with hd contiguous; head h reads kv head h / (H / KV),
 // so grouped-query attention needs no repeated copy of k and v. The
-// [BH, S, hd] entry point is the same kernel with H = KV = 1. Any S: rows
-// and keys past S are masked inside the kernel.
+// [BH, S, hd] entry point is the same kernel with H = KV = 1. Any S and
+// Sk: rows past S and keys past Sk are masked inside the kernel. Sk != S
+// is cross-attention (llama-3.2-vision's queries over its 1600 image
+// tokens, the reference's jnp blockwise attention at any Sk); the
+// wrapper allows it only non-causal and without a window, where no
+// test compares a query's position with a key's.
 //
 // Numerics, as in the TPU kernel: scores from q and k summed in f32,
 // scaled by 1/sqrt(hd); positions above the diagonal set to -1e30;
@@ -158,7 +162,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T, int HD, bool kWindow>
 __global__ void __launch_bounds__(kBlockQ)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int S, int G,
+          const T* __restrict__ v, T* __restrict__ o, int S, int Sk, int G,
           Strides sq, Strides sk, Strides sv, Strides so, int causal,
           int window, float scale) {
   extern __shared__ float smem[];
@@ -190,11 +194,11 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   // causal: a tile runs iff its first key is at or below the block's
   // last row (the TPU kernel's `run`); window: from the tile that holds
   // the block's first row's first key, q0 - window + 1
-  const int k_end = causal ? min(S, q0 + kBlockQ) : S;
+  const int k_end = causal ? min(Sk, q0 + kBlockQ) : Sk;
   const int k_begin =
       kWindow ? max(0, q0 - window + 1) / kBlockK * kBlockK : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
-    const int nk = min(kBlockK, S - k0);
+    const int nk = min(kBlockK, Sk - k0);
     __syncthreads();                  // the previous tile is consumed
     for (int e = tid; e < nk * HD; e += kBlockQ) {
       const long long j = k0 + e / HD;
@@ -242,9 +246,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, bool kWindow>
 cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
-                      int B, int S, int H, int KV, const long long* st,
-                      int causal, int window, float scale,
-                      cudaStream_t stream) {
+                      int B, int S, int Sk, int H, int KV,
+                      const long long* st, int causal, int window,
+                      float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * kBlockK * HD + kBlockK * kBlockQ);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, HD, kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -253,7 +257,7 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   flash_fwd<T, HD, kWindow><<<grid, kBlockQ, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H / KV,
+      static_cast<const T*>(v), static_cast<T*>(o), S, Sk, H / KV,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
       window, scale);
@@ -263,38 +267,40 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
 // the global instance for window 0, the windowed one otherwise
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, const long long* st,
+                   int B, int S, int Sk, int H, int KV, const long long* st,
                    int causal, int window, float scale, cudaStream_t stream) {
   return window > 0
-             ? launch_as<T, HD, true>(q, k, v, o, B, S, H, KV, st, causal,
+             ? launch_as<T, HD, true>(q, k, v, o, B, S, Sk, H, KV, st, causal,
                                       window, scale, stream)
-             : launch_as<T, HD, false>(q, k, v, o, B, S, H, KV, st, causal,
+             : launch_as<T, HD, false>(q, k, v, o, B, S, Sk, H, KV, st, causal,
                                        window, scale, stream);
 }
 
 // float32 at every head dim
 cudaError_t launch_f32(int hd, const void* q, const void* k, const void* v,
-                       void* o, int B, int S, int H, int KV,
+                       void* o, int B, int S, int Sk, int H, int KV,
                        const long long* st, int causal, int window,
                        float scale, cudaStream_t stream) {
   switch (hd) {
     case 8:
-      return launch<float, 8>(q, k, v, o, B, S, H, KV, st, causal, window,
+      return launch<float, 8>(q, k, v, o, B, S, Sk, H, KV, st, causal, window,
                               scale, stream);
     case 16:
-      return launch<float, 16>(q, k, v, o, B, S, H, KV, st, causal, window,
+      return launch<float, 16>(q, k, v, o, B, S, Sk, H, KV, st, causal, window,
                                scale, stream);
     case 32:
-      return launch<float, 32>(q, k, v, o, B, S, H, KV, st, causal, window,
+      return launch<float, 32>(q, k, v, o, B, S, Sk, H, KV, st, causal, window,
                                scale, stream);
     case 64:
-      return launch<float, 64>(q, k, v, o, B, S, H, KV, st, causal, window,
+      return launch<float, 64>(q, k, v, o, B, S, Sk, H, KV, st, causal, window,
                                scale, stream);
     case 128:
-      return launch<float, 128>(q, k, v, o, B, S, H, KV, st, causal, window,
+      return launch<float, 128>(q, k, v, o,
+                                B, S, Sk, H, KV, st, causal, window,
                                 scale, stream);
     case 256:
-      return launch<float, 256>(q, k, v, o, B, S, H, KV, st, causal, window,
+      return launch<float, 256>(q, k, v, o,
+                                B, S, Sk, H, KV, st, causal, window,
                                 scale, stream);
     default:
       return cudaErrorInvalidValue;
@@ -578,7 +584,8 @@ __global__ void __launch_bounds__(Split<HD>::kBlockThreads)
 flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int S, int G, Strides sq,
+                __nv_bfloat16* __restrict__ o, int S, int Sk, int G,
+                Strides sq,
                 Strides sk, Strides sv, Strides so, int causal, int window,
                 float scale) {
   using T = Tile<HD>;
@@ -602,13 +609,13 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   // causal: a tile runs iff its first key is at or below the block's
   // last row (the TPU kernel's `run`); window: tiles [t0, t_end) from
   // the one that holds key q0 - window + 1, the band's first
-  const int k_end = causal ? min(S, q0 + kBlockQ) : S;
+  const int k_end = causal ? min(Sk, q0 + kBlockQ) : Sk;
   const int t_end = (k_end + kBlockK - 1) / kBlockK;
   const int t0 = kWindow ? max(0, q0 - window + 1) / kBlockK : 0;
 
   load_tile<HD>(s_q, qb, sq.s, q0, S, tid);
-  load_tile<HD>(s_k, kb, sk.s, t0 * kBlockK, S, tid);
-  load_tile<HD>(s_v, vb, sv.s, t0 * kBlockK, S, tid);
+  load_tile<HD>(s_k, kb, sk.s, t0 * kBlockK, Sk, tid);
+  load_tile<HD>(s_v, vb, sv.s, t0 * kBlockK, Sk, tid);
   cp_async_commit();
 
   const int r_lo = warp * 16 + lane / 4;    // this thread's first row
@@ -623,10 +630,10 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     // the next tile's copy is issued before this tile's products
     if (t + 1 < t_end) {
       const int next = (t - t0 + 1) % kStages;
-      load_tile<HD>(s_k + next * T::kBytes, kb, sk.s, (t + 1) * kBlockK, S,
-                    tid);
-      load_tile<HD>(s_v + next * T::kBytes, vb, sv.s, (t + 1) * kBlockK, S,
-                    tid);
+      load_tile<HD>(s_k + next * T::kBytes, kb, sk.s, (t + 1) * kBlockK,
+                    Sk, tid);
+      load_tile<HD>(s_v + next * T::kBytes, vb, sv.s, (t + 1) * kBlockK,
+                    Sk, tid);
       cp_async_commit();
       cp_async_wait<1>();                   // all but the newest group
     } else {
@@ -653,10 +660,11 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     wgmma_wait_all();
     pin(s);
 
-    // scale; -1e30 only on a tile that crosses the diagonal, S or the
+    // scale; -1e30 only on a tile that crosses the diagonal, Sk or the
     // window band's lower edge
     const int k0 = t * kBlockK;
-    const bool edge = (causal && k0 + kBlockK - 1 > q0) || k0 + kBlockK > S ||
+    const bool edge = (causal && k0 + kBlockK - 1 > q0) ||
+                      k0 + kBlockK > Sk ||
                       (kWindow && q0 + kBlockQ - 1 - k0 >= window);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -667,7 +675,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
         if (edge) {
           const int col = k0 + 8 * i + c_lo + (e & 1);
           const int row = q0 + r_lo + 8 * (e >> 1);
-          if (col >= S || (causal && col > row) ||
+          if (col >= Sk || (causal && col > row) ||
               (kWindow && row - col >= window))
             x = kNegInf;
         }
@@ -751,7 +759,7 @@ size_t smem_bytes() {
 
 template <int HD, bool kWindow>
 cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
-                      int B, int S, int H, int KV, const long long* st,
+                      int B, int S, int Sk, int H, int KV, const long long* st,
                       int causal, int window, float scale,
                       cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
@@ -765,7 +773,8 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      S, H / KV, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      S, Sk, H / KV, Strides{st[0], st[1], st[2]},
+      Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
       window, scale);
   return cudaGetLastError();
@@ -774,11 +783,11 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
 // the global instance for window 0, the windowed one otherwise
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, const long long* st,
+                   int B, int S, int Sk, int H, int KV, const long long* st,
                    int causal, int window, float scale, cudaStream_t stream) {
-  return window > 0 ? launch_as<HD, true>(q, k, v, o, B, S, H, KV, st,
+  return window > 0 ? launch_as<HD, true>(q, k, v, o, B, S, Sk, H, KV, st,
                                           causal, window, scale, stream)
-                    : launch_as<HD, false>(q, k, v, o, B, S, H, KV, st,
+                    : launch_as<HD, false>(q, k, v, o, B, S, Sk, H, KV, st,
                                            causal, window, scale, stream);
 }
 
@@ -787,25 +796,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // The CUDA-core instance. dtype 0: float32 at hd 8, 16, 32, 64, 128 or
 // 256; 1: bfloat16 at hd 8 only (the wgmma instance takes bf16 at 16-256).
-// strides: 12 element strides, (b, s, head) of q, k, v and o in turn.
-// window: 0 for global attention, else keys with dq - dk < window only.
-// Returns cudaGetLastError() of the launch.
+// S query rows, Sk keys. strides: 12 element strides, (b, s, head) of q,
+// k, v and o in turn. window: 0 for global attention, else keys with
+// dq - dk < window only. Returns cudaGetLastError() of the launch.
 extern "C" int flash_attention_launch(int device, int dtype, int hd,
                                       const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
-                                      int H, int KV, const long long* strides,
-                                      int causal, int window, float scale,
+                                      int Sk, int H, int KV,
+                                      const long long* strides, int causal,
+                                      int window, float scale,
                                       cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || H > 65535 || B > 65535 || window < 0)
+  if (Sk <= 0 || KV <= 0 || H % KV != 0 || H > 65535 || B > 65535 ||
+      window < 0)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (dtype == 0)
-    return (int)launch_f32(hd, q, k, v, o, B, S, H, KV, strides, causal,
+    return (int)launch_f32(hd, q, k, v, o, B, S, Sk, H, KV, strides, causal,
                            window, scale, stream);
   if (dtype == 1 && hd == 8)
-    return (int)launch<__nv_bfloat16, 8>(q, k, v, o, B, S, H, KV, strides,
+    return (int)launch<__nv_bfloat16, 8>(q, k, v, o, B, S, Sk, H, KV, strides,
                                          causal, window, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
@@ -816,32 +827,32 @@ extern "C" int flash_attention_launch(int device, int dtype, int hd,
 extern "C" int flash_attention_wgmma_launch(int device, int hd,
                                             const void* q, const void* k,
                                             const void* v, void* o, int B,
-                                            int S, int H, int KV,
+                                            int S, int Sk, int H, int KV,
                                             const long long* strides,
                                             int causal, int window,
                                             float scale,
                                             cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || B > 65535 || window < 0 ||
+  if (Sk <= 0 || KV <= 0 || H % KV != 0 || B > 65535 || window < 0 ||
       (S + wg::kBlockQ - 1) / wg::kBlockQ > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   switch (hd) {
     case 16:
-      return (int)wg::launch<16>(q, k, v, o, B, S, H, KV, strides, causal,
+      return (int)wg::launch<16>(q, k, v, o, B, S, Sk, H, KV, strides, causal,
                                  window, scale, stream);
     case 32:
-      return (int)wg::launch<32>(q, k, v, o, B, S, H, KV, strides, causal,
+      return (int)wg::launch<32>(q, k, v, o, B, S, Sk, H, KV, strides, causal,
                                  window, scale, stream);
     case 64:
-      return (int)wg::launch<64>(q, k, v, o, B, S, H, KV, strides, causal,
+      return (int)wg::launch<64>(q, k, v, o, B, S, Sk, H, KV, strides, causal,
                                  window, scale, stream);
     case 128:
-      return (int)wg::launch<128>(q, k, v, o, B, S, H, KV, strides, causal,
+      return (int)wg::launch<128>(q, k, v, o, B, S, Sk, H, KV, strides, causal,
                                   window, scale, stream);
     case 256:
-      return (int)wg::launch<256>(q, k, v, o, B, S, H, KV, strides, causal,
+      return (int)wg::launch<256>(q, k, v, o, B, S, Sk, H, KV, strides, causal,
                                   window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;

@@ -17,11 +17,18 @@ fails raises; neither instance stands in for the other.
 
 Two entry points, as in the reference:
 
-  - ``flash_attention_gqa``: q ``[B, S, H, hd]``, k and v ``[B, S, KV,
+  - ``flash_attention_gqa``: q ``[B, S, H, hd]``, k and v ``[B, Sk, KV,
     hd]`` as the model holds them; head h reads kv head ``h // (H // KV)``.
     Unlike the reference it neither repeats k and v nor transposes: the
     kernel reads the heads by stride.
   - ``flash_attention``: q, k, v ``[BH, S, hd]``.
+
+``Sk`` is S for self-attention. Cross-attention (llama-3.2-vision's
+queries over its image tokens) has keys of their own length ``Sk != S``,
+which the reference's jnp blockwise attention takes; the reference's
+Pallas kernel does not. It is allowed only non-causal and with no
+window: the reference runs neither mask at Sk != S, and both compare a
+query's position with a key's, which cross-attention does not share.
 
 ``window`` (both entry points, both instances): 0 is global attention;
 ``w > 0`` keeps a key at position dk for the query at dq only where
@@ -32,7 +39,7 @@ loop starts at the tile that holds the block's first key of the band, so
 tiles below it cost nothing.
 
 Head dims 8, 16, 32, 64, 128 and 256 (the kernel is compiled for each);
-any other raises. Any S: partial tiles are masked, not resized. The
+any other raises. Any S and Sk: partial tiles are masked, not resized. The
 wgmma instance reads 16-byte chunks, so it needs q, k and v 16-byte
 aligned with (batch, position, head) strides that are multiples of 8
 elements (any view of the model's projections is); it raises on others.
@@ -76,9 +83,9 @@ def flash_attention_gqa_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               window: int = 0) -> torch.Tensor:
     """The kernel's function in PyTorch, in its tiles: q [B, S, H, hd],
-    k, v [B, S, KV, hd] -> [B, S, H, hd] in q's dtype."""
+    k, v [B, Sk, KV, hd] -> [B, S, H, hd] in q's dtype."""
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
     qf = q.reshape(B, S, KV, G, hd).float()
@@ -91,7 +98,7 @@ def flash_attention_gqa_plain(q: torch.Tensor, k: torch.Tensor,
         m = torch.full((B, KV, G, bq), NEG_INF, device=q.device)
         l = torch.zeros((B, KV, G, bq), device=q.device)
         acc = torch.zeros((B, KV, G, bq, hd), device=q.device)
-        k_end = min(S, q0 + BLOCK_Q) if causal else S
+        k_end = min(Sk, q0 + BLOCK_Q) if causal else Sk
         for k0 in range(_band_start(q0, window), k_end, BLOCK_K):
             kt, vt = kf[:, k0:k0 + BLOCK_K], vf[:, k0:k0 + BLOCK_K]
             s = torch.einsum("bqkgd,bskd->bkgqs", qt, kt) * scale
@@ -125,7 +132,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      window=window).squeeze(2)
 
 
-_TAIL = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+_TAIL = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_void_p]
 # design -> (C symbol, argtypes): simt takes (device, dtype, hd, ...),
@@ -136,14 +143,18 @@ _SYMBOLS = {"simt": ("flash_attention_launch", [ctypes.c_int] * 3 + _TAIL),
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int) -> None:
+           causal: bool, window: int) -> None:
     B, S, H, hd = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
-            or k.shape[1] != S or k.shape[3] != hd:
+            or k.shape[3] != hd:
         raise ValueError(f"q {tuple(q.shape)} must be [B, S, H, hd] and "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} "
-                         "[B, S, KV, hd]")
-    KV = k.shape[2]
+                         "[B, Sk, KV, hd]")
+    Sk, KV = k.shape[1], k.shape[2]
+    if Sk != S and (causal or window or Sk == 0):
+        raise ValueError(f"{Sk} keys for {S} queries: cross-attention "
+                         "(Sk != S) takes at least one key, and is "
+                         "non-causal with no window")
     if KV == 0 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} kv heads")
     if hd not in HEAD_DIMS:
@@ -158,19 +169,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0
                         ) -> torch.Tensor:
-    """q [B, S, H, hd], k, v [B, S, KV, hd] (float32 or bfloat16, hd in
+    """q [B, S, H, hd], k, v [B, Sk, KV, hd] (float32 or bfloat16, hd in
     ``HEAD_DIMS``, each with a contiguous last dim) -> [B, S, H, hd];
-    ``window`` 0 (global) or the sliding window's width.
+    ``window`` 0 (global) or the sliding window's width. Sk != S only
+    non-causal with no window (cross-attention).
 
     CPU tensors run ``flash_attention_gqa_plain``; CUDA tensors launch
     the instance ``design`` names (counted in
     ``flash_attention_gqa.launches`` and, by design, in
     ``flash_attention_gqa.launches_by_design``; those with a window
-    narrower than S also in ``flash_attention_gqa.launches_windowed``)
-    or raise."""
+    narrower than S also in ``flash_attention_gqa.launches_windowed``,
+    and those at Sk != S in ``flash_attention_gqa.launches_cross``) or
+    raise."""
     if q.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} must be [B, S, H, hd]")
-    _check(q, k, v, window)
+    _check(q, k, v, causal, window)
     if on_cpu(q, k, v, contiguous=False):
         return flash_attention_gqa_plain(q, k, v, causal=causal,
                                          window=window)
@@ -196,16 +209,18 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # a window as wide as S keeps every key: the global path, unchanged
     _build.check("flash_attention", fn(
         *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-        S, H, k.shape[2], strides, int(causal), window if window < S else 0,
-        1.0 / math.sqrt(hd), stream_of(out)))
-    _build.count_launch(flash_attention_gqa, which,
-                        "launches_windowed" if 0 < window < S else None)
+        S, k.shape[1], H, k.shape[2], strides, int(causal),
+        window if window < S else 0, 1.0 / math.sqrt(hd), stream_of(out)))
+    also = "launches_windowed" if 0 < window < S else (
+        "launches_cross" if k.shape[1] != S else None)
+    _build.count_launch(flash_attention_gqa, which, also)
     return out
 
 
 flash_attention_gqa.launches = 0
 flash_attention_gqa.launches_by_design = dict.fromkeys(DESIGNS, 0)
 flash_attention_gqa.launches_windowed = 0   # of them, with a window < S
+flash_attention_gqa.launches_cross = 0      # of them, at Sk != S
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -8,7 +8,12 @@ The port of ``repro.launch.serve``: random weights from ``--seed`` (no
 checkpoint is loaded), random prompt tokens from the same seed.
 ``--arch`` takes every arch of ``configs/registry.py``: the dense and
 MoE transformers, rwkv6-7b and zamba2-1.2b (whose prefill splits the
-prompt into chunks of 64: a longer prompt must be a multiple of 64). Prints
+prompt into chunks of 64: a longer prompt must be a multiple of 64). It
+refuses two, each before any work: musicgen-medium, which takes frame
+embeddings, as the reference's launcher does (with its message), and
+llama-3.2-vision-90b, which needs image embeddings that a prompt of
+tokens does not give (ROADMAP C21; serve both through ``M.init`` and
+``serve.step.generate``, the VLM with ``image_embeds=``). Prints
 the tokens, and the time split into prefill (with the first token) and
 decode, on the host clock; the first call includes the card's warm-up.
 ``--device`` defaults to the CUDA card; ``--device cpu`` runs the
@@ -48,6 +53,14 @@ def main(argv=None) -> ServeRun:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.embeds_input:
+        raise SystemExit(f"{args.arch} takes frame embeddings (stub "
+                         f"frontend); see examples/rag_serve.py for the "
+                         f"embeddings-in path")
+    if cfg.family == "vlm":
+        raise SystemExit(f"{args.arch} needs image embeddings beside the "
+                         "prompt (ROADMAP C21): serve it through "
+                         "serve.step.generate(image_embeds=...)")
     device = resolve(args.device)
     t0 = time.perf_counter()
     params = M.init(cfg, seed=args.seed, device=device)

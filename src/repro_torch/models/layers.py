@@ -1,6 +1,6 @@
 """Layers of the LM stack: norms, RoPE, attention, FFN, embeddings.
 
-The port of ``repro.models.layers`` for the dense transformer family.
+The port of ``repro.models.layers`` for the transformer families.
 Plain functions over dict params, as in the reference, with the weights
 in its ``x @ W`` orientation (``[d_in, d_out]``). Params hold one layer
 each (the reference stacks layers for ``lax.scan``; the port loops).
@@ -8,14 +8,17 @@ each (the reference stacks layers for ``lax.scan``; the port loops).
 Numerics follow the reference: norms and RoPE in f32, cast back to the
 activation dtype; biases and norm scales are f32 and cast to the
 activation dtype where they are added. Prefill attention is kernel B4
-(``kernels/flash_attention.py``); decode attention, the projections and
-the FFN are plain PyTorch, as the reference leaves them to XLA. The
-recurrent archs (``rwkv6``, ``mamba2``) share ``silu`` and
-``chunk_split``.
+(``kernels/flash_attention.py``), and so is cross-attention onto image
+tokens (keys of their own length) in prefill and decode; decode self-
+attention, the projections and the FFN are plain PyTorch, as the
+reference leaves them to XLA. The FFN is SwiGLU or, for musicgen, a
+two-matrix GELU. The recurrent archs (``rwkv6``, ``mamba2``) share
+``silu`` and ``chunk_split``.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -35,9 +38,11 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
     return (w * (scale / math.sqrt(d_in))).to(dtype)
 
 
-def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def attn_init(gen: torch.Generator, cfg: ModelConfig,
+              cross: bool = False) -> dict:
     """One layer's attention params (biases f32 zeros and qk-norm scales
-    f32 ones of ``[head_dim]``, as the reference)."""
+    f32 ones of ``[head_dim]``, as the reference); a ``cross`` block
+    (the VLM's) has no QKV bias."""
     dtype = getattr(torch, cfg.dtype)
     p = {
         "wq": dense_init(gen, cfg.d_model, cfg.q_dim, dtype),
@@ -46,7 +51,7 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "wo": dense_init(gen, cfg.q_dim, cfg.d_model, dtype,
                          scale=1.0 / math.sqrt(2 * cfg.n_layers)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, dim in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
                           ("bv", cfg.kv_dim)):
             p[name] = torch.zeros(dim, dtype=torch.float32,
@@ -60,11 +65,17 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def ffn_init(gen: torch.Generator, cfg: ModelConfig,
              d_ff: int = 0) -> dict:
-    """One layer's SwiGLU params, ``d_ff`` wide (default the config's;
-    kimi-k2's leading dense layers take ``d_ff_dense``)."""
+    """One layer's FFN params, ``d_ff`` wide (default the config's;
+    kimi-k2's leading dense layers take ``d_ff_dense``): SwiGLU's three
+    matrices, or ``w_up`` and ``w_down`` where ``ffn_kind`` is
+    ``"gelu"``."""
     dtype = getattr(torch, cfg.dtype)
     d_ff = d_ff or cfg.d_ff
     down_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
+    if cfg.ffn_kind == "gelu":
+        return {"w_up": dense_init(gen, cfg.d_model, d_ff, dtype),
+                "w_down": dense_init(gen, d_ff, cfg.d_model, dtype,
+                                     scale=down_scale)}
     return {
         "w_gate": dense_init(gen, cfg.d_model, d_ff, dtype),
         "w_up": dense_init(gen, cfg.d_model, d_ff, dtype),
@@ -117,10 +128,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: int = 0) -> torch.Tensor:
-    """Prefill attention, q [B, S, H, hd], k, v [B, S, KV, hd] ->
+    """Prefill attention, q [B, S, H, hd], k, v [B, Sk, KV, hd] ->
     [B, S, H, hd]; ``window > 0`` keeps only the last ``window``
-    positions (gemma3's local layers): kernel B4 (the reference computes
-    the same function with its jnp blockwise attention)."""
+    positions (gemma3's local layers); Sk != S is cross-attention,
+    non-causal: kernel B4 (the reference computes the same function with
+    its jnp blockwise attention)."""
     return flash_attention_gqa(q, k, v, causal=causal, window=window)
 
 
@@ -148,19 +160,24 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def attn_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    """Project to q [B, S, H, hd] and k, v [B, S, KV, hd]; the f32 biases
-    are added in the activation dtype; with qk-norm, q and k are RMS-
-    normalised per head (before RoPE, which the caller applies)."""
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+def attn_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
+             kv_x: Optional[torch.Tensor] = None):
+    """Project to q [B, S, H, hd] and k, v [B, Sk, KV, hd], k and v from
+    ``kv_x`` [B, Sk, d] where it is given (cross-attention's image
+    embeddings), else from x; the f32 biases are added in the activation
+    dtype; with qk-norm, q and k are RMS-normalised per head (before
+    RoPE, which the caller applies)."""
+    src = x if kv_x is None else kv_x
+    q, k, v = x @ p["wq"], src @ p["wk"], src @ p["wv"]
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
     B, S = x.shape[:2]
+    Sk = src.shape[1]
     q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    k = k.reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -189,9 +206,31 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """x · 0.5 (1 + tanh(sqrt(2/π) (x + 0.044715 x³))), the tanh form of
+    the reference's ``jax.nn.gelu``, with each step rounded to x's dtype
+    and the constants rounded to it first, as JAX casts them (torch's
+    fused ``F.gelu(approximate="tanh")`` rounds once, and differs in
+    bf16; ROADMAP C7)."""
+    c = _GELU_CONSTS[x.dtype]
+    inner = c[0] * (x + c[1] * (x * x * x))
+    return x * (c[2] * (c[3] + torch.tanh(inner)))
+
+
+# sqrt(2/π), 0.044715, 0.5 and 1.0 rounded to each dtype, as Python floats
+# (exact in f32, so an op with one rounds once, to the tensor's dtype)
+_GELU_CONSTS = {dt: tuple(torch.tensor(v, dtype=torch.float64).to(dt).item()
+                          for v in (math.sqrt(2.0 / math.pi), 0.044715, 0.5,
+                                    1.0))
+                for dt in (torch.float32, torch.bfloat16)}
+
+
 def ffn_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: silu(x W_gate) · (x W_up), then W_down."""
-    return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """SwiGLU, silu(x W_gate) · (x W_up), then W_down; without
+    ``w_gate``, the two-matrix GELU FFN, gelu(x W_up) W_down."""
+    if "w_gate" in p:
+        return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return gelu(x @ p["w_up"]) @ p["w_down"]
 
 
 def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:

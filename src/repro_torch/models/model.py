@@ -4,15 +4,17 @@
     logits, _, kv     = apply_prefill(params, cfg, batch)
     logits, _, cache  = apply_decode(params, cfg, batch, cache, idx)
 
-Transformer families (``dense`` and ``moe`` run; ``transformer.
-check_supported`` says what else raises), ``ssm`` (rwkv6,
-``models/rwkv6.py``) and ``hybrid`` (zamba2, ``models/hybrid.py``).
-A prefill's third result is what its family carries into decode: every
-layer's k and v (transformers), the recurrent state (ssm), or the Mamba
-state and every site's k and v (hybrid); ``serve.step.generate`` turns
-it into a decode cache.
+Transformer families (``dense``, ``moe``, ``vlm`` and ``audio``,
+``models/transformer.py``), ``ssm`` (rwkv6, ``models/rwkv6.py``) and
+``hybrid`` (zamba2, ``models/hybrid.py``). A prefill's third result is
+what its family carries into decode: every layer's k and v
+(transformers; the VLM adds its cross layers' image k and v), the
+recurrent state (ssm), or the Mamba state and every site's k and v
+(hybrid); ``serve.step.generate`` turns it into a decode cache.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -49,9 +51,14 @@ def apply_decode(params, cfg: ModelConfig, batch, caches, cur_index: int):
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               device: DeviceLike = None):
+               device: DeviceLike = None, image_kv: Optional[dict] = None):
     """A zeroed decode cache: the recurrent state for ``ssm`` (which needs
-    no length), else one of ``max_len`` positions."""
+    no length), else one of ``max_len`` positions; the VLM's takes the
+    image k and v of ``image_kv`` (a prefill's cache) where it is
+    given."""
     if cfg.family == "ssm":
         return rwkv6.init_state(cfg, batch_size, device=device)
+    if cfg.family == "vlm":
+        return transformer.init_cache(cfg, batch_size, max_len, device,
+                                      image_kv)
     return _mod(cfg).init_cache(cfg, batch_size, max_len, device)

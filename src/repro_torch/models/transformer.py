@@ -1,12 +1,13 @@
-"""Decoder-only transformer, dense and MoE families: the port of
-``repro.models.transformer`` for the archs the port serves (qwen2,
-qwen3, internlm2, qwen3-moe, gemma3, kimi-k2).
+"""Decoder-only transformer, the dense, MoE, VLM and audio families: the
+port of ``repro.models.transformer`` (qwen2, qwen3, internlm2,
+qwen3-moe, gemma3, kimi-k2, llama-3.2-vision, musicgen).
 
-GQA attention with RoPE, optional QKV bias and qk-norm, a SwiGLU FFN or
-an MoE block (``models/moe.py``) in every layer, RMS norms, tied or
-untied unembedding. A layer's attention is global or, where the config
-has a sliding window, local to the last ``window`` positions as
-``window_schedule`` says (gemma3: five local layers to one global).
+GQA attention with RoPE, optional QKV bias and qk-norm, a SwiGLU or
+two-matrix GELU FFN (musicgen) or an MoE block (``models/moe.py``) in
+every layer, RMS norms, tied or untied unembedding. A layer's attention
+is global or, where the config has a sliding window, local to the last
+``window`` positions as ``window_schedule`` says (gemma3: five local
+layers to one global).
 An MoE config with ``first_k_dense`` (kimi-k2) leads with that many
 dense layers of FFN width ``d_ff_dense`` (the reference's
 ``dense_blocks``, ahead of its ``moe_blocks``). Prefill runs every
@@ -15,15 +16,24 @@ a preallocated cache in place and attends over the positions ``<=
 cur_index`` (within the window on a local layer). Local layers keep a
 cache of ``max_len`` positions, as the reference's do.
 
+The VLM (llama-3.2-vision) runs superblocks of ``cross_attn_every``
+self-attention layers, then one cross-attention layer onto the image
+tokens: non-causal B4 over k and v projected from
+``batch["image_embeds"]`` once a prefill (``_image_kv``, no RoPE), then
+the cross layer's own FFN. Its decode cache carries those k and v
+(``img_k``, ``img_v``), and each decode step runs B4 once a cross layer
+at one query. The audio arch (musicgen) takes ``batch["embeds"]`` (frame
+embeddings from its stub frontend) in place of tokens where it is given.
+
 On one card the reference's mesh context (``distributed/meshctx``), its
 perf flags (``models/perfcfg``: the ones on this path act only on a mesh
 or on gemma3, but for ``router_bf16_matmul``, whose default the MoE
 block keeps) and its remat policy (``models/rematcfg``: training only)
 have nothing to do, so ``forward`` takes no ``ctx``; nor does its
 ``banded_local`` flag (off by default), so local layers run the
-reference's default path, blockwise attention with the window mask. VLM,
-audio and logit-softcap configs raise ``NotImplementedError`` (ROADMAP
-A9; no config of the repo sets a softcap).
+reference's default path, blockwise attention with the window mask.
+Logit-softcap configs raise ``NotImplementedError`` (no config of the
+repo sets one).
 """
 from __future__ import annotations
 
@@ -37,21 +47,20 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 
 MODES = ("prefill", "decode")
+FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this module does not run
-    yet. ``models/model.py`` sends ``ssm`` and ``hybrid`` configs to
-    ``rwkv6`` and ``hybrid``, never here; VLM and audio stay refused."""
+    """Raise ``NotImplementedError`` for what this module does not run:
+    a logit softcap, and families other than ``FAMILIES``
+    (``models/model.py`` sends ``ssm`` and ``hybrid`` configs to
+    ``rwkv6`` and ``hybrid``, never here)."""
     missing = [name for name, off in (
-        (f"family {cfg.family!r}", cfg.family in ("dense", "moe")),
-        ("cross-attention", cfg.cross_attn_every == 0),
-        ("embeddings input", not cfg.embeds_input),
-        ("logit softcap", cfg.attn_logit_softcap == 0.0),
-        (f"ffn {cfg.ffn_kind!r}", cfg.ffn_kind == "swiglu")) if not off]
+        (f"family {cfg.family!r}", cfg.family in FAMILIES),
+        ("logit softcap", cfg.attn_logit_softcap == 0.0)) if not off]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP A9)")
+            f"{cfg.name}: {', '.join(missing)} not ported")
 
 
 # ---------------------------------------------------------------------------
@@ -60,10 +69,11 @@ def check_supported(cfg: ModelConfig) -> None:
 def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     """One layer of ``kind``: ``"moe"`` (the reference's ``moe_blocks``),
     ``"dense_lead"`` (its ``dense_blocks``: an ``"mlp"`` of width
-    ``d_ff_dense``) or ``"dense"``."""
+    ``d_ff_dense``), ``"cross"`` (the VLM's ``cross_blocks``: attention
+    without QKV bias) or ``"dense"``."""
     d = cfg.d_model
     p = {"ln1": torch.ones(d, dtype=torch.float32, device=gen.device),
-         "attn": L.attn_init(gen, cfg),
+         "attn": L.attn_init(gen, cfg, cross=kind == "cross"),
          "ln2": torch.ones(d, dtype=torch.float32, device=gen.device)}
     if kind == "moe":
         p["moe"] = moe_lib.moe_init(gen, cfg)
@@ -73,9 +83,19 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     return p
 
 
+def n_superblocks(cfg: ModelConfig) -> int:
+    """The VLM's superblocks: ``cross_attn_every`` self layers and one
+    cross layer each (0 for the other families)."""
+    return cfg.n_layers // cfg.cross_attn_every if cfg.family == "vlm" \
+        else 0
+
+
 def layer_kinds(cfg: ModelConfig) -> list:
-    """Each layer's kind in order: with experts, ``first_k_dense``
-    ``"dense_lead"`` layers and then ``"moe"``, else ``"dense"``."""
+    """Each self-attention layer's kind in order: with experts,
+    ``first_k_dense`` ``"dense_lead"`` layers and then ``"moe"``, else
+    ``"dense"`` (the VLM's whole superblocks' worth)."""
+    if cfg.family == "vlm":
+        return ["dense"] * (n_superblocks(cfg) * cfg.cross_attn_every)
     if cfg.n_experts > 0:
         nd = cfg.first_k_dense
         return ["dense_lead"] * nd + ["moe"] * (cfg.n_layers - nd)
@@ -98,13 +118,17 @@ def window_schedule(cfg: ModelConfig, n: int) -> list:
 def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random params on the generator's device: ``{"embed", "final_norm",
     "blocks": [one dict a layer]}``, the layers in ``layer_kinds``'
-    order."""
+    order; the VLM adds ``"cross_blocks"``, one a superblock."""
     check_supported(cfg)
-    return {"embed": L.embed_init(gen, cfg),
-            "final_norm": torch.ones(cfg.d_model, dtype=torch.float32,
-                                     device=gen.device),
-            "blocks": [_block_init(gen, cfg, kind)
-                       for kind in layer_kinds(cfg)]}
+    p = {"embed": L.embed_init(gen, cfg),
+         "final_norm": torch.ones(cfg.d_model, dtype=torch.float32,
+                                  device=gen.device),
+         "blocks": [_block_init(gen, cfg, kind)
+                    for kind in layer_kinds(cfg)]}
+    if cfg.family == "vlm":
+        p["cross_blocks"] = [_block_init(gen, cfg, "cross")
+                             for _ in range(n_superblocks(cfg))]
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +157,47 @@ def _self_attn(pb, x, cfg, *, positions, window, mode, cache=None,
     return out.reshape(B, S, cfg.q_dim) @ ap["wo"], new_kv
 
 
+def _image_kv(cross_blocks, image_embeds, cfg):
+    """Each cross layer's k and v from the image embeddings [B, n_img, d]:
+    stacked ``[n_cross, B, n_img, KV, hd]``, no RoPE; k RMS-normed where
+    the block has ``k_norm``. The projection promotes as the reference's
+    jnp ``@`` does: f32 embeddings give f32 k and v in a bf16 model."""
+    B, n_img = image_embeds.shape[:2]
+    ks, vs = [], []
+    for pb in cross_blocks:
+        ap = pb["attn"]
+        dt = torch.promote_types(image_embeds.dtype, ap["wk"].dtype)
+        x = image_embeds.to(dt)
+        k = (x @ ap["wk"].to(dt)).reshape(B, n_img, cfg.n_kv_heads,
+                                          cfg.head_dim)
+        v = (x @ ap["wv"].to(dt)).reshape(B, n_img, cfg.n_kv_heads,
+                                          cfg.head_dim)
+        if "k_norm" in ap:
+            k = L.rms_norm(k, ap["k_norm"], cfg.norm_eps)
+        ks.append(k)
+        vs.append(v)
+    return torch.stack(ks), torch.stack(vs)
+
+
+def _cross_attn(pb, x, img_kv, cfg):
+    """x + the cross layer onto the image k and v [B, n_img, KV, hd]
+    (non-causal B4 at Sk = n_img, then ``wo``), then + its FFN. Where k
+    and v are f32 beside a bf16 q (f32 image embeddings), q is upcast,
+    which is exact, and the output cast back to q's dtype: the
+    reference's attention promotes so."""
+    ap = pb["attn"]
+    B, S = x.shape[:2]
+    q = (L.rms_norm(x, pb["ln1"], cfg.norm_eps) @ ap["wq"]).reshape(
+        B, S, cfg.n_heads, cfg.head_dim)
+    if "q_norm" in ap:
+        q = L.rms_norm(q, ap["q_norm"], cfg.norm_eps)
+    k, v = img_kv
+    out = L.blockwise_attention(q.to(k.dtype), k, v, causal=False).to(
+        q.dtype)
+    x = x + out.reshape(B, S, cfg.q_dim) @ ap["wo"]
+    return x + L.ffn_apply(pb["mlp"], L.rms_norm(x, pb["ln2"], cfg.norm_eps))
+
+
 def _mlp_or_moe(pb, x, cfg):
     """(x + FFN or MoE of the normed x, the layer's f32 aux or None)."""
     h = L.rms_norm(x, pb["ln2"], cfg.norm_eps)
@@ -148,17 +213,24 @@ def _mlp_or_moe(pb, x, cfg):
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             mode: str = "prefill", caches: Optional[dict] = None,
             cur_index: Optional[int] = None, last_only: bool = False):
-    """batch: ``{"tokens": [B, S]}`` (``S == 1`` in decode). Returns
+    """batch: ``{"tokens": [B, S]}`` (``S == 1`` in decode), or with
+    ``cfg.embeds_input`` ``{"embeds": [B, S, d]}``; the VLM's prefill
+    also takes ``"image_embeds"`` [B, n_image_tokens, d]. Returns
     (logits, aux, kv): ``aux`` is the f32 scalar sum of the MoE layers'
     load-balancing losses (0 without experts); in prefill ``kv`` stacks
-    every layer's rotated k and v, ``[n_layers, B, S, KV, hd]``; in decode
-    it is ``caches``, updated in place at ``cur_index``. ``last_only``
+    every self layer's rotated k and v, ``[n_layers, B, S, KV, hd]``, and
+    for the VLM each cross layer's image k and v as ``img_k`` and
+    ``img_v``, ``[n_cross, B, n_img, KV, hd]``; in decode it is
+    ``caches``, updated in place at ``cur_index``. ``last_only``
     unembeds only the last position (its logits are the same)."""
     check_supported(cfg)
     if mode not in MODES:
         raise NotImplementedError(f"mode {mode!r}: training is not ported "
                                   "yet (ROADMAP A9)")
-    x = L.embed_apply(params["embed"], batch["tokens"])
+    if cfg.embeds_input and "embeds" in batch:
+        x = batch["embeds"].to(getattr(torch, cfg.dtype))
+    else:
+        x = L.embed_apply(params["embed"], batch["tokens"])
     B, S = x.shape[:2]
     if mode == "decode":
         positions = torch.full((B, 1), cur_index, dtype=torch.int32,
@@ -170,6 +242,11 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     # the reference gives MoE stacks no window, whatever the config says
     windows = window_schedule(cfg, len(params["blocks"])) \
         if cfg.n_experts == 0 else [0] * len(params["blocks"])
+    if cfg.family == "vlm":
+        per = cfg.cross_attn_every
+        img_k, img_v = (caches["img_k"], caches["img_v"]) \
+            if mode == "decode" else \
+            _image_kv(params["cross_blocks"], batch["image_embeds"], cfg)
     for i, pb in enumerate(params["blocks"]):
         cache = (caches["k"][i], caches["v"][i]) if mode == "decode" else None
         attn_out, (k, v) = _self_attn(pb, x, cfg, positions=positions,
@@ -181,8 +258,14 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         if mode == "prefill":
             ks.append(k)
             vs.append(v)
+        if cfg.family == "vlm" and i % per == per - 1:
+            j = i // per
+            x = _cross_attn(params["cross_blocks"][j], x,
+                            (img_k[j], img_v[j]), cfg)
     kv = {"k": torch.stack(ks), "v": torch.stack(vs)} \
         if mode == "prefill" else caches
+    if cfg.family == "vlm" and mode == "prefill":
+        kv.update(img_k=img_k, img_v=img_v)
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -190,12 +273,25 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               device: DeviceLike = None) -> dict:
+               device: DeviceLike = None, image_kv: Optional[dict] = None
+               ) -> dict:
     """Zeroed decode caches ``{"k", "v"}``, each ``[n_layers, B, max_len,
-    KV, hd]`` in the config's dtype."""
-    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
+    KV, hd]`` in the config's dtype; the VLM adds ``{"img_k", "img_v"}``,
+    each ``[n_superblocks, B, n_image_tokens, KV, hd]``: those of
+    ``image_kv`` (a prefill's cache) as they are where it is given, else
+    zeroed (the reference keeps its self caches as ``[n_sb, per, B,
+    max_len, KV, hd]``; the port's stay flat, one a self layer)."""
+    shape = (len(layer_kinds(cfg)), batch_size, max_len, cfg.n_kv_heads,
              cfg.head_dim)
     dtype = getattr(torch, cfg.dtype)
     device = resolve(device)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.family == "vlm" and image_kv is not None:
+        cache.update(img_k=image_kv["img_k"], img_v=image_kv["img_v"])
+    elif cfg.family == "vlm":
+        img = (n_superblocks(cfg), batch_size, cfg.n_image_tokens,
+               cfg.n_kv_heads, cfg.head_dim)
+        cache.update(img_k=torch.zeros(img, dtype=dtype, device=device),
+                     img_v=torch.zeros(img, dtype=dtype, device=device))
+    return cache

@@ -43,10 +43,12 @@ def decode_cache(cfg: ModelConfig, kv: dict, batch_size: int, S: int,
     ``hybrid`` its Mamba state as it is, and its k and v copied into a
     cache of ``max_len`` positions (ROADMAP C20: the reference hands the
     prompt-sized cache on, and its decode writes clamp onto position
-    S-1); for the transformer families the k and v so copied."""
+    S-1); for the transformer families the k and v so copied, and the
+    VLM's image k and v (``img_k``, ``img_v``) as they are, in their own
+    dtype, as the reference hands them on."""
     if cfg.family == "ssm":
         return kv
-    cache = M.init_cache(cfg, batch_size, max_len, device)
+    cache = M.init_cache(cfg, batch_size, max_len, device, image_kv=kv)
     if cfg.family == "hybrid":
         cache["mamba"] = kv["mamba"]
     if "k" in kv:                   # a hybrid with no site holds none
@@ -74,23 +76,37 @@ def _sync(device: torch.device) -> None:
 def generate(params, cfg: ModelConfig, prompt, max_new: int, max_len: int,
              temperature: float = 0.0, seed: int = 0,
              device: DeviceLike = None,
-             stats: Optional[dict] = None) -> torch.Tensor:
+             stats: Optional[dict] = None,
+             image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Prefill ``prompt`` [B, S] (ints), then decode ``max_new`` tokens:
     [B, max_new] int32 on ``device`` (default the CUDA card, where
     ``params`` must lie). The cache holds ``max_len`` positions. If
     ``stats`` is a dict it receives ``prefill_s`` (prefill and the first
     token) and ``decode_s`` (the other ``max_new - 1``), host clock, each
-    ending with the card synchronized."""
+    ending with the card synchronized.
+
+    The VLM needs ``image_embeds`` [B, n_image_tokens, d], which go into
+    the prefill batch; without them it raises ``ValueError`` before any
+    work on the card (ROADMAP C21: the reference's ``generate`` prefills
+    on the tokens alone, and its VLM raises ``KeyError`` there). Other
+    families take none."""
     device = resolve(device)
     prompt = torch.as_tensor(prompt, dtype=torch.int32, device=device)
     B, S = prompt.shape
     if S + max_new - 1 > max_len:
         raise ValueError(f"{S} prompt + {max_new} new tokens need a cache "
                          f"of {S + max_new - 1} positions, got {max_len}")
+    if (cfg.family == "vlm") != (image_embeds is not None):
+        raise ValueError(
+            f"{cfg.name}: generate(image_embeds=...) is for the vlm family "
+            "alone, and the vlm family needs it (ROADMAP C21)")
+    batch = {"tokens": prompt}
+    if image_embeds is not None:
+        batch["image_embeds"] = torch.as_tensor(image_embeds, device=device)
     prefill, decode = make_prefill(cfg), make_decode_step(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     t0 = time.perf_counter()
-    logits, kv = prefill(params, {"tokens": prompt})
+    logits, kv = prefill(params, batch)
     cache = decode_cache(cfg, kv, B, S, max_len, device)
     del kv
     toks = [sample(logits, gen, temperature)]

@@ -13,7 +13,8 @@ tolerance. Flash attention (B4): float32 within 2e-5 and bfloat16 within
 holds the Pallas kernel to (sums in another order; bf16 outputs rounded
 to 8 bits). bf16 at head dims 16 to 256 runs its tensor-core (wgmma)
 instance, float32 and hd 8 its CUDA-core (simt) one, each with and
-without a sliding window; the wgmma instance
+without a sliding window, and each at keys of their own length (Sk != S,
+non-causal: cross-attention); the wgmma instance
 is also held, output row by output row, within two bf16 ulps of the
 row's largest entry (``ROW_TOL``), which a dropped key tile would fail.
 """
@@ -1519,5 +1520,124 @@ def test_recurrent_smoke_on_the_card_matches_the_cpu(dev, arch):
         runs[where] = (logits.cpu(), torch.cat(steps, 1), launched)
     want = hybrid.n_attn_sites(cfg) if cfg.family == "hybrid" else 0
     assert runs["cpu"][2] == 0 and runs["card"][2] == want
+    for a, b in zip(runs["card"][:2], runs["cpu"][:2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (Sk != S, non-causal) and the two multimodal archs
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,Sk", [(1, 1600), (1, 100), (37, 16),
+                                  (130, 1600), (1024, 1000), (64, 65)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cross_attention_on_both_instances_matches_plain(dev, hd, S, Sk,
+                                                         dtype):
+    """Keys of their own length: one query over the VLM's 1600 image
+    tokens (decode), query tiles over fewer keys than a tile and over a
+    last key tile that is partial (1000, 100, 65), non-causal, 8 heads
+    over 2; each launch counted under the instance ``design`` names and
+    as a cross-attention launch."""
+    q, k, v = (t.to(dev) for t in _attn_inputs(
+        S * Sk + hd, (2, S, 8, hd), (2, Sk, 2, hd), dtype))
+    which = fa.design(dtype, hd)
+    before = dict(fa.flash_attention_gqa.launches_by_design)
+    cross = fa.flash_attention_gqa.launches_cross
+    got = fa.flash_attention_gqa(q, k, v, causal=False)
+    after = fa.flash_attention_gqa.launches_by_design
+    assert after[which] == before[which] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    assert fa.flash_attention_gqa.launches_cross == cross + 1
+    want = fa.flash_attention_gqa_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == dtype
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _row_scaled_err(got, want) <= ROW_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_at_the_vlm_prefill_shape(dev, dtype):
+    """llama-3.2-vision's cross layer: q [4, 1024, 64, 128] over the
+    image's k, v [4, 1600, 8, 128], non-causal."""
+    q, k, v = (t.to(dev) for t in _attn_inputs(
+        5, (4, 1024, 64, 128), (4, 1600, 8, 128), dtype))
+    which = fa.design(dtype, 128)
+    before = fa.flash_attention_gqa.launches_by_design[which]
+    got = fa.flash_attention_gqa(q, k, v, causal=False)
+    assert fa.flash_attention_gqa.launches_by_design[which] == before + 1
+    want = fa.flash_attention_gqa_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _row_scaled_err(got, want) <= ROW_TOL
+
+
+def test_cross_attention_refuses_causal_or_windowed_on_the_card(dev):
+    q, k, v = _gqa_on_card(dev, 0, 1, 64, 2, 1, 64)
+    k2, v2 = k[:, :40].contiguous(), v[:, :40].contiguous()
+    before = fa.flash_attention_gqa.launches
+    for kw in ({"causal": True}, {"causal": False, "window": 16}):
+        with pytest.raises(ValueError, match="non-causal with no window"):
+            fa.flash_attention_gqa(q, k2, v2, **kw)
+    with pytest.raises(TypeError, match="share"):
+        fa.flash_attention_gqa(q.float(), k2, v2, causal=False)
+    assert fa.flash_attention_gqa.launches == before
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "llama-3.2-vision-90b"])
+def test_multimodal_smoke_on_the_card_matches_the_cpu(dev, arch):
+    """The smoke musicgen (on frame embeddings) and VLM (tokens beside f32
+    image embeddings) in f32: prefill logits and three decode steps on the
+    card within 1e-4 of the CPU's; B4 once a layer in prefill (the VLM's
+    cross layers at Sk 16), and once a cross layer a decode step."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M, transformer
+    from repro_torch.serve import step
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              dtype="float32")
+    params = M.init(cfg, seed=0, device="cpu")
+    on_card = _to(params, dev)
+    rng = np.random.default_rng(0)
+    embeds = torch.from_numpy(rng.standard_normal(
+        (2, 103, cfg.d_model)).astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 103))
+                              .astype(np.int32))
+    img = torch.from_numpy((rng.standard_normal(
+        (2, max(cfg.n_image_tokens, 1), cfg.d_model)) * 0.02)
+        .astype(np.float32))
+    n_sb = transformer.n_superblocks(cfg)
+    runs = {}
+    for where, p in (("cpu", params), ("card", on_card)):
+        d = torch.device("cpu") if where == "cpu" else dev
+        if cfg.embeds_input:
+            pre = {"embeds": embeds[:, :100].to(d)}
+            steps = [{"embeds": embeds[:, 100 + i:101 + i].to(d)}
+                     for i in range(3)]
+        else:
+            pre = {"tokens": tokens[:, :100].to(d), "image_embeds": img.to(d)}
+            steps = [{"tokens": tokens[:, 100 + i:101 + i].to(d)}
+                     for i in range(3)]
+        before = fa.flash_attention_gqa.launches
+        cross = fa.flash_attention_gqa.launches_cross
+        logits, _, kv = M.apply_prefill(p, cfg, pre)
+        launched = [fa.flash_attention_gqa.launches - before]
+        cache = step.decode_cache(cfg, kv, 2, 100, 103, d)
+        outs = []
+        for i, b in enumerate(steps):
+            before = fa.flash_attention_gqa.launches
+            lg, _, cache = M.apply_decode(p, cfg, b, cache, 100 + i)
+            launched.append(fa.flash_attention_gqa.launches - before)
+            outs.append(lg.cpu())
+        launched.append(fa.flash_attention_gqa.launches_cross - cross)
+        runs[where] = (logits.cpu(), torch.cat(outs, 1), launched)
+    assert runs["cpu"][2] == [0] * 5
+    # one a layer in prefill, one a cross layer a decode step; of them,
+    # the cross layers' (Sk != S) 4 * n_sb
+    assert runs["card"][2] == [cfg.n_layers + n_sb] + [n_sb] * 3 \
+        + [4 * n_sb]
     for a, b in zip(runs["card"][:2], runs["cpu"][:2]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

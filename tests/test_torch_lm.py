@@ -97,17 +97,26 @@ def test_configs_equal_the_reference_field_for_field():
         24, 896, 14, 2, 64, 4864, 151_936)
 
 
-@pytest.mark.parametrize("name", [n for n in ref_registry.ARCH_NAMES
-                                  if n not in registry.ARCH_NAMES])
-def test_unported_archs_raise_naming_the_roadmap(name):
-    with pytest.raises(KeyError, match="A9"):
-        registry.get_config(name)
-    with pytest.raises(KeyError, match="A9"):
-        registry.get_smoke_config(name)
+def test_an_unknown_arch_raises_listing_all_ten():
+    assert len(registry.ARCH_NAMES) == 10
+    for get in (registry.get_config, registry.get_smoke_config):
+        with pytest.raises(KeyError, match="unknown arch 'gpt-2'") as err:
+            get("gpt-2")
+        for name in ref_registry.ARCH_NAMES:
+            assert repr(name) in str(err.value)
+
+
+@pytest.mark.parametrize("name", ref_registry.ARCH_NAMES)
+def test_check_supported_refuses_only_the_logit_softcap(name):
+    """Every transformer-family config runs as it is (the recurrent ones
+    go to their own modules); a logit softcap is refused in any."""
     cfg = ModelConfig(**dataclasses.asdict(ref_registry.get_smoke_config(
         name)))
-    with pytest.raises(NotImplementedError, match="A9"):
-        TM.init(cfg, device="cpu")
+    if cfg.family in TT.FAMILIES:
+        TT.check_supported(cfg)
+        TT.check_supported(registry.get_config(name))
+    with pytest.raises(NotImplementedError, match="logit softcap"):
+        TT.check_supported(dataclasses.replace(cfg, attn_logit_softcap=30.0))
 
 
 # ---------------------------------------------------------------------------
