@@ -250,6 +250,35 @@ each of which fails the run (non-zero exit) if it fails:
                BFS levels from vertex 0 (32 iterations) equal a numpy BFS
                exactly; ms a PageRank iteration beside its bytes bound,
                and the phase's wall time.
+ 13. train     training on the card. B4 with its log-sum-exp (f32 [B, H,
+               S], for the backward) at qwen3-4b's training shape (B 4,
+               S 1024, 32 heads over 8, hd 128) in bf16 (wgmma) and f32
+               (simt), and at S 1000: the lse within LSE_TOL of the plain
+               version's, the output bit for bit the null-lse call's and
+               within phase 8's limits; the training attention
+               (``layers.blockwise_attention``'s autograd Function: B4
+               forward with its lse, the plain backward) at the same
+               shape against autograd through f32 softmax attention,
+               dq, dk, dv within GRAD_TOL (relative norm) in f32 and
+               bf16, and a planted fault (a key tile dropped for half
+               the rows) beyond the bf16 limit; qwen3-4b at full width
+               and depth (4.02 B params, bf16, f32 AdamW states, remat
+               minimal) for 3 steps at 4 x 1024 Zipf tokens through
+               ``repro_torch.launch.train.main``, with the launch counts
+               set to 0 before and read after: B4 72 times a step (the
+               forward and remat's recompute of 36 layers), all wgmma,
+               all with the lse; finite losses, each step's loss, grad
+               norm and ms, step ms (median of steps 2-3), tokens/s, MFU
+               against 989 TFLOP/s (6 N T + 3 x the causal attention
+               forward), max_memory_allocated; its first step again with
+               plain attention: loss within lm_atol of the logits, grad
+               norm within GNORM_RTOL; a restart check (qwen2-0.5b at 4
+               of 24 layers, full width, int8 states, 4 x 1024): 4
+               straight steps against 2, a restore from the checkpoint
+               written under ``build/train/`` (removed after) and 2
+               more, params, m and v bit for bit; B4's time with and
+               without its lse beside its plain version, its bound and
+               SDPA's forward.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the repo beside it, it
@@ -365,6 +394,24 @@ B1_TRACE_NAME = ("table_kernel", "EllDocs")  # B1's kernel in a CUDA trace
 KINETO_THREAD_ERROR = "External init callback"
 GRAPH_VERTICES, GRAPH_EDGES = 1 << 20, 1 << 24
 GRAPH_PR_ITERS, GRAPH_BFS_ITERS = 50, 32
+# phase 13: training on one card
+TRAIN_ARCH = "qwen3-4b"                # full width and depth, 36 layers
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
+TRAIN_ROOT = Path(__file__).resolve().parent / "build" / "train"
+# B4's lse against the plain version's: both sum the same f32 exps in
+# another order; lse is ~5-10 here, and f32 keeps ~1e-6 of it
+LSE_TOL = 1e-4
+# the training attention's dq, dk, dv against autograd through f32
+# attention, relative Frobenius error: f32 sums in other orders (~4e-7 on
+# the CPU); in bf16 the inputs are the same bf16 values, but B4's output,
+# rounded to bf16, enters delta = sum(dout * out): ~2e-3 on the CPU, while
+# a 64-key tile dropped for half the query rows moves them ~4e-2
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+FAULT_ROW, FAULT_TILE = 512, 1
+# the kernel step's grad norm against the plain-attention step's: bf16
+# rounding of attention outputs carried through 36 layers' backward
+GNORM_RTOL = 1e-2
+RESTART_ARCH, RESTART_LAYERS = "qwen2-0.5b", 4
 STORE_NNZ_PADS = (64, 128, 256, 512)
 NEW_SHAPE_DOCS = (8, 64, 1000)         # an approx pool, a small one, odd
 NEW_SHAPE_BLOCK_DOCS = (8, 32)         # AutoTiling's narrow doc tiles
@@ -850,6 +897,7 @@ def main() -> int:
     rows.extend(mm_rows)
     say(f"phases 8e-11e: {time.perf_counter() - t0:.1f} s")
     graph_phase(torch, dev)
+    rows.append(train_phases(torch, dev))
     say(f"run: {time.perf_counter() - t_run:.1f} s wall")
     say(nvidia_smi_line())
     say(json.dumps({"kernels": rows}))
@@ -2986,6 +3034,319 @@ def graph_phase(torch, dev):
         f"{nvidia_smi_line()}")
     del ids, vals, out_deg, pr
     torch.cuda.empty_cache()
+
+
+def b4_lse_held(torch, fa, name, q, k, v, **kw):
+    """Phase 13: one B4 call with its lse against the plain version's
+    (within LSE_TOL), counted once as an lse launch, its output equal bit
+    for bit to the call without the lse and held to phase 8's limits.
+    Returns (max_abs_err of the output, of the lse)."""
+    before = fa.flash_attention_gqa.launches_lse
+    out, lse = fa.flash_attention_gqa(q, k, v, return_lse=True, **kw)
+    null = fa.flash_attention_gqa(q, k, v, **kw)
+    want, want_lse = fa.flash_attention_gqa_plain(q, k, v, return_lse=True,
+                                                  **kw)
+    torch.cuda.synchronize()
+    if fa.flash_attention_gqa.launches_lse != before + 1:
+        fail(f"B4 lse {name}: not counted as one lse launch")
+    if not torch.equal(out, null):
+        fail(f"B4 lse {name}: the output differs from the null-lse call's")
+    lse_err = float((lse - want_lse).abs().max())
+    if not (lse_err <= LSE_TOL and torch.isfinite(lse).all()):
+        fail(f"B4 lse {name}: max |lse - plain| {lse_err} > {LSE_TOL}")
+    err = b4_held(torch, fa, name, q, k, v, **kw)
+    B, S, H, hd = q.shape
+    say(f"B4 lse ({fa.design(q.dtype, hd)}) vs plain, {name} [{B}, {S}, "
+        f"{H}/{k.shape[2]}, {hd}]: max |lse - plain| {lse_err:.3e} "
+        f"(tolerance {LSE_TOL}); output equal to the null-lse call's")
+    return err, lse_err
+
+
+def dense_attention(torch, q, k, v, drop_tile=False):
+    """Causal attention in f32 as one softmax over [S, S] scores
+    (autograd's reference): (out [B, S, H, hd], lse [B, H, S]). With
+    ``drop_tile``, query rows from FAULT_ROW on miss the 64-key tile
+    FAULT_TILE: the planted fault of the gradient check."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    kk, vv = k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / np.sqrt(hd)
+    i = torch.arange(S, device=q.device)
+    keep = i[:, None] >= i[None, :]
+    if drop_tile:
+        tile = (i >= 64 * FAULT_TILE) & (i < 64 * (FAULT_TILE + 1))
+        keep &= ~((i[:, None] >= FAULT_ROW) & tile[None, :])
+    s = s.masked_fill(~keep, -1e30)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vv)
+    return out, torch.logsumexp(s, -1)
+
+
+def rel_norm_err(got, want) -> float:
+    return float((got.float() - want).norm() / want.norm())
+
+
+def function_grads_held(torch, layers, dev, dtype, B, S, H, KV, hd):
+    """Phase 13: the training attention (``layers.blockwise_attention``'s
+    autograd Function: B4 with its lse forward, the plain backward) at a
+    layer's shape against autograd through ``dense_attention`` in f32 on
+    the same inputs: dq, dk, dv within GRAD_TOL[dtype] (relative
+    Frobenius norm). In bf16, a planted fault (``dense_attention``'s
+    dropped tile in place of B4) must break the limit."""
+    q, k, v = attention_inputs(torch, dev, B, S, H, KV, hd, dtype)
+    dout = attention_inputs(torch, dev, B, S, H, KV, hd, dtype, SEED + 7)[0]
+    ref = [t.float().requires_grad_(True) for t in (q, k, v)]
+    dense_attention(torch, *ref)[0].backward(dout.float())
+    want = [t.grad for t in ref]
+    del ref
+
+    def grads():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        layers.blockwise_attention(*leaves).backward(dout)
+        return [rel_norm_err(t.grad, w) for t, w in zip(leaves, want)]
+
+    tol = GRAD_TOL[str(dtype).split(".")[1]]
+    errs = grads()
+    say(f"attention gradients ({str(dtype).split('.')[1]}, [{B}, {S}, "
+        f"{H}/{KV}, {hd}]): B4 with lse + the plain backward against "
+        f"autograd through f32 softmax attention, relative error of dq, "
+        f"dk, dv {', '.join(f'{e:.3e}' for e in errs)} (limit {tol})")
+    if not max(errs) <= tol:
+        fail(f"attention gradients: {errs} beyond {tol}")
+    if dtype == torch.bfloat16:
+        kernel_attn = layers.flash_attention_gqa
+
+        def dropped(q, k, v, causal=True, window=0, return_lse=True):
+            out, lse = dense_attention(torch, q.float(), k.float(),
+                                       v.float(), drop_tile=True)
+            return out.to(q.dtype), lse
+        layers.flash_attention_gqa = dropped
+        try:
+            faulty = grads()
+        finally:
+            layers.flash_attention_gqa = kernel_attn
+        say(f"attention gradients with a planted fault (key tile "
+            f"{FAULT_TILE} dropped for query rows from {FAULT_ROW}): "
+            f"{', '.join(f'{e:.3e}' for e in faulty)}; the limit {tol} "
+            "catches it")
+        if max(faulty) <= tol:
+            fail("attention gradients: the planted fault passes the limit")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def b4_lse_times(torch, dev, fa, B, S, H, KV, hd):
+    """Phase 13: B4 with and without its lse (CUDA-graph replays), the
+    plain version with the lse, and SDPA's forward (causal, GQA), bf16 at
+    the training shape, beside the bound (q, k, v, o and the lse's bytes;
+    causal FLOPs). Returns the row's numbers."""
+    q, k, v = attention_inputs(torch, dev, B, S, H, KV, hd, torch.bfloat16)
+    ms = graph_ms(torch, lambda: fa.flash_attention_gqa(
+        q, k, v, return_lse=True), 20)
+    null_ms = graph_ms(torch, lambda: fa.flash_attention_gqa(q, k, v), 20)
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_gqa_plain(
+        q, k, v, return_lse=True), 3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = graph_ms(torch, lambda: torch.nn.functional.
+                      scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True), 20)
+    flops = 2 * B * H * S * S * hd
+    n_bytes = nbytes(q, k, v) + nbytes(q) + B * H * S * 4
+    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
+    say(f"time flash_attention with lse (wgmma) [{B}, {S}, {H}/{KV}, {hd}] "
+        f"bf16 causal: {ms:.4f} ms a launch in a CUDA graph; {null_ms:.4f} "
+        f"ms with a null lse ({ms / null_ms:.3f}x); plain {plain_ms:.3f} ms;"
+        f" bound {b_ms:.4f} ms by {b_by}; library scaled_dot_product_"
+        f"attention forward {lib_ms:.4f} ms; kernel / library "
+        f"{ms / lib_ms:.2f}x")
+    return {"design": "wgmma", "head_dim": hd, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "null_ms": null_ms}
+
+
+def train_phases(torch, dev):
+    """Phase 13: training on the card. B4's lse and the training
+    attention's gradients at qwen3-4b's layer shape; qwen3-4b at full
+    width and depth for TRAIN_STEPS steps through ``launch.train.main``
+    (launch counts set to 0 before and read after: 2 B4 launches a layer
+    a step, forward and remat recompute, all wgmma with the lse); its
+    first step again with plain attention; a restart check. Returns B4's
+    training row of the kernels line."""
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLMData, to_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import layers, model as M
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    B, S, H, KV, hd = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+
+    # -- 13a. B4's lse against the plain version's -------------------------
+    errs = {}
+    for name, s_len, dtype in (("train bf16 causal", S, torch.bfloat16),
+                               ("train f32 causal", S, torch.float32),
+                               ("bf16 causal S=1000", 1000, torch.bfloat16)):
+        q, k, v = attention_inputs(torch, dev, 2 if s_len != S else B,
+                                   s_len, H, KV, hd, dtype)
+        errs[name] = b4_lse_held(torch, fa, name, q, k, v)
+        del q, k, v
+
+    # -- 13b. the training attention's gradients ------------------------
+    for dtype in (torch.float32, torch.bfloat16):
+        function_grads_held(torch, layers, dev, dtype, B, S, H, KV, hd)
+    say(f"phase 13a-b (lse, gradients): {time.perf_counter() - t_phase:.1f}"
+        " s")
+
+    # -- 13c. qwen3-4b trains at full width and depth ------------------------
+    t0 = time.perf_counter()
+    ckpt_dir = TRAIN_ROOT / "qwen3"
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--seq-len",
+            str(S), "--batch", str(B), "--ckpt-every",
+            str(10 * TRAIN_STEPS), "--ckpt-dir", str(ckpt_dir)]
+    counted = _launch_counters()
+    for fn in counted.values():
+        fn.launches = 0
+    by = fa.flash_attention_gqa.launches_by_design
+    for name in by:
+        by[name] = 0
+    for name in ("launches_lse", "launches_windowed", "launches_cross"):
+        setattr(fa.flash_attention_gqa, name, 0)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train_launcher.main(argv)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    b4 = fa.flash_attention_gqa
+    want = 2 * cfg.n_layers * TRAIN_STEPS
+    say(f"train main path ({TRAIN_ARCH}) launches: {launches}; B4 by "
+        f"instance {dict(by)}, with lse {b4.launches_lse}, windowed "
+        f"{b4.launches_windowed}, cross {b4.launches_cross}")
+    if not (launches["flash_attention"] == by["wgmma"] == b4.launches_lse
+            == want):
+        fail(f"B4 launched {launches['flash_attention']} times in "
+             f"{TRAIN_STEPS} train steps ({by['wgmma']} wgmma, "
+             f"{b4.launches_lse} with lse), want {want} of each")
+    hist = trainer.history
+    if len(hist) != TRAIN_STEPS or not all(
+            np.isfinite([r["loss"], r["grad_norm"]]).all() for r in hist):
+        fail(f"train: history {hist}")
+    if any(ckpt_dir.glob("step_*")):
+        fail("train: a checkpoint was written before --ckpt-every")
+    n_params = sum(p.numel() for _, p in opt.flatten(trainer.params))
+    step_s = statistics.median(r["seconds"] for r in hist[1:])
+    tokens = B * S
+    attn_flops = 2 * B * H * S * S * hd * cfg.n_layers
+    flops = 6 * n_params * tokens + 3 * attn_flops
+    for r in hist:
+        say(f"train step {r['step']}: loss {r['loss']:.5f}, grad norm "
+            f"{r['grad_norm']:.5f}, lr {r['lr']:.3e}, {r['seconds'] * 1e3:.1f}"
+            " ms")
+    say(f"train ({TRAIN_ARCH}, {cfg.n_layers} layers, {n_params} params, "
+        f"bf16, fp32 AdamW states, remat minimal, batch {B} x {S}): step "
+        f"{step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
+        f"{tokens / step_s:.0f} tokens/s, MFU {flops / step_s / BF16_OPS_PER_S:.4f}"
+        f" of {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s ({flops:.4e} FLOP a step: "
+        f"6 N T {6 * n_params * tokens:.4e} + 3 x causal attention forward "
+        f"{3 * attn_flops:.4e}); max_memory_allocated "
+        f"{peak / 1e9:.2f} GB; {nvidia_smi_line()}")
+    first = hist[0]
+    del trainer
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    say(f"phase 13c (train): {time.perf_counter() - t0:.1f} s")
+
+    # -- 13d. the first step's loss and gradients with plain attention ----
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed=SEED, device=dev)
+    leaves = [p.requires_grad_(True) for _, p in opt.flatten(params)]
+    batch = to_device(SyntheticLMData(cfg, B, S, seed=SEED).batch_at(0), dev)
+    kernel_attn = layers.flash_attention_gqa
+    layers.flash_attention_gqa = fa.flash_attention_gqa_plain
+    try:
+        logits, aux, _ = M.apply_train(params, cfg, batch)
+        labels = batch["tokens"][:, 1:]
+        loss = layers.softmax_cross_entropy(
+            logits[:, :-1], labels, torch.ones(labels.shape, device=dev)) \
+            + 0.01 * aux
+        atol = lm_atol("bfloat16", logits.detach())
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        layers.flash_attention_gqa = kernel_attn
+    gnorm = float(opt.global_norm(list(grads)))
+    loss = float(loss.detach())
+    loss_err = abs(loss - first["loss"])
+    g_rel = abs(gnorm - first["grad_norm"]) / gnorm
+    say(f"train check ({TRAIN_ARCH} step 0, kernel against plain "
+        f"attention): loss {first['loss']:.5f} vs {loss:.5f}, "
+        f"|diff| {loss_err:.3e} (limit {atol}, lm_atol of the plain run's "
+        f"logits); grad norm {first['grad_norm']:.5f} vs {gnorm:.5f}, "
+        f"relative {g_rel:.3e} (limit {GNORM_RTOL})")
+    if not (loss_err <= atol and g_rel <= GNORM_RTOL):
+        fail("train: the kernel run's first step differs from plain "
+             "attention's")
+    del params, leaves, logits, loss, grads, batch
+    torch.cuda.empty_cache()
+    say(f"phase 13d (plain-attention step): {time.perf_counter() - t0:.1f} s")
+
+    # -- 13e. restart: 4 straight steps against 2 + restore + 2 ----------
+    t0 = time.perf_counter()
+    full = get_config(RESTART_ARCH)
+    rcfg = dataclasses.replace(full, n_layers=RESTART_LAYERS)
+
+    def tc(name, every):
+        return TrainConfig(
+            model=rcfg, opt=OptimizerConfig(lr=3e-4, warmup_steps=1,
+                                            total_steps=4, int8_states=True),
+            seq_len=S, global_batch=B, checkpoint_every=every,
+            checkpoint_dir=str(TRAIN_ROOT / name), keep_checkpoints=2)
+
+    quiet = lambda s: None  # noqa: E731
+    straight = Trainer(tc("straight", 100), device=dev, log_fn=quiet)
+    straight.run(4)
+    straight.close()
+    first_half = Trainer(tc("restart", 2), device=dev, log_fn=quiet)
+    first_half.run(2)
+    first_half.close()
+    del first_half
+    resumed = Trainer(tc("restart", 2), device=dev, log_fn=quiet)
+    if resumed.start_step != 2:
+        fail(f"restart: resumed at {resumed.start_step}, want 2")
+    resumed.run(2)
+    resumed.close()
+    diff = 0.0
+    for key in ("params", "m", "v"):
+        a = straight.params if key == "params" else straight.opt_state[key]
+        b = resumed.params if key == "params" else resumed.opt_state[key]
+        for (_, x), (_, y) in zip(opt.flatten(a), opt.flatten(b)):
+            pairs = [(x.q, y.q), (x.scale, y.scale)] \
+                if isinstance(x, opt.QTensor) else [(x, y)]
+            for u, w in pairs:
+                diff = max(diff, float((u.detach().float()
+                                        - w.detach().float()).abs().max()))
+    losses = ([r["loss"] for r in straight.history[2:]],
+              [r["loss"] for r in resumed.history])
+    say(f"restart ({RESTART_ARCH} at {RESTART_LAYERS} of {full.n_layers} "
+        f"layers, full width, int8 states, batch {B} x {S}): 4 straight "
+        f"steps against 2 + restore + 2: losses {losses[0]} vs {losses[1]};"
+        f" params and states max |diff| {diff} (limit 0: bit for bit)")
+    if diff != 0.0 or losses[0] != losses[1]:
+        fail("restart: the restored run differs from the straight one")
+    del straight, resumed
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    say(f"phase 13e (restart): {time.perf_counter() - t0:.1f} s")
+
+    # -- 13f. B4 times with the lse ---------------------------------------------
+    times = b4_lse_times(torch, dev, fa, B, S, H, KV, hd)
+    say(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    row = b4_row("flash_attention_train", launches["flash_attention"],
+                 errs["train bf16 causal"][0], times)
+    row["lse_max_abs_err"] = errs["train bf16 causal"][1]
+    return row
 
 
 def _launch_counters():

@@ -11,7 +11,11 @@ without importing it, and returns the port's:
   - a packed tile matrix (2-D uint32, or a slab with ``.tiles``) ->
     ``PackedSlab`` on ``device`` (int32 view of the words).
 
-``lm_params_from_reference`` does the same for the LM stack's params.
+``lm_params_from_reference`` does the same for the LM stack's params,
+and ``opt_state_from_reference`` for AdamW's state (f32 or int8 m and
+v), so that a reference checkpoint restores into the port: both take
+numpy arrays or the CPU tensors that ``repro_torch.checkpoint``'s
+``CheckpointManager.restore(step)`` returns for a reference directory.
 """
 from __future__ import annotations
 
@@ -52,13 +56,16 @@ def from_reference(state, device: DeviceLike = None
 
 
 def _tensor(arr, device: torch.device) -> torch.Tensor:
-    """A numpy array as a tensor of the same dtype and bits; bfloat16
-    (numpy's ml_dtypes extension type) goes through its int16 bits."""
-    arr = np.ascontiguousarray(arr)
+    """A numpy array (or a tensor) as a tensor of the same dtype and bits,
+    copied; bfloat16 (numpy's ml_dtypes extension type) goes through its
+    int16 bits."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device, copy=True)
+    arr = np.array(arr, order="C")          # a copy; 0-d stays 0-d
     if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16).copy()).view(
+        return torch.from_numpy(arr.view(np.int16)).view(
             torch.bfloat16).to(device)
-    return torch.from_numpy(arr.copy()).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
@@ -81,18 +88,54 @@ def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
     scales, router, lerp coefficients, decays, ``conv_w``, ``A_log``,
     ``D`` and ``dt_bias``; weights in the config's dtype) and its ``x @
     W`` orientation."""
-    device = resolve(device)
+    return _unstacked(params, cfg, resolve(device))
 
+
+def opt_state_from_reference(state: Mapping[str, Any], cfg: ModelConfig,
+                             device: DeviceLike = None) -> dict:
+    """The reference's AdamW state ``{"step", "m", "v"}`` (numpy arrays,
+    or CPU tensors from a checkpoint; m and v f32 or the reference's
+    QTensors) as the port's (``repro_torch.train.optimizer``), on
+    ``device``: m and v take the params' layout as
+    ``lm_params_from_reference`` lays them out. A QTensor of a stack
+    ``[n, ...]`` becomes one a layer: its blocks run along the last axis,
+    so layer i's payload and scales are the stack's ``[i]``."""
+    device = resolve(device)
+    return {"step": _leaf(state["step"], None, device),
+            "m": _unstacked(state["m"], cfg, device),
+            "v": _unstacked(state["v"], cfg, device)}
+
+
+def _leaf(x, index, device: torch.device):
+    """One leaf (an array, a tensor, or a QTensor of either), or its
+    ``[index]`` (one layer of a stack), as the port's on ``device``."""
+    if hasattr(x, "q") and hasattr(x, "scale"):
+        from repro_torch.train.optimizer import QTensor
+        shape = tuple(x.shape)
+        return QTensor(q=_leaf(x.q, index, device),
+                       scale=_leaf(x.scale, index, device),
+                       shape=shape if index is None else shape[1:])
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    return _tensor(x if index is None else x[index], device)
+
+
+def _unstacked(params: Mapping[str, Any], cfg: ModelConfig,
+               device: torch.device) -> dict:
+    """The reference's tree (of params, or of m or v) in the port's
+    layout on ``device``."""
     def conv(tree, index=None):
         if isinstance(tree, Mapping):
             return {k: conv(v, index) for k, v in tree.items()}
-        arr = np.asarray(tree)
-        return _tensor(arr if index is None else arr[index], device)
+        return _leaf(tree, index, device)
+
+    def n_stacked(x):
+        x = getattr(x, "q", x)       # a QTensor's payload has its shape
+        return (x if isinstance(x, torch.Tensor) else np.asarray(x)).shape[0]
 
     def unstack(names, first_leaf, n=cfg.n_layers):
         layers = [conv(params[name], i) for name in names if name in params
-                  for i in range(np.asarray(
-                      params[name][first_leaf]).shape[0])]
+                  for i in range(n_stacked(params[name][first_leaf]))]
         if len(layers) != n:
             raise ValueError(f"{len(layers)} stacked layers in "
                              f"{' + '.join(names)}, config has {n}")

@@ -1,14 +1,17 @@
-"""Model configuration: the port's copy of ``repro.configs.base.ModelConfig``.
+"""Configurations: the port's copy of ``repro.configs.base``'s
+``ModelConfig``, ``OptimizerConfig`` and ``TrainConfig``.
 
-The dataclass, its field defaults and the properties the models read
-are the reference's, so a config built here compares field for field
-with the JAX package's. The shapes
-table and the analytic parameter counters stay with the dry-run tools,
-which the port does not have yet (ROADMAP A9.6).
+The dataclasses, their field defaults (but for the checkpoint directory,
+which follows ``$TMPDIR``) and the properties the models read are the
+reference's, so a config built here compares field for field with the
+JAX package's. The shapes table and the analytic parameter counters stay
+with the dry-run tools, which the port does not have yet (ROADMAP A8).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,3 +81,36 @@ class ModelConfig:
     @property
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
+
+
+# ---------------------------------------------------------------------------
+# Training / runtime configs
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    int8_states: bool = False       # quantized Adam m/v (distributed-memory trick)
+    grad_compression: bool = False  # int8 gradient all-reduce w/ error feedback
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig
+    opt: OptimizerConfig = OptimizerConfig()
+    seq_len: int = 4096
+    global_batch: int = 256
+    microbatches: int = 1
+    remat: bool = True
+    seed: int = 0
+    checkpoint_every: int = 200
+    # the reference's /tmp/repro_ckpt, under $TMPDIR where that is set
+    checkpoint_dir: str = os.path.join(tempfile.gettempdir(), "repro_ckpt")
+    keep_checkpoints: int = 3

@@ -107,19 +107,21 @@ def kernel(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
 
 
 def count_launch(wrapper, design: Optional[str] = None,
-                 also: Optional[str] = None) -> None:
+                 *also: Optional[str]) -> None:
     """Add one to ``wrapper.launches`` (and to
-    ``wrapper.launches_by_design[design]``, and to the integer attribute
-    ``also`` names) under a lock. Several threads launch at once (the
-    cluster router's shard pool, prefetch loaders, hedge attempts), and a
-    bare ``+= 1`` on an attribute can lose a count between its read and
-    its write. Setting ``wrapper.launches = 0`` resets the count."""
+    ``wrapper.launches_by_design[design]``, and to each integer attribute
+    that ``also`` names; ``None`` names none) under a lock. Several
+    threads launch at once (the cluster router's shard pool, prefetch
+    loaders, hedge attempts), and a bare ``+= 1`` on an attribute can lose
+    a count between its read and its write. Setting ``wrapper.launches =
+    0`` resets the count."""
     with _count_lock:
         wrapper.launches += 1
         if design is not None:
             wrapper.launches_by_design[design] += 1
-        if also is not None:
-            setattr(wrapper, also, getattr(wrapper, also) + 1)
+        for name in also:
+            if name is not None:
+                setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def check(name: str, err: int) -> None:

@@ -45,6 +45,18 @@
 // 2·B·H·S²·hd = 7.5 GFLOP against 16.8 MB of q, k, v and o: 7.6 us on the
 // bf16 tensor cores (989 TFLOP/s) against 5.0 us at 3.35 TB/s.
 //
+// Log-sum-exp for the backward: where the caller passes an f32 `lse`
+// [B, H, S] (the training forward's autograd Function), both instances
+// also write each query row's m + log(max(l, 1e-30)) there, in the
+// scaled-score units the scores are in: the reference's _flash_fwd lse
+// (src/repro/models/layers.py), which its _flash_b reads back. The TPU
+// kernel has no backward and writes no lse. With a null `lse` (serving)
+// nothing more is written: one test on a kernel argument in the epilogue.
+// Rows past S are not written; in the wgmma instance one thread of a lane
+// quad writes the row (the quad's four hold the same m and l), and at hd
+// 256 only the first of the two warpgroups (both hold the row's
+// statistics).
+//
 // Two instances; kernels/flash_attention.py::design picks one from the
 // dtype and head dim alone, and never falls back from one to the other.
 //
@@ -162,9 +174,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T, int HD, bool kWindow>
 __global__ void __launch_bounds__(kBlockQ)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int S, int Sk, int G,
-          Strides sq, Strides sk, Strides sv, Strides so, int causal,
-          int window, float scale) {
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int S, int Sk, int G, Strides sq,
+          Strides sk, Strides sv, Strides so, int causal, int window,
+          float scale) {
   extern __shared__ float smem[];
   float* ks = smem;                   // [kBlockK][HD]
   float* vs = ks + kBlockK * HD;      // [kBlockK][HD]
@@ -241,12 +254,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     T* op = o + b * so.b + row * so.s + h * so.h;
 #pragma unroll
     for (int d = 0; d < HD; ++d) op[d] = from_f32<T>(acc[d] / denom);
+    // [B, H, S]: gridDim.y is H
+    if (lse) lse[((long long)b * gridDim.y + h) * S + row] = m + logf(denom);
   }
 }
 
 template <typename T, int HD, bool kWindow>
 cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
-                      int B, int S, int Sk, int H, int KV,
+                      float* lse, int B, int S, int Sk, int H, int KV,
                       const long long* st, int causal, int window,
                       float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * kBlockK * HD + kBlockK * kBlockQ);
@@ -257,7 +272,7 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   flash_fwd<T, HD, kWindow><<<grid, kBlockQ, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Sk, H / KV,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Sk, H / KV,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
       window, scale);
@@ -267,41 +282,40 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
 // the global instance for window 0, the windowed one otherwise
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int Sk, int H, int KV, const long long* st,
-                   int causal, int window, float scale, cudaStream_t stream) {
+                   float* lse, int B, int S, int Sk, int H, int KV,
+                   const long long* st, int causal, int window, float scale,
+                   cudaStream_t stream) {
   return window > 0
-             ? launch_as<T, HD, true>(q, k, v, o, B, S, Sk, H, KV, st, causal,
-                                      window, scale, stream)
-             : launch_as<T, HD, false>(q, k, v, o, B, S, Sk, H, KV, st, causal,
-                                       window, scale, stream);
+             ? launch_as<T, HD, true>(q, k, v, o, lse, B, S, Sk, H, KV, st,
+                                      causal, window, scale, stream)
+             : launch_as<T, HD, false>(q, k, v, o, lse, B, S, Sk, H, KV, st,
+                                       causal, window, scale, stream);
 }
 
 // float32 at every head dim
 cudaError_t launch_f32(int hd, const void* q, const void* k, const void* v,
-                       void* o, int B, int S, int Sk, int H, int KV,
-                       const long long* st, int causal, int window,
+                       void* o, float* lse, int B, int S, int Sk, int H,
+                       int KV, const long long* st, int causal, int window,
                        float scale, cudaStream_t stream) {
   switch (hd) {
     case 8:
-      return launch<float, 8>(q, k, v, o, B, S, Sk, H, KV, st, causal, window,
-                              scale, stream);
+      return launch<float, 8>(q, k, v, o, lse, B, S, Sk, H, KV, st, causal,
+                              window, scale, stream);
     case 16:
-      return launch<float, 16>(q, k, v, o, B, S, Sk, H, KV, st, causal, window,
-                               scale, stream);
+      return launch<float, 16>(q, k, v, o, lse, B, S, Sk, H, KV, st, causal,
+                               window, scale, stream);
     case 32:
-      return launch<float, 32>(q, k, v, o, B, S, Sk, H, KV, st, causal, window,
-                               scale, stream);
+      return launch<float, 32>(q, k, v, o, lse, B, S, Sk, H, KV, st, causal,
+                               window, scale, stream);
     case 64:
-      return launch<float, 64>(q, k, v, o, B, S, Sk, H, KV, st, causal, window,
-                               scale, stream);
+      return launch<float, 64>(q, k, v, o, lse, B, S, Sk, H, KV, st, causal,
+                               window, scale, stream);
     case 128:
-      return launch<float, 128>(q, k, v, o,
-                                B, S, Sk, H, KV, st, causal, window,
-                                scale, stream);
+      return launch<float, 128>(q, k, v, o, lse, B, S, Sk, H, KV, st, causal,
+                                window, scale, stream);
     case 256:
-      return launch<float, 256>(q, k, v, o,
-                                B, S, Sk, H, KV, st, causal, window,
-                                scale, stream);
+      return launch<float, 256>(q, k, v, o, lse, B, S, Sk, H, KV, st, causal,
+                                window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -584,10 +598,9 @@ __global__ void __launch_bounds__(Split<HD>::kBlockThreads)
 flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int S, int Sk, int G,
-                Strides sq,
-                Strides sk, Strides sv, Strides so, int causal, int window,
-                float scale) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int S, int Sk, int G, Strides sq, Strides sk, Strides sv,
+                Strides so, int causal, int window, float scale) {
   using T = Tile<HD>;
   using P = Split<HD>;
   extern __shared__ unsigned char smem_raw[];
@@ -749,6 +762,9 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < P::kN / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(op + 8 * i) = __floats2bfloat162_rn(
           acc[4 * i + 2 * j] / denom, acc[4 * i + 2 * j + 1] / denom);
+    // [B, H, S]: gridDim.x is H; one writer a row
+    if (lse && g == 0 && lane % 4 == 0)
+      lse[((long long)b * gridDim.x + h) * S + row] = m[j] + logf(denom);
   }
 }
 
@@ -759,9 +775,9 @@ size_t smem_bytes() {
 
 template <int HD, bool kWindow>
 cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
-                      int B, int S, int Sk, int H, int KV, const long long* st,
-                      int causal, int window, float scale,
-                      cudaStream_t stream) {
+                      float* lse, int B, int S, int Sk, int H, int KV,
+                      const long long* st, int causal, int window,
+                      float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma<HD, kWindow>,
@@ -773,7 +789,7 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      S, Sk, H / KV, Strides{st[0], st[1], st[2]},
+      lse, S, Sk, H / KV, Strides{st[0], st[1], st[2]},
       Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
       window, scale);
@@ -783,12 +799,13 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
 // the global instance for window 0, the windowed one otherwise
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int Sk, int H, int KV, const long long* st,
-                   int causal, int window, float scale, cudaStream_t stream) {
-  return window > 0 ? launch_as<HD, true>(q, k, v, o, B, S, Sk, H, KV, st,
-                                          causal, window, scale, stream)
-                    : launch_as<HD, false>(q, k, v, o, B, S, Sk, H, KV, st,
-                                           causal, window, scale, stream);
+                   float* lse, int B, int S, int Sk, int H, int KV,
+                   const long long* st, int causal, int window, float scale,
+                   cudaStream_t stream) {
+  return window > 0 ? launch_as<HD, true>(q, k, v, o, lse, B, S, Sk, H, KV,
+                                          st, causal, window, scale, stream)
+                    : launch_as<HD, false>(q, k, v, o, lse, B, S, Sk, H, KV,
+                                           st, causal, window, scale, stream);
 }
 
 }  // namespace wg
@@ -798,11 +815,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // 256; 1: bfloat16 at hd 8 only (the wgmma instance takes bf16 at 16-256).
 // S query rows, Sk keys. strides: 12 element strides, (b, s, head) of q,
 // k, v and o in turn. window: 0 for global attention, else keys with
-// dq - dk < window only. Returns cudaGetLastError() of the launch.
+// dq - dk < window only. lse: null, or f32 [B, H, S], contiguous, for each
+// row's log-sum-exp. Returns cudaGetLastError() of the launch.
 extern "C" int flash_attention_launch(int device, int dtype, int hd,
                                       const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int Sk, int H, int KV,
+                                      const void* v, void* o, float* lse,
+                                      int B, int S, int Sk, int H, int KV,
                                       const long long* strides, int causal,
                                       int window, float scale,
                                       cudaStream_t stream) {
@@ -813,11 +831,12 @@ extern "C" int flash_attention_launch(int device, int dtype, int hd,
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (dtype == 0)
-    return (int)launch_f32(hd, q, k, v, o, B, S, Sk, H, KV, strides, causal,
-                           window, scale, stream);
+    return (int)launch_f32(hd, q, k, v, o, lse, B, S, Sk, H, KV, strides,
+                           causal, window, scale, stream);
   if (dtype == 1 && hd == 8)
-    return (int)launch<__nv_bfloat16, 8>(q, k, v, o, B, S, Sk, H, KV, strides,
-                                         causal, window, scale, stream);
+    return (int)launch<__nv_bfloat16, 8>(q, k, v, o, lse, B, S, Sk, H, KV,
+                                         strides, causal, window, scale,
+                                         stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -826,8 +845,9 @@ extern "C" int flash_attention_launch(int device, int dtype, int hd,
 // of 8 elements. Arguments as flash_attention_launch without the dtype.
 extern "C" int flash_attention_wgmma_launch(int device, int hd,
                                             const void* q, const void* k,
-                                            const void* v, void* o, int B,
-                                            int S, int Sk, int H, int KV,
+                                            const void* v, void* o,
+                                            float* lse, int B, int S, int Sk,
+                                            int H, int KV,
                                             const long long* strides,
                                             int causal, int window,
                                             float scale,
@@ -840,20 +860,20 @@ extern "C" int flash_attention_wgmma_launch(int device, int hd,
   if (e != cudaSuccess) return (int)e;
   switch (hd) {
     case 16:
-      return (int)wg::launch<16>(q, k, v, o, B, S, Sk, H, KV, strides, causal,
-                                 window, scale, stream);
+      return (int)wg::launch<16>(q, k, v, o, lse, B, S, Sk, H, KV,
+                                 strides, causal, window, scale, stream);
     case 32:
-      return (int)wg::launch<32>(q, k, v, o, B, S, Sk, H, KV, strides, causal,
-                                 window, scale, stream);
+      return (int)wg::launch<32>(q, k, v, o, lse, B, S, Sk, H, KV,
+                                 strides, causal, window, scale, stream);
     case 64:
-      return (int)wg::launch<64>(q, k, v, o, B, S, Sk, H, KV, strides, causal,
-                                 window, scale, stream);
+      return (int)wg::launch<64>(q, k, v, o, lse, B, S, Sk, H, KV,
+                                 strides, causal, window, scale, stream);
     case 128:
-      return (int)wg::launch<128>(q, k, v, o, B, S, Sk, H, KV, strides, causal,
-                                  window, scale, stream);
+      return (int)wg::launch<128>(q, k, v, o, lse, B, S, Sk, H, KV,
+                                  strides, causal, window, scale, stream);
     case 256:
-      return (int)wg::launch<256>(q, k, v, o, B, S, Sk, H, KV, strides, causal,
-                                  window, scale, stream);
+      return (int)wg::launch<256>(q, k, v, o, lse, B, S, Sk, H, KV,
+                                  strides, causal, window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -30,6 +30,15 @@ Pallas kernel does not. It is allowed only non-causal and with no
 window: the reference runs neither mask at Sk != S, and both compare a
 query's position with a key's, which cross-attention does not share.
 
+``return_lse`` (``flash_attention_gqa`` and its plain version): also
+return each query row's log-sum-exp ``m + log(max(l, 1e-30))`` of the
+scaled scores, f32 ``[B, H, S]``, which the training backward reads
+(``models/layers.py``; the reference's ``_flash_fwd`` returns the same
+``lse``). B4 computes no gradient: the wrapper raises where grad mode is
+on and q, k or v requires grad, so that autograd never meets a result
+with no history. Training reaches it through the autograd Function of
+``models/layers.py``, whose forward runs with grad mode off.
+
 ``window`` (both entry points, both instances): 0 is global attention;
 ``w > 0`` keeps a key at position dk for the query at dq only where
 ``dq - dk < w``, on top of the causal test where ``causal`` (the
@@ -81,9 +90,10 @@ def _band_start(q0: int, window: int) -> int:
 
 def flash_attention_gqa_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
-                              window: int = 0) -> torch.Tensor:
+                              window: int = 0, return_lse: bool = False):
     """The kernel's function in PyTorch, in its tiles: q [B, S, H, hd],
-    k, v [B, Sk, KV, hd] -> [B, S, H, hd] in q's dtype."""
+    k, v [B, Sk, KV, hd] -> [B, S, H, hd] in q's dtype, and with
+    ``return_lse`` also the rows' log-sum-exp, f32 [B, H, S]."""
     B, S, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -91,6 +101,7 @@ def flash_attention_gqa_plain(q: torch.Tensor, k: torch.Tensor,
     qf = q.reshape(B, S, KV, G, hd).float()
     kf, vf = k.float(), v.float()
     out = torch.empty_like(q)
+    lse = torch.empty((B, KV, G, S), dtype=torch.float32, device=q.device)
     for q0 in range(0, S, BLOCK_Q):
         qt = qf[:, q0:q0 + BLOCK_Q]                       # [B, bq, KV, G, hd]
         bq = qt.shape[1]
@@ -117,10 +128,12 @@ def flash_attention_gqa_plain(q: torch.Tensor, k: torch.Tensor,
             acc = acc * alpha[..., None] + torch.einsum(
                 "bkgqs,bskd->bkgqd", p.to(v.dtype).float(), vt)
             m = m_new
-        o = acc / torch.clamp(l, min=1e-30)[..., None]   # [B, KV, G, bq, hd]
+        denom = torch.clamp(l, min=1e-30)
+        o = acc / denom[..., None]                        # [B, KV, G, bq, hd]
         out[:, q0:q0 + bq] = o.permute(0, 3, 1, 2, 4).reshape(
             B, bq, H, hd).to(q.dtype)
-    return out
+        lse[..., q0:q0 + bq] = m + torch.log(denom)
+    return (out, lse.view(B, H, S)) if return_lse else out
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,7 +145,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      window=window).squeeze(2)
 
 
-_TAIL = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+# q, k, v, o, lse (or null), B, S, Sk, H, KV, strides, causal, window,
+# scale, stream
+_TAIL = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_void_p]
 # design -> (C symbol, argtypes): simt takes (device, dtype, hd, ...),
@@ -167,32 +182,43 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: int = 0
-                        ) -> torch.Tensor:
+                        *, causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
     """q [B, S, H, hd], k, v [B, Sk, KV, hd] (float32 or bfloat16, hd in
     ``HEAD_DIMS``, each with a contiguous last dim) -> [B, S, H, hd];
     ``window`` 0 (global) or the sliding window's width. Sk != S only
-    non-causal with no window (cross-attention).
+    non-causal with no window (cross-attention). With ``return_lse``,
+    (out, lse f32 [B, H, S]). Raises ``RuntimeError`` where grad mode is
+    on and q, k or v requires grad (B4 has no backward of its own).
 
     CPU tensors run ``flash_attention_gqa_plain``; CUDA tensors launch
     the instance ``design`` names (counted in
     ``flash_attention_gqa.launches`` and, by design, in
     ``flash_attention_gqa.launches_by_design``; those with a window
     narrower than S also in ``flash_attention_gqa.launches_windowed``,
-    and those at Sk != S in ``flash_attention_gqa.launches_cross``) or
+    those at Sk != S in ``flash_attention_gqa.launches_cross``, and those
+    that write the lse in ``flash_attention_gqa.launches_lse``) or
     raise."""
     if q.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} must be [B, S, H, hd]")
     _check(q, k, v, causal, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_gqa computes no gradient: train through "
+            "repro_torch.models.layers.blockwise_attention, whose autograd "
+            "Function runs B4 forward and the backward beside it")
     if on_cpu(q, k, v, contiguous=False):
         return flash_attention_gqa_plain(q, k, v, causal=causal,
-                                         window=window)
+                                         window=window,
+                                         return_lse=return_lse)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("kernel inputs need a contiguous head_dim")
     B, S, H, hd = q.shape
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     which = design(q.dtype, hd)
     symbol, argtypes = _SYMBOLS[which]
     fn = _build.kernel("flash_attention", symbol, argtypes)
@@ -208,19 +234,22 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.device.index, _DTYPES[q.dtype], hd)
     # a window as wide as S keeps every key: the global path, unchanged
     _build.check("flash_attention", fn(
-        *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-        S, k.shape[1], H, k.shape[2], strides, int(causal),
-        window if window < S else 0, 1.0 / math.sqrt(hd), stream_of(out)))
+        *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, S, k.shape[1], H,
+        k.shape[2], strides, int(causal), window if window < S else 0,
+        1.0 / math.sqrt(hd), stream_of(out)))
     also = "launches_windowed" if 0 < window < S else (
         "launches_cross" if k.shape[1] != S else None)
-    _build.count_launch(flash_attention_gqa, which, also)
-    return out
+    _build.count_launch(flash_attention_gqa, which, also,
+                        "launches_lse" if return_lse else None)
+    return (out, lse) if return_lse else out
 
 
 flash_attention_gqa.launches = 0
 flash_attention_gqa.launches_by_design = dict.fromkeys(DESIGNS, 0)
 flash_attention_gqa.launches_windowed = 0   # of them, with a window < S
 flash_attention_gqa.launches_cross = 0      # of them, at Sk != S
+flash_attention_gqa.launches_lse = 0        # of them, writing the lse
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

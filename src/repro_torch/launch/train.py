@@ -1,0 +1,76 @@
+"""Training launcher on one device: the port of ``repro.launch.train``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
+        --steps 100 --seq-len 128 --batch 8 --ckpt-dir build/train/run1 \
+        [--smoke] [--lr 3e-4] [--microbatches 1] [--int8-opt] \
+        [--ckpt-every 100] [--device cuda]
+
+The reference's flags, plus ``--device`` (the CUDA card by default;
+``--device cpu`` runs the kernels' plain versions). Random weights from
+seed 0 and the Zipf batches of ``SyntheticLMData``. Restart the command
+to resume from the latest checkpoint in ``--ckpt-dir``; SIGTERM makes a
+synchronous final checkpoint. The transformer families train; rwkv6-7b
+and zamba2-1.2b are refused before any work (ROADMAP A9.7). ``main``
+returns the ``Trainer`` (params, optimizer state, per-step ``history``).
+"""
+import argparse
+import os
+import signal
+import tempfile
+
+import torch
+
+from repro_torch.configs.base import OptimizerConfig, TrainConfig
+from repro_torch.configs.registry import (ARCH_NAMES, get_config,
+                                          get_smoke_config)
+from repro_torch.train.loop import Trainer
+from repro_torch.train.optimizer import flatten
+
+
+def main(argv=None) -> Trainer:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list(ARCH_NAMES), required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config (CPU-trainable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--int8-opt", action="store_true")
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_train"))
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family in ("ssm", "hybrid"):
+        raise SystemExit(f"{args.arch}: {cfg.family} training is not ported "
+                         "yet (ROADMAP A9.7)")
+    tc = TrainConfig(
+        model=cfg,
+        opt=OptimizerConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
+                            total_steps=args.steps,
+                            int8_states=args.int8_opt),
+        seq_len=args.seq_len, global_batch=args.batch,
+        microbatches=args.microbatches,
+        checkpoint_every=args.ckpt_every, checkpoint_dir=args.ckpt_dir)
+    trainer = Trainer(tc, device=args.device)
+    previous = trainer.install_preemption_hook()
+    n_params = sum(p.numel() for _, p in flatten(trainer.params))
+    where = (torch.cuda.get_device_name(trainer.device)
+             if trainer.device.type == "cuda" else "cpu")
+    print(f"[train] {cfg.name}: {n_params:,} params, {args.steps} steps "
+          f"on {where}")
+    try:
+        metrics = trainer.run(args.steps)
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+        trainer.close()
+    print(f"[train] final metrics: {metrics}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

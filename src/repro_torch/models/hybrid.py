@@ -27,7 +27,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
-from repro_torch.models.transformer import MODES, _self_attn
+from repro_torch.models.transformer import _self_attn
+
+
+MODES = ("prefill", "decode")
 
 
 def segments(cfg: ModelConfig) -> List[Tuple[int, int]]:
@@ -98,8 +101,10 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     given, else zeros); in decode it is ``caches``, updated in place at
     ``cur_index``. ``last_only`` unembeds only the last position."""
     if mode not in MODES:
-        raise NotImplementedError(f"mode {mode!r}: training is not ported "
-                                  "yet (ROADMAP A9)")
+        raise NotImplementedError(
+            f"mode {mode!r}: {cfg.family} training is not ported yet "
+            "(ROADMAP A9.7: under autograd the chunked scan would keep "
+            "the SSD scan's f32 intermediates a layer)")
     x = L.embed_apply(params["embed"], batch["tokens"])
     B, S = x.shape[:2]
     single = mode == "decode"

@@ -11,7 +11,11 @@ activation dtype where they are added. Prefill attention is kernel B4
 (``kernels/flash_attention.py``), and so is cross-attention onto image
 tokens (keys of their own length) in prefill and decode; decode self-
 attention, the projections and the FFN are plain PyTorch, as the
-reference leaves them to XLA. The FFN is SwiGLU or, for musicgen, a
+reference leaves them to XLA. In training, ``blockwise_attention`` goes
+through an autograd Function: B4 forward with its log-sum-exp, and the
+reference's ``_flash_b`` backward in plain PyTorch (its Pallas kernel is
+forward only, and the reference trains through jnp). The loss is
+``softmax_cross_entropy``. The FFN is SwiGLU or, for musicgen, a
 two-matrix GELU. The recurrent archs (``rwkv6``, ``mamba2``) share
 ``silu`` and ``chunk_split``.
 """
@@ -128,12 +132,95 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: int = 0) -> torch.Tensor:
-    """Prefill attention, q [B, S, H, hd], k, v [B, Sk, KV, hd] ->
-    [B, S, H, hd]; ``window > 0`` keeps only the last ``window``
+    """Prefill and training attention, q [B, S, H, hd], k, v [B, Sk, KV,
+    hd] -> [B, S, H, hd]; ``window > 0`` keeps only the last ``window``
     positions (gemma3's local layers); Sk != S is cross-attention,
     non-causal: kernel B4 (the reference computes the same function with
-    its jnp blockwise attention)."""
+    its jnp blockwise attention). Where grad mode is on and q, k or v
+    requires grad, through ``Attention`` (B4 with its lse, and
+    ``attention_bwd``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return Attention.apply(q, k, v, causal, window)
     return flash_attention_gqa(q, k, v, causal=causal, window=window)
+
+
+class Attention(torch.autograd.Function):
+    """The reference's ``_flash`` custom VJP (``repro.models.layers``):
+    forward B4 with ``return_lse`` (on the CPU its plain version), which
+    runs with grad mode off as every Function's forward does; it saves q,
+    k, v, the output and the lse, and the backward is ``attention_bwd``.
+    Under per-layer remat (``models/rematcfg.py``) the forward runs again
+    in the backward pass, B4 included."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_gqa(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, out, lse, dout,
+                                   causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+BWD_BLOCK_K = 512        # keys a backward step, the reference's block_kv
+
+
+def attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                  window: int = 0):
+    """dq, dk, dv of attention, the reference's ``_flash_b`` in plain
+    PyTorch: q, out, dout [B, S, H, hd], k, v [B, Sk, KV, hd], lse f32
+    [B, H, S] (the forward's, in scaled-score units). One block of
+    ``BWD_BLOCK_K`` keys at a time, in f32: ``delta = Σ dout·out``, ``p =
+    exp(s - lse)`` under the forward's mask, ``ds = p·(dp - delta)·
+    scale``; dq accumulates over the blocks, dk and dv sum over the G
+    query heads of each kv head; each is cast to its input's dtype.
+    Query rows that no key of a block can reach (above the diagonal,
+    below the window's band) are left out of that block's products: their
+    ``p`` is exactly 0 there."""
+    B, S, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.reshape(B, S, KV, G, hd).float()
+    do = dout.reshape(B, S, KV, G, hd).float()
+    delta = (do * out.reshape(B, S, KV, G, hd).float()).sum(-1)
+    lse_r = lse.view(B, KV, G, S).permute(0, 3, 1, 2)     # [B, S, KV, G]
+    dq = torch.zeros_like(qf)
+    dk = torch.empty((B, Sk, KV, hd), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for k0 in range(0, Sk, BWD_BLOCK_K):
+        k1 = min(Sk, k0 + BWD_BLOCK_K)
+        # the query rows [r0, r1) that see a key of [k0, k1)
+        r0 = k0 if causal else 0
+        r1 = min(S, k1 - 1 + window) if window > 0 else S
+        kb, vb = k[:, k0:k1].float(), v[:, k0:k1].float()
+        if r0 >= r1:
+            dk[:, k0:k1] = 0.0
+            dv[:, k0:k1] = 0.0
+            continue
+        qb, dob = qf[:, r0:r1], do[:, r0:r1]
+        s = torch.einsum("bqkgd,bskd->bqkgs", qb, kb) * scale
+        if causal or window > 0:
+            d = (torch.arange(r0, r1, device=q.device)[:, None]
+                 - torch.arange(k0, k1, device=q.device)[None, :])
+            keep = d >= 0 if causal else torch.ones_like(d, dtype=torch.bool)
+            if window > 0:
+                keep &= d < window
+            s = torch.where(keep[None, :, None, None, :], s, NEG_INF)
+        p = torch.exp(s - lse_r[:, r0:r1, ..., None])
+        dp = torch.einsum("bqkgd,bskd->bqkgs", dob, vb)
+        ds = p * (dp - delta[:, r0:r1, ..., None]) * scale
+        dv[:, k0:k1] = torch.einsum("bqkgs,bqkgd->bskd", p, dob)
+        dk[:, k0:k1] = torch.einsum("bqkgs,bqkgd->bskd", ds, qb)
+        dq[:, r0:r1] += torch.einsum("bqkgs,bskd->bqkgd", ds, kb)
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -239,3 +326,23 @@ def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ (p["head"] if "head" in p else p["table"].T)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Mean of ``mask``-weighted token NLL, as the reference's: logits
+    [B, S, V] in the model's dtype, labels [B, S] integers, mask [B, S]
+    f32. The max is taken without gradient and subtracted in the logits'
+    dtype; exp and the sum over V in f32. The label's log-probability is
+    a gather where the reference contracts with a one-hot (for its
+    vocab-sharded mesh): on one card the two are the same numbers, values
+    and gradients, bit for bit (every other term of the contraction is
+    ±0; tests/test_torch_train.py holds them so)."""
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    shifted = logits - m
+    sf = shifted.float()
+    m0 = m[..., 0].float()
+    lse = torch.log(torch.exp(sf).sum(dim=-1)) + m0
+    ll = sf.gather(-1, labels.long()[..., None])[..., 0] + m0
+    nll = (lse - ll) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,8 +1,10 @@
 """Family dispatcher: the port of ``repro.models.model``.
 
     params            = init(cfg, seed=seed, device=device)
+    logits, aux, _    = apply_train(params, cfg, batch)
     logits, _, kv     = apply_prefill(params, cfg, batch)
     logits, _, cache  = apply_decode(params, cfg, batch, cache, idx)
+    loss, (ce, aux)   = loss_fn(params, cfg, batch)
 
 Transformer families (``dense``, ``moe``, ``vlm`` and ``audio``,
 ``models/transformer.py``), ``ssm`` (rwkv6, ``models/rwkv6.py``) and
@@ -10,7 +12,9 @@ Transformer families (``dense``, ``moe``, ``vlm`` and ``audio``,
 what its family carries into decode: every layer's k and v
 (transformers; the VLM adds its cross layers' image k and v), the
 recurrent state (ssm), or the Mamba state and every site's k and v
-(hybrid); ``serve.step.generate`` turns it into a decode cache.
+(hybrid); ``serve.step.generate`` turns it into a decode cache. Training
+(``apply_train``, ``loss_fn``) is the transformer families'; ``ssm`` and
+``hybrid`` raise ``NotImplementedError`` there (ROADMAP A9.7).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import hybrid, rwkv6, transformer
+from repro_torch.models.layers import softmax_cross_entropy
 
 
 def _mod(cfg: ModelConfig):
@@ -38,6 +43,30 @@ def init(cfg: ModelConfig, *, seed: int = 0,
     device = resolve(device)
     return _mod(cfg).init(torch.Generator(device=device).manual_seed(seed),
                           cfg)
+
+
+def apply_train(params, cfg: ModelConfig, batch, remat=True):
+    """The training forward: (logits [B, S, V], the MoE aux, None), each
+    layer under the remat policy ``remat`` names (``models/rematcfg``)."""
+    if _mod(cfg) is not transformer:
+        # raises: the recurrent families do not train yet
+        return _mod(cfg).forward(params, cfg, batch, mode="train")
+    return transformer.forward(params, cfg, batch, mode="train",
+                               remat=remat)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, remat=True):
+    """Next-token cross-entropy + 0.01 x the MoE aux, and (ce, aux): the
+    reference's. Targets are ``batch["labels"]`` where the batch has them
+    (embeddings in: musicgen), else the tokens shifted by one."""
+    logits, aux, _ = apply_train(params, cfg, batch, remat=remat)
+    if "labels" in batch:
+        labels, lg = batch["labels"], logits
+    else:
+        labels, lg = batch["tokens"][:, 1:], logits[:, :-1]
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    ce = softmax_cross_entropy(lg, labels, mask)
+    return ce + 0.01 * aux, (ce, aux)
 
 
 def apply_prefill(params, cfg: ModelConfig, batch, last_only: bool = False):

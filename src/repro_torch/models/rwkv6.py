@@ -243,8 +243,10 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     ``caches``, updated in place. ``cur_index`` is unused (the state is
     the position). ``last_only`` unembeds only the last position."""
     if mode not in MODES:
-        raise NotImplementedError(f"mode {mode!r}: training is not ported "
-                                  "yet (ROADMAP A9)")
+        raise NotImplementedError(
+            f"mode {mode!r}: {cfg.family} training is not ported yet "
+            "(ROADMAP A9.7: under autograd the chunked scan would keep "
+            "WKV's f32 decay tensor, 4.3 GB a layer at full size)")
     x = L.embed_apply(params["embed"], batch["tokens"])
     B = x.shape[0]
     state = caches if caches is not None else \

@@ -25,13 +25,18 @@ the cross layer's own FFN. Its decode cache carries those k and v
 at one query. The audio arch (musicgen) takes ``batch["embeds"]`` (frame
 embeddings from its stub frontend) in place of tokens where it is given.
 
-On one card the reference's mesh context (``distributed/meshctx``), its
-perf flags (``models/perfcfg``: the ones on this path act only on a mesh
-or on gemma3, but for ``router_bf16_matmul``, whose default the MoE
-block keeps) and its remat policy (``models/rematcfg``: training only)
-have nothing to do, so ``forward`` takes no ``ctx``; nor does its
-``banded_local`` flag (off by default), so local layers run the
-reference's default path, blockwise attention with the window mask.
+Training (``mode="train"``) runs the prefill's forward without
+collecting k and v, each layer (and each VLM cross layer) under the
+remat policy ``remat`` names (``models/rematcfg.py``: per-layer
+``torch.utils.checkpoint``), and returns the MoE layers' summed aux; its
+attention is ``layers.blockwise_attention``'s autograd Function.
+
+On one card the reference's mesh context (``distributed/meshctx``) and
+its perf flags (``models/perfcfg``: the ones on this path act only on a
+mesh or on gemma3, but for ``router_bf16_matmul``, whose default the MoE
+block keeps) have nothing to do, so ``forward`` takes no ``ctx``; nor
+does its ``banded_local`` flag (off by default), so local layers run
+the reference's default path, blockwise attention with the window mask.
 Logit-softcap configs raise ``NotImplementedError`` (no config of the
 repo sets one).
 """
@@ -45,8 +50,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rematcfg
 
-MODES = ("prefill", "decode")
+MODES = ("prefill", "decode", "train")
 FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
@@ -137,13 +143,13 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def _self_attn(pb, x, cfg, *, positions, window, mode, cache=None,
                cur_index=None):
     """Returns (attn_out, (k, v)): the rotated k and v of this call in
-    prefill, the updated caches in decode. ``window``: the layer's
-    (0 = global)."""
+    prefill and train, the updated caches in decode. ``window``: the
+    layer's (0 = global)."""
     ap = pb["attn"]
     q, k, v = L.attn_qkv(ap, L.rms_norm(x, pb["ln1"], cfg.norm_eps), cfg)
     q = L.rope(q, positions, cfg.rope_theta)
     k_rot = L.rope(k, positions, cfg.rope_theta)
-    if mode == "prefill":
+    if mode != "decode":
         out = L.blockwise_attention(q, k_rot, v, causal=True, window=window)
         new_kv = (k_rot, v)
     else:           # decode: cache = (k_cache, v_cache) [B, S_max, KV, hd]
@@ -207,12 +213,21 @@ def _mlp_or_moe(pb, x, cfg):
     return x + L.ffn_apply(pb["mlp"], h), None
 
 
+def _train_layer(pb, x, cfg, positions, window):
+    """One self-attention layer of a training forward: (x, its aux or
+    None)."""
+    attn_out, _ = _self_attn(pb, x, cfg, positions=positions, window=window,
+                             mode="train")
+    return _mlp_or_moe(pb, x + attn_out, cfg)
+
+
 # ---------------------------------------------------------------------------
-# forward: prefill / decode
+# forward: prefill / decode / train
 # ---------------------------------------------------------------------------
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             mode: str = "prefill", caches: Optional[dict] = None,
-            cur_index: Optional[int] = None, last_only: bool = False):
+            cur_index: Optional[int] = None, last_only: bool = False,
+            remat=True):
     """batch: ``{"tokens": [B, S]}`` (``S == 1`` in decode), or with
     ``cfg.embeds_input`` ``{"embeds": [B, S, d]}``; the VLM's prefill
     also takes ``"image_embeds"`` [B, n_image_tokens, d]. Returns
@@ -221,12 +236,13 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     every self layer's rotated k and v, ``[n_layers, B, S, KV, hd]``, and
     for the VLM each cross layer's image k and v as ``img_k`` and
     ``img_v``, ``[n_cross, B, n_img, KV, hd]``; in decode it is
-    ``caches``, updated in place at ``cur_index``. ``last_only``
-    unembeds only the last position (its logits are the same)."""
+    ``caches``, updated in place at ``cur_index``; in train it is
+    ``None``. ``last_only`` unembeds only the last position (its logits
+    are the same). ``remat`` (train only): ``True`` (the default
+    policy), ``False`` or a policy name of ``models/rematcfg.py``."""
     check_supported(cfg)
     if mode not in MODES:
-        raise NotImplementedError(f"mode {mode!r}: training is not ported "
-                                  "yet (ROADMAP A9)")
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
     if cfg.embeds_input and "embeds" in batch:
         x = batch["embeds"].to(getattr(torch, cfg.dtype))
     else:
@@ -247,12 +263,22 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         img_k, img_v = (caches["img_k"], caches["img_v"]) \
             if mode == "decode" else \
             _image_kv(params["cross_blocks"], batch["image_embeds"], cfg)
+    train = mode == "train"
+    if train:
+        layer = rematcfg.wrap(_train_layer, remat)
+        cross = rematcfg.wrap(_cross_attn, remat)
+    else:
+        cross = _cross_attn
     for i, pb in enumerate(params["blocks"]):
-        cache = (caches["k"][i], caches["v"][i]) if mode == "decode" else None
-        attn_out, (k, v) = _self_attn(pb, x, cfg, positions=positions,
-                                      window=windows[i], mode=mode,
-                                      cache=cache, cur_index=cur_index)
-        x, aux_l = _mlp_or_moe(pb, x + attn_out, cfg)
+        if train:
+            x, aux_l = layer(pb, x, cfg, positions, windows[i])
+        else:
+            cache = (caches["k"][i], caches["v"][i]) if mode == "decode" \
+                else None
+            attn_out, (k, v) = _self_attn(pb, x, cfg, positions=positions,
+                                          window=windows[i], mode=mode,
+                                          cache=cache, cur_index=cur_index)
+            x, aux_l = _mlp_or_moe(pb, x + attn_out, cfg)
         if aux_l is not None:
             aux = aux + aux_l
         if mode == "prefill":
@@ -260,10 +286,10 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             vs.append(v)
         if cfg.family == "vlm" and i % per == per - 1:
             j = i // per
-            x = _cross_attn(params["cross_blocks"][j], x,
-                            (img_k[j], img_v[j]), cfg)
+            x = cross(params["cross_blocks"][j], x, (img_k[j], img_v[j]),
+                      cfg)
     kv = {"k": torch.stack(ks), "v": torch.stack(vs)} \
-        if mode == "prefill" else caches
+        if mode == "prefill" else (None if train else caches)
     if cfg.family == "vlm" and mode == "prefill":
         kv.update(img_k=img_k, img_v=img_v)
     if last_only:

@@ -1,0 +1,203 @@
+"""AdamW: the port of ``repro.train.optimizer``.
+
+- f32 m and v by default;
+- ``int8_states``: m and v quantized to int8 in blocks of 128 along the
+  last axis, each block with an f32 absmax scale (``QTensor``); v is kept
+  in the square-root domain and its denominator floored by half a
+  quantum, so an entry that quantizes to 0 cannot blow up its update;
+- cosine LR schedule with linear warmup, decoupled weight decay, and a
+  global-norm clip.
+
+Params are the port's tree (dicts and lists of tensors, one dict a
+layer); the states mirror it, so the checkpoint manager treats them
+alike. ``flatten`` fixes the leaf order: dict keys sorted, as JAX orders
+them, list items in order. ``apply_updates`` updates params and states
+in place, leaf by leaf, so that a step holds one leaf's f32 temporaries
+at a time beside the params, grads and states (the reference returns
+new trees, which XLA writes into the donated buffers).
+
+The arithmetic is the reference's, operation for operation in f32 (a
+Python float scalar is rounded to f32 as JAX's weak types are;
+``torch.round`` rounds half to even, as ``jnp.round`` does).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import OptimizerConfig
+
+BLOCK = 128
+
+
+# ---------------------------------------------------------------------------
+# block-wise int8 quantization
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class QTensor:
+    q: torch.Tensor        # int8 payload, the tensor's shape
+    scale: torch.Tensor    # f32 per-block absmax / 127, shape[:-1] + (n,)
+    shape: Tuple[int, ...] = ()
+
+
+def _block_of(shape) -> int:
+    """Blocks run along the last axis (BLOCK wide where it divides the
+    axis, else the whole axis), so the payload has the tensor's shape."""
+    last = shape[-1] if shape else 1
+    return BLOCK if last % BLOCK == 0 else last
+
+
+def quantize_block(x: torch.Tensor) -> QTensor:
+    shape = tuple(x.shape)
+    if not shape:
+        return QTensor(q=torch.zeros((), dtype=torch.int8, device=x.device),
+                       scale=x.abs().float()[None] / 127.0, shape=shape)
+    b = _block_of(shape)
+    xb = x.float().reshape(shape[:-1] + (shape[-1] // b, b))
+    absmax = xb.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(absmax / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
+    return QTensor(q=q.reshape(shape), scale=scale[..., 0], shape=shape)
+
+
+def _quantum_floor(t: QTensor) -> torch.Tensor:
+    """Half a quantum of each stored value (its error bound), in the
+    tensor's shape."""
+    if not t.shape:
+        return t.scale[0] * 0.5
+    b = _block_of(t.shape)
+    return torch.repeat_interleave(t.scale, b, dim=-1).reshape(t.shape) * 0.5
+
+
+def dequantize_block(t: QTensor) -> torch.Tensor:
+    if not t.shape:
+        return t.q.float() * t.scale[0]
+    b = _block_of(t.shape)
+    qb = t.q.float().reshape(t.shape[:-1] + (t.shape[-1] // b, b))
+    return (qb * t.scale[..., None]).reshape(t.shape)
+
+
+# ---------------------------------------------------------------------------
+# trees: dicts and lists of tensors (or QTensors)
+# ---------------------------------------------------------------------------
+def flatten(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
+    """[(path, leaf)]: dict keys sorted, list items in order; a QTensor
+    is a leaf."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in flatten(tree[k],
+                                                           prefix + (k,))]
+    if isinstance(tree, list):
+        return [kv for i, t in enumerate(tree)
+                for kv in flatten(t, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same places of
+    ``rest``), in ``flatten``'s order; the same structure back."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map(fn, t, *(r[i] for r in rest))
+                for i, t in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def unflatten(like, leaves):
+    """``like``'s structure with ``leaves`` in ``flatten``'s order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+# ---------------------------------------------------------------------------
+# schedule
+# ---------------------------------------------------------------------------
+def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
+    step = step.float()
+    warm = cfg.lr * step / max(cfg.warmup_steps, 1)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * \
+        (1 + torch.cos(math.pi * t))
+    return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+def init_state(cfg: OptimizerConfig, params) -> dict:
+    """{"step": int32 0, "m", "v": zeros in the params' tree, f32 or
+    QTensor}, on the params' device."""
+    def zeros_like_state(p):
+        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return quantize_block(z) if cfg.int8_states else z
+    device = flatten(params)[0][1].device
+    return {"step": torch.zeros((), dtype=torch.int32, device=device),
+            "m": tree_map(zeros_like_state, params),
+            "v": tree_map(zeros_like_state, params)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(g.float().square().sum()
+                          for _, g in flatten(tree)))
+
+
+_NO_DECAY = ("norm", "ln", "bias", "b_", "mu_", "w0", "u", "scale",
+             "A_log", "D", "dt_bias")
+
+
+def decayable(name: str) -> bool:
+    """The reference's ``_decayable`` on a leaf's own name (its last path
+    key): no weight decay where the name holds any of ``_NO_DECAY`` as a
+    substring. So ``w_up`` and the MoE ``router`` (a ``u``) get none, and
+    the QKV biases ``bq``, ``bk``, ``bv`` do get it: the reference's set,
+    kept as it is."""
+    return not any(s in name for s in _NO_DECAY)
+
+
+@torch.no_grad()
+def apply_updates(cfg: OptimizerConfig, params, grads, state):
+    """One AdamW step, params and state updated in place. ``grads``: the
+    params' tree (any float dtype). Returns (params, state, {"lr",
+    "grad_norm"}), the norm before clipping."""
+    step = state["step"] + 1
+    lr = lr_schedule(cfg, step)
+    gnorm = global_norm(grads)
+    clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                       max=1.0)
+    b1, b2 = cfg.beta1, cfg.beta2
+    c1 = 1 - b1 ** step.float()
+    c2 = 1 - b2 ** step.float()
+    for (path, p), (_, g), (_, m), (_, v) in zip(
+            flatten(params), flatten(grads), flatten(state["m"]),
+            flatten(state["v"])):
+        g = g.float() * clip
+        if cfg.int8_states:
+            m_f = dequantize_block(m)
+            v_f = dequantize_block(v).square_()
+        else:
+            m_f, v_f = m, v
+        m_f.mul_(b1).add_((1 - b1) * g)
+        v_f.mul_(b2).add_((1 - b2) * g.square_())
+        mh = m_f / c1
+        if cfg.int8_states:
+            uq = quantize_block(torch.sqrt(v_f))
+            denom = dequantize_block(uq) / torch.sqrt(c2) \
+                + _quantum_floor(uq) + cfg.eps
+            delta = mh.div_(denom)
+            mq = quantize_block(m_f)
+            m.q.copy_(mq.q)
+            m.scale.copy_(mq.scale)
+            v.q.copy_(uq.q)
+            v.scale.copy_(uq.scale)
+        else:
+            delta = mh.div_(torch.sqrt(v_f / c2).add_(cfg.eps))
+        if cfg.weight_decay and decayable(str(path[-1])):
+            delta.add_(cfg.weight_decay * p.float())
+        p.copy_(p.float() - lr * delta)
+    state["step"].copy_(step)
+    return params, state, {"lr": lr, "grad_norm": gnorm}

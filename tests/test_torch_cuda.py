@@ -1641,3 +1641,148 @@ def test_multimodal_smoke_on_the_card_matches_the_cpu(dev, arch):
         + [4 * n_sb]
     for a, b in zip(runs["card"][:2], runs["cpu"][:2]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training: B4's log-sum-exp, and the autograd Function's gradients
+# ---------------------------------------------------------------------------
+# both sum the same f32 exps in another order; lse is ~1-10 at these
+# shapes and f32 keeps ~1e-6 of it
+LSE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (name, q shape, kv shape, causal, window): phase 8's shapes
+    ("qwen2 hd 64", (4, 1024, 14, 64), (4, 1024, 2, 64), True, 0),
+    ("qwen3 hd 128", (4, 1024, 32, 128), (4, 1024, 8, 128), True, 0),
+    ("gemma3 hd 256", (2, 2048, 8, 256), (2, 2048, 4, 256), True, 0),
+    ("gemma3 hd 256 window", (2, 2048, 8, 256), (2, 2048, 4, 256), True,
+     1024),
+    ("zamba2 G=1", (4, 1024, 32, 64), (4, 1024, 32, 64), True, 0),
+    ("vlm cross Sk 1600", (2, 1024, 64, 128), (2, 1600, 8, 128), False, 0),
+    ("S 1000 partial tile", (2, 1000, 8, 64), (2, 1000, 2, 64), True, 0),
+    ("hd 8", (2, 130, 4, 8), (2, 130, 2, 8), True, 0)],
+    ids=lambda c: c[0] if isinstance(c, tuple) else None)
+def test_lse_matches_plain_on_every_instance(dev, case, dtype):
+    """B4's lse (f32 [B, H, S]) against the plain version's on the same
+    card tensors within LSE_TOL, its output equal bit for bit to the call
+    without the lse, one launch counted as an lse launch under the
+    instance ``design`` names."""
+    _, q_shape, kv_shape, causal, window = case
+    q, k, v = (t.to(dev) for t in _attn_inputs(sum(q_shape), q_shape,
+                                                kv_shape, dtype))
+    which = fa.design(dtype, q_shape[-1])
+    by = fa.flash_attention_gqa.launches_by_design
+    before, lse_before = by[which], fa.flash_attention_gqa.launches_lse
+    out, lse = fa.flash_attention_gqa(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    assert by[which] == before + 1
+    assert fa.flash_attention_gqa.launches_lse == lse_before + 1
+    null = fa.flash_attention_gqa(q, k, v, causal=causal, window=window)
+    want, want_lse = fa.flash_attention_gqa_plain(
+        q, k, v, causal=causal, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    B, S, H, _ = q_shape
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    assert torch.equal(out, null)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=LSE_TOL)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+
+
+# the Function's dq, dk, dv against autograd through f32 attention,
+# relative Frobenius error: f32 sums in other orders (~4e-7 on the CPU);
+# bf16 inputs are the same values in both, but B4's bf16 output enters
+# delta = sum(dout * out) (~2e-3 on the CPU), and a 64-key tile dropped
+# for half the query rows moves them ~4e-2
+GRAD_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _dense_attention(q, k, v, drop_tile=False):
+    """Causal attention as one f32 softmax over [S, S] scores: (out, lse
+    [B, H, S]). ``drop_tile``: rows from 512 on miss keys 64-127."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    kk, vv = k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / np.sqrt(hd)
+    i = torch.arange(S, device=q.device)
+    keep = i[:, None] >= i[None, :]
+    if drop_tile:
+        keep &= ~((i[:, None] >= 512) & (i[None, :] >= 64)
+                  & (i[None, :] < 128))
+    s = s.masked_fill(~keep, -1e30)
+    return (torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vv),
+            torch.logsumexp(s, -1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_function_gradients_at_the_qwen3_layer_shape(dev, dtype):
+    """``layers.blockwise_attention`` under autograd (B4 with its lse,
+    then the plain backward) at qwen3-4b's training layer shape, against
+    autograd through f32 attention on the same inputs; in bf16 a planted
+    fault, a dropped key tile in the forward, breaks the limit."""
+    from repro_torch.models import layers
+    q, k, v = (t.to(dev) for t in _attn_inputs(
+        11, (4, 1024, 32, 128), (4, 1024, 8, 128), dtype))
+    dout = _attn_inputs(12, (4, 1024, 32, 128), (1, 1, 1, 1),
+                        dtype)[0].to(dev)
+    ref = [t.float().requires_grad_(True) for t in (q, k, v)]
+    _dense_attention(*ref)[0].backward(dout.float())
+    want = [t.grad for t in ref]
+
+    def errors():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = layers.blockwise_attention(*leaves)
+        assert out.grad_fn is not None
+        out.backward(dout)
+        return [float((t.grad.float() - w).norm() / w.norm())
+                for t, w in zip(leaves, want)]
+
+    before = fa.flash_attention_gqa.launches_lse
+    errs = errors()
+    assert fa.flash_attention_gqa.launches_lse == before + 1
+    assert max(errs) <= GRAD_REL_TOL[dtype], errs
+    if dtype == torch.bfloat16:
+        real = layers.flash_attention_gqa
+
+        def dropped(q, k, v, causal=True, window=0, return_lse=True):
+            out, lse = _dense_attention(q.float(), k.float(), v.float(),
+                                        drop_tile=True)
+            return out.to(q.dtype), lse
+        layers.flash_attention_gqa = dropped
+        try:
+            faulty = errors()
+        finally:
+            layers.flash_attention_gqa = real
+        assert max(faulty) > GRAD_REL_TOL[dtype], faulty
+
+
+def test_qwen3_smoke_trains_on_the_card_as_on_the_cpu(dev):
+    """The smoke qwen3 in f32: the loss and every gradient of one batch on
+    the card (B4 forward twice a layer: the step and remat's recompute)
+    within 1e-4 of the CPU's (plain attention; sums in other orders)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt
+    cfg = dataclasses.replace(registry.get_smoke_config("qwen3-4b"),
+                              dtype="float32")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32))
+    runs = []
+    for where in ("cpu", dev):
+        params = M.init(cfg, seed=0, device="cpu")
+        params = opt.tree_map(lambda t: t.to(where).requires_grad_(True),
+                              params)
+        before = fa.flash_attention_gqa.launches
+        loss, _ = M.loss_fn(params, cfg, {"tokens": tokens.to(where)})
+        leaves = [p for _, p in opt.flatten(params)]
+        grads = torch.autograd.grad(loss, leaves)
+        launched = fa.flash_attention_gqa.launches - before
+        runs.append((float(loss), [g.cpu() for g in grads], launched))
+    assert runs[0][2] == 0 and runs[1][2] == 2 * cfg.n_layers
+    assert runs[1][0] == pytest.approx(runs[0][0], rel=1e-4)
+    for a, b in zip(runs[1][1], runs[0][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
