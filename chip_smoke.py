@@ -279,6 +279,29 @@ each of which fails the run (non-zero exit) if it fails:
                more, params, m and v bit for bit; B4's time with and
                without its lse beside its plain version, its bound and
                SDPA's forward.
+ 14. train     the recurrent archs train on the card. B4 with its lse
+     recurrent at zamba2's training shape (B 4, S 1024, 32 heads over
+               32, G = 1, hd 64) in bf16 and f32, and the training
+               attention's dq, dk, dv there, as in 13 (a planted fault
+               caught in bf16); rwkv6's WKV backward at one rwkv6-7b
+               layer's time-mix (B 4, T 1024, 64 heads of 64, on the
+               layer's own r, k, v, lw and u from seeded tokens):
+               ``WKVChunked``'s gradients against plain autograd a chunk
+               at a time within WKV_GRAD_TOL, its backward twice bit for
+               bit, the peak memory of both, the Function's under
+               WKV_PEAK_D x D_BYTES plus what it saves; rwkv6-7b at full
+               width and depth (7.5 B params, int8 AdamW states) and
+               zamba2-1.2b (f32 states) for 3 steps each at 4 x 1024
+               Zipf tokens through ``launch.train.main``, launch counts
+               set to 0 before and read after: none of B4 for rwkv6, 6 a
+               step for zamba2 (one a shared-attention site), all wgmma
+               with the lse; finite losses, each step's loss, grad norm
+               and ms, step ms (median of steps 2-3), tokens/s, MFU at 6
+               N T (zamba2's shared block counted once a site; the
+               scans' own FLOPs not counted), max_memory_allocated;
+               zamba2's first step again with plain attention (loss
+               within lm_atol at ZAMBA_ULPS, grad norm within
+               GNORM_RTOL); B4's times at zamba2's training shape.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the repo beside it, it
@@ -412,6 +435,15 @@ FAULT_ROW, FAULT_TILE = 512, 1
 # rounding of attention outputs carried through 36 layers' backward
 GNORM_RTOL = 1e-2
 RESTART_ARCH, RESTART_LAYERS = "qwen2-0.5b", 4
+# phase 14: WKVChunked's gradients against plain autograd through the scan
+# a chunk at a time, relative Frobenius error: the same f32 terms summed
+# group by group (~1e-7 on the CPU); r, k and v's gradients are bf16 at
+# rwkv6-7b's width, where an entry may round one ulp (2^-8) the other way
+WKV_GRAD_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
+# the Function's backward recomputes one group's D (D_BYTES) with autograd:
+# exp(D) and k_s D saved, their gradients and the masked exponent between
+# them; it must peak below this many D_BYTES over what it saved
+WKV_PEAK_D = 6
 STORE_NNZ_PADS = (64, 128, 256, 512)
 NEW_SHAPE_DOCS = (8, 64, 1000)         # an approx pool, a small one, odd
 NEW_SHAPE_BLOCK_DOCS = (8, 32)         # AutoTiling's narrow doc tiles
@@ -898,6 +930,7 @@ def main() -> int:
     say(f"phases 8e-11e: {time.perf_counter() - t0:.1f} s")
     graph_phase(torch, dev)
     rows.append(train_phases(torch, dev))
+    rows.append(train_recurrent_phases(torch, dev))
     say(f"run: {time.perf_counter() - t_run:.1f} s wall")
     say(nvidia_smi_line())
     say(json.dumps({"kernels": rows}))
@@ -3175,7 +3208,6 @@ def train_phases(torch, dev):
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticLMData, to_device
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import train as train_launcher
     from repro_torch.models import layers, model as M
     from repro_torch.train import optimizer as opt
     from repro_torch.train.loop import Trainer
@@ -3203,59 +3235,22 @@ def train_phases(torch, dev):
 
     # -- 13c. qwen3-4b trains at full width and depth ------------------------
     t0 = time.perf_counter()
-    ckpt_dir = TRAIN_ROOT / "qwen3"
-    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--seq-len",
-            str(S), "--batch", str(B), "--ckpt-every",
-            str(10 * TRAIN_STEPS), "--ckpt-dir", str(ckpt_dir)]
-    counted = _launch_counters()
-    for fn in counted.values():
-        fn.launches = 0
-    by = fa.flash_attention_gqa.launches_by_design
-    for name in by:
-        by[name] = 0
-    for name in ("launches_lse", "launches_windowed", "launches_cross"):
-        setattr(fa.flash_attention_gqa, name, 0)
-    torch.cuda.reset_peak_memory_stats()
-    trainer = train_launcher.main(argv)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    launches = {name: fn.launches for name, fn in counted.items()}
-    b4 = fa.flash_attention_gqa
+    trainer, _, launches, by, with_lse, peak = train_run(torch, dev,
+                                                         TRAIN_ARCH)
     want = 2 * cfg.n_layers * TRAIN_STEPS
-    say(f"train main path ({TRAIN_ARCH}) launches: {launches}; B4 by "
-        f"instance {dict(by)}, with lse {b4.launches_lse}, windowed "
-        f"{b4.launches_windowed}, cross {b4.launches_cross}")
-    if not (launches["flash_attention"] == by["wgmma"] == b4.launches_lse
-            == want):
+    if not (launches["flash_attention"] == by["wgmma"] == with_lse == want):
         fail(f"B4 launched {launches['flash_attention']} times in "
              f"{TRAIN_STEPS} train steps ({by['wgmma']} wgmma, "
-             f"{b4.launches_lse} with lse), want {want} of each")
-    hist = trainer.history
-    if len(hist) != TRAIN_STEPS or not all(
-            np.isfinite([r["loss"], r["grad_norm"]]).all() for r in hist):
-        fail(f"train: history {hist}")
-    if any(ckpt_dir.glob("step_*")):
-        fail("train: a checkpoint was written before --ckpt-every")
+             f"{with_lse} with lse), want {want} of each")
     n_params = sum(p.numel() for _, p in opt.flatten(trainer.params))
-    step_s = statistics.median(r["seconds"] for r in hist[1:])
     tokens = B * S
     attn_flops = 2 * B * H * S * S * hd * cfg.n_layers
-    flops = 6 * n_params * tokens + 3 * attn_flops
-    for r in hist:
-        say(f"train step {r['step']}: loss {r['loss']:.5f}, grad norm "
-            f"{r['grad_norm']:.5f}, lr {r['lr']:.3e}, {r['seconds'] * 1e3:.1f}"
-            " ms")
-    say(f"train ({TRAIN_ARCH}, {cfg.n_layers} layers, {n_params} params, "
-        f"bf16, fp32 AdamW states, remat minimal, batch {B} x {S}): step "
-        f"{step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
-        f"{tokens / step_s:.0f} tokens/s, MFU {flops / step_s / BF16_OPS_PER_S:.4f}"
-        f" of {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s ({flops:.4e} FLOP a step: "
-        f"6 N T {6 * n_params * tokens:.4e} + 3 x causal attention forward "
-        f"{3 * attn_flops:.4e}); max_memory_allocated "
-        f"{peak / 1e9:.2f} GB; {nvidia_smi_line()}")
-    first = hist[0]
+    train_report(trainer, cfg, "fp32", peak,
+                 6 * n_params * tokens + 3 * attn_flops,
+                 f"6 N T {6 * n_params * tokens:.4e} + 3 x causal attention "
+                 f"forward {3 * attn_flops:.4e}")
+    first = trainer.history[0]
     del trainer
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     say(f"phase 13c (train): {time.perf_counter() - t0:.1f} s")
 
@@ -3346,6 +3341,270 @@ def train_phases(torch, dev):
     row = b4_row("flash_attention_train", launches["flash_attention"],
                  errs["train bf16 causal"][0], times)
     row["lse_max_abs_err"] = errs["train bf16 causal"][1]
+    return row
+
+
+def wkv_backward_held(torch, dev, cfg):
+    """Phase 14b: rwkv6's WKV backward at one rwkv6-7b layer's time-mix at
+    full width (B 4, T 1024, 64 heads of 64), its r, k, v, lw and u from
+    the layer's own params on seeded tokens: ``WKVChunked``'s gradients
+    against ``wkv_chunked_plain``'s (plain autograd a chunk at a time),
+    each backward's peak memory, and the Function's backward twice for
+    the same bits. Returns the printed numbers."""
+    from repro_torch.data.pipeline import SyntheticLMData, to_device
+    from repro_torch.models import layers, rwkv6
+
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    embed = layers.embed_init(gen, cfg)
+    pb = rwkv6._layer_init(gen, cfg)
+    tokens = to_device(SyntheticLMData(cfg, B, S, seed=SEED).batch_at(0),
+                       dev)["tokens"]
+    x = layers.rms_norm(layers.embed_apply(embed, tokens), pb["ln1"],
+                        cfg.norm_eps)
+    state = {k: t[0] for k, t in rwkv6.init_state(cfg, B, x.dtype,
+                                                  dev).items()}
+    grabbed = []
+    real = rwkv6._wkv_chunked
+    rwkv6._wkv_chunked = lambda *a: grabbed.append(a) or real(*a)
+    try:
+        with torch.no_grad():
+            rwkv6._time_mix(pb["tm"], x, cfg, state)
+    finally:
+        rwkv6._wkv_chunked = real
+    r, k, v, lw, u, s0, chunk = grabbed[0]
+    del embed, x, grabbed
+    gen.manual_seed(SEED + 3)
+    dout = torch.randn(r.shape, generator=gen, device=dev).to(r.dtype)
+    d_state = torch.randn(s0.shape, generator=gen, device=dev)
+    torch.cuda.empty_cache()
+
+    def run(fn):
+        """Gradients of (r, k, v, lw, u) and the peak memory of the
+        forward and backward over what was allocated before them."""
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (r, k, v, lw, u)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*leaves, s0, chunk)
+        saved = torch.cuda.memory_allocated() - base
+        grads = torch.autograd.grad(out, leaves, (dout, d_state))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        return grads, saved, peak
+
+    got, f_saved, f_peak = run(rwkv6._wkv_chunked)
+    again, _, _ = run(rwkv6._wkv_chunked)
+    want, p_saved, p_peak = run(rwkv6.wkv_chunked_plain)
+    errs = [rel_norm_err(a, b.float()) for a, b in zip(got, want)]
+    limits = [WKV_GRAD_TOL[str(a.dtype).split(".")[1]] for a in got]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    d_bytes = rwkv6.D_BYTES
+    say(f"WKV backward (rwkv6-7b time-mix, r, k, v {str(r.dtype)[6:]} "
+        f"[{B}, {S}, {r.shape[2]}, {r.shape[3]}], chunks of {chunk}, "
+        f"groups of {rwkv6._group(B, r.shape[2], chunk, r.shape[3])}): "
+        f"WKVChunked against the plain per-chunk autograd, relative error "
+        f"of dr, dk, dv, dlw, du {', '.join(f'{e:.3e}' for e in errs)} "
+        f"(limits {', '.join(str(x) for x in limits)}); backward twice "
+        f"bit for bit: {same}")
+    say(f"WKV memory over the forward and backward: WKVChunked holds "
+        f"{f_saved / 1e9:.3f} GB after its forward and peaks at "
+        f"{f_peak / 1e9:.3f} GB ({f_peak / d_bytes:.2f} x D_BYTES); the "
+        f"plain version {p_saved / 1e9:.3f} GB and {p_peak / 1e9:.3f} GB "
+        f"(limit for the Function: {WKV_PEAK_D} x D_BYTES + what it "
+        "saves)")
+    if not all(e <= t for e, t in zip(errs, limits)):
+        fail(f"WKV backward: {errs} beyond {limits}")
+    if not same:
+        fail("WKV backward: two runs differ")
+    if not f_peak <= WKV_PEAK_D * d_bytes + f_saved:
+        fail(f"WKV backward: peak {f_peak} past {WKV_PEAK_D} x D_BYTES + "
+             f"{f_saved}")
+    del got, again, want, r, k, v, lw, u, s0, dout, d_state, pb
+    torch.cuda.empty_cache()
+    return {"errs": errs, "peak": f_peak, "plain_peak": p_peak}
+
+
+def train_run(torch, dev, arch, flags=()):
+    """Phases 13c, 14c-d: ``arch`` at full width and depth for
+    TRAIN_STEPS steps at TRAIN_BATCH x TRAIN_SEQ through
+    ``launch.train.main``, checkpoints off, with the launch counts set to
+    0 before and read after; finite losses. Returns (the trainer, its
+    config, the launch counts, B4's by instance and with the lse, the
+    peak memory)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_launcher
+
+    cfg = get_config(arch)
+    ckpt_dir = TRAIN_ROOT / arch
+    argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--seq-len",
+            str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--ckpt-every",
+            str(10 * TRAIN_STEPS), "--ckpt-dir", str(ckpt_dir), *flags]
+    counted = _launch_counters()
+    for fn in counted.values():
+        fn.launches = 0
+    b4 = fa.flash_attention_gqa
+    for name in b4.launches_by_design:
+        b4.launches_by_design[name] = 0
+    for name in ("launches_lse", "launches_windowed", "launches_cross"):
+        setattr(b4, name, 0)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train_launcher.main(argv)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    by = dict(b4.launches_by_design)
+    say(f"train main path ({arch}) launches: {launches}; B4 by instance "
+        f"{by}, with lse {b4.launches_lse}, windowed "
+        f"{b4.launches_windowed}, cross {b4.launches_cross}")
+    hist = trainer.history
+    if len(hist) != TRAIN_STEPS or not all(
+            np.isfinite([r["loss"], r["grad_norm"]]).all() for r in hist):
+        fail(f"train {arch}: history {hist}")
+    if any(ckpt_dir.glob("step_*")):
+        fail(f"train {arch}: a checkpoint was written before --ckpt-every")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return trainer, cfg, launches, by, b4.launches_lse, peak
+
+
+def train_report(trainer, cfg, states, peak, flops, flop_note):
+    """Phases 13c, 14c-d: each step's loss, grad norm and ms, the median
+    step of steps 2-3, tokens/s and MFU against BF16_OPS_PER_S at
+    ``flops`` a step."""
+    from repro_torch.train import optimizer as opt
+    hist = trainer.history
+    n_params = sum(p.numel() for _, p in opt.flatten(trainer.params))
+    step_s = statistics.median(r["seconds"] for r in hist[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for r in hist:
+        say(f"train {cfg.name} step {r['step']}: loss {r['loss']:.5f}, grad "
+            f"norm {r['grad_norm']:.5f}, lr {r['lr']:.3e}, "
+            f"{r['seconds'] * 1e3:.1f} ms")
+    say(f"train ({cfg.name}, {cfg.n_layers} layers, {n_params} params, "
+        f"bf16, {states} AdamW states, remat minimal, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}): step {step_s * 1e3:.1f} ms (median of steps "
+        f"2-{TRAIN_STEPS}), {tokens / step_s:.0f} tokens/s, MFU "
+        f"{flops / step_s / BF16_OPS_PER_S:.4f} of "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s ({flops:.4e} FLOP a step: "
+        f"{flop_note}); max_memory_allocated "
+        f"{peak / 1e9:.2f} GB; {nvidia_smi_line()}")
+    return step_s
+
+
+def train_recurrent_phases(torch, dev):
+    """Phase 14: the recurrent archs train on the card. B4 with its lse
+    and the training attention's gradients at zamba2's shape (G = 1);
+    the WKV backward at one rwkv6-7b layer; rwkv6-7b (int8 states) and
+    zamba2-1.2b (f32 states) at full width and depth for TRAIN_STEPS
+    steps through ``launch.train.main``; zamba2's first step again with
+    plain attention. Returns B4's G = 1 training row of the kernels
+    line."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLMData, to_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import hybrid, layers, model as M
+    from repro_torch.train import optimizer as opt
+
+    t_phase = time.perf_counter()
+    zcfg = get_config("zamba2-1.2b")
+    B, S, H, KV, hd = (TRAIN_BATCH, TRAIN_SEQ, zcfg.n_heads,
+                       zcfg.n_kv_heads, zcfg.head_dim)
+
+    # -- 14a. B4 at zamba2's training shape -------------------------------
+    errs = {}
+    for name, dtype in (("zamba2 train bf16", torch.bfloat16),
+                        ("zamba2 train f32", torch.float32)):
+        q, k, v = attention_inputs(torch, dev, B, S, H, KV, hd, dtype)
+        errs[name] = b4_lse_held(torch, fa, name, q, k, v)
+        del q, k, v
+    for dtype in (torch.float32, torch.bfloat16):
+        function_grads_held(torch, layers, dev, dtype, B, S, H, KV, hd)
+    say(f"phase 14a (B4 at G = 1, lse, gradients): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -- 14b. the WKV backward at one rwkv6-7b layer -------------------------
+    t0 = time.perf_counter()
+    wcfg = get_config("rwkv6-7b")
+    wkv_backward_held(torch, dev, wcfg)
+    say(f"phase 14b (WKV backward): {time.perf_counter() - t0:.1f} s")
+
+    # -- 14c. rwkv6-7b at full width and depth, int8 states ---------------
+    t0 = time.perf_counter()
+    trainer, cfg, launches, by, with_lse, peak = train_run(
+        torch, dev, "rwkv6-7b", ["--int8-opt"])
+    if launches["flash_attention"] or with_lse or any(by.values()):
+        fail(f"rwkv6-7b launched B4 ({launches['flash_attention']}, {by}): "
+             "the arch is attention-free")
+    n_params = sum(p.numel() for _, p in opt.flatten(trainer.params))
+    train_report(trainer, cfg, "int8", peak, 6 * n_params * B * S,
+                 "6 N T; the WKV scan's own FLOPs are not counted")
+    del trainer
+    torch.cuda.empty_cache()
+    say(f"phase 14c (rwkv6-7b train): {time.perf_counter() - t0:.1f} s")
+
+    # -- 14d. zamba2-1.2b at full width and depth, f32 states -------------
+    t0 = time.perf_counter()
+    trainer, cfg, launches, by, with_lse, peak = train_run(
+        torch, dev, "zamba2-1.2b")
+    sites = hybrid.n_attn_sites(cfg)
+    want = sites * TRAIN_STEPS
+    if not (launches["flash_attention"] == by["wgmma"] == with_lse
+            == want):
+        fail(f"B4 launched {launches['flash_attention']} times in "
+             f"{TRAIN_STEPS} zamba2 train steps ({by['wgmma']} wgmma, "
+             f"{with_lse} with lse), want {want} of each")
+    n_params = sum(p.numel() for _, p in opt.flatten(trainer.params))
+    n_shared = sum(p.numel() for _, p in opt.flatten(
+        trainer.params["shared_attn"]))
+    n_flop = n_params + (sites - 1) * n_shared
+    train_report(
+        trainer, cfg, "fp32", peak, 6 * n_flop * B * S,
+        f"6 N T at N {n_flop}, the shared block's {n_shared} params once a "
+        f"site, {sites} sites; the SSD scan's own FLOPs and attention's are "
+        "not counted")
+    first = trainer.history[0]
+    zamba_launches = launches["flash_attention"]
+    del trainer
+    torch.cuda.empty_cache()
+    params = M.init(cfg, seed=SEED, device=dev)
+    leaves = [p.requires_grad_(True) for _, p in opt.flatten(params)]
+    batch = to_device(SyntheticLMData(cfg, B, S, seed=SEED).batch_at(0), dev)
+    kernel_attn = layers.flash_attention_gqa
+    layers.flash_attention_gqa = fa.flash_attention_gqa_plain
+    try:
+        logits, aux, _ = M.apply_train(params, cfg, batch)
+        labels = batch["tokens"][:, 1:]
+        loss = layers.softmax_cross_entropy(
+            logits[:, :-1], labels, torch.ones(labels.shape, device=dev)) \
+            + 0.01 * aux
+        atol = lm_atol("bfloat16", logits.detach(), ZAMBA_ULPS)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        layers.flash_attention_gqa = kernel_attn
+    gnorm = float(opt.global_norm(list(grads)))
+    loss = float(loss.detach())
+    loss_err = abs(loss - first["loss"])
+    g_rel = abs(gnorm - first["grad_norm"]) / gnorm
+    say(f"train check ({cfg.name} step 0, kernel against plain attention): "
+        f"loss {first['loss']:.5f} vs {loss:.5f}, |diff| {loss_err:.3e} "
+        f"(limit {atol}, lm_atol of the plain run's logits at "
+        f"{ZAMBA_ULPS} ulps); grad norm {first['grad_norm']:.5f} vs "
+        f"{gnorm:.5f}, relative {g_rel:.3e} (limit {GNORM_RTOL})")
+    if not (loss_err <= atol and g_rel <= GNORM_RTOL):
+        fail("train: zamba2's first step differs from plain attention's")
+    del params, leaves, logits, loss, grads, batch
+    torch.cuda.empty_cache()
+    say(f"phase 14d (zamba2-1.2b train): {time.perf_counter() - t0:.1f} s")
+
+    # -- 14e. B4's times at zamba2's training shape ---------------------------
+    times = b4_lse_times(torch, dev, fa, B, S, H, KV, hd)
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    say(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    row = b4_row("flash_attention_train_g1", zamba_launches,
+                 errs["zamba2 train bf16"][0], times)
+    row["lse_max_abs_err"] = errs["zamba2 train bf16"][1]
     return row
 
 

@@ -26,11 +26,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import layers as L
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, rematcfg
 from repro_torch.models.transformer import _self_attn
 
 
-MODES = ("prefill", "decode")
+MODES = ("prefill", "decode", "train")
 
 
 def segments(cfg: ModelConfig) -> List[Tuple[int, int]]:
@@ -90,21 +90,28 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
             "v": torch.zeros(kv, dtype=dtype, device=device)}
 
 
+def _train_block(pb, x, cfg: ModelConfig, state, chunk: int):
+    """One Mamba layer of a training forward: x only."""
+    return mamba2.block_apply(pb, x, cfg, state, chunk=chunk)[0]
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             mode: str = "prefill", caches: Optional[dict] = None,
             cur_index: Optional[int] = None, last_only: bool = False,
-            chunk: int = 64):
+            chunk: int = 64, remat=True):
     """batch: ``{"tokens": [B, S]}`` (``S == 1`` in decode). Returns
     (logits, aux, cache): ``aux`` an f32 zero; in prefill ``cache`` is
     ``{"mamba": the new state, stacked as init_state's, "k", "v": [sites,
     B, S, KV, hd]}`` (the Mamba state starts from ``caches["mamba"]`` if
     given, else zeros); in decode it is ``caches``, updated in place at
-    ``cur_index``. ``last_only`` unembeds only the last position."""
+    ``cur_index``; in train it is ``None``. ``last_only`` unembeds only
+    the last position. ``remat`` (train only): the policy each Mamba
+    layer runs under (``models/rematcfg.py``), as the reference wraps its
+    segments' scan body; the shared block is not rematerialized (the
+    reference unrolls it outside the scan), and its attention trains
+    through ``layers.Attention``, B4 with its lse."""
     if mode not in MODES:
-        raise NotImplementedError(
-            f"mode {mode!r}: {cfg.family} training is not ported yet "
-            "(ROADMAP A9.7: under autograd the chunked scan would keep "
-            "the SSD scan's f32 intermediates a layer)")
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
     x = L.embed_apply(params["embed"], batch["tokens"])
     B, S = x.shape[:2]
     single = mode == "decode"
@@ -116,13 +123,17 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     else:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     sh = params["shared_attn"]
+    train = mode == "train"
+    layer = rematcfg.wrap(_train_block, remat) if train else None
     layers, ks, vs = [], [], []
     for a, b in segments(cfg):
         for i in range(a, b):
-            x, st = mamba2.block_apply(
-                params["mamba"][i], x, cfg,
-                {k: t[i] for k, t in mstate.items()}, chunk=chunk,
-                single=single)
+            st_in = {k: t[i] for k, t in mstate.items()}
+            if train:
+                x = layer(params["mamba"][i], x, cfg, st_in, chunk)
+                continue
+            x, st = mamba2.block_apply(params["mamba"][i], x, cfg, st_in,
+                                       chunk=chunk, single=single)
             if single:
                 for k, t in st.items():
                     mstate[k][i].copy_(t)
@@ -135,12 +146,14 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         attn_out, (k, v) = _self_attn(sh, x, cfg, positions=positions,
                                       window=0, mode=mode, cache=cache,
                                       cur_index=cur_index)
-        if not single:
+        if mode == "prefill":
             ks.append(k)
             vs.append(v)
         x = x + attn_out
         x = x + L.ffn_apply(sh["mlp"], L.rms_norm(x, sh["ln2"], cfg.norm_eps))
-    if single:
+    if train:
+        out = None
+    elif single:
         out = caches
     else:
         out = {"mamba": {k: torch.stack([st[k] for st in layers])

@@ -17,6 +17,12 @@ carries only the state, h <- exp(cum_last) h + increment, and the
 state's share of the output, exp(cum_t) C_t · h_in, is one batched
 product after it. Decode is the O(1) recurrence (``_ssd_step``).
 
+Training runs this same code under plain autograd (the reference
+rematerializes each chunk; here Dm is small, and the hybrid's per-layer
+remat recomputes the layer in the backward): the decay's exponent is
+masked to -inf before ``exp``, so a masked entry and its gradient are
+exact zeros.
+
 A layer's params are one dict (the reference stacks them); ``conv_w``,
 ``A_log``, ``D``, ``dt_bias`` and the norms are f32, the projections in
 the config's dtype.

@@ -13,8 +13,9 @@ what its family carries into decode: every layer's k and v
 (transformers; the VLM adds its cross layers' image k and v), the
 recurrent state (ssm), or the Mamba state and every site's k and v
 (hybrid); ``serve.step.generate`` turns it into a decode cache. Training
-(``apply_train``, ``loss_fn``) is the transformer families'; ``ssm`` and
-``hybrid`` raise ``NotImplementedError`` there (ROADMAP A9.7).
+(``apply_train``, ``loss_fn``) runs every family, each layer under the
+remat policy ``remat`` names (the hybrid's shared block excepted, as in
+the reference).
 """
 from __future__ import annotations
 
@@ -48,11 +49,7 @@ def init(cfg: ModelConfig, *, seed: int = 0,
 def apply_train(params, cfg: ModelConfig, batch, remat=True):
     """The training forward: (logits [B, S, V], the MoE aux, None), each
     layer under the remat policy ``remat`` names (``models/rematcfg``)."""
-    if _mod(cfg) is not transformer:
-        # raises: the recurrent families do not train yet
-        return _mod(cfg).forward(params, cfg, batch, mode="train")
-    return transformer.forward(params, cfg, batch, mode="train",
-                               remat=remat)
+    return _mod(cfg).forward(params, cfg, batch, mode="train", remat=remat)
 
 
 def loss_fn(params, cfg: ModelConfig, batch, remat=True):

@@ -27,6 +27,13 @@ S + k_decᵀ v, and the state's share of the output, (r exp(cum_{t-1}))
 S_in, is one batched product after it. Each term is the reference's,
 summed in f32. Decode is the O(1)-state step (``_wkv_step``).
 
+Training (``mode="train"``) runs each layer under the remat policy
+``remat`` names (``models/rematcfg.py``), as the reference wraps its scan
+body, and the WKV scan through ``WKVChunked``: its forward is the scan
+above, and its backward recomputes one group of chunks at a time from
+the state entering it, as the reference rematerializes each chunk, so
+it never holds more than one group's D.
+
 No Pallas kernel runs here in the reference, and none in the port: the
 scans are plain PyTorch on the card.
 """
@@ -40,9 +47,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import layers as L
+from repro_torch.models import rematcfg
 
 LORA_DIM = 64
-MODES = ("prefill", "decode")
+MODES = ("prefill", "decode", "train")
 D_BYTES = 1 << 30            # the pairwise decay tensor's size a group
 
 
@@ -97,10 +105,26 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 # WKV
 # ---------------------------------------------------------------------------
+def _group(B: int, H: int, C: int, hd: int) -> int:
+    """Chunks a group: as many as fit ``D_BYTES`` of the f32 decay
+    tensor."""
+    return max(1, D_BYTES // (B * H * C * C * hd * 4))
+
+
 def _wkv_chunked(r, k, v, lw, u, state, chunk: int):
     """r, k, v: [B, T, H, hd]; lw: [B, T, H, hd] log-decay (<= 0); u:
     [H, hd]; state: [B, H, hd, hd]. Returns (out [B, T, H, hd] in r's
-    dtype, state f32)."""
+    dtype, state f32). Where grad mode is on and an input requires grad,
+    through ``WKVChunked``, whose forward is this same scan."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, lw, u, state)):
+        return WKVChunked.apply(r, k, v, lw, u, state, chunk)
+    return _wkv_forward(r, k, v, lw, u, state, chunk)[:2]
+
+
+def _wkv_forward(r, k, v, lw, u, state, chunk: int):
+    """The grouped scan: (out, state f32, s_in [B, H, n, hd, hd] f32, the
+    state entering each chunk)."""
     B, T, H, hd = r.shape
     C = L.chunk_split(T, chunk)
     n = T // C
@@ -114,7 +138,7 @@ def _wkv_chunked(r, k, v, lw, u, state, chunk: int):
     below = torch.ones((C, C), dtype=torch.bool, device=r.device).tril(-1)
     bonus = (rc * u[None, :, None, None, :] * kc).sum(-1)  # [B, H, n, C]
     y = torch.empty_like(vc)
-    group = max(1, D_BYTES // (B * H * C * C * hd * 4))
+    group = _group(B, H, C, hd)
     for c0 in range(0, n, group):
         g = slice(c0, c0 + group)
         # D[t, s, d] = exp(cum_prev[t] - cum[s]), used only for s < t: the
@@ -138,7 +162,108 @@ def _wkv_chunked(r, k, v, lw, u, state, chunk: int):
         S = decay[:, :, c] * S + kv[:, :, c]
     y = y + (rc * torch.exp(cum_prev)) @ s_in
     out = y.permute(0, 2, 3, 1, 4).reshape(B, T, H, hd)
+    return out.to(r.dtype), S, s_in
+
+
+def _wkv_group(r, k, v, lw, u, S, C: int):
+    """The scan over the chunks of C tokens in r, k, v, lw ([B, n C, H,
+    hd]) from the state S [B, H, hd, hd] f32, out of place for autograd:
+    (out in r's dtype, the state after). D's exponent is set to -inf
+    before ``exp`` where s >= t, so a masked entry is an exact 0 and its
+    gradient too (where an entry overflows, exp's backward would give
+    0 x inf = NaN: ROADMAP C22)."""
+    B, T, H, hd = r.shape
+    n = T // C
+
+    def resh(x):
+        return x.float().reshape(B, n, C, H, hd).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, lwc = resh(r), resh(k), resh(v), resh(lw)
+    cum = torch.cumsum(lwc, dim=3)
+    cum_prev = cum - lwc
+    below = torch.ones((C, C), dtype=torch.bool, device=r.device).tril(-1)
+    D = torch.exp(torch.where(below[:, :, None],
+                              cum_prev[:, :, :, :, None, :]
+                              - cum[:, :, :, None, :, :], -math.inf))
+    D = D * kc[:, :, :, None, :, :]                      # k_s D[t, s]
+    A = (D @ rc[..., None]).squeeze(-1) + torch.diag_embed(
+        (rc * u[None, :, None, None, :] * kc).sum(-1))
+    y = A @ vc
+    cum_last = cum[:, :, :, -1:, :]
+    kv = (kc * torch.exp(cum_last - cum)).transpose(-1, -2) @ vc
+    decay = torch.exp(cum_last[:, :, :, 0, :, None])
+    s_in = []
+    for c in range(n):
+        s_in.append(S)
+        S = decay[:, :, c] * S + kv[:, :, c]
+    y = y + (rc * torch.exp(cum_prev)) @ torch.stack(s_in, dim=2)
+    out = y.permute(0, 2, 3, 1, 4).reshape(B, T, H, hd)
     return out.to(r.dtype), S
+
+
+def wkv_chunked_plain(r, k, v, lw, u, state, chunk: int):
+    """The WKV scan for plain autograd, one chunk at a time and out of
+    place (``_wkv_group`` a chunk): its graph keeps every chunk's D. What
+    ``WKVChunked``'s gradients are held against (tests, chip_smoke);
+    nothing on the main path calls it."""
+    T = r.shape[1]
+    C = L.chunk_split(T, chunk)
+    S, outs = state.float(), []
+    for t0 in range(0, T, C):
+        t = slice(t0, t0 + C)
+        y, S = _wkv_group(r[:, t], k[:, t], v[:, t], lw[:, t], u, S, C)
+        outs.append(y)
+    return torch.cat(outs, dim=1), S
+
+
+class WKVChunked(torch.autograd.Function):
+    """The WKV scan with a backward that holds one group of chunks at a
+    time: the reference's per-chunk ``jax.checkpoint(nothing_saveable)``
+    (``repro.models.rwkv6._wkv_chunked``) at the port's group size.
+
+    The forward is ``_wkv_forward``, the no-grad scan bit for bit; it
+    saves r, k, v, lw, u and s_in, the state entering each chunk (67 MB
+    a layer at rwkv6-7b's full size and B 4). The backward walks the
+    groups last to first: it recomputes a group from its s_in with
+    ``_wkv_group`` under grad mode, pushes (the group's dout, dS out of
+    the group) through with ``torch.autograd.grad``, and hands dS at the
+    group's start to the group before it. So it holds one group's D
+    (``D_BYTES``) and that graph's products of D's size, whatever the
+    remat policy."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, state, chunk):
+        out, S, s_in = _wkv_forward(r, k, v, lw, u, state, chunk)
+        ctx.save_for_backward(r, k, v, lw, u, s_in)
+        ctx.chunk = chunk
+        return out, S
+
+    @staticmethod
+    def backward(ctx, dout, dS):
+        r, k, v, lw, u, s_in = ctx.saved_tensors
+        B, T, H, hd = r.shape
+        C = L.chunk_split(T, ctx.chunk)
+        n = T // C
+        group = _group(B, H, C, hd)
+        grads = [torch.empty_like(t) for t in (r, k, v, lw)]
+        du = torch.zeros_like(u)
+        for c0 in reversed(range(0, n, group)):
+            ts = slice(c0 * C, min(n, c0 + group) * C)
+            with torch.enable_grad():
+                leaves = [t[:, ts].detach().requires_grad_()
+                          for t in (r, k, v, lw)]
+                u_ = u.detach().requires_grad_()
+                S0 = s_in[:, :, c0].detach().requires_grad_()
+                y, S1 = _wkv_group(*leaves, u_, S0, C)
+                g = torch.autograd.grad((y, S1), (*leaves, u_, S0),
+                                        (dout[:, ts], dS))
+            for dst, src in zip(grads, g[:4]):
+                dst[:, ts] = src
+            du += g[4]
+            dS = g[5]
+        need = ctx.needs_input_grad
+        return (*(gr if need[i] else None for i, gr in enumerate(grads)),
+                du if need[4] else None, dS if need[5] else None, None)
 
 
 def _wkv_step(r, k, v, lw, u, state):
@@ -232,36 +357,48 @@ def init_state(cfg: ModelConfig, batch_size: int,
                                 device=device)}
 
 
+def _train_block(pb, x, cfg: ModelConfig, state, chunk: int):
+    """One layer of a training forward: x only (the state is dropped)."""
+    return block_apply(pb, x, cfg, state, chunk=chunk)[0]
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             mode: str = "prefill", caches: Optional[dict] = None,
             cur_index: Optional[int] = None, last_only: bool = False,
-            chunk: int = 64):
+            chunk: int = 64, remat=True):
     """batch: ``{"tokens": [B, T]}`` (``T == 1`` in decode). Returns
     (logits, aux, state): ``aux`` is an f32 zero (no experts); in prefill
     ``state`` is the new recurrent state, stacked ``[n, ...]`` as
     ``init_state``'s, from ``caches`` or zeros; in decode it is
-    ``caches``, updated in place. ``cur_index`` is unused (the state is
-    the position). ``last_only`` unembeds only the last position."""
+    ``caches``, updated in place; in train it is ``None``. ``cur_index``
+    is unused (the state is the position). ``last_only`` unembeds only
+    the last position. ``remat`` (train only): ``True`` (the default
+    policy), ``False`` or a policy name of ``models/rematcfg.py``, each
+    layer under it as the reference wraps its scan body."""
     if mode not in MODES:
-        raise NotImplementedError(
-            f"mode {mode!r}: {cfg.family} training is not ported yet "
-            "(ROADMAP A9.7: under autograd the chunked scan would keep "
-            "WKV's f32 decay tensor, 4.3 GB a layer at full size)")
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
     x = L.embed_apply(params["embed"], batch["tokens"])
     B = x.shape[0]
     state = caches if caches is not None else \
         init_state(cfg, B, x.dtype, x.device)
     single = mode == "decode"
+    train = mode == "train"
+    layer = rematcfg.wrap(_train_block, remat) if train else None
     layers = []
     for i, pb in enumerate(params["blocks"]):
-        x, st = block_apply(pb, x, cfg, {k: t[i] for k, t in state.items()},
-                            chunk=chunk, single=single)
+        st_in = {k: t[i] for k, t in state.items()}
+        if train:
+            x = layer(pb, x, cfg, st_in, chunk)
+            continue
+        x, st = block_apply(pb, x, cfg, st_in, chunk=chunk, single=single)
         if single:
             for k, t in st.items():
                 state[k][i].copy_(t)
         else:
             layers.append(st)
-    if not single:
+    if train:
+        state = None
+    elif not single:
         state = {k: torch.stack([st[k] for st in layers]) for k in state}
     if last_only:
         x = x[:, -1:]

@@ -1716,17 +1716,15 @@ def _dense_attention(q, k, v, drop_tile=False):
             torch.logsumexp(s, -1))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_function_gradients_at_the_qwen3_layer_shape(dev, dtype):
+def _function_grads_held(dev, q_shape, kv_shape, dtype):
     """``layers.blockwise_attention`` under autograd (B4 with its lse,
-    then the plain backward) at qwen3-4b's training layer shape, against
-    autograd through f32 attention on the same inputs; in bf16 a planted
-    fault, a dropped key tile in the forward, breaks the limit."""
+    then the plain backward) against autograd through f32 attention on
+    the same inputs; in bf16 a planted fault, a dropped key tile in the
+    forward, breaks the limit."""
     from repro_torch.models import layers
-    q, k, v = (t.to(dev) for t in _attn_inputs(
-        11, (4, 1024, 32, 128), (4, 1024, 8, 128), dtype))
-    dout = _attn_inputs(12, (4, 1024, 32, 128), (1, 1, 1, 1),
-                        dtype)[0].to(dev)
+    q, k, v = (t.to(dev) for t in _attn_inputs(11, q_shape, kv_shape,
+                                                dtype))
+    dout = _attn_inputs(12, q_shape, (1, 1, 1, 1), dtype)[0].to(dev)
     ref = [t.float().requires_grad_(True) for t in (q, k, v)]
     _dense_attention(*ref)[0].backward(dout.float())
     want = [t.grad for t in ref]
@@ -1758,6 +1756,65 @@ def test_attention_function_gradients_at_the_qwen3_layer_shape(dev, dtype):
         assert max(faulty) > GRAD_REL_TOL[dtype], faulty
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_function_gradients_at_the_qwen3_layer_shape(dev, dtype):
+    """qwen3-4b's training layer shape: 32 heads over 8 at hd 128."""
+    _function_grads_held(dev, (4, 1024, 32, 128), (4, 1024, 8, 128), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_function_gradients_at_the_zamba2_layer_shape(dev, dtype):
+    """zamba2's shared attention as it trains: 32 heads over 32 (G = 1)
+    at hd 64, B 4, S 1024 (its lse is held by
+    ``test_lse_matches_plain_on_every_instance``)."""
+    _function_grads_held(dev, (4, 1024, 32, 64), (4, 1024, 32, 64), dtype)
+
+
+# WKVChunked against plain autograd through the scan a chunk at a time on
+# the same card tensors, relative Frobenius error: the same f32 terms, the
+# backward's sums group by group (~1e-7 on the CPU); r, k and v's
+# gradients in bf16 may round one ulp (2^-8 relative) the other way
+WKV_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_bytes", [None, 1 << 25],
+                         ids=["one-group", "groups"])
+def test_wkv_function_matches_the_plain_scan_on_the_card(dev, dtype,
+                                                         d_bytes,
+                                                         monkeypatch):
+    """rwkv6's WKV scan at B 2, T 512 (8 chunks of 64), 8 heads of 64,
+    from a nonzero state with a cotangent on the state out: the Function's
+    output and state equal the no-grad scan's bit for bit, its gradients
+    are the plain version's within WKV_GRAD_TOL, and its backward run
+    twice gives the same bits."""
+    from repro_torch.models import rwkv6
+    if d_bytes is not None:        # 2 chunks a group
+        monkeypatch.setattr(rwkv6, "D_BYTES", d_bytes)
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, T, H, hd = 2, 512, 8, 64
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    r, k, v = (randn(B, T, H, hd).to(dtype) for _ in range(3))
+    lw = -torch.exp(randn(B, T, H, hd, scale=0.5) - 2.0)
+    ins = (r, k, v, lw, randn(H, hd), randn(B, H, hd, hd, scale=0.3))
+    cot = (randn(B, T, H, hd).to(dtype), randn(B, H, hd, hd))
+    with torch.no_grad():
+        want_out = rwkv6._wkv_chunked(*ins, 64)
+    runs = []
+    for fn in (rwkv6._wkv_chunked, rwkv6._wkv_chunked, rwkv6.wkv_chunked_plain):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        out = fn(*leaves, 64)
+        runs.append((out, torch.autograd.grad(out, leaves, cot)))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][0], want_out))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    for got, want in zip(runs[0][1], runs[2][1]):
+        err = float((got.float() - want.float()).norm() / want.float().norm())
+        assert err <= WKV_GRAD_TOL[got.dtype], err
+
+
 def test_qwen3_smoke_trains_on_the_card_as_on_the_cpu(dev):
     """The smoke qwen3 in f32: the loss and every gradient of one batch on
     the card (B4 forward twice a layer: the step and remat's recompute)
@@ -1782,6 +1839,39 @@ def test_qwen3_smoke_trains_on_the_card_as_on_the_cpu(dev):
         launched = fa.flash_attention_gqa.launches - before
         runs.append((float(loss), [g.cpu() for g in grads], launched))
     assert runs[0][2] == 0 and runs[1][2] == 2 * cfg.n_layers
+    assert runs[1][0] == pytest.approx(runs[0][0], rel=1e-4)
+    for a, b in zip(runs[1][1], runs[0][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-1.2b"])
+def test_recurrent_smoke_trains_on_the_card_as_on_the_cpu(dev, arch):
+    """The smoke rwkv6 and zamba2 in f32 at S 128 (two chunks of 64): the
+    loss and every gradient of one batch on the card within 1e-4 of the
+    CPU's; B4 once a shared-attention site (the shared block is not
+    rematerialized), never for rwkv6."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import hybrid, model as M
+    from repro_torch.train import optimizer as opt
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              dtype="float32")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 128)).astype(np.int32))
+    runs = []
+    for where in ("cpu", dev):
+        params = M.init(cfg, seed=0, device="cpu")
+        params = opt.tree_map(lambda t: t.to(where).requires_grad_(True),
+                              params)
+        before = fa.flash_attention_gqa.launches_lse
+        loss, _ = M.loss_fn(params, cfg, {"tokens": tokens.to(where)})
+        leaves = [p for _, p in opt.flatten(params)]
+        grads = torch.autograd.grad(loss, leaves)
+        launched = fa.flash_attention_gqa.launches_lse - before
+        runs.append((float(loss), [g.cpu() for g in grads], launched))
+    want = hybrid.n_attn_sites(cfg) if cfg.family == "hybrid" else 0
+    assert runs[0][2] == 0 and runs[1][2] == want
     assert runs[1][0] == pytest.approx(runs[0][0], rel=1e-4)
     for a, b in zip(runs[1][1], runs[0][1]):
         torch.testing.assert_close(a, b, rtol=1e-4,

@@ -418,8 +418,8 @@ def test_batches_are_the_references_bit_for_bit(arch):
 # ---------------------------------------------------------------------------
 # checkpoints
 # ---------------------------------------------------------------------------
-def _ref_train_state(int8, dtype="bfloat16"):
-    ref_cfg, cfg, ref = _ref_params("qwen3-4b", dtype)
+def _ref_train_state(int8, dtype="bfloat16", arch="qwen3-4b"):
+    ref_cfg, cfg, ref = _ref_params(arch, dtype)
     oc = ref_base.OptimizerConfig(lr=1e-2, warmup_steps=1, total_steps=4,
                                   int8_states=int8)
     state = ref_opt.init_state(oc, ref)
@@ -441,9 +441,12 @@ def _as_torch(tree):
                         is_leaf=lambda x: isinstance(x, ref_opt.QTensor))
 
 
+@pytest.mark.parametrize("arch", ["qwen3-4b", "rwkv6-7b", "zamba2-1.2b"])
 @pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
-def test_a_reference_checkpoint_restores_into_the_port(tmp_path, int8):
-    cfg, tree = _ref_train_state(int8)
+def test_a_reference_checkpoint_restores_into_the_port(tmp_path, int8, arch):
+    """The transformer's tree and the recurrent ones (``blocks`` or
+    ``mamba``, one dict a layer once carried, and ``shared_attn``)."""
+    cfg, tree = _ref_train_state(int8, arch=arch)
     RefCheckpoints(str(tmp_path)).save(3, tree, {"next_step": 4})
     raw, extra = CheckpointManager(str(tmp_path)).restore(3)
     assert extra == {"next_step": 4}

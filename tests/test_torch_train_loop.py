@@ -178,12 +178,27 @@ def test_the_launcher_trains_and_resumes_on_the_cpu(tmp_path, capsys):
     assert signal.getsignal(signal.SIGTERM) is handler
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-1.2b"])
-def test_the_launcher_refuses_the_recurrent_archs(arch, tmp_path):
-    with pytest.raises(SystemExit, match="A9.7"):
-        train_launcher.main(["--arch", arch, "--smoke", "--device", "cpu",
-                             "--ckpt-dir", str(tmp_path)])
-    assert not os.listdir(tmp_path)
+@pytest.mark.parametrize("arch,flags", [("rwkv6-7b", ["--int8-opt"]),
+                                        ("zamba2-1.2b", [])])
+def test_the_launcher_trains_and_resumes_the_recurrent_archs(arch, flags,
+                                                             tmp_path):
+    """The smoke configs at S 128 (two chunks of the scan), rwkv6 with
+    int8 states as it trains on the card: 3 steps and a checkpoint, then
+    the same command resumes from it."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "3",
+            "--seq-len", "128", "--batch", "2", "--ckpt-every", "3",
+            "--ckpt-dir", str(tmp_path)] + flags
+    t = train_launcher.main(argv)
+    assert [r["step"] for r in t.history] == [0, 1, 2]
+    assert all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+               for r in t.history)
+    assert t.ckpt.latest_step() == 2
+    assert isinstance(t.opt_state["m"]["embed"]["table"],
+                      opt.QTensor) == bool(flags)
+    resumed = train_launcher.main(argv)
+    assert resumed.start_step == 3
+    assert [r["step"] for r in resumed.history] == [3, 4, 5]
+    assert all(np.isfinite(r["loss"]) for r in resumed.history)
 
 
 def test_entry_points_without_a_card_raise(monkeypatch, tmp_path):

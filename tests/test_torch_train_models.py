@@ -11,7 +11,12 @@ Tolerances, each with its reason:
   - loss, 1e-5 relative: sums in other orders (attention tiles, the
     cross-entropy's sum over the vocab);
   - gradients, per leaf: rtol 1e-5 and atol 1e-5 x the leaf's largest
-    |gradient| (measured: at most 3e-6 of it);
+    |gradient| (measured: at most 3e-6 of it; rwkv6-7b's too). zamba2's,
+    1e-4 (``GRAD_TOLS``): measured 2.6e-5 of conv_w's largest, and the
+    reference against itself at chunks of 32 in place of 64 moves the
+    same leaf by 2.3e-5 of it (its logits differ from the port's by
+    2.3e-5 at |logit| 4.2: the SSD state grows to ~11 over four Mamba
+    layers);
   - remat: the three policies recompute the same operations on the same
     inputs, so their gradients are equal bit for bit;
 """
@@ -35,8 +40,12 @@ from repro_torch.train import optimizer as opt
 torch.set_num_threads(2)
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-5
+GRAD_TOLS = {"zamba2-1.2b": 1e-4}
 FAMILY_ARCHS = ("qwen2-0.5b", "qwen3-4b", "gemma3-4b", "qwen3-moe-235b-a22b",
-                "musicgen-medium", "llama-3.2-vision-90b")
+                "musicgen-medium", "llama-3.2-vision-90b", "rwkv6-7b",
+                "zamba2-1.2b")
+# the recurrent archs at S 128, two chunks of 64: the scan's carry is used
+SEQ = {"rwkv6-7b": 128, "zamba2-1.2b": 128}
 
 
 def _setup(arch, seed=0):
@@ -84,7 +93,7 @@ def _grads(params, cfg, batch, remat=True):
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_loss_and_every_gradient_match_the_reference(arch):
     ref_cfg, cfg, ref, params = _setup(arch)
-    batch = _batch(cfg)
+    batch = _batch(cfg, S=SEQ.get(arch, 32))
     ctx = single_device_ctx()
     (loss, (ce, aux)), g = jax.jit(lambda p, b: jax.value_and_grad(
         RM.loss_fn, has_aux=True)(p, ref_cfg, ctx, b))(
@@ -100,18 +109,20 @@ def test_loss_and_every_gradient_match_the_reference(arch):
                                           "cpu")
     flat = opt.flatten(want)
     assert len(flat) == len(t_grads)
+    tol = GRAD_TOLS.get(arch, GRAD_TOL)
     for (path, w), got in zip(flat, t_grads):
         scale = float(w.abs().max())
-        np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=GRAD_TOL,
-                                   atol=GRAD_TOL * max(scale, 1e-30),
+        np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=tol,
+                                   atol=tol * max(scale, 1e-30),
                                    err_msg=str(path))
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
-                                  "llama-3.2-vision-90b"])
+                                  "llama-3.2-vision-90b", "rwkv6-7b",
+                                  "zamba2-1.2b"])
 def test_remat_policies_give_equal_gradients(arch):
     _, cfg, _, params = _setup(arch)
-    batch = _batch(cfg)
+    batch = _batch(cfg, S=SEQ.get(arch, 32))
     runs = {policy: _grads(params, cfg, batch, remat=policy)
             for policy in rematcfg.POLICIES}
     base_loss, _, _, base_grads = runs["none"]
@@ -124,10 +135,3 @@ def test_remat_policies_give_equal_gradients(arch):
     with pytest.raises(ValueError, match="remat policy"):
         rematcfg.resolve("everything")
 
-
-def test_recurrent_families_raise_in_train_mode():
-    for arch in ("rwkv6-7b", "zamba2-1.2b"):
-        cfg = registry.get_smoke_config(arch)
-        params = TM.init(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="A9.7"):
-            TM.loss_fn(params, cfg, _torch_batch(_batch(cfg)))
