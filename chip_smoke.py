@@ -302,6 +302,32 @@ each of which fails the run (non-zero exit) if it fails:
                zamba2's first step again with plain attention (loss
                within lm_atol at ZAMBA_ULPS, grad norm within
                GNORM_RTOL); B4's times at zamba2's training shape.
+ 15. mesh      the search engine on a mesh, run right after 6b (it reads
+               6b's store before 6c grows it), with B1's and B2's launch
+               counts set to 0 before and read after, the ranks' own
+               included (they join the kernels line). 15a: a world of
+               one rank over NCCL, a 1 x 1 ("data", "model") mesh; gpu
+               and gpu_packed engines on the 8 requests, each result bit
+               for bit phase 6's (tree_topk and the model gather run on
+               the card), and the L = 8 request's ms and parts as in
+               15b. 15b: four ranks (``mesh_rank``, spawned after
+               the parent built the kernels) of a 2 x 2 mesh on this one
+               card over gloo, each group with a MESH_TIMEOUT_S timeout:
+               NCCL refuses two ranks on one GPU, so the [L, k] lists
+               cross the host here. Each rank maps phase 6's corpus
+               (saved once under ``build/mesh/``, removed after) and
+               uploads its 2^19 rows; gpu and gpu_packed at L = 8 and
+               L = 3 (a bucket of 4, 2 columns a rank) bit for bit phase
+               6's results on every rank; ``tree_topk_ppermute`` equal to
+               ``tree_topk`` on the rank's own candidates; a
+               ``FlashSearchSession`` over 6b's store (rows 2, slabs of
+               2^16) bit for bit 6b's L = 8 result; gpu_fused raises.
+               Per rank: B1 and B2 launches (each > 0), upload seconds,
+               the median ms of MESH_WARM warm L = 8 requests a backend
+               and of their parts (``mesh_times``: the host merge; the
+               rank's uploads, kernel and top-k; the reduction), the
+               session's cold ms, beside the card's name and power
+               limit; the phase's wall time.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the repo beside it, it
@@ -415,6 +441,10 @@ PROFILE_MS = 500                       # phase 6c's /debug/profile capture
 PROFILE_ROOT = Path(__file__).resolve().parent / "build" / "profile"
 B1_TRACE_NAME = ("table_kernel", "EllDocs")  # B1's kernel in a CUDA trace
 KINETO_THREAD_ERROR = "External init callback"
+MESH_ROOT = Path(__file__).resolve().parent / "build" / "mesh"
+MESH_SHAPE = (2, 2)                    # phase 15b: ("data", "model") ranks
+MESH_TIMEOUT_S = 120                   # a diverged rank fails, never hangs
+MESH_WARM = 10                         # warm L = 8 requests timed a rank
 GRAPH_VERTICES, GRAPH_EDGES = 1 << 20, 1 << 24
 GRAPH_PR_ITERS, GRAPH_BFS_ITERS = 50, 32
 # phase 13: training on one card
@@ -831,6 +861,14 @@ def main() -> int:
     for name, n in store_launches.items():
         launches[name] += n
 
+    # -- 15. the engine on a mesh (here: it reads 6b's store before 6c
+    # grows it) ----------------------------------------------------------------
+    mesh_launches = mesh_phase(torch, dev, cfg, corpus, requests,
+                               results["gpu"], kernels)
+    for name, n in mesh_launches.items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+
     # -- 6c. live --------------------------------------------------------------
     with fd2_copied(STORE_ROOT.parent / "live.stderr") as err:
         live_launches = live_phase(torch, dev, cfg, corpus, g, kernels)
@@ -938,6 +976,245 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def mesh_phase(torch, dev, cfg, corpus, requests, resident, kernels):
+    """Phase 15: the search engine on a mesh. 15a: a world of one rank
+    over NCCL, a 1 x 1 mesh, gpu and gpu_packed on the 8 requests. 15b:
+    four ranks (``mesh_rank``) of a 2 x 2 mesh on this one card, over
+    gloo. Every result bit for bit phase 6's resident one (6b's for the
+    session). Returns B1's and B2's launches, the ranks' included."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.engine import PatternSearchEngine
+    from repro_torch.distributed.meshctx import MeshCtx
+    from repro_torch.kernels import _build
+    from repro_torch.serve import Query
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    MESH_ROOT.mkdir(parents=True)
+    timeout = datetime.timedelta(seconds=MESH_TIMEOUT_S)
+    mesh_kernels = {name: kernels[name]
+                    for name in ("sparse_match", "sparse_match_packed")}
+
+    # -- 15a: 1 x 1 through NCCL -------------------------------------------
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    for fn in mesh_kernels.values():
+        fn.launches = 0
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(MESH_ROOT / "nccl"), 1), rank=0,
+        world_size=1, timeout=timeout, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        ctx = MeshCtx(mesh, device=dev)
+        wires = {a: dist.get_backend(ctx.group(a)) for a in ctx.shape}
+        if set(wires.values()) != {"nccl"}:
+            fail(f"mesh 15a: the axis groups' backends are {wires}")
+        timed = {}
+        for backend in ("gpu", "gpu_packed"):
+            eng = PatternSearchEngine(corpus, cfg, backend=backend, ctx=ctx)
+            for l, (idx, qi, qv) in enumerate(requests):
+                if not same(eng.search(Query(qi, qv)), resident[l]):
+                    fail(f"mesh 15a {backend}: L={l + 1} differs from phase "
+                         "6's resident result")
+            timed[backend] = mesh_times(torch, eng, *requests[-1][1:])
+            del eng
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in mesh_kernels.items()}
+    if min(launches.values()) <= 0:
+        fail(f"mesh 15a: launches {launches}")
+    say(f"mesh 15a (1 x 1, one rank over NCCL; tree_topk and the model "
+        f"gather on the card): gpu and gpu_packed equal phase 6's 8 "
+        f"requests bit for bit; launches {launches}; warm L=8 "
+        + "; ".join(f"{b} {parts_line(t)}" for b, t in timed.items())
+        + f"; {card}")
+    torch.cuda.empty_cache()
+
+    # -- 15b: 2 x 2, four ranks on this card, over gloo ---------------------
+    _build.build(mesh_kernels)          # the ranks load, never build
+    t0 = time.perf_counter()
+    for field in ("doc_ids", "ids", "vals", "norms"):
+        np.save(MESH_ROOT / f"{field}.npy", getattr(corpus, field))
+    saved_s = time.perf_counter() - t0
+    reqs = {len(requests[l][0]): requests[l][1:] for l in (2, 7)}
+    world = int(np.prod(MESH_SHAPE))
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_rank, args=(world, str(MESH_ROOT), reqs,
+                                        str(STORE_ROOT)),
+                       nprocs=world, join=True, start_method="spawn")
+    ranks_s = time.perf_counter() - t0
+    outs = []
+    for rank in range(world):
+        with open(MESH_ROOT / f"rank{rank}.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+    want = {L: resident[L - 1] for L in reqs}
+    for o in outs:
+        r = o["rank"]
+        for (backend, L), got in o["results"].items():
+            if not same(got, want[L]):
+                fail(f"mesh 15b rank {r} {backend}: L={L} differs from phase "
+                     "6's resident result")
+        if not all(o["butterfly"].values()):
+            fail(f"mesh 15b rank {r}: tree_topk_ppermute differs from "
+                 f"tree_topk {o['butterfly']}")
+        if not same(o["session"], resident[7]):
+            fail(f"mesh 15b rank {r}: the session's L=8 request differs from "
+                 "phase 6b's result")
+        if o["session_plan"] != (MESH_SHAPE[0], STORE_SEGMENT_DOCS):
+            fail(f"mesh 15b rank {r}: session plan {o['session_plan']}")
+        if "single-device" not in o.get("fused_error", ""):
+            fail(f"mesh 15b rank {r}: gpu_fused on the mesh did not raise")
+        if min(o["launches"].values()) <= 0:
+            fail(f"mesh 15b rank {r}: launches {o['launches']}")
+        for name, n in o["launches"].items():
+            launches[name] += n
+        say(f"mesh 15b rank {r} (data {o['coord'][0]}, model "
+            f"{o['coord'][1]}): {o['rows']} rows resident, uploaded in "
+            f"{o['upload_s']:.1f} s; launches {o['launches']}; warm L=8 "
+            + "; ".join(f"{b} {parts_line(t)}"
+                        for b, t in o["warm_ms"].items())
+            + f"; session cold L=8 {o['session_ms']:.0f} ms; {card}")
+    say(f"mesh 15b (2 x 2, {world} ranks on one card over gloo: the [L, k] "
+        "lists cross the host, since NCCL refuses two ranks on one GPU, "
+        "'Duplicate GPU detected'; the NCCL wire between cards waits for a "
+        "multi-card run): gpu and gpu_packed at L=8 and L=3 equal phase 6's "
+        "results bit for bit on every rank, tree_topk_ppermute equals "
+        "tree_topk, the session equals 6b's, gpu_fused raises; corpus "
+        f"saved in {saved_s:.1f} s, ranks ran {ranks_s:.1f} s")
+    shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    say(f"mesh phase: {time.perf_counter() - t_phase:.1f} s wall; {card}")
+    return launches
+
+
+def mesh_times(torch, eng, qi, qv):
+    """Host ms of MESH_WARM warm requests through ``eng.search`` (median),
+    then of the same request in its parts, each ended by a synchronize
+    (medians): ``merge`` (the host's merged stream), ``score`` (uploads,
+    B1/B2, cosine and the rank's top-k), ``reduce`` (``tree_topk`` over
+    the data axes and the model gather)."""
+    from repro_torch.core import topk as topk_lib
+    from repro_torch.distributed import compat
+    from repro_torch.serve import Query
+    ctx, k = eng.ctx, eng.cfg.top_k
+    parts = {"request": [], "merge": [], "score": [], "reduce": []}
+    for _ in range(MESH_WARM):
+        t0 = time.perf_counter()
+        eng.search(Query(qi, qv))
+        parts["request"].append((time.perf_counter() - t0) * 1e3)
+    for _ in range(MESH_WARM):
+        t0 = time.perf_counter()
+        stream = eng.merged_stream(qi, qv)
+        t1 = time.perf_counter()
+        v, i = eng.shard_topk(*stream)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for axis in ctx.dp_axes:
+            v, i = topk_lib.tree_topk(v, i, k, ctx, axis)
+        v = compat.all_gather_axis(v, ctx, ctx.tp_axis, dim=0)
+        i = compat.all_gather_axis(i, ctx, ctx.tp_axis, dim=0)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for name, dt in (("merge", t1 - t0), ("score", t2 - t1),
+                         ("reduce", t3 - t2)):
+            parts[name].append(dt * 1e3)
+    return {name: statistics.median(ts) for name, ts in parts.items()}
+
+
+def parts_line(t) -> str:
+    return (f"request {t['request']:.2f} ms (median of {MESH_WARM}; merge "
+            f"{t['merge']:.2f}, score {t['score']:.2f}, reduce "
+            f"{t['reduce']:.2f})")
+
+
+def mesh_rank(rank, world, root, reqs, store_root):
+    """One rank of phase 15b: a process of its own on the card, in a gloo
+    world through a FileStore under ``root``; it loads phase 6's corpus
+    from ``root`` (memory-mapped: it uploads only its row block), runs
+    the engine and the store session in lockstep with the other ranks,
+    and pickles what it found to ``root/rank<r>.pkl``."""
+    import datetime
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.paper_search import SearchConfig
+    from repro_torch.core import topk as topk_lib
+    from repro_torch.core.corpus import Corpus
+    from repro_torch.core.engine import PatternSearchEngine
+    from repro_torch.distributed.meshctx import MeshCtx
+    from repro_torch.kernels.sparse_match import sparse_match
+    from repro_torch.kernels.sparse_match_packed import sparse_match_packed
+    from repro_torch.serve import Query
+    from repro_torch.storage import FlashSearchSession, FlashStore
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.set_num_threads(2)
+    root = Path(root)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(root / "gloo"), world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        ctx = MeshCtx(init_device_mesh("cpu", MESH_SHAPE,
+                                       mesh_dim_names=("data", "model")),
+                      device="cuda:0")
+        corpus = Corpus(*(np.load(root / f"{field}.npy", mmap_mode="r")
+                          for field in ("doc_ids", "ids", "vals", "norms")))
+        cfg = SearchConfig(name="paper-full")
+        kernels = {"sparse_match": sparse_match,
+                   "sparse_match_packed": sparse_match_packed}
+        for fn in kernels.values():
+            fn.launches = 0
+        out = {"rank": rank, "coord": (ctx.dp_index, ctx.coord("model")),
+               "results": {}}
+        t0 = time.perf_counter()
+        engines = {b: PatternSearchEngine(corpus, cfg, backend=b, ctx=ctx)
+                   for b in ("gpu", "gpu_packed")}
+        torch.cuda.synchronize()
+        out["upload_s"] = time.perf_counter() - t0
+        out["rows"] = engines["gpu"].d_ids.shape[0]
+        for backend, eng in engines.items():
+            for L, (qi, qv) in reqs.items():
+                out["results"][backend, L] = eng.search(Query(qi, qv))
+        try:
+            PatternSearchEngine(None, cfg, backend="gpu_fused", ctx=ctx)
+        except ValueError as e:
+            out["fused_error"] = str(e)
+        sess = FlashSearchSession(FlashStore.open(store_root), cfg,
+                                  backend="gpu", ctx=ctx, cache_bytes=0)
+        try:
+            t0 = time.perf_counter()
+            out["session"] = sess.search(Query(*reqs[8]))
+            out["session_ms"] = (time.perf_counter() - t0) * 1e3
+            out["session_plan"] = (sess._planner.rows, sess._slab_docs)
+        finally:
+            sess.close()
+        torch.cuda.synchronize()
+        out["launches"] = {n: fn.launches for n, fn in kernels.items()}
+        out["warm_ms"], out["butterfly"] = {}, {}
+        for backend, eng in engines.items():
+            out["warm_ms"][backend] = mesh_times(torch, eng, *reqs[8])
+            # tree_topk_ppermute against tree_topk on the rank's own
+            # candidates of the L = 8 request
+            v, i = eng.shard_topk(*eng.merged_stream(*reqs[8]))
+            k, n = cfg.top_k, ctx.shape["data"]
+            gv, gi = topk_lib.tree_topk(v, i, k, ctx, "data")
+            pv, pi = topk_lib.tree_topk_ppermute(v, i, k, ctx, "data", n)
+            out["butterfly"][backend] = (
+                torch.equal(gv.view(torch.int32), pv.view(torch.int32))
+                and torch.equal(gi, pi))
+    finally:
+        dist.destroy_process_group()
+    with open(root / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
 
 
 def stage_summary(obs) -> str:

@@ -15,12 +15,27 @@ Query shapes are *bucketed*: L pads to the next power of two and the
 merged id stream to a capacity proportional to that L bucket, so a
 session serving batches of any size up to ``max_batch`` uses at most
 ``log2(max_batch) + 1`` launch shapes; ``compile_stats`` reports the
-distinct (Lp, Qp, n_docs) launch keys seen, and the ``obs`` registry's
+distinct (Lp, Qp, n_docs) launch keys seen (on a mesh, the rank's own
+Lp / tp columns and rows), and the ``obs`` registry's
 ``engine_compile_traces`` counter counts each new one (the reference
 counts jit traces there). With ``obs.device_fence`` on, ``stage_ms``
 splits a request into ``score_dispatch`` (uploads and launches, on the
 host clock) and ``score_device`` (``torch.cuda.synchronize`` until the
 card is done).
+
+On a mesh (``ctx=``, a ``repro_torch.distributed.MeshCtx``) each rank is
+one process that holds one row block of the corpus: rows pad to a
+multiple of the ``data`` axes' size (the paper's K partitions) and the
+rank uploads only its block. The ranks call ``search`` in lockstep with
+the same queries. Each merges the whole batch, scores its block against
+its contiguous L / tp columns of the merged values (the ``model`` axis;
+L pads to a power of two times tp), takes a local top-k over its global
+doc ids, reduces it over each ``data`` axis (``core.topk.tree_topk``) and
+gathers the columns back over ``model``, so every rank returns the whole
+[L, k] result, bit for bit the single-device one. ``ctx=None`` (a
+``single_device_ctx``, no DeviceMesh) is the single-device path as it
+was: no reduction runs. ``gpu_fused`` scores one device's packed tiles
+only.
 
 On the CPU (``device="cpu"``) every kernel wrapper runs its plain PyTorch
 version; that is how the tests hold this engine against the JAX one.
@@ -43,6 +58,8 @@ from repro_torch.core import topk as topk_lib
 from repro_torch.core.corpus import Corpus
 from repro_torch.core.stream_format import VAL_MASK
 from repro_torch.device import LAUNCHES, DeviceLike, resolve
+from repro_torch.distributed import compat
+from repro_torch.distributed.meshctx import MeshCtx, single_device_ctx
 from repro_torch.kernels import fused as kfused
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.fused import PackedSlab
@@ -89,10 +106,13 @@ class PatternSearchEngine:
     def __init__(self, corpus: Optional[Corpus], cfg: SearchConfig,
                  device: DeviceLike = None, backend: str = "gpu",
                  obs: Optional[Obs] = None,
-                 tiling: Optional[TilingStrategy] = None):
+                 tiling: Optional[TilingStrategy] = None, *,
+                 ctx: Optional[MeshCtx] = None):
         """``corpus=None`` builds a streaming-only engine (no resident
         corpus): callers use ``search_streaming`` / ``put_slab``.
         ``device`` defaults to the CUDA card (``repro_torch.device``).
+        ``ctx`` runs the engine on a mesh, on the ctx's device (``device``
+        may only repeat it); None is one device.
         ``obs`` mirrors new launch keys into the shared metrics registry;
         None uses the process default.
         ``tiling`` picks the fused backend's doc tile (DESIGN.md §12.3);
@@ -100,7 +120,18 @@ class PatternSearchEngine:
         if backend not in kops.BACKENDS:
             raise ValueError(f"backend must be one of {kops.BACKENDS}, "
                              f"got {backend!r}")
-        self.device = resolve(device)
+        if ctx is None:
+            ctx = single_device_ctx(device)
+        elif device is not None and resolve(device) != ctx.device:
+            raise ValueError(f"device {device} is not the mesh ctx's "
+                             f"{ctx.device}")
+        if backend == "gpu_fused" and ctx.size != 1:
+            raise ValueError(
+                "backend='gpu_fused' is single-device (packed doc tiles "
+                f"are not mesh-sharded); mesh has {ctx.size} devices — "
+                "use 'gpu' or 'torch' there")
+        self.ctx = ctx
+        self.device = ctx.device
         self.cfg = cfg
         self.backend = backend
         self.obs = obs if obs is not None else default_obs()
@@ -114,6 +145,8 @@ class PatternSearchEngine:
             raise ValueError(
                 f"corpus word ids reach {int(corpus.ids.max())} but "
                 f"cfg.vocab_size={cfg.vocab_size}")
+        rows = ctx.dp_size
+        corpus = corpus.pad_docs_to(-(-corpus.n_docs // rows) * rows)
         self.corpus = corpus
         self.tiling = tiling if tiling is not None else FixedTiling(
             cfg.block_docs, cfg.block_query)
@@ -132,14 +165,17 @@ class PatternSearchEngine:
             self._block_docs = cfg.block_docs
             slab = self.put_slab(corpus)
             self.d_ids, self.d_vals, self.d_norms, self.d_docids = slab
-        # distinct launch keys (Lp, Qp, n_docs), in first-seen order
+        # distinct launch keys (the rank's columns, Qp, the rank's rows),
+        # in first-seen order
         self._launch_keys: list = []
 
     # ------------------------------------------------------------------
     def bucket_L(self, L: int) -> int:
-        """The L bucket: next power of two of L, so any batch size up to
-        ``max_batch`` lands in one of ``log2(max_batch) + 1`` shapes."""
-        return _next_pow2(L)
+        """The L bucket: next power of two of ceil(L / tp), times tp, so
+        any batch size up to ``max_batch`` lands in one of
+        ``log2(max_batch) + 1`` shapes and splits evenly over ``model``."""
+        tp = self.ctx.tp_size
+        return _next_pow2(-(-L // tp)) * tp
 
     def bucket_Q(self, q_items: int, Lp: int) -> int:
         """Merged-stream capacity for an L bucket: ``Lp * block_query``
@@ -201,31 +237,54 @@ class PatternSearchEngine:
         with LAUNCHES.launching():
             return self._score(L_, Lp, mi, mv, q_norms)
 
+    def shard_topk(self, Lp, mi, mv, q_norms
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's candidates before any reduction: its row block
+        scored against its Lp / tp columns of the merged stream
+        (``merged_stream``'s arrays), top-k over its global doc ids:
+        ([Lp / tp, k] values, ids). Uploads and launches only."""
+        cfg = self.cfg
+        if self.backend == "gpu_fused":
+            mi_t, mv_t, qn_t = (self._upload(a) for a in (mi, mv, q_norms))
+            return kops.fused_topk(
+                self.f_tiles, mi_t, mv_t, qn_t, k=cfg.top_k,
+                block_docs=self._block_docs,
+                block_query=self.tiling.query_tile(Lp))
+        cols = Lp // self.ctx.tp_size
+        c0 = self.ctx.coord(self.ctx.tp_axis) * cols
+        # the rank's columns, made contiguous for B1 and B2 by _upload
+        mi_t, mv_t, qn_t = (self._upload(a) for a in (
+            mi, mv[:, c0:c0 + cols], q_norms[c0:c0 + cols]))
+        corr = kops.correlate(
+            self.d_ids, self.d_vals, mi_t, mv_t, backend=self.backend,
+            vocab_size=cfg.vocab_size, block_docs=cfg.block_docs,
+            block_query=cfg.block_query)
+        cos = kops.cosine_scores(corr, self.d_norms, qn_t)
+        return topk_lib.local_topk(cos, self.d_docids, cfg.top_k)
+
     def _score(self, L_, Lp, mi, mv, q_norms) -> SearchResult:
-        """Upload the merged stream, launch, take the top-k and read it
-        back: the device half of ``_search_arrays``."""
+        """Upload the merged stream, launch, take the top-k, reduce it
+        over the mesh and read it back: the device half of
+        ``_search_arrays``."""
         # optional device-stage split (DESIGN.md §8.5): with the fence
         # on, the uploads and launches are timed apart from the device
         # work they enqueue. Off by default — the synchronize serializes
         # what the .cpu() below would have overlapped.
         fence = self.obs.device_fence
         t0 = time.perf_counter() if fence else 0.0
-        mi_t, mv_t, qn_t = (self._upload(a) for a in (mi, mv, q_norms))
-        cfg = self.cfg
+        v, i = self.shard_topk(Lp, mi, mv, q_norms)
+        ctx, k = self.ctx, self.cfg.top_k
+        if ctx.mesh is not None:
+            # reduce across the corpus-shard (K) axes — the paper's
+            # report path — then put the columns back together
+            for axis in ctx.dp_axes:
+                v, i = topk_lib.tree_topk(v, i, k, ctx, axis)
+            v = compat.all_gather_axis(v, ctx, ctx.tp_axis, dim=0)
+            i = compat.all_gather_axis(i, ctx, ctx.tp_axis, dim=0)
         if self.backend == "gpu_fused":
             n_docs = self.f_tiles.shape[0] * self._block_docs
-            v, i = kops.fused_topk(
-                self.f_tiles, mi_t, mv_t, qn_t, k=cfg.top_k,
-                block_docs=self._block_docs,
-                block_query=self.tiling.query_tile(Lp))
         else:
             n_docs = self.d_ids.shape[0]
-            corr = kops.correlate(
-                self.d_ids, self.d_vals, mi_t, mv_t, backend=self.backend,
-                vocab_size=cfg.vocab_size, block_docs=cfg.block_docs,
-                block_query=cfg.block_query)
-            cos = kops.cosine_scores(corr, self.d_norms, qn_t)
-            v, i = topk_lib.local_topk(cos, self.d_docids, cfg.top_k)
         if fence:
             t1 = time.perf_counter()
             if self.device.type == "cuda":
@@ -236,7 +295,7 @@ class PatternSearchEngine:
                 (t1 - t0) * 1e3)
             reg.histogram("stage_ms", stage="score_device").observe(
                 (t2 - t1) * 1e3)
-        key = (Lp, mi.size, n_docs)
+        key = (Lp // ctx.tp_size, mi.size, n_docs)
         if key not in self._launch_keys:
             self._launch_keys.append(key)
             self._trace_counter.inc()
@@ -293,27 +352,39 @@ class PatternSearchEngine:
         names its packed layout ``"ell"`` too (ROADMAP C11)."""
         if self.backend == "gpu_fused":
             return f"fused:{self._block_docs}"
-        if self.backend == "gpu_packed":
-            return "packed"
-        return "ell"
+        fmt = "packed" if self.backend == "gpu_packed" else "ell"
+        if self.ctx.dp_size > 1:
+            # a mesh slab holds one row block only
+            fmt += f"@rows{self.ctx.dp_index}/{self.ctx.dp_size}"
+        return fmt
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
+        # a read-only array (a rank's memory-mapped corpus) is copied:
+        # torch takes no read-only numpy memory
+        a = np.require(a, requirements=("C", "W"))
         with LAUNCHES.launching():
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            return torch.from_numpy(a).to(self.device)
 
     def put_slab(self, slab: Corpus) -> SlabLike:
         """Upload a host slab. The fused backend re-encodes the rows into
         packed doc tiles (``PackedSlab``); ELL backends upload the row
-        arrays (packed words for ``gpu_packed``)."""
+        arrays (packed words for ``gpu_packed``) of this rank's block of
+        the slab, padded to a multiple of the mesh rows."""
         if self.backend == "gpu_fused":
             tiles, _, _ = kfused.tile_stream(
                 kfused.corpus_to_stream(slab),
                 block_docs=self._block_docs, nnz_pad=self.cfg.nnz_pad,
                 pad_docs_to=slab.n_docs)
             return PackedSlab(self._upload(tiles.view(np.int32)))
+        if self.backend == "gpu_packed":
+            # the whole slab on every rank: all raise or none does
+            _require_integral_counts(slab.vals, self.backend)
+        rows = self.ctx.dp_size
+        n = -(-slab.n_docs // rows)
+        r = self.ctx.dp_index
+        slab = slab.pad_docs_to(n * rows).slice_rows(r * n, (r + 1) * n)
         ids = slab.ids
         if self.backend == "gpu_packed":
-            _require_integral_counts(slab.vals, self.backend)
             ids = pack_ell(slab.ids, slab.vals).view(np.int32)
         return DeviceSlab(
             self._upload(ids), self._upload(slab.vals),

@@ -1,6 +1,9 @@
 """Top-k reduction primitives (the paper's result reporting path), in torch.
 
-The port of ``repro.core.topk``'s single-device half. ``lax.top_k``
+The port of ``repro.core.topk``: per-device top-k over the local corpus
+shard, then a reduction along the mesh axes (``tree_topk``, or the
+log-depth ``tree_topk_ppermute``), so only O(k) candidates cross each
+link — "only documentIDs with high scores are reported". ``lax.top_k``
 orders floats by their total order (NaN above +inf, -NaN below -inf,
 -0.0 below +0.0) and breaks ties by the lower index; ``torch.topk``
 promises no tie order. So every ranking here is a stable descending
@@ -13,6 +16,9 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import compat
+from repro_torch.distributed.meshctx import MeshCtx
 
 
 def rank_key(vals: torch.Tensor) -> torch.Tensor:
@@ -70,3 +76,34 @@ def merge_topk(vals_a, ids_a, vals_b, ids_b, k: int):
     """Merge two [L, k] candidate sets."""
     return fold_topk(torch.cat([vals_a, vals_b], dim=1),
                      torch.cat([ids_a, ids_b], dim=1), k)
+
+
+def tree_topk(vals: torch.Tensor, ids: torch.Tensor, k: int, ctx: MeshCtx,
+              axis: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reduce [L, k] candidates across the ranks of ``axis``: gather them
+    in the axis's coordinate order, then fold. Ties therefore break
+    toward the lower coordinate, which holds the lower document rows."""
+    g_vals = compat.all_gather_axis(vals, ctx, axis, dim=1)
+    g_ids = compat.all_gather_axis(ids, ctx, axis, dim=1)
+    return fold_topk(g_vals, g_ids, k)
+
+
+def tree_topk_ppermute(vals: torch.Tensor, ids: torch.Tensor, k: int,
+                       ctx: MeshCtx, axis: str, axis_size: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Log-depth butterfly merge via ppermute (the collective-light
+    variant). Each step merges a rank's set with its partner's, the
+    lower coordinate's first, so ties break as in ``tree_topk`` and
+    every rank ends with the same list."""
+    me = ctx.coord(axis)
+    step = 1
+    while step < axis_size:
+        perm = [(i, i ^ step) for i in range(axis_size)]
+        ov = compat.ppermute(vals, ctx, axis, perm)
+        oi = compat.ppermute(ids, ctx, axis, perm)
+        if me & step:                    # the partner is the lower half
+            vals, ids = merge_topk(ov, oi, vals, ids, k)
+        else:
+            vals, ids = merge_topk(vals, ids, ov, oi, k)
+        step *= 2
+    return vals, ids

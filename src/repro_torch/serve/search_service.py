@@ -45,6 +45,7 @@ from typing import List, Optional
 import numpy as np
 
 from repro_torch.core.engine import SearchResult
+from repro_torch.distributed.meshctx import refuse_mesh
 from repro_torch.serve.admission import AdmissionController
 from repro_torch.serve.api import (Query, QueryOptions, QueryStats,
                                    SearchResponse, coerce_request,
@@ -112,7 +113,13 @@ class SearchService:
 
         Admission control: pass a prebuilt ``admission`` controller, or
         the ``max_pending``/``tenant_qps``/``tenant_burst`` knobs to
-        build one here; all-None means admit everything (legacy)."""
+        build one here; all-None means admit everything (legacy).
+
+        A searcher on a mesh of more than one device raises
+        ``NotImplementedError``: the service's batches run on its own
+        thread and clock, which cannot keep the ranks in lockstep
+        (ROADMAP A8.2)."""
+        refuse_mesh(getattr(searcher, "ctx", None), "SearchService")
         self.searcher = searcher
         # share the searcher's observability bundle (every tier carries
         # one, DESIGN.md §8) so queue-wait/occupancy histograms land in

@@ -38,6 +38,11 @@ A fused slab's ``decode`` time holds its tiling and upload (its
 padded to the segment launch shape on the host and uploaded by the
 scoring thread with every query (``search_streaming`` of its
 ``Corpus``), as in the reference.
+
+On a mesh the slab pad aligns to the mesh rows (``rows``), and a
+``lockstep`` planner scans in manifest order: each rank's slab cache is
+its own, and a cache-first order that differed between ranks would have
+them reduce candidates of different slabs together.
 """
 from __future__ import annotations
 
@@ -135,12 +140,14 @@ class Planner:
     def __init__(self, *, nnz_pad: int, rows: int, use_filter: bool = True,
                  cache: Optional[SlabCache] = None, fmt: str = "ell",
                  mode: str = MODE_EXACT, candidates: int = 0,
-                 approx_min_docs: int = DEFAULT_APPROX_MIN_DOCS):
+                 approx_min_docs: int = DEFAULT_APPROX_MIN_DOCS,
+                 lockstep: bool = False):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         self.nnz_pad = nnz_pad
         self.rows = rows                # rows the slab pad aligns to
                                         # (1 on one card)
+        self.lockstep = lockstep        # manifest scan order (a mesh)
         self.use_filter = use_filter
         self.cache = cache
         self.fmt = fmt                  # the engine's slab_fmt: cache
@@ -214,7 +221,10 @@ class Planner:
             mem_pad = slab_docs
             while mem_pad < mem_corpus.n_docs:
                 mem_pad *= 2
-        return QueryPlan(steps=cached + disk, skipped=skipped,
+        steps = cached + disk
+        if self.lockstep:
+            steps.sort(key=lambda st: st.rank)
+        return QueryPlan(steps=steps, skipped=skipped,
                          segments_total=len(entries), slab_docs=slab_docs,
                          nnz_pad=self.nnz_pad, cache_token=token,
                          generation=view.generation,

@@ -19,10 +19,19 @@ skip-rate is the storage tier's headline metric) plus the cache
 hit/miss/eviction counters.
 
 The port of ``repro.storage.session``: ``device`` (the CUDA card unless
-the caller passes ``device="cpu"``, ``repro_torch.device``) takes the
-place of the mesh context, and the backend is one of the port's
+the caller passes ``device="cpu"``, ``repro_torch.device``) or ``ctx``
+(a mesh, ``repro_torch.distributed.MeshCtx``) say where it scores, and
+the backend is one of the port's
 (``gpu`` by default: B1; ``gpu_packed``: B2; ``gpu_fused``: B3 through
 ``put_stream_slab``; ``torch``: the gather path).
+
+On a mesh every rank runs its own session over the same store, in
+lockstep with the same queries: each decodes every surviving segment,
+uploads its row block (slabs pad to a multiple of the mesh rows) and
+scans in manifest order, so the ranks reduce the same slab together.
+The serving tier and the write path drive one process's threads on its
+own clock and cannot keep ranks in lockstep: ``service``, ``submit``
+and ``enable_ingest`` raise ``NotImplementedError`` there (ROADMAP A8.2).
 
 With ``enable_ingest()`` the session also becomes a *live* writer
 surface (DESIGN.md §6): ``append`` routes documents through a
@@ -43,6 +52,7 @@ import numpy as np
 from repro_torch.configs.paper_search import SearchConfig
 from repro_torch.core.engine import PatternSearchEngine, SearchResult
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.meshctx import MeshCtx, refuse_mesh
 from repro_torch.obs import NULL_REGISTRY, NULL_SPAN, Obs, default_obs
 from repro_torch.serve.api import (Query, QueryOptions, QueryStats, SearchResponse,
                              coerce_request, truncate_k)
@@ -100,7 +110,8 @@ class FlashSearchSession(ServingSessionMixin):
                  obs: Optional[Obs] = None,
                  mode: str = MODE_EXACT, candidates: int = 0,
                  approx_min_docs: int = DEFAULT_APPROX_MIN_DOCS,
-                 memo: Optional[MemoCache] = None, memo_entries: int = 0):
+                 memo: Optional[MemoCache] = None, memo_entries: int = 0,
+                 *, ctx: Optional[MeshCtx] = None):
         """``slab_cache`` shares an existing cache (the cluster router
         passes one per-cluster instance); otherwise ``cache_bytes``
         sizes a private one (None = default budget, 0 = disabled).
@@ -117,7 +128,8 @@ class FlashSearchSession(ServingSessionMixin):
         ``memo``/``memo_entries`` attach the recurrent-query memo cache
         (shared instance wins; entries > 0 sizes a private one; the
         default is off). ``device`` defaults to the CUDA card and
-        raises without one (``repro_torch.device.resolve``)."""
+        raises without one (``repro_torch.device.resolve``); ``ctx``
+        scores on a mesh instead, one rank's share in this process."""
         self.store = store
         self.cfg = cfg
         self.use_filter = use_filter
@@ -130,22 +142,25 @@ class FlashSearchSession(ServingSessionMixin):
                 f"store vocab_size {store.vocab_size} exceeds "
                 f"cfg.vocab_size {cfg.vocab_size}")
         self.engine = PatternSearchEngine(None, cfg, device, backend,
-                                          obs=self.obs)
+                                          obs=self.obs, ctx=ctx)
+        self.ctx = self.engine.ctx
+        rows = self.ctx.dp_size
         self.slab_cache = SlabCache.resolve(slab_cache, cache_bytes)
         if self.slab_cache is not None:
             store.register_cache(self.slab_cache)
-        self._planner = Planner(nnz_pad=cfg.nnz_pad, rows=1,
+        self._planner = Planner(nnz_pad=cfg.nnz_pad, rows=rows,
                                 use_filter=use_filter, cache=self.slab_cache,
                                 fmt=self.engine.slab_fmt, mode=mode,
                                 candidates=(candidates if candidates > 0
                                             else 4 * cfg.top_k),
-                                approx_min_docs=approx_min_docs)
+                                approx_min_docs=approx_min_docs,
+                                lockstep=self.ctx.size > 1)
         self._memo = memo if memo is not None else (
             MemoCache(memo_entries) if memo_entries > 0 else None)
         self.last_stats = SearchStats()
         self._ingest = None
-        # one launch shape for every slab: the largest segment
-        self._slab_docs = max(store.max_segment_docs, 1)
+        # one launch shape for every slab: largest segment, mesh-aligned
+        self._slab_docs = -(-max(store.max_segment_docs, 1) // rows) * rows
         self._init_serving()
 
     # -- live ingestion (DESIGN.md §6) ---------------------------------
@@ -155,6 +170,7 @@ class FlashSearchSession(ServingSessionMixin):
         behind. ``knobs`` are ``repro_torch.ingest.IngestConfig``
         fields. Idempotent; returns the pipeline."""
         from repro_torch.ingest import IngestConfig, IngestPipeline
+        refuse_mesh(self.ctx, "the write path (enable_ingest)")
         if self._ingest is None:
             self._ingest = IngestPipeline(self.store, IngestConfig(**knobs),
                                           obs=self.obs)

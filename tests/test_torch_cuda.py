@@ -1876,3 +1876,55 @@ def test_recurrent_smoke_trains_on_the_card_as_on_the_cpu(dev, arch):
     for a, b in zip(runs[1][1], runs[0][1]):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+# -- the search engine on a 1 x 1 mesh through NCCL ----------------------
+@pytest.fixture(scope="module")
+def nccl_ctx(dev, tmp_path_factory):
+    """A world of one rank over NCCL, a 1 x 1 ("data", "model") mesh on
+    the card; the group is destroyed after the module."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.meshctx import MeshCtx
+    store = dist.FileStore(str(tmp_path_factory.mktemp("nccl") / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120),
+                            device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        yield MeshCtx(mesh, device=dev)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("backend", ["gpu", "gpu_packed"])
+def test_nccl_1x1_mesh_engine_equals_the_single_device_engine(
+        dev, nccl_ctx, backend):
+    cfg = SearchConfig(name="card-mesh", vocab_size=20000,
+                       avg_nnz_per_doc=40, nnz_pad=64, top_k=16)
+    corpus = corpus_lib.synthesize(1 << 14, cfg.vocab_size, 40, cfg.nnz_pad,
+                                   seed=29)
+    single = PatternSearchEngine(corpus, cfg, dev, backend)
+    mesh = PatternSearchEngine(corpus, cfg, backend=backend, ctx=nccl_ctx)
+    assert torch.distributed.get_backend(nccl_ctx.group("data")) == "nccl"
+    rng = np.random.default_rng(29)
+    counts = {b.__name__: 0 for b in (sparse_match, sparse_match_packed)}
+    for L in (1, 3, 8):
+        idx = rng.integers(0, corpus.n_docs, L)
+        qs = [corpus_lib.make_query(corpus, int(i), cfg.max_query_nnz)
+              for i in idx]
+        q = _query(np.stack([x[0] for x in qs]), np.stack([x[1] for x in qs]))
+        want = single.search_typed(q)
+        for fn in (sparse_match, sparse_match_packed):
+            fn.launches = 0
+        got = mesh.search_typed(q)
+        for fn in (sparse_match, sparse_match_packed):
+            counts[fn.__name__] += fn.launches
+        np.testing.assert_array_equal(got.doc_ids, want.doc_ids)
+        np.testing.assert_array_equal(got.scores.view(np.uint32),
+                                      want.scores.view(np.uint32))
+        np.testing.assert_array_equal(got.doc_ids[:, 0], idx)
+    name = "sparse_match" if backend == "gpu" else "sparse_match_packed"
+    assert counts[name] == 3
