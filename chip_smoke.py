@@ -328,6 +328,41 @@ each of which fails the run (non-zero exit) if it fails:
                rank's uploads, kernel and top-k; the reduction), the
                session's cold ms, beside the card's name and power
                limit; the phase's wall time.
+ 16. LM mesh   LM serving on a mesh (``lm_mesh_phase``), run last. The
+               one-device run first: qwen3-4b at full size, LM_BATCH
+               prompts of LM_PROMPT, MESH_LM_NEW greedy tokens, each
+               step's logits kept. 16c: a world of one rank over NCCL,
+               served through ``repro_torch.launch.serve.main --mesh 1,1
+               --dist-backend nccl`` (a 1 x 1 DeviceMesh, the weights
+               born sharded by ``sharding.sharded_init``): every step's
+               logits bit for bit the one-device run's. 16a: four ranks
+               (``lm_mesh_rank``, spawned after the parent built the
+               kernels, a MESH_TIMEOUT_S group timeout) of a 2 x 2 mesh
+               on this card over gloo (NCCL refuses two ranks on one GPU,
+               ROADMAP C24), each serving through ``launch.serve.main
+               --mesh 2,2 --dist-backend gloo``: logits within lm_atol of
+               the one-device run's and tokens equal wherever its top-2
+               margin exceeds that, every rank's tokens equal. 16b:
+               qwen3-moe at MOE_LAYERS layers on a 1 x 4 mesh (32 experts
+               a rank, the all_to_all over four ranks; served through
+               ``step.generate``, as phase 9b serves it, since the
+               launcher takes no depth cut): each rank's first MoE block
+               equal to ``moe.dispatch_simulated`` on its gathered input
+               within two bf16 ulps; a prefill at NO_DROP_CF (nothing
+               dropped, on either side; one device's routing replayed, as
+               10b's lm_check replays it) within lm_atol of one device's
+               last-position logits, every token-layer where the mesh's
+               own router chose another expert set at a routing margin
+               below that limit (10b's rule), and the pass's first MoE
+               block within MOE_PLAIN_ULPS bf16 ulps of ``moe_plain``, a
+               loop over the experts that shares no code with the port.
+               Per rank, beside the card's name and power limit: the
+               weight blocks' GB and draw seconds, prefill ms and decode
+               ms a step, the collectives' ms and bytes in prefill and a
+               decode step (``compat.stats``), B4's launches (each > 0;
+               they join the hd-128 row of the kernels line) and B4 on
+               the rank's first site's own q, k and v against its plain
+               version.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the repo beside it, it
@@ -445,6 +480,13 @@ MESH_ROOT = Path(__file__).resolve().parent / "build" / "mesh"
 MESH_SHAPE = (2, 2)                    # phase 15b: ("data", "model") ranks
 MESH_TIMEOUT_S = 120                   # a diverged rank fails, never hangs
 MESH_WARM = 10                         # warm L = 8 requests timed a rank
+# phase 16: LM serving on a mesh, four ranks on this one card over gloo
+MESH_LM_ARCH = "qwen3-4b"              # 16a and 16c: full width and depth
+MESH_LM_SHAPE = (2, 2)                 # 16a: ("data", "model")
+MESH_MOE_SHAPE = (1, 4)                # 16b: 32 of 128 experts a rank
+MESH_LM_NEW = 8                        # greedy tokens a run
+NO_DROP_CF = 2.0                       # 16b: no assignment drops (checked)
+MOE_PLAIN_ULPS = 8                     # 16b: top_k bf16 adds in another order
 GRAPH_VERTICES, GRAPH_EDGES = 1 << 20, 1 << 24
 GRAPH_PR_ITERS, GRAPH_BFS_ITERS = 50, 32
 # phase 13: training on one card
@@ -969,6 +1011,9 @@ def main() -> int:
     graph_phase(torch, dev)
     rows.append(train_phases(torch, dev))
     rows.append(train_recurrent_phases(torch, dev))
+    # -- 16. LM serving on a mesh (qwen3-4b and qwen3-moe: B4 at hd 128) ------
+    next(r for r in rows if r["name"] == "flash_attention_hd128")[
+        "launches"] += lm_mesh_phase(torch, dev)
     say(f"run: {time.perf_counter() - t_run:.1f} s wall")
     say(nvidia_smi_line())
     say(json.dumps({"kernels": rows}))
@@ -3883,6 +3928,458 @@ def train_recurrent_phases(torch, dev):
                  errs["zamba2 train bf16"][0], times)
     row["lse_max_abs_err"] = errs["zamba2 train bf16"][1]
     return row
+
+
+def lm_mesh_phase(torch, dev):
+    """Phase 16: LM serving on a mesh. 16c first, in this process: a
+    world of one rank over NCCL (a 1 x 1 DeviceMesh), qwen3-4b through
+    the mesh code bit for bit the one-device run. 16a: qwen3-4b at full
+    size on a 2 x 2 mesh, 16b: qwen3-moe at MOE_LAYERS layers on a 1 x 4
+    mesh, four ranks each (``lm_mesh_rank``) on this one card over gloo.
+    Returns B4's launches in the phase's serving runs (every rank's)."""
+    import dataclasses
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build, flash_attention as fa
+    from repro_torch.models import model as M, moe
+    from repro_torch.serve import step
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    MESH_ROOT.mkdir(parents=True)
+    cfg = get_config(MESH_LM_ARCH)
+    B, S, new = LM_BATCH, LM_PROMPT, MESH_LM_NEW
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+    # -- one device: the weights of seed SEED, the steps' logits -------------
+    params = M.init(cfg, seed=SEED, device=dev)
+    one, one_stats = [], {}
+    one_toks = step.generate(params, cfg, prompt, max_new=new,
+                             max_len=S + new, device=dev, logits=one,
+                             stats=one_stats)
+    del params
+    torch.cuda.empty_cache()
+    say(f"mesh 16 one device ({cfg.name}, {B} x {S}, {new} greedy tokens): "
+        f"prefill {one_stats['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{one_stats['decode_s'] * 1e3 / (new - 1):.2f} ms a step")
+
+    # -- 16c: 1 x 1 through NCCL, served by the launcher ---------------------
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    timeout = datetime.timedelta(seconds=MESH_TIMEOUT_S)
+    counted = 0
+    fa.flash_attention_gqa.launches = 0
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(MESH_ROOT / "nccl"), 1), rank=0,
+        world_size=1, timeout=timeout, device_id=dev)
+    try:
+        got = []
+        run = mesh_served("1,1", "nccl", got)
+        stats = run.stats
+        torch.cuda.synchronize()
+        counted += fa.flash_attention_gqa.launches
+        if fa.flash_attention_gqa.launches <= 0:
+            fail("mesh 16c: B4 did not launch")
+        if tuple(run.ctx.shape.values()) != (1, 1) or run.ctx.device != dev:
+            fail(f"mesh 16c: the launcher's ctx is {run.ctx.shape} on "
+                 f"{run.ctx.device}")
+        for t, (a, b) in enumerate(zip(got, one)):
+            if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+                fail(f"mesh 16c: step {t}'s logits differ from the one-device "
+                     "run's bits")
+        if len(got) != new or not torch.equal(run.tokens, one_toks):
+            fail("mesh 16c: tokens differ from the one-device run")
+        del run, got
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    say(f"mesh 16c (1 x 1, one rank over NCCL, through launch.serve.main "
+        f"--mesh 1,1): {new} steps' logits bit for bit the one-device run's; "
+        f"prefill {stats['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{stats['decode_s'] * 1e3 / (new - 1):.2f} ms a step; B4 launches "
+        f"{fa.flash_attention_gqa.launches}; {card}")
+
+    # -- 16a: qwen3-4b on 2 x 2, four ranks on this card over gloo ----------
+    _build.build(["flash_attention"])          # the ranks load, never build
+    one_np = torch.stack(one).float().cpu().numpy()    # [new, B, 1, V]
+    outs = lm_mesh_ranks(mp, "dense", MESH_LM_SHAPE)
+    atol = lm_atol("bfloat16", torch.from_numpy(one_np))
+    want_toks = one_toks.cpu().numpy()
+    first = next((t for t in range(new)
+                  if not np.array_equal(outs[0]["tokens"][:, t],
+                                        want_toks[:, t])), new)
+    for t in range(first):
+        err = float(np.abs(outs[0]["steps"][t] - one_np[t]).max())
+        if err > atol:
+            fail(f"mesh 16a: step {t}'s logits {err} from one device's "
+                 f"(limit {atol})")
+    if first < new:
+        top2 = np.sort(one_np[first][:, 0], axis=-1)[:, -2:]
+        rows = np.nonzero(outs[0]["tokens"][:, first]
+                          != want_toks[:, first])[0]
+        if ((top2[rows, 1] - top2[rows, 0]) >= atol).any():
+            fail(f"mesh 16a: tokens part at step {first} above the top-2 "
+                 f"margin limit {atol}")
+    err0 = float(np.abs(outs[0]["steps"][0] - one_np[0]).max())
+    for o in outs:
+        if not np.array_equal(o["tokens"], outs[0]["tokens"]):
+            fail(f"mesh 16a rank {o['rank']}: tokens differ from rank 0's")
+        counted += lm_mesh_rank_line("16a", o, card)
+    say(f"mesh 16a ({cfg.name} at full size on 2 x 2, 4 ranks on one card "
+        f"over gloo, born sharded from seed {SEED}): the first step's logits "
+        f"{err0:.4f} from the one-device run's (limit {atol:.4f}, lm_atol), "
+        f"tokens equal for {first} of {new} steps (they may part only below "
+        "the top-2 margin limit)")
+
+    # -- 16b: qwen3-moe at MOE_LAYERS layers on 1 x 4 ------------------------
+    full = get_config(MOE_ARCH)
+    mcfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    nd_cfg = dataclasses.replace(mcfg, capacity_factor=NO_DROP_CF)
+    params = M.init(mcfg, seed=SEED, device=dev)
+    moe.moe_apply.record = []
+    try:
+        nd_one, _, _ = M.apply_prefill(
+            params, nd_cfg, {"tokens": torch.as_tensor(prompt, device=dev)},
+            last_only=True)
+        routing = moe.moe_apply.record
+    finally:
+        moe.moe_apply.record = None
+    dropped = sum(r["dropped"] for r in routing)
+    if dropped:
+        fail(f"mesh 16b: one device dropped {dropped} assignments at "
+             f"capacity factor {NO_DROP_CF}")
+    # the ranks replay this routing: a one-ulp difference flips near-ties
+    # among 128 experts (phase 9b's lm_check replays for the same reason);
+    # each flip's margin is held below nd_atol in the ranks
+    torch.save([r["expert_id"].cpu() for r in routing],
+               MESH_ROOT / "moe_routing.pt")
+    ids0 = routing[0]["expert_id"]
+    del routing
+    nd_one = nd_one.float().cpu().numpy()
+    nd_atol = lm_atol("bfloat16", torch.from_numpy(nd_one))
+    with open(MESH_ROOT / "moe_limit.json", "w") as f:
+        json.dump({"flip_margin": nd_atol}, f)
+    layer0 = params["blocks"][0]["moe"]
+    del params
+    torch.cuda.empty_cache()
+    outs = lm_mesh_ranks(mp, "moe", MESH_MOE_SHAPE)
+    x = torch.load(MESH_ROOT / "moe_x.pt").to(dev)
+    y_sim, _ = moe.dispatch_simulated(layer0, x, mcfg, dp=1,
+                                      M=MESH_MOE_SHAPE[1])
+    tol = 2 * 2.0 ** (np.floor(np.log2(float(y_sim.float().abs().max()))) - 7)
+    del x
+    x_nd = torch.load(MESH_ROOT / "moe_nd_x.pt").to(dev)
+    y_plain = moe_plain(torch, layer0, x_nd.reshape(-1, mcfg.d_model), ids0)
+    plain_tol = MOE_PLAIN_ULPS * 2.0 ** (
+        np.floor(np.log2(float(y_plain.abs().max()))) - 7)
+    for o in outs:
+        y = torch.load(MESH_ROOT / f"moe_y{o['rank']}.pt").to(dev)
+        err = float((y.float() - y_sim.float()).abs().max())
+        if err > tol:
+            fail(f"mesh 16b rank {o['rank']}: the first MoE block {err} from "
+                 f"dispatch_simulated (limit {tol}, two bf16 ulps of its max)")
+        o["moe_err"] = err
+        y = torch.load(MESH_ROOT / f"moe_nd_y{o['rank']}.pt").to(dev)
+        o["plain_err"] = float((y.float().reshape(y_plain.shape)
+                                - y_plain).abs().max())
+        if o["plain_err"] > plain_tol:
+            fail(f"mesh 16b rank {o['rank']}: the no-drop pass's first MoE "
+                 f"block {o['plain_err']} from moe_plain (limit {plain_tol}, "
+                 f"{MOE_PLAIN_ULPS} bf16 ulps of its max)")
+        nd_err = float(np.abs(o["no_drop"] - nd_one).max())
+        if nd_err > nd_atol:
+            fail(f"mesh 16b rank {o['rank']}: logits at capacity factor "
+                 f"{NO_DROP_CF} {nd_err} from one device's (limit {nd_atol})")
+        o["no_drop_err"] = nd_err
+        if o["flip_margin"] >= nd_atol:
+            fail(f"mesh 16b rank {o['rank']}: the mesh's router chose another "
+                 f"expert set at a routing margin {o['flip_margin']} >= "
+                 f"{nd_atol}")
+        counted += lm_mesh_rank_line("16b", o, card)
+    del layer0, y_sim, x_nd, y_plain, ids0
+    torch.cuda.empty_cache()
+    say(f"mesh 16b ({MOE_ARCH} at {MOE_LAYERS} of {full.n_layers} layers on "
+        f"1 x 4: {full.n_experts // MESH_MOE_SHAPE[1]} experts a rank, the "
+        "all_to_all over 4 ranks on one card over gloo): each rank's first "
+        "MoE block equals dispatch_simulated within two bf16 ulps; at "
+        f"capacity factor {NO_DROP_CF} nothing drops, the first MoE block is "
+        f"within {MOE_PLAIN_ULPS} bf16 ulps of moe_plain ({plain_tol:.4f}), "
+        "and, one device's routing replayed, the last position's logits are "
+        f"within lm_atol {nd_atol:.4f} of one device's, every flip of the "
+        f"mesh's own router at a margin below it; at {full.capacity_factor} "
+        "the drops are per shard (ROADMAP C26)")
+    shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    say(f"phase 16: {time.perf_counter() - t_phase:.1f} s wall; {card}")
+    return counted
+
+
+def moe_plain(torch, p, x, ids):
+    """One MoE layer's routed output without capacity, written plainly
+    for 16b's check and sharing no code with ``models/moe.py``: x [T, d]
+    in the model's dtype, ``ids`` [T, k] the experts each token uses.
+    Gate weights are the router's softmax (the router rounded to x's
+    dtype, the products summed in f32) at ``ids``, renormalised; each
+    expert's SwiGLU runs on its tokens in x's dtype, and the weighted
+    outputs are summed in f32: [T, d] f32 (before the shared expert)."""
+    probs = torch.softmax(x.float() @ p["router"].to(x.dtype).float(), -1)
+    gate = probs.gather(1, ids)
+    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in ids.unique().tolist():
+        t, j = (ids == e).nonzero(as_tuple=True)
+        xe = x[t]
+        h = torch.nn.functional.silu(xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
+        y.index_add_(0, t, (h @ p["w_down"][e]).float()
+                     * gate[t, j][:, None])
+    return y
+
+
+def mesh_served(mesh, backend, logits):
+    """``repro_torch.launch.serve.main`` on a world that is up: 16a's
+    model and prompts (MESH_LM_ARCH at full size, LM_BATCH prompts of
+    LM_PROMPT from seed SEED, MESH_LM_NEW greedy tokens) on a ``mesh``
+    ("D,M") over ``backend``; each step's logits (whole, gathered) are
+    appended to ``logits``. Returns the launcher's ``ServeRun``."""
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.serve import step
+
+    def generate(*args, **kw):
+        return step.generate(*args, logits=logits, **kw)
+    serve_launcher.generate = generate
+    try:
+        return serve_launcher.main([
+            "--arch", MESH_LM_ARCH, "--mesh", mesh, "--dist-backend",
+            backend, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--max-new", str(MESH_LM_NEW), "--seed",
+            str(SEED)])
+    finally:
+        serve_launcher.generate = step.generate
+
+
+def lm_mesh_ranks(mp, job, shape):
+    """Run ``lm_mesh_rank`` on the ranks of a ``shape`` mesh; their
+    results, by rank."""
+    import pickle
+    world = int(np.prod(shape))
+    t0 = time.perf_counter()
+    mp.start_processes(lm_mesh_rank, args=(world, str(MESH_ROOT), job, shape),
+                       nprocs=world, join=True, start_method="spawn")
+    say(f"mesh {job} ranks ran {time.perf_counter() - t0:.1f} s")
+    outs = []
+    for rank in range(world):
+        with open(MESH_ROOT / f"{job}{rank}.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+def lm_mesh_rank_line(label, o, card) -> int:
+    """Print one rank's numbers; check its B4 launches and its site
+    check. Returns its B4 launches."""
+    if o["launches"] <= 0:
+        fail(f"mesh {label} rank {o['rank']}: B4 did not launch")
+    if not o["site_ok"]:
+        fail(f"mesh {label} rank {o['rank']}: B4 on the rank's own q, k, v "
+             f"differs from its plain version ({o['site_err']})")
+    c = o["collectives"]
+    say(f"mesh {label} rank {o['rank']} (data {o['coord'][0]}, model "
+        f"{o['coord'][1]}): {o['param_gb']:.2f} GB of weight blocks drawn in "
+        f"{o['init_s']:.1f} s; prefill {o['prefill_ms']:.1f} ms, decode "
+        f"{o['decode_ms']:.1f} ms a step; collectives: prefill "
+        f"{c['prefill_ms']:.1f} ms ({c['prefill_ms'] / o['prefill_ms']:.2f} "
+        f"of it), {c['prefill_bytes'] / 1e9:.3f} GB in "
+        f"{c['prefill_calls']} calls, decode {c['decode_ms']:.1f} ms "
+        f"({c['decode_ms'] / o['decode_ms']:.2f}), "
+        f"{c['decode_bytes'] / 1e9:.3f} GB a step; B4 launches "
+        f"{o['launches']}, B4 on the rank's first site vs plain "
+        f"max_abs_err {o['site_err']:.3e} (row-scaled {o['site_row']:.3e})"
+        + (f"; first MoE block vs dispatch_simulated {o['moe_err']:.3e}, "
+           f"prefill drops at cf 1.25 {o['drops']}; at cf {NO_DROP_CF} the "
+           f"first MoE block vs moe_plain {o['plain_err']:.3e} and the "
+           f"logits {o['no_drop_err']:.4f} from one device with its "
+           f"routing replayed (the mesh's own router picks another set of "
+           f"experts for {o['flips']} of the "
+           f"{LM_BATCH * LM_PROMPT * MOE_LAYERS} token-layers, at routing "
+           f"margins up to {o['flip_margin']:.4f})"
+           if "moe_err" in o else "") + f"; {card}")
+    return o["launches"]
+
+
+def lm_mesh_rank(rank, world, root, job, shape):
+    """One rank of phase 16a (``job`` "dense") or 16b ("moe"): a process
+    of its own on the card, in a gloo world through a FileStore under
+    ``root``, with LOCAL_RANK set as ``torch.distributed.run`` sets it.
+    16a serves through ``launch.serve.main --mesh`` (``mesh_served``);
+    16b draws its weight blocks born sharded (one rank at a time) and
+    serves through ``step.generate``. Either way MESH_LM_NEW greedy
+    tokens, with B4's count set to 0 before and read after, the
+    collectives counted (``compat.stats``, split at the prefill's end),
+    and B4 on the first site's own q, k, v against the plain version.
+    16b also keeps its first MoE block's input and output and runs a
+    prefill at NO_DROP_CF with one device's routing replayed, keeping
+    that pass's first MoE block and the largest routing margin at which
+    its own router chose another expert set. Pickles what it found to
+    ``root/<job><rank>.pkl``."""
+    import dataclasses
+    import datetime
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import compat, sharding
+    from repro_torch.distributed.meshctx import MeshCtx
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers, model as M, moe
+    from repro_torch.serve import step
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.set_num_threads(2)
+    root = Path(root)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(root / f"gloo-{job}"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        cfg = get_config(MESH_LM_ARCH if job == "dense" else MOE_ARCH)
+        B, S, new = LM_BATCH, LM_PROMPT, MESH_LM_NEW
+        out = {"rank": rank}
+        steps = []
+        if job == "moe":
+            cfg = dataclasses.replace(cfg, n_layers=MOE_LAYERS)
+            ctx = MeshCtx(init_device_mesh("cpu", shape,
+                                           mesh_dim_names=("data", "model")),
+                          device="cuda:0")
+            # one rank draws at a time: a draw holds a whole leaf in f32
+            # and its cast (4.8 GB for the experts) besides the blocks
+            for r in range(world):
+                dist.barrier()
+                if r == rank:
+                    t0 = time.perf_counter()
+                    params = sharding.sharded_init(cfg, ctx, seed=SEED)
+                    torch.cuda.synchronize()
+                    init_s = time.perf_counter() - t0
+                    torch.cuda.empty_cache()
+            dist.barrier()
+            prompt = np.random.default_rng(SEED).integers(
+                0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+            def serve():
+                stats = {"init_s": init_s}
+                toks = step.generate(params, cfg, prompt, max_new=new,
+                                     max_len=S + new, ctx=ctx, stats=stats,
+                                     logits=steps)
+                return toks, stats
+        else:
+            def serve():
+                run = mesh_served(",".join(map(str, shape)), "gloo", steps)
+                return run.tokens, run.stats, run.ctx, run.params
+
+        # the main path: B4 counted, the collectives measured
+        sites = []
+        kernel = layers.flash_attention_gqa
+
+        def first_site(q, k, v, **kw):
+            if not sites:
+                sites.append((q.clone(), k.clone(), v.clone(), kw))
+            return kernel(q, k, v, **kw)
+        fa.flash_attention_gqa.launches = 0
+        compat.stats = {}
+        layers.flash_attention_gqa = first_site
+        moe.moe_apply.record = [] if job == "moe" else None
+        try:
+            served = serve()
+            torch.cuda.synchronize()
+            out["launches"] = fa.flash_attention_gqa.launches
+            record = moe.moe_apply.record
+        finally:
+            layers.flash_attention_gqa = kernel
+            moe.moe_apply.record = None
+        toks, stats = served[:2]
+        if job == "dense":
+            ctx, params = served[2:]
+        total, pre = dict(compat.stats), stats["collectives_prefill"]
+        compat.stats = None
+        out["coord"] = (ctx.coord("data"), ctx.coord("model"))
+        out["init_s"] = stats["init_s"]
+        out["param_gb"] = sum(t.numel() * t.element_size()
+                              for t in _leaves(params)) / 1e9
+        out["prefill_ms"] = stats["prefill_s"] * 1e3
+        out["decode_ms"] = stats["decode_s"] * 1e3 / (new - 1)
+        out["collectives"] = {
+            "prefill_ms": pre["seconds"] * 1e3,
+            "prefill_bytes": pre["bytes"], "prefill_calls": pre["calls"],
+            "decode_ms": (total["seconds"] - pre["seconds"]) * 1e3
+            / (new - 1),
+            "decode_bytes": (total["bytes"] - pre["bytes"]) / (new - 1)}
+        out["tokens"] = toks.cpu().numpy()
+        if len(steps) != new:
+            fail(f"mesh {job} rank {rank}: {len(steps)} steps' logits kept")
+        if rank == 0:
+            out["steps"] = torch.stack(steps).float().cpu().numpy()
+        if not all(bool(s.isfinite().all()) for s in steps):
+            fail(f"mesh {job} rank {rank}: non-finite logits")
+        del steps
+
+        # B4 on the first site's own q, k, v against its plain version
+        q, k, v, kw = sites[0]
+        got = fa.flash_attention_gqa(q, k, v, **kw)
+        want = fa.flash_attention_gqa_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        out["site_err"] = float((got.float() - want.float()).abs().max())
+        out["site_row"] = row_scaled_err(got, want)
+        out["site_ok"] = bool(torch.allclose(
+            got.float(), want.float(), rtol=ATTN_TOL["bfloat16"],
+            atol=ATTN_TOL["bfloat16"])) and \
+            out["site_row"] <= ATTN_ROW_TOL
+        out["site_shape"] = (tuple(q.shape), tuple(k.shape))
+        del sites, got, want
+
+        if job == "moe":
+            first = record[0]
+            if rank == 0:
+                torch.save(first["x"].cpu(), root / "moe_x.pt")
+            torch.save(first["y"].cpu(), root / f"moe_y{rank}.pt")
+            out["drops"] = sum(r["dropped"] for r in record[:MOE_LAYERS])
+            del record, first
+            nd_cfg = dataclasses.replace(cfg, capacity_factor=NO_DROP_CF)
+            moe.moe_apply.record = []
+            moe.moe_apply.replay = torch.load(root / "moe_routing.pt")
+            try:
+                batch = {"tokens": torch.as_tensor(prompt, device=ctx.device)}
+                logits, _, _ = M.apply_prefill(params, nd_cfg, batch,
+                                               last_only=True, ctx=ctx)
+                rec = moe.moe_apply.record
+            finally:
+                moe.moe_apply.record = moe.moe_apply.replay = None
+            if rank == 0:
+                torch.save(rec[0]["x"].cpu(), root / "moe_nd_x.pt")
+            torch.save(rec[0]["y"].cpu(), root / f"moe_nd_y{rank}.pt")
+            flipped = [(r["own_id"].sort(-1).values
+                        != r["expert_id"].sort(-1).values).any(-1)
+                       for r in rec]
+            margin = max((float(r["margin"][f].max()) if bool(f.any())
+                          else 0.0) for r, f in zip(rec, flipped))
+            counts = compat.all_reduce_axis(torch.tensor([
+                sum(r["dropped"] for r in rec),
+                sum(int(f.sum()) for f in flipped)]), ctx, ctx.tp_axis)
+            out["flip_margin"] = float(compat.all_reduce_axis(
+                torch.tensor([margin]), ctx, ctx.tp_axis, op="max")[0])
+            nd_drops, out["flips"] = int(counts[0]), int(counts[1])
+            if nd_drops:
+                fail(f"mesh moe rank {rank}: {nd_drops} assignments dropped "
+                     f"at capacity factor {NO_DROP_CF}")
+            out["no_drop"] = compat.all_gather_axis(
+                logits, ctx, ctx.tp_axis, dim=-1).float().cpu().numpy()
+    finally:
+        dist.destroy_process_group()
+    with open(root / f"{job}{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
 
 
 def _launch_counters():

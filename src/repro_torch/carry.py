@@ -69,7 +69,7 @@ def _tensor(arr, device: torch.device) -> torch.Tensor:
 
 
 def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
-                             device: DeviceLike = None) -> dict:
+                             device: DeviceLike = None, ctx=None) -> dict:
     """The reference's LM param tree, as numpy arrays (``jax.tree.map(
     np.asarray, params)``), as the port's params on ``device``. Every
     stack of layers becomes one dict a layer, in layer order:
@@ -87,7 +87,17 @@ def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
     Every array keeps its dtype and bits (f32 biases, norms, qk-norm
     scales, router, lerp coefficients, decays, ``conv_w``, ``A_log``,
     ``D`` and ``dt_bias``; weights in the config's dtype) and its ``x @
-    W`` orientation."""
+    W`` orientation.
+
+    ``ctx`` with a DeviceMesh: this rank's blocks of them
+    (``sharding.shard_params``), on ``device`` (default the ctx's); the
+    whole tree is laid out on the host first."""
+    if ctx is not None and ctx.mesh is not None:
+        from repro_torch.distributed import sharding
+        sharding.check_family(cfg)
+        whole = _unstacked(params, cfg, torch.device("cpu"))
+        return sharding.shard_params(whole, cfg, ctx, None if device is None
+                                     else resolve(device))
     return _unstacked(params, cfg, resolve(device))
 
 

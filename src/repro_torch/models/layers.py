@@ -18,6 +18,19 @@ forward only, and the reference trains through jnp). The loss is
 ``softmax_cross_entropy``. The FFN is SwiGLU or, for musicgen, a
 two-matrix GELU. The recurrent archs (``rwkv6``, ``mamba2``) share
 ``silu`` and ``chunk_split``.
+
+On a mesh (``MeshWeights``) a rank holds blocks of the weights, laid out
+by ``distributed/sharding.py``, and runs the collectives that the
+reference's SPMD partitioner inserts, written out: each weight's
+``fsdp``-sharded dim gathered over ``fsdp`` before its use;
+column-parallel products where a weight's output dim is over ``model``
+and row-parallel ones, summed over ``model``, where its input dim is;
+the embedding vocabulary-parallel (a rank looks its range up, writes
+zeros elsewhere, and the sum over ``model`` is exact), the unembedding's
+logits left sharded over ``model`` on the vocabulary; and decode
+attention over a cache whose sequence is sharded (``decode_attention``'s
+``seq_axes``): flash-decoding, each rank's softmax over its own keys,
+the partial max and sum combined over the axes.
 """
 from __future__ import annotations
 
@@ -27,12 +40,29 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import compat, sharding
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_gqa
 
 
 # ---------------------------------------------------------------------------
 # initializers
+#
+# Each init function takes ``keep(path, leaf)``, called on every leaf as
+# soon as it is drawn and before the next is, with the leaf's path in the
+# tree; what it returns goes into the tree. ``whole`` keeps the leaf;
+# ``distributed.sharding.sharded_init`` keeps this rank's block of it.
 # ---------------------------------------------------------------------------
+def whole(path, leaf):
+    return leaf
+
+
+def under(keep, *prefix):
+    """``keep`` for the subtree at ``prefix``."""
+    if keep is whole:
+        return whole
+    return lambda path, leaf: keep(prefix + path, leaf)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype: torch.dtype, scale: float = 1.0) -> torch.Tensor:
     """Truncated normal at ±3σ, std = scale / sqrt(d_in), drawn in f32 on
@@ -43,32 +73,33 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig,
-              cross: bool = False) -> dict:
+              cross: bool = False, keep=whole) -> dict:
     """One layer's attention params (biases f32 zeros and qk-norm scales
     f32 ones of ``[head_dim]``, as the reference); a ``cross`` block
     (the VLM's) has no QKV bias."""
     dtype = getattr(torch, cfg.dtype)
     p = {
-        "wq": dense_init(gen, cfg.d_model, cfg.q_dim, dtype),
-        "wk": dense_init(gen, cfg.d_model, cfg.kv_dim, dtype),
-        "wv": dense_init(gen, cfg.d_model, cfg.kv_dim, dtype),
-        "wo": dense_init(gen, cfg.q_dim, cfg.d_model, dtype,
-                         scale=1.0 / math.sqrt(2 * cfg.n_layers)),
+        "wq": keep(("wq",), dense_init(gen, cfg.d_model, cfg.q_dim, dtype)),
+        "wk": keep(("wk",), dense_init(gen, cfg.d_model, cfg.kv_dim, dtype)),
+        "wv": keep(("wv",), dense_init(gen, cfg.d_model, cfg.kv_dim, dtype)),
+        "wo": keep(("wo",), dense_init(
+            gen, cfg.q_dim, cfg.d_model, dtype,
+            scale=1.0 / math.sqrt(2 * cfg.n_layers))),
     }
     if cfg.qkv_bias and not cross:
         for name, dim in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
                           ("bv", cfg.kv_dim)):
-            p[name] = torch.zeros(dim, dtype=torch.float32,
-                                  device=gen.device)
+            p[name] = keep((name,), torch.zeros(dim, dtype=torch.float32,
+                                                device=gen.device))
     if cfg.qk_norm:
         for name in ("q_norm", "k_norm"):
-            p[name] = torch.ones(cfg.head_dim, dtype=torch.float32,
-                                 device=gen.device)
+            p[name] = keep((name,), torch.ones(
+                cfg.head_dim, dtype=torch.float32, device=gen.device))
     return p
 
 
 def ffn_init(gen: torch.Generator, cfg: ModelConfig,
-             d_ff: int = 0) -> dict:
+             d_ff: int = 0, keep=whole) -> dict:
     """One layer's FFN params, ``d_ff`` wide (default the config's;
     kimi-k2's leading dense layers take ``d_ff_dense``): SwiGLU's three
     matrices, or ``w_up`` and ``w_down`` where ``ffn_kind`` is
@@ -77,27 +108,31 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig,
     d_ff = d_ff or cfg.d_ff
     down_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
     if cfg.ffn_kind == "gelu":
-        return {"w_up": dense_init(gen, cfg.d_model, d_ff, dtype),
-                "w_down": dense_init(gen, d_ff, cfg.d_model, dtype,
-                                     scale=down_scale)}
+        return {"w_up": keep(("w_up",),
+                             dense_init(gen, cfg.d_model, d_ff, dtype)),
+                "w_down": keep(("w_down",), dense_init(
+                    gen, d_ff, cfg.d_model, dtype, scale=down_scale))}
     return {
-        "w_gate": dense_init(gen, cfg.d_model, d_ff, dtype),
-        "w_up": dense_init(gen, cfg.d_model, d_ff, dtype),
-        "w_down": dense_init(gen, d_ff, cfg.d_model, dtype,
-                             scale=down_scale),
+        "w_gate": keep(("w_gate",), dense_init(gen, cfg.d_model, d_ff,
+                                               dtype)),
+        "w_up": keep(("w_up",), dense_init(gen, cfg.d_model, d_ff, dtype)),
+        "w_down": keep(("w_down",), dense_init(gen, d_ff, cfg.d_model, dtype,
+                                               scale=down_scale)),
     }
 
 
-def embed_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def embed_init(gen: torch.Generator, cfg: ModelConfig, keep=whole) -> dict:
     """Embedding table N(0, 0.02²), and an untied head if the config has
     one."""
     dtype = getattr(torch, cfg.dtype)
     table = torch.empty((cfg.vocab_size, cfg.d_model), dtype=torch.float32,
                         device=gen.device)
     table.normal_(0.0, 1.0, generator=gen)
-    p = {"table": (table * 0.02).to(dtype)}
+    p = {"table": keep(("table",), (table * 0.02).to(dtype))}
+    del table
     if not cfg.tie_embeddings:
-        p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+        p["head"] = keep(("head",), dense_init(gen, cfg.d_model,
+                                               cfg.vocab_size, dtype))
     return p
 
 
@@ -225,31 +260,46 @@ def attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_index: int, *,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0, ctx=None, seq_axes=None,
+                     seq_start: int = 0) -> torch.Tensor:
     """q: [B, 1, H, hd]; caches: [B, S, KV, hd]; cache entries at
     positions <= cur_index are valid, and with ``window > 0`` only those
     with ``cur_index - pos < window``. Scores and p·v in f32; p / l in
-    the cache dtype, as the reference."""
+    the cache dtype, as the reference.
+
+    ``seq_axes`` (with ``ctx``): the caches are this rank's block of the
+    sequence, from position ``seq_start``, sharded over those mesh axes;
+    the max, the sum and p·v are summed over them (flash-decoding), so
+    the result is the whole cache's, exact in f32 up to summation
+    order."""
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     scale = 1.0 / math.sqrt(hd)
     qh = q.reshape(B, KV, H // KV, hd).float()
     s = torch.einsum("bkgd,bskd->bkgs", qh, k_cache.float()) * scale
-    pos = torch.arange(S, device=q.device)
+    pos = torch.arange(seq_start, seq_start + S, device=q.device)
     valid = pos <= cur_index
     if window > 0:
         valid &= cur_index - pos < window
     s = torch.where(valid, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    if seq_axes:
+        m = compat.all_reduce_axis(m, ctx, seq_axes, op="max")
+    p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    if seq_axes:
+        l = compat.all_reduce_axis(l, ctx, seq_axes)
     out = torch.einsum("bkgs,bskd->bkgd", (p / l).to(v_cache.dtype).float(),
                        v_cache.float())
+    if seq_axes:
+        out = compat.all_reduce_axis(out, ctx, seq_axes)
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
 def attn_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
              kv_x: Optional[torch.Tensor] = None):
-    """Project to q [B, S, H, hd] and k, v [B, Sk, KV, hd], k and v from
+    """Project to q [B, S, H, hd] and k, v [B, Sk, KV, hd] (a rank's
+    heads where ``p`` holds its blocks on a mesh), k and v from
     ``kv_x`` [B, Sk, d] where it is given (cross-attention's image
     embeddings), else from x; the f32 biases are added in the activation
     dtype; with qk-norm, q and k are RMS-normalised per head (before
@@ -262,9 +312,9 @@ def attn_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
         v = v + p["bv"].to(v.dtype)
     B, S = x.shape[:2]
     Sk = src.shape[1]
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
+    q = q.reshape(B, S, -1, cfg.head_dim)
+    k = k.reshape(B, Sk, -1, cfg.head_dim)
+    v = v.reshape(B, Sk, -1, cfg.head_dim)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -346,3 +396,105 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ll = sf.gather(-1, labels.long()[..., None])[..., 0] + m0
     nll = (lse - ll) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# on a mesh
+# ---------------------------------------------------------------------------
+class MeshWeights:
+    """A forward's view of the rank's weight blocks on ``ctx``'s mesh.
+
+    ``weight`` takes a block, with its path's last names and the leaf's
+    whole shape, and returns it with its ``fsdp`` dims gathered, and its
+    spec (``sharding.leaf_spec``). ``attn`` and ``ffn`` hand such
+    weights to ``attn_qkv`` and ``ffn_apply``, the one-device functions;
+    ``row_sum`` then sums a row-parallel product over ``model``."""
+
+    def __init__(self, cfg: ModelConfig, ctx):
+        self.cfg, self.ctx = cfg, ctx
+        self.tp = ctx.tp_axis
+        self.r = ctx.coord(ctx.tp_axis)
+        self.table = None
+
+    def weight(self, t, names, full, stacked: bool = True):
+        spec = sharding.leaf_spec(names, full, self.cfg, self.ctx, stacked)
+        return sharding.gather(t, spec, self.ctx), spec
+
+    def row_sum(self, y: torch.Tensor, over) -> torch.Tensor:
+        """y summed over ``model`` where the product's input dim was
+        sharded there (``over``: that dim's spec entry). The partial
+        products, each rounded to y's dtype, are summed in f32 and the
+        sum rounded once, as the reference's partitioner promotes a bf16
+        all-reduce to f32."""
+        if over == self.tp:
+            return compat.all_reduce_axis(y.float(), self.ctx,
+                                          self.tp).to(y.dtype)
+        return y
+
+    def attn(self, ap: dict):
+        """(one layer's attention weights for the rank: ``wq``, ``wk``,
+        ``wv`` and ``wo`` gathered over ``fsdp``, the biases cut to the
+        rank's heads; ``wo``'s input dim's spec entry, for
+        ``row_sum``)."""
+        cfg, d = self.cfg, self.cfg.d_model
+        out = dict(ap)
+        out["wq"], sq = self.weight(ap["wq"], ("attn", "wq"), (d, cfg.q_dim))
+        out["wk"], sk = self.weight(ap["wk"], ("attn", "wk"),
+                                    (d, cfg.kv_dim))
+        out["wv"], _ = self.weight(ap["wv"], ("attn", "wv"), (d, cfg.kv_dim))
+        out["wo"], so = self.weight(ap["wo"], ("attn", "wo"), (cfg.q_dim, d))
+        if "bq" in ap:
+            out["bq"] = ap["bq"][self.ctx.block(cfg.q_dim, sq[1])]
+            out["bk"] = ap["bk"][self.ctx.block(cfg.kv_dim, sk[1])]
+            out["bv"] = ap["bv"][self.ctx.block(cfg.kv_dim, sk[1])]
+        return out, so[0]
+
+    def ffn(self, p: dict, x: torch.Tensor, parent: str,
+            d_ff: int) -> torch.Tensor:
+        """``ffn_apply`` on ``parent``'s blocks (``d_ff`` wide whole),
+        gathered over ``fsdp``: column-parallel ``w_gate`` and ``w_up``,
+        row-parallel ``w_down`` summed over ``model``."""
+        d = self.cfg.d_model
+        w = {}
+        w["w_up"], _ = self.weight(p["w_up"], (parent, "w_up"), (d, d_ff))
+        w["w_down"], sd = self.weight(p["w_down"], (parent, "w_down"),
+                                      (d_ff, d))
+        if "w_gate" in p:
+            w["w_gate"], _ = self.weight(p["w_gate"], (parent, "w_gate"),
+                                         (d, d_ff))
+        return self.row_sum(ffn_apply(w, x), sd[0])
+
+    def embed(self, p: dict, tokens: torch.Tensor) -> torch.Tensor:
+        """The rank's batch block of ``tokens`` [B, S] (over ``dp_axes``
+        where B divides) looked up vocabulary-parallel: the rank's range
+        of the table, gathered over ``fsdp`` (kept for a tied
+        ``unembed``), zeros for the others' ids, summed over ``model``
+        (exact)."""
+        cfg, ctx = self.cfg, self.ctx
+        B = tokens.shape[0]
+        if ctx.batch_sharded(B):
+            tokens = tokens[ctx.block(B, ctx.dp_axes)]
+        self.table, spec = self.weight(p["table"], ("embed", "table"),
+                                       (cfg.vocab_size, cfg.d_model),
+                                       stacked=False)
+        table = self.table
+        if spec[0] != self.tp:
+            return table[tokens]
+        rows = table.shape[0]
+        ids = tokens.long() - self.r * rows
+        inside = (ids >= 0) & (ids < rows)
+        x = torch.where(inside[..., None], table[ids.clamp(0, rows - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+        return compat.all_reduce_axis(x, ctx, self.tp)
+
+    def unembed(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        """The rank's logits [..., V/M] (its vocabulary block where the
+        head's V is over ``model``, else all V); a tied head is the table
+        ``embed`` gathered."""
+        cfg = self.cfg
+        if "head" not in p:
+            return x @ self.table.T
+        head, _ = self.weight(p["head"], ("embed", "head"),
+                              (cfg.d_model, cfg.vocab_size), stacked=False)
+        return x @ head

@@ -2,8 +2,8 @@
 
     params            = init(cfg, seed=seed, device=device)
     logits, aux, _    = apply_train(params, cfg, batch)
-    logits, _, kv     = apply_prefill(params, cfg, batch)
-    logits, _, cache  = apply_decode(params, cfg, batch, cache, idx)
+    logits, _, kv     = apply_prefill(params, cfg, batch, ctx=ctx)
+    logits, _, cache  = apply_decode(params, cfg, batch, cache, idx, ctx)
     loss, (ce, aux)   = loss_fn(params, cfg, batch)
 
 Transformer families (``dense``, ``moe``, ``vlm`` and ``audio``,
@@ -16,6 +16,12 @@ recurrent state (ssm), or the Mamba state and every site's k and v
 (``apply_train``, ``loss_fn``) runs every family, each layer under the
 remat policy ``remat`` names (the hybrid's shared block excepted, as in
 the reference).
+
+``apply_prefill`` and ``apply_decode`` take ``ctx=None``: ``None`` or a
+``single_device_ctx`` runs one device; a ctx with a DeviceMesh runs the
+rank's blocks (``distributed/sharding.py``) for the dense and moe
+families (``transformer.forward``'s mesh path) and raises
+``NotImplementedError`` naming ROADMAP A8.5 for the others.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed import sharding
 from repro_torch.models import hybrid, rwkv6, transformer
 from repro_torch.models.layers import softmax_cross_entropy
 
@@ -66,14 +73,24 @@ def loss_fn(params, cfg: ModelConfig, batch, remat=True):
     return ce + 0.01 * aux, (ce, aux)
 
 
-def apply_prefill(params, cfg: ModelConfig, batch, last_only: bool = False):
+def _mesh_kw(cfg: ModelConfig, ctx) -> dict:
+    if ctx is None or ctx.mesh is None:
+        return {}
+    sharding.check_family(cfg)
+    return {"ctx": ctx}
+
+
+def apply_prefill(params, cfg: ModelConfig, batch, last_only: bool = False,
+                  ctx=None):
     return _mod(cfg).forward(params, cfg, batch, mode="prefill",
-                             last_only=last_only)
+                             last_only=last_only, **_mesh_kw(cfg, ctx))
 
 
-def apply_decode(params, cfg: ModelConfig, batch, caches, cur_index: int):
+def apply_decode(params, cfg: ModelConfig, batch, caches, cur_index: int,
+                 ctx=None):
     return _mod(cfg).forward(params, cfg, batch, mode="decode",
-                             caches=caches, cur_index=cur_index)
+                             caches=caches, cur_index=cur_index,
+                             **_mesh_kw(cfg, ctx))
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,

@@ -31,14 +31,35 @@ remat policy ``remat`` names (``models/rematcfg.py``: per-layer
 ``torch.utils.checkpoint``), and returns the MoE layers' summed aux; its
 attention is ``layers.blockwise_attention``'s autograd Function.
 
-On one card the reference's mesh context (``distributed/meshctx``) and
-its perf flags (``models/perfcfg``: the ones on this path act only on a
-mesh or on gemma3, but for ``router_bf16_matmul``, whose default the MoE
-block keeps) have nothing to do, so ``forward`` takes no ``ctx``; nor
-does its ``banded_local`` flag (off by default), so local layers run
-the reference's default path, blockwise attention with the window mask.
-Logit-softcap configs raise ``NotImplementedError`` (no config of the
-repo sets one).
+``forward(..., ctx=None)``: without a ctx, or on a ``single_device_ctx``
+(no DeviceMesh), it runs on one device. On a ctx with a DeviceMesh (the
+dense and moe families, prefill and decode) the same layer loop runs
+the rank's blocks of the weights (``distributed/sharding.py``), fetched
+through a ``layers.MeshWeights`` (gathered over ``fsdp``) and handed to
+the one-device ``attn_qkv`` and ``ffn_apply``, on its block of the
+batch, as the reference's constraints lay them out
+(``src/repro/models/transformer.py:180-208, 296``): the batch over
+``dp_axes`` where it divides, the residual stream replicated over
+``model``; q heads over ``model`` where they divide, kv heads where
+they do, and B4 on the rank's heads (a rank whose q heads share kv
+heads it does not hold takes those from the replicated k and v); the
+FFN column- then row-parallel, the row-parallel products summed over
+``model``; the MoE's dispatch over ``model`` (``models/moe.py``); the
+logits left sharded over ``model`` on the vocabulary. Decode writes and
+attends over the rank's block of the cache as
+``serve.step.cache_specs`` lays it out: kv heads over ``model``, or the
+sequence there (flash-decoding) where they do not divide. The other
+families raise ``NotImplementedError`` naming ROADMAP A8.5, training on
+a mesh A8.3.
+
+The reference's perf flags (``models/perfcfg``) keep their defaults:
+the ones on this path act only on a mesh's layout or on gemma3
+(``seq_shard_attn``, ``sp_residual``, ``banded_local``, all off), but
+for ``router_bf16_matmul``, on, whose arithmetic the MoE block keeps. So
+local layers run the reference's default path, blockwise attention with
+the window mask, and attention whose heads do not divide the ``model``
+axis replicates there. Logit-softcap configs raise
+``NotImplementedError`` (no config of the repo sets one).
 """
 from __future__ import annotations
 
@@ -48,6 +69,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed import compat, sharding
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rematcfg
@@ -72,20 +94,25 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
+def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                keep=L.whole) -> dict:
     """One layer of ``kind``: ``"moe"`` (the reference's ``moe_blocks``),
     ``"dense_lead"`` (its ``dense_blocks``: an ``"mlp"`` of width
     ``d_ff_dense``), ``"cross"`` (the VLM's ``cross_blocks``: attention
     without QKV bias) or ``"dense"``."""
     d = cfg.d_model
-    p = {"ln1": torch.ones(d, dtype=torch.float32, device=gen.device),
-         "attn": L.attn_init(gen, cfg, cross=kind == "cross"),
-         "ln2": torch.ones(d, dtype=torch.float32, device=gen.device)}
+    p = {"ln1": keep(("ln1",), torch.ones(d, dtype=torch.float32,
+                                          device=gen.device)),
+         "attn": L.attn_init(gen, cfg, cross=kind == "cross",
+                             keep=L.under(keep, "attn")),
+         "ln2": keep(("ln2",), torch.ones(d, dtype=torch.float32,
+                                          device=gen.device))}
     if kind == "moe":
-        p["moe"] = moe_lib.moe_init(gen, cfg)
+        p["moe"] = moe_lib.moe_init(gen, cfg, keep=L.under(keep, "moe"))
     else:
         p["mlp"] = L.ffn_init(gen, cfg, cfg.d_ff_dense
-                              if kind == "dense_lead" else 0)
+                              if kind == "dense_lead" else 0,
+                              keep=L.under(keep, "mlp"))
     return p
 
 
@@ -121,19 +148,21 @@ def window_schedule(cfg: ModelConfig, n: int) -> list:
     return [0] * n
 
 
-def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init(gen: torch.Generator, cfg: ModelConfig, keep=L.whole) -> dict:
     """Random params on the generator's device: ``{"embed", "final_norm",
     "blocks": [one dict a layer]}``, the layers in ``layer_kinds``'
-    order; the VLM adds ``"cross_blocks"``, one a superblock."""
+    order; the VLM adds ``"cross_blocks"``, one a superblock. ``keep``:
+    see ``layers.whole``."""
     check_supported(cfg)
-    p = {"embed": L.embed_init(gen, cfg),
-         "final_norm": torch.ones(cfg.d_model, dtype=torch.float32,
-                                  device=gen.device),
-         "blocks": [_block_init(gen, cfg, kind)
-                    for kind in layer_kinds(cfg)]}
+    p = {"embed": L.embed_init(gen, cfg, keep=L.under(keep, "embed")),
+         "final_norm": keep(("final_norm",), torch.ones(
+             cfg.d_model, dtype=torch.float32, device=gen.device)),
+         "blocks": [_block_init(gen, cfg, kind, L.under(keep, "blocks", i))
+                    for i, kind in enumerate(layer_kinds(cfg))]}
     if cfg.family == "vlm":
-        p["cross_blocks"] = [_block_init(gen, cfg, "cross")
-                             for _ in range(n_superblocks(cfg))]
+        p["cross_blocks"] = [
+            _block_init(gen, cfg, "cross", L.under(keep, "cross_blocks", i))
+            for i in range(n_superblocks(cfg))]
     return p
 
 
@@ -141,26 +170,47 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 # block application
 # ---------------------------------------------------------------------------
 def _self_attn(pb, x, cfg, *, positions, window, mode, cache=None,
-               cur_index=None):
+               cur_index=None, mw=None, layout=None):
     """Returns (attn_out, (k, v)): the rotated k and v of this call in
     prefill and train, the updated caches in decode. ``window``: the
-    layer's (0 = global)."""
-    ap = pb["attn"]
+    layer's (0 = global). On a mesh (``mw``, the forward's
+    ``layers.MeshWeights``) the rank's heads, its output summed over
+    ``model`` where ``wo`` is row-parallel, and in decode the rank's
+    cache blocks, written at ``cur_index`` where it falls in their
+    block; ``layout``: the decode cache's (sequence axes, the block's
+    first position, kv heads over ``model``), ``_cache_layout``'s."""
+    ap, wo_over = (pb["attn"], None) if mw is None else mw.attn(pb["attn"])
     q, k, v = L.attn_qkv(ap, L.rms_norm(x, pb["ln1"], cfg.norm_eps), cfg)
     q = L.rope(q, positions, cfg.rope_theta)
     k_rot = L.rope(k, positions, cfg.rope_theta)
+    Hl = q.shape[2]
+    # a rank's q heads [h0, h0 + Hl) where they shard and kv heads do not
+    kv_whole = Hl < cfg.n_heads and k.shape[2] == cfg.n_kv_heads
+    h0 = mw.r * Hl if Hl < cfg.n_heads else 0
     if mode != "decode":
-        out = L.blockwise_attention(q, k_rot, v, causal=True, window=window)
+        kq, vq = _kv_for_heads(k_rot, v, h0, Hl, cfg) if kv_whole \
+            else (k_rot, v)
+        out = L.blockwise_attention(q, kq, vq, causal=True, window=window)
         new_kv = (k_rot, v)
     else:           # decode: cache = (k_cache, v_cache) [B, S_max, KV, hd]
         k_cache, v_cache = cache
-        k_cache[:, cur_index] = k_rot[:, 0]
-        v_cache[:, cur_index] = v[:, 0]
+        seq_axes, seq_start = layout or ((), 0)
+        at = cur_index - seq_start
+        if mw is None or 0 <= at < k_cache.shape[1]:
+            k_cache[:, at] = k_rot[:, 0]
+            v_cache[:, at] = v[:, 0]
+        ctx = None if mw is None else mw.ctx
+        if kv_whole:    # every kv head here: every q head, then ours
+            q = compat.all_gather_axis(q, ctx, mw.tp, dim=2)
         out = L.decode_attention(q, k_cache, v_cache, cur_index,
-                                 window=window)
+                                 window=window, ctx=ctx, seq_axes=seq_axes,
+                                 seq_start=seq_start)
+        if kv_whole:
+            out = out[:, :, h0:h0 + Hl]
         new_kv = (k_cache, v_cache)
     B, S = x.shape[:2]
-    return out.reshape(B, S, cfg.q_dim) @ ap["wo"], new_kv
+    y = out.reshape(B, S, Hl * cfg.head_dim) @ ap["wo"]
+    return (y if mw is None else mw.row_sum(y, wo_over)), new_kv
 
 
 def _image_kv(cross_blocks, image_embeds, cfg):
@@ -204,13 +254,17 @@ def _cross_attn(pb, x, img_kv, cfg):
     return x + L.ffn_apply(pb["mlp"], L.rms_norm(x, pb["ln2"], cfg.norm_eps))
 
 
-def _mlp_or_moe(pb, x, cfg):
-    """(x + FFN or MoE of the normed x, the layer's f32 aux or None)."""
+def _mlp_or_moe(pb, x, cfg, mw=None, d_ff=0):
+    """(x + FFN or MoE of the normed x, the layer's f32 aux or None). On a
+    mesh (``mw``) the FFN ``d_ff`` wide whole, column- then
+    row-parallel, and the MoE's dispatch over ``model``."""
     h = L.rms_norm(x, pb["ln2"], cfg.norm_eps)
     if "moe" in pb:
-        y, aux = moe_lib.moe_apply(pb["moe"], h, cfg)
+        y, aux = moe_lib.moe_apply(pb["moe"], h, cfg, mw)
         return x + y, aux
-    return x + L.ffn_apply(pb["mlp"], h), None
+    y = L.ffn_apply(pb["mlp"], h) if mw is None \
+        else mw.ffn(pb["mlp"], h, "mlp", d_ff)
+    return x + y, None
 
 
 def _train_layer(pb, x, cfg, positions, window):
@@ -227,7 +281,7 @@ def _train_layer(pb, x, cfg, positions, window):
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             mode: str = "prefill", caches: Optional[dict] = None,
             cur_index: Optional[int] = None, last_only: bool = False,
-            remat=True):
+            remat=True, ctx=None):
     """batch: ``{"tokens": [B, S]}`` (``S == 1`` in decode), or with
     ``cfg.embeds_input`` ``{"embeds": [B, S, d]}``; the VLM's prefill
     also takes ``"image_embeds"`` [B, n_image_tokens, d]. Returns
@@ -239,25 +293,44 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     ``caches``, updated in place at ``cur_index``; in train it is
     ``None``. ``last_only`` unembeds only the last position (its logits
     are the same). ``remat`` (train only): ``True`` (the default
-    policy), ``False`` or a policy name of ``models/rematcfg.py``."""
+    policy), ``False`` or a policy name of ``models/rematcfg.py``.
+
+    ``ctx`` with a DeviceMesh: ``params`` are the rank's blocks, the
+    batch is the whole one (every rank gets the same), and the results
+    are the rank's: logits ``[B_loc, S, V_loc]``, kv with the rank's
+    batch block and kv heads, ``caches`` the rank's blocks."""
     check_supported(cfg)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
+    mw = None
+    if ctx is not None and ctx.mesh is not None:
+        sharding.check_family(cfg)
+        if mode == "train":
+            raise NotImplementedError(f"{cfg.name}: training on a mesh is "
+                                      "not ported (ROADMAP A8.3)")
+        mw = L.MeshWeights(cfg, ctx)
     if cfg.embeds_input and "embeds" in batch:
         x = batch["embeds"].to(getattr(torch, cfg.dtype))
-    else:
+    elif mw is None:
         x = L.embed_apply(params["embed"], batch["tokens"])
+    else:
+        x = mw.embed(params["embed"], batch["tokens"])
     B, S = x.shape[:2]
+    layout = None
     if mode == "decode":
         positions = torch.full((B, 1), cur_index, dtype=torch.int32,
                                device=x.device)
+        if mw is not None:
+            layout = _cache_layout(cfg, ctx, batch["tokens"].shape[0],
+                                   caches["k"])
     else:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     ks, vs = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kinds = layer_kinds(cfg)
     # the reference gives MoE stacks no window, whatever the config says
-    windows = window_schedule(cfg, len(params["blocks"])) \
-        if cfg.n_experts == 0 else [0] * len(params["blocks"])
+    windows = window_schedule(cfg, len(kinds)) if cfg.n_experts == 0 \
+        else [0] * len(kinds)
     if cfg.family == "vlm":
         per = cfg.cross_attn_every
         img_k, img_v = (caches["img_k"], caches["img_v"]) \
@@ -277,8 +350,11 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
                 else None
             attn_out, (k, v) = _self_attn(pb, x, cfg, positions=positions,
                                           window=windows[i], mode=mode,
-                                          cache=cache, cur_index=cur_index)
-            x, aux_l = _mlp_or_moe(pb, x + attn_out, cfg)
+                                          cache=cache, cur_index=cur_index,
+                                          mw=mw, layout=layout)
+            x, aux_l = _mlp_or_moe(
+                pb, x + attn_out, cfg, mw,
+                cfg.d_ff_dense if kinds[i] == "dense_lead" else cfg.d_ff)
         if aux_l is not None:
             aux = aux + aux_l
         if mode == "prefill":
@@ -295,7 +371,37 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed_apply(params["embed"], x), aux, kv
+    unembed = L.unembed_apply if mw is None else mw.unembed
+    return unembed(params["embed"], x), aux, kv
+
+
+# ---------------------------------------------------------------------------
+# on a mesh
+# ---------------------------------------------------------------------------
+def _kv_for_heads(k, v, h0: int, Hl: int, cfg: ModelConfig):
+    """k, v [B, S, KV, hd] (every kv head) for the rank's q heads
+    ``[h0, h0 + Hl)``: q head h meets kv head h // G. Contiguous, for
+    B4: a slice of kv heads where the local heads group evenly over it,
+    else one kv head a q head."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    heads = [(h0 + i) // G for i in range(Hl)]
+    kv0, n = heads[0], heads[-1] - heads[0] + 1
+    if Hl % n == 0 and all(h - kv0 == i // (Hl // n)
+                           for i, h in enumerate(heads)):
+        return (k[:, :, kv0:kv0 + n].contiguous(),
+                v[:, :, kv0:kv0 + n].contiguous())
+    idx = torch.tensor(heads, device=k.device)
+    return k[:, :, idx].contiguous(), v[:, :, idx].contiguous()
+
+
+def _cache_layout(cfg: ModelConfig, ctx, batch_size: int, k_cache):
+    """(the sequence's mesh axes, the first position of the rank's block)
+    of the decode cache block ``k_cache`` [n, B, S_blk, KV, hd], as
+    ``serve.step.cache_specs`` lays the cache out."""
+    from repro_torch.serve.step import cache_specs
+    seq = cache_specs(cfg, ctx, batch_size)["k"][2]
+    max_len = k_cache.shape[2] * ctx.axes_size(seq)
+    return seq or (), ctx.block(max_len, seq).start
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,

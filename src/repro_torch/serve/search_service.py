@@ -118,7 +118,7 @@ class SearchService:
         A searcher on a mesh of more than one device raises
         ``NotImplementedError``: the service's batches run on its own
         thread and clock, which cannot keep the ranks in lockstep
-        (ROADMAP A8.2)."""
+        (ROADMAP A8.6)."""
         refuse_mesh(getattr(searcher, "ctx", None), "SearchService")
         self.searcher = searcher
         # share the searcher's observability bundle (every tier carries

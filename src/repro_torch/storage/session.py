@@ -31,7 +31,7 @@ uploads its row block (slabs pad to a multiple of the mesh rows) and
 scans in manifest order, so the ranks reduce the same slab together.
 The serving tier and the write path drive one process's threads on its
 own clock and cannot keep ranks in lockstep: ``service``, ``submit``
-and ``enable_ingest`` raise ``NotImplementedError`` there (ROADMAP A8.2).
+and ``enable_ingest`` raise ``NotImplementedError`` there (ROADMAP A8.6).
 
 With ``enable_ingest()`` the session also becomes a *live* writer
 surface (DESIGN.md §6): ``append`` routes documents through a

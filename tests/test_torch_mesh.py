@@ -353,7 +353,7 @@ def test_single_device_collectives_are_the_identity():
 def test_serving_tier_and_write_path_refuse_a_mesh(four, surface):
     for out in four:
         msg = out["refused", surface]
-        assert "ROADMAP A8.2" in msg and "(2, 2) mesh" in msg
+        assert "ROADMAP A8.6" in msg and "(2, 2) mesh" in msg
 
 
 @pytest.mark.parametrize("world", ["four", "eight"])

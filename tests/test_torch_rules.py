@@ -6,7 +6,7 @@
   - with no CUDA card, the default device is an error, never the CPU
     (the search engine, the store session, the cluster session and its
     router, the serving launcher, and the LM's init, generate and
-    launcher);
+    launcher, on one device and on a mesh);
   - a wrapper given CUDA tensors launches its kernel or raises: it never
     reaches its plain version (checked with fake CUDA tensors and a
     kernel loader that raises);
@@ -117,6 +117,40 @@ def test_lm_entry_points_without_device_raise_without_a_card(no_card):
         lm_step.generate(params, cfg, [[1, 2]], max_new=2, max_len=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_launcher.main(["--arch", "qwen2-0.5b", "--smoke"])
+
+
+def test_lm_mesh_entry_points_without_device_raise_without_a_card(no_card):
+    """A mesh ctx, the mesh launcher and the rank's born-sharded weights
+    run on the card unless the CPU is named: without one they raise
+    before any process group or draw."""
+    import types
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.meshctx import MeshCtx
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 mesh=np.empty((2, 2)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MeshCtx(mesh, dp_axes=("data",))
+    for backend in ("gloo", "nccl"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            lm_launcher.main(["--arch", "qwen3-4b", "--smoke", "--mesh",
+                              "2,2", "--dist-backend", backend])
+    assert not dist.is_initialized()
+    ctx = MeshCtx(mesh, dp_axes=("data",), device="cpu")
+    with pytest.raises(ValueError, match="gloo"):
+        lm_launcher.mesh_ctx((2, 2), "nccl", "cpu")
+    cfg = qwen2_0p5b.smoke_config()
+    assert sharding.sharded_init(cfg, _at_origin(ctx))["embed"][
+        "table"].device == torch.device("cpu")
+
+
+def _at_origin(ctx):
+    """``ctx`` seen from coordinate 0 of every axis (no process group)."""
+    class Origin(type(ctx)):
+        def coord(self, axis):
+            return 0
+    return Origin(ctx.mesh, dp_axes=ctx.dp_axes, device="cpu")
 
 
 def test_default_backend_is_the_ell_kernel():

@@ -32,6 +32,23 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from hypothesis_compat import given, settings, strategies as st
+
+try:
+    from hypothesis import example
+except ModuleNotFoundError:         # the shim's fallback: run it first
+    import functools
+
+    def example(**pinned):
+        def deco(fn):
+            @functools.wraps(fn)
+            def run(*args, **drawn):
+                if not run.ran:
+                    run.ran = True
+                    fn(*args, **pinned)
+                fn(*args, **drawn)
+            run.ran = False
+            return run
+        return deco
 from repro.checkpoint.manager import CheckpointManager as RefCheckpoints
 from repro.configs import base as ref_base
 from repro.configs import registry as ref_registry
@@ -362,8 +379,9 @@ def test_decayed_leaves_are_the_references(arch):
 
 
 @settings(max_examples=25, deadline=None)
-@given(st.tuples(st.integers(1, 3), st.sampled_from([1, 7, 256, 300])),
-       st.integers(0, 10_000), st.sampled_from([1e-3, 1.0, 1e3]))
+@given(shape=st.tuples(st.integers(1, 3), st.sampled_from([1, 7, 256, 300])),
+       seed=st.integers(0, 10_000), scale=st.sampled_from([1e-3, 1.0, 1e3]))
+@example(shape=(1, 256), seed=3255, scale=1e3)
 def test_quantize_round_trip_is_the_references_and_within_half_a_quantum(
         shape, seed, scale):
     x = (np.random.default_rng(seed).standard_normal(shape) * scale).astype(
@@ -379,9 +397,12 @@ def test_quantize_round_trip_is_the_references_and_within_half_a_quantum(
     floor = opt._quantum_floor(got)
     assert np.array_equal(floor.numpy(),
                           np.asarray(ref_opt._quantum_floor(ref)))
-    # round to nearest: within half a quantum, plus the division's ulp
-    assert (back - torch.from_numpy(x)).abs().le(
-        floor * (1 + 1e-6)).all()
+    # round to nearest: within half a quantum, plus one ulp of |x| for
+    # the roundings of x / scale and of q * scale (each within half an
+    # ulp of |x|; at seed 3255 the product lands 0.25 ulp past the
+    # half quantum, 2.7e-6 of it)
+    ulp = torch.from_numpy(np.spacing(np.abs(x)))
+    assert (back - torch.from_numpy(x)).abs().le(floor + ulp).all()
 
 
 def test_quantize_a_scalar_as_the_reference():
