@@ -362,7 +362,31 @@ each of which fails the run (non-zero exit) if it fails:
                decode step (``compat.stats``), B4's launches (each > 0;
                they join the hd-128 row of the kernels line) and B4 on
                the rank's first site's own q, k and v against its plain
-               version.
+               version. 16d (``families_phase``): the other four
+               families at full width, MESH_FAMILY_RUNS: rwkv6-7b at 8
+               of 32 layers through ``step.generate``, zamba2-1.2b
+               through ``launch.serve.main --mesh``, musicgen-medium on
+               seeded frame embeddings through ``make_prefill`` and
+               ``make_decode_step`` (as 9e), each on 2 x 2, and
+               llama-3.2-vision-90b at 1 of 20 superblocks on 1 x 4 (8
+               kv heads over 4, no FSDP gathers at data 1) through
+               ``step.generate`` with seeded image embeddings; and, as
+               the recurrent archs' sharp checks, rwkv6-7b at
+               RULE_F32_LAYERS and zamba2-1.2b at ZAMBA_F32_LAYERS in
+               f32 through ``step.generate`` (held to 1e-3);
+               MESH_FAMILY_NEW greedy tokens each. Each on one device,
+               then on a world of one rank over NCCL, every step's
+               logits bit for bit the one-device run's; then one spawn
+               of four ranks (``lm_family_rank``, a DeviceMesh for each
+               shape over the same world) serves them all in turn:
+               logits within lm_atol of one device's (the recurrent archs
+               at MESH_FAMILY_ULPS), tokens equal wherever its top-2
+               margin exceeds that, every rank's tokens equal, every
+               rank's B4 launches ``b4_per_generate`` at its depth (none
+               for rwkv6), B4 on the rank's first site and first cross
+               site (the VLM's, Sk != S) against its plain version, and
+               the same numbers a rank as 16a-16b; its launches join the
+               G = 1, musicgen, hd-128 and Sk != S rows.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the repo beside it, it
@@ -487,6 +511,31 @@ MESH_MOE_SHAPE = (1, 4)                # 16b: 32 of 128 experts a rank
 MESH_LM_NEW = 8                        # greedy tokens a run
 NO_DROP_CF = 2.0                       # 16b: no assignment drops (checked)
 MOE_PLAIN_ULPS = 8                     # 16b: top_k bf16 adds in another order
+# 16d: the other four families at full width, (label, arch, mesh, layers
+# (None: all), route, dtype); the depths are cut only so that gloo's
+# host-borne collectives (~0.25-0.4 GB/s a rank, PERF.md section 5) fit
+# the run. The f32 runs are the recurrent archs' sharp checks (below)
+MESH_FAMILY_RUNS = (
+    ("ssm", "rwkv6-7b", (2, 2), 8, "generate", "bfloat16"),
+    ("hybrid", "zamba2-1.2b", (2, 2), None, "launcher", "bfloat16"),
+    ("audio", "musicgen-medium", (2, 2), None, "embeds", "bfloat16"),
+    ("vlm", "llama-3.2-vision-90b", (1, 4), 4, "generate",  # 1 superblock
+     "bfloat16"),
+    ("ssm-f32", "rwkv6-7b", (2, 2), RULE_F32_LAYERS, "generate", "float32"),
+    ("hybrid-f32", "zamba2-1.2b", (2, 2), ZAMBA_F32_LAYERS, "generate",
+     "float32"),
+)
+MESH_FAMILY_NEW = 4                    # greedy tokens a 16d run
+# 16d's bf16 limit against one device, in ulps (lm_atol): a mesh rounds
+# each row-parallel product's partials to bf16 before their f32 sum (as
+# the reference's partitioner does), and its GEMMs run on other row
+# counts, where one device rounds once; the recurrent archs carry those
+# roundings through their states. On an H100 rwkv6's 8 layers read 7.5
+# ulps and zamba2's 38 Mamba layers 27 (0.8438 at |logit| 4-8), against
+# one device's 8.3 for kernel against plain attention. So their bf16
+# logits catch only gross faults; the sharp checks are their f32 runs
+# (LM_ATOL's 1e-3) and B4 at each rank's sites
+MESH_FAMILY_ULPS = {"ssm": ZAMBA_ULPS, "hybrid": 32}
 GRAPH_VERTICES, GRAPH_EDGES = 1 << 20, 1 << 24
 GRAPH_PR_ITERS, GRAPH_BFS_ITERS = 50, 32
 # phase 13: training on one card
@@ -1011,9 +1060,10 @@ def main() -> int:
     graph_phase(torch, dev)
     rows.append(train_phases(torch, dev))
     rows.append(train_recurrent_phases(torch, dev))
-    # -- 16. LM serving on a mesh (qwen3-4b and qwen3-moe: B4 at hd 128) ------
-    next(r for r in rows if r["name"] == "flash_attention_hd128")[
-        "launches"] += lm_mesh_phase(torch, dev)
+    # -- 16. LM serving on a mesh: B4 at hd 128 (qwen3-4b, qwen3-moe, the
+    # VLM's self layers), hd 64 (zamba2, musicgen) and Sk != S (the VLM) --
+    for name, n in lm_mesh_phase(torch, dev).items():
+        next(r for r in rows if r["name"] == name)["launches"] += n
     say(f"run: {time.perf_counter() - t_run:.1f} s wall")
     say(nvidia_smi_line())
     say(json.dumps({"kernels": rows}))
@@ -2530,13 +2580,12 @@ def b4_per_prefill(cfg) -> int:
         else cfg.n_layers + transformer.n_superblocks(cfg)
 
 
-def b4_per_generate(cfg) -> int:
-    """B4's launches in one ``generate`` of LM_NEW tokens: the prefill's,
-    and for the VLM one a cross layer in each of the LM_NEW - 1 decode
-    steps (decode self-attention is plain PyTorch)."""
+def b4_per_generate(cfg, new=LM_NEW) -> int:
+    """B4's launches in one ``generate`` of ``new`` tokens: the
+    prefill's, and for the VLM one a cross layer in each of the ``new -
+    1`` decode steps (decode self-attention is plain PyTorch)."""
     from repro_torch.models import transformer
-    return b4_per_prefill(cfg) + (LM_NEW - 1) * transformer.n_superblocks(
-        cfg)
+    return b4_per_prefill(cfg) + (new - 1) * transformer.n_superblocks(cfg)
 
 
 def serve_counted(torch, fa, cfg, call):
@@ -3936,7 +3985,9 @@ def lm_mesh_phase(torch, dev):
     the mesh code bit for bit the one-device run. 16a: qwen3-4b at full
     size on a 2 x 2 mesh, 16b: qwen3-moe at MOE_LAYERS layers on a 1 x 4
     mesh, four ranks each (``lm_mesh_rank``) on this one card over gloo.
-    Returns B4's launches in the phase's serving runs (every rank's)."""
+    16d: the ssm, hybrid, audio and vlm families (``families_phase``).
+    Returns B4's launches in the phase's serving runs (every rank's), by
+    the kernels line's row."""
     import dataclasses
     import datetime
     import pickle
@@ -4112,9 +4163,170 @@ def lm_mesh_phase(torch, dev):
         f"within lm_atol {nd_atol:.4f} of one device's, every flip of the "
         f"mesh's own router at a margin below it; at {full.capacity_factor} "
         "the drops are per shard (ROADMAP C26)")
+
+    # -- 16d: the ssm, hybrid, audio and vlm families ------------------------
+    launches = families_phase(torch, dev, card)
+    launches["flash_attention_hd128"] = launches.get(
+        "flash_attention_hd128", 0) + counted
     shutil.rmtree(MESH_ROOT, ignore_errors=True)
     say(f"phase 16: {time.perf_counter() - t_phase:.1f} s wall; {card}")
-    return counted
+    return launches
+
+
+def families_phase(torch, dev, card):
+    """Phase 16d: the ssm, hybrid, audio and vlm families on a mesh, each
+    run of MESH_FAMILY_RUNS at full width and its depth. First in this
+    process: each run on one device (the one-device route: ``M.init``, or
+    the launcher without ``--mesh``), each step's logits kept; then each
+    on a world of one rank over NCCL (a 1 x 1 DeviceMesh, the weights
+    born sharded, or ``launch.serve.main --mesh 1,1``), every step's
+    logits bit for bit the one-device run's. Then four ranks
+    (``lm_family_rank``) on this card over gloo serve them all: logits
+    within lm_atol of the one-device run's (zamba2 at ZAMBA_ULPS), tokens
+    equal wherever its top-2 margin exceeds that limit, every rank's
+    tokens equal, B4's launches ``b4_per_generate`` at the run's depth on
+    every rank (none for rwkv6) and B4 at each rank's first site and
+    first cross site against its plain version. Returns B4's launches of
+    the NCCL and four-rank runs by the kernels line's row."""
+    import datetime
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import _build, flash_attention as fa
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    new = MESH_FAMILY_NEW
+    one = {}
+    for label, arch, mesh, layers, route, dtype in MESH_FAMILY_RUNS:
+        cfg, steps = family_cfg(arch, layers, dtype), []
+        if route == "launcher":
+            run = mesh_served(None, None, steps, arch=arch, new=new)
+            toks, stats = run.tokens, run.stats
+            del run
+        else:
+            params = M.init(cfg, seed=SEED, device=dev)
+            toks, stats = family_served(torch, cfg, route, params, None, dev,
+                                        steps)
+            del params
+        torch.cuda.empty_cache()
+        one[label] = (toks, steps)
+        say(f"mesh 16d-{label} one device ({cfg.name} {dtype}, "
+            f"{cfg.n_layers} of "
+            f"{family_cfg(arch, None).n_layers} layers, {LM_BATCH} x "
+            f"{LM_PROMPT}, {new} greedy tokens, route {route}): prefill "
+            f"{stats['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{stats['decode_s'] * 1e3 / (new - 1):.2f} ms a step")
+
+    # -- 16d over NCCL: a world of one rank, a 1 x 1 mesh --------------------
+    launches = {}
+
+    def add(label, cfg, n, n_cross):
+        """The main path's launches (bf16) by row; the f32 checks' not."""
+        if cfg.dtype != "bfloat16":
+            return
+        row = {"hybrid": "flash_attention_g1",
+               "audio": "flash_attention_musicgen"}.get(
+            label, "flash_attention_hd128")
+        if label != "ssm":
+            launches[row] = launches.get(row, 0) + n - n_cross
+        if n_cross:
+            launches["flash_attention_cross"] = launches.get(
+                "flash_attention_cross", 0) + n_cross
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(MESH_ROOT / "nccl-families"), 1),
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S), device_id=dev)
+    try:
+        for label, arch, mesh, layers, route, dtype in MESH_FAMILY_RUNS:
+            cfg, got = family_cfg(arch, layers, dtype), []
+            fa.flash_attention_gqa.launches = 0
+            fa.flash_attention_gqa.launches_cross = 0
+            if route == "launcher":
+                run = mesh_served("1,1", "nccl", got, arch=arch, new=new)
+                toks = run.tokens
+                del run
+            else:
+                ctx = serve_launcher.mesh_ctx((1, 1), "nccl", "cuda")
+                params = sharding.sharded_init(cfg, ctx, seed=SEED)
+                toks, _ = family_served(torch, cfg, route, params, ctx, dev,
+                                        got)
+                del params
+            torch.cuda.synchronize()
+            n = fa.flash_attention_gqa.launches
+            if n != b4_per_generate(cfg, new):
+                fail(f"mesh 16d-{label} 1 x 1: B4 launched {n} times, want "
+                     f"{b4_per_generate(cfg, new)}")
+            add(label, cfg, n, fa.flash_attention_gqa.launches_cross)
+            for t, (a, b) in enumerate(zip(got, one[label][1])):
+                if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+                    fail(f"mesh 16d-{label} 1 x 1: step {t}'s logits differ "
+                         "from the one-device run's bits")
+            if len(got) != new or not torch.equal(toks, one[label][0]):
+                fail(f"mesh 16d-{label} 1 x 1: tokens differ from the "
+                     "one-device run")
+            del got
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    say(f"mesh 16d (1 x 1, one rank over NCCL): every run's {new} steps' "
+        f"logits bit for bit the one-device run's; {card}")
+
+    # -- 16d: four ranks on this card over gloo ------------------------------
+    _build.build(["flash_attention"])          # the ranks load, never build
+    outs = lm_mesh_ranks(mp, "families", None, rank_fn=lm_family_rank,
+                         world=4)
+    faults = []                 # every run is reported before one fails
+    for label, arch, mesh, layers, route, dtype in MESH_FAMILY_RUNS:
+        cfg = family_cfg(arch, layers, dtype)
+        toks_one, steps_one = one[label]
+        one_np = torch.stack(steps_one).float().cpu().numpy()
+        atol = lm_atol(dtype, torch.from_numpy(one_np),
+                       MESH_FAMILY_ULPS.get(cfg.family, LM_ULPS))
+        ranks_ = [o[label] for o in outs]
+        got, want_toks = ranks_[0], toks_one.cpu().numpy()
+        first = next((t for t in range(new)
+                      if not np.array_equal(got["tokens"][:, t],
+                                            want_toks[:, t])), new)
+        # a step's logits follow from the tokens before it: those of the
+        # step where the tokens first part are comparable too
+        errs = [float(np.abs(got["steps"][t] - one_np[t]).max())
+                for t in range(min(first + 1, new))]
+        if errs and max(errs) > atol:
+            faults.append(f"16d-{label}: logits {max(errs)} from one "
+                          f"device's (limit {atol})")
+        if first < new:
+            top2 = np.sort(one_np[first][:, 0], axis=-1)[:, -2:]
+            rows = np.nonzero(got["tokens"][:, first]
+                              != want_toks[:, first])[0]
+            if ((top2[rows, 1] - top2[rows, 0]) >= atol).any():
+                faults.append(f"16d-{label}: tokens part at step {first} "
+                              f"above the top-2 margin limit {atol}")
+        for o in ranks_:
+            if not np.array_equal(o["tokens"], got["tokens"]):
+                faults.append(f"16d-{label} rank {o['rank']}: tokens differ "
+                              "from rank 0's")
+            try:
+                lm_mesh_rank_line(f"16d-{label}", o, card,
+                                  want=b4_per_generate(cfg, new))
+            except SystemExit as e:
+                faults.append(str(e))
+            add(label, cfg, o["launches"], o["launches_cross"])
+        say(f"mesh 16d-{label} ({cfg.name} at full width, {cfg.n_layers} of "
+            f"{family_cfg(arch, None).n_layers} layers, on "
+            f"{mesh[0]} x {mesh[1]}, 4 ranks on one card over gloo, route "
+            f"{route}, {dtype}): the steps' logits "
+            f"{max(errs, default=0.0):.4f} at most from the one-device "
+            f"run's (limit {atol:.4f}, lm_atol"
+            + (f" at {MESH_FAMILY_ULPS.get(cfg.family, LM_ULPS)} ulps"
+               if dtype == "bfloat16" else "") + "), tokens "
+            f"equal for {first} of {new} steps (they may part only below "
+            "the top-2 margin limit)")
+    if faults:
+        fail("; ".join(faults))
+    say(f"phase 16d: {time.perf_counter() - t_phase:.1f} s wall; {card}")
+    return launches
 
 
 def moe_plain(torch, p, x, ids):
@@ -4138,35 +4350,36 @@ def moe_plain(torch, p, x, ids):
     return y
 
 
-def mesh_served(mesh, backend, logits):
-    """``repro_torch.launch.serve.main`` on a world that is up: 16a's
-    model and prompts (MESH_LM_ARCH at full size, LM_BATCH prompts of
-    LM_PROMPT from seed SEED, MESH_LM_NEW greedy tokens) on a ``mesh``
-    ("D,M") over ``backend``; each step's logits (whole, gathered) are
-    appended to ``logits``. Returns the launcher's ``ServeRun``."""
+def mesh_served(mesh, backend, logits, arch=MESH_LM_ARCH, new=MESH_LM_NEW):
+    """``repro_torch.launch.serve.main`` on a world that is up: ``arch``
+    at full size (16a: MESH_LM_ARCH), LM_BATCH prompts of LM_PROMPT from
+    seed SEED, ``new`` greedy tokens, on a ``mesh`` ("D,M") over
+    ``backend`` (``mesh`` None: one device, no world); each step's logits
+    (whole, gathered) are appended to ``logits``. Returns the launcher's
+    ``ServeRun``."""
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.serve import step
 
     def generate(*args, **kw):
         return step.generate(*args, logits=logits, **kw)
     serve_launcher.generate = generate
+    on = [] if mesh is None else ["--mesh", mesh, "--dist-backend", backend]
     try:
         return serve_launcher.main([
-            "--arch", MESH_LM_ARCH, "--mesh", mesh, "--dist-backend",
-            backend, "--batch", str(LM_BATCH), "--prompt-len",
-            str(LM_PROMPT), "--max-new", str(MESH_LM_NEW), "--seed",
-            str(SEED)])
+            "--arch", arch, *on, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--max-new", str(new), "--seed", str(SEED)])
     finally:
         serve_launcher.generate = step.generate
 
 
-def lm_mesh_ranks(mp, job, shape):
-    """Run ``lm_mesh_rank`` on the ranks of a ``shape`` mesh; their
-    results, by rank."""
+def lm_mesh_ranks(mp, job, shape, rank_fn=None, world=None):
+    """Run ``rank_fn`` (default ``lm_mesh_rank``) on the ranks of a
+    ``shape`` mesh (or a world of ``world``); their results, by rank."""
     import pickle
-    world = int(np.prod(shape))
+    world = world or int(np.prod(shape))
     t0 = time.perf_counter()
-    mp.start_processes(lm_mesh_rank, args=(world, str(MESH_ROOT), job, shape),
+    mp.start_processes(rank_fn or lm_mesh_rank,
+                       args=(world, str(MESH_ROOT), job, shape),
                        nprocs=world, join=True, start_method="spawn")
     say(f"mesh {job} ranks ran {time.perf_counter() - t0:.1f} s")
     outs = []
@@ -4176,15 +4389,24 @@ def lm_mesh_ranks(mp, job, shape):
     return outs
 
 
-def lm_mesh_rank_line(label, o, card) -> int:
-    """Print one rank's numbers; check its B4 launches and its site
-    check. Returns its B4 launches."""
-    if o["launches"] <= 0:
-        fail(f"mesh {label} rank {o['rank']}: B4 did not launch")
-    if not o["site_ok"]:
-        fail(f"mesh {label} rank {o['rank']}: B4 on the rank's own q, k, v "
-             f"differs from its plain version ({o['site_err']})")
+def lm_mesh_rank_line(label, o, card, want=None) -> int:
+    """Print one rank's numbers; check its B4 launches (``want`` of them,
+    or, where None, some) and its site checks. Returns its B4
+    launches."""
+    if (o["launches"] <= 0) if want is None else (o["launches"] != want):
+        fail(f"mesh {label} rank {o['rank']}: B4 launched {o['launches']} "
+             f"times, want {'some' if want is None else want}")
+    for name in ("site", "cross"):
+        if not o.get(f"{name}_ok", True):
+            fail(f"mesh {label} rank {o['rank']}: B4 on the rank's own q, k, "
+                 f"v at its first {name} differs from its plain version "
+                 f"({o[name + '_err']})")
     c = o["collectives"]
+    sites = "".join(
+        f", B4 on the rank's first {'cross ' if n == 'cross' else ''}site "
+        f"{o[n + '_shape']} vs plain max_abs_err {o[n + '_err']:.3e} "
+        f"(row-scaled {o[n + '_row']:.3e})"
+        for n in ("site", "cross") if n + "_err" in o)
     say(f"mesh {label} rank {o['rank']} (data {o['coord'][0]}, model "
         f"{o['coord'][1]}): {o['param_gb']:.2f} GB of weight blocks drawn in "
         f"{o['init_s']:.1f} s; prefill {o['prefill_ms']:.1f} ms, decode "
@@ -4194,8 +4416,7 @@ def lm_mesh_rank_line(label, o, card) -> int:
         f"{c['prefill_calls']} calls, decode {c['decode_ms']:.1f} ms "
         f"({c['decode_ms'] / o['decode_ms']:.2f}), "
         f"{c['decode_bytes'] / 1e9:.3f} GB a step; B4 launches "
-        f"{o['launches']}, B4 on the rank's first site vs plain "
-        f"max_abs_err {o['site_err']:.3e} (row-scaled {o['site_row']:.3e})"
+        f"{o['launches']} ({o['launches_cross']} at Sk != S){sites}"
         + (f"; first MoE block vs dispatch_simulated {o['moe_err']:.3e}, "
            f"prefill drops at cf 1.25 {o['drops']}; at cf {NO_DROP_CF} the "
            f"first MoE block vs moe_plain {o['plain_err']:.3e} and the "
@@ -4231,10 +4452,9 @@ def lm_mesh_rank(rank, world, root, job, shape):
     from torch.distributed.device_mesh import init_device_mesh
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs.registry import get_config
-    from repro_torch.distributed import compat, sharding
+    from repro_torch.distributed import compat
     from repro_torch.distributed.meshctx import MeshCtx
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import layers, model as M, moe
+    from repro_torch.models import model as M, moe
     from repro_torch.serve import step
 
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
@@ -4255,17 +4475,7 @@ def lm_mesh_rank(rank, world, root, job, shape):
             ctx = MeshCtx(init_device_mesh("cpu", shape,
                                            mesh_dim_names=("data", "model")),
                           device="cuda:0")
-            # one rank draws at a time: a draw holds a whole leaf in f32
-            # and its cast (4.8 GB for the experts) besides the blocks
-            for r in range(world):
-                dist.barrier()
-                if r == rank:
-                    t0 = time.perf_counter()
-                    params = sharding.sharded_init(cfg, ctx, seed=SEED)
-                    torch.cuda.synchronize()
-                    init_s = time.perf_counter() - t0
-                    torch.cuda.empty_cache()
-            dist.barrier()
+            params, init_s = drawn_in_turn(torch, cfg, ctx, rank, world)
             prompt = np.random.default_rng(SEED).integers(
                 0, cfg.vocab_size, (B, S)).astype(np.int32)
 
@@ -4281,64 +4491,22 @@ def lm_mesh_rank(rank, world, root, job, shape):
                 return run.tokens, run.stats, run.ctx, run.params
 
         # the main path: B4 counted, the collectives measured
-        sites = []
-        kernel = layers.flash_attention_gqa
-
-        def first_site(q, k, v, **kw):
-            if not sites:
-                sites.append((q.clone(), k.clone(), v.clone(), kw))
-            return kernel(q, k, v, **kw)
-        fa.flash_attention_gqa.launches = 0
-        compat.stats = {}
-        layers.flash_attention_gqa = first_site
-        moe.moe_apply.record = [] if job == "moe" else None
-        try:
-            served = serve()
-            torch.cuda.synchronize()
-            out["launches"] = fa.flash_attention_gqa.launches
-            record = moe.moe_apply.record
-        finally:
-            layers.flash_attention_gqa = kernel
-            moe.moe_apply.record = None
+        served, counts, sites, total, record = rank_counted(
+            torch, serve, record_moe=job == "moe")
+        out.update(counts)
         toks, stats = served[:2]
         if job == "dense":
             ctx, params = served[2:]
-        total, pre = dict(compat.stats), stats["collectives_prefill"]
-        compat.stats = None
         out["coord"] = (ctx.coord("data"), ctx.coord("model"))
-        out["init_s"] = stats["init_s"]
-        out["param_gb"] = sum(t.numel() * t.element_size()
-                              for t in _leaves(params)) / 1e9
-        out["prefill_ms"] = stats["prefill_s"] * 1e3
-        out["decode_ms"] = stats["decode_s"] * 1e3 / (new - 1)
-        out["collectives"] = {
-            "prefill_ms": pre["seconds"] * 1e3,
-            "prefill_bytes": pre["bytes"], "prefill_calls": pre["calls"],
-            "decode_ms": (total["seconds"] - pre["seconds"]) * 1e3
-            / (new - 1),
-            "decode_bytes": (total["bytes"] - pre["bytes"]) / (new - 1)}
+        rank_report(out, stats, total, params, steps, new,
+                    f"{job} rank {rank}")
         out["tokens"] = toks.cpu().numpy()
-        if len(steps) != new:
-            fail(f"mesh {job} rank {rank}: {len(steps)} steps' logits kept")
         if rank == 0:
             out["steps"] = torch.stack(steps).float().cpu().numpy()
-        if not all(bool(s.isfinite().all()) for s in steps):
-            fail(f"mesh {job} rank {rank}: non-finite logits")
         del steps
-
         # B4 on the first site's own q, k, v against its plain version
-        q, k, v, kw = sites[0]
-        got = fa.flash_attention_gqa(q, k, v, **kw)
-        want = fa.flash_attention_gqa_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        out["site_err"] = float((got.float() - want.float()).abs().max())
-        out["site_row"] = row_scaled_err(got, want)
-        out["site_ok"] = bool(torch.allclose(
-            got.float(), want.float(), rtol=ATTN_TOL["bfloat16"],
-            atol=ATTN_TOL["bfloat16"])) and \
-            out["site_row"] <= ATTN_ROW_TOL
-        out["site_shape"] = (tuple(q.shape), tuple(k.shape))
-        del sites, got, want
+        out.update(site_held(torch, sites["first"]))
+        del sites
 
         if job == "moe":
             first = record[0]
@@ -4380,6 +4548,240 @@ def lm_mesh_rank(rank, world, root, job, shape):
         dist.destroy_process_group()
     with open(root / f"{job}{rank}.pkl", "wb") as f:
         pickle.dump(out, f)
+
+
+def drawn_in_turn(torch, cfg, ctx, rank, world):
+    """(this rank's weight blocks born sharded, ``sharding.sharded_init``
+    from seed SEED, and the seconds its draw took), one rank drawing at a
+    time: a draw holds a whole leaf in f32 and its cast (4.8 GB for
+    qwen3-moe's experts) besides the blocks."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    for r in range(world):
+        dist.barrier()
+        if r == rank:
+            t0 = time.perf_counter()
+            params = sharding.sharded_init(cfg, ctx, seed=SEED)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return params, init_s
+
+
+def rank_counted(torch, serve, record_moe=False):
+    """``serve()``, one rank's run of the main path, with B4's counts set
+    to 0 just before it and read just after, the collectives counted
+    (``compat.stats``) and B4's first call and first call at Sk != S
+    kept (q, k, v and the keywords). Returns (what ``serve`` returns,
+    {"launches", "launches_cross"}, the kept calls by "first" and
+    "cross", the collectives' totals, the MoE record or None)."""
+    from repro_torch.distributed import compat
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers, moe
+    sites = {}
+    kernel = layers.flash_attention_gqa
+
+    def kept(q, k, v, **kw):
+        cross = k.shape[1] != q.shape[1]
+        for name, hit in (("first", True), ("cross", cross)):
+            if hit and name not in sites:
+                sites[name] = (q.clone(), k.clone(), v.clone(), kw)
+        return kernel(q, k, v, **kw)
+    fa.flash_attention_gqa.launches = 0
+    fa.flash_attention_gqa.launches_cross = 0
+    compat.stats = {}
+    layers.flash_attention_gqa = kept
+    moe.moe_apply.record = [] if record_moe else None
+    try:
+        served = serve()
+        torch.cuda.synchronize()
+        counts = {"launches": fa.flash_attention_gqa.launches,
+                  "launches_cross": fa.flash_attention_gqa.launches_cross}
+        record, total = moe.moe_apply.record, dict(compat.stats)
+    finally:
+        layers.flash_attention_gqa = kernel
+        moe.moe_apply.record = compat.stats = None
+    return served, counts, sites, total, record
+
+
+def rank_report(out, stats, total, params, steps, new, label):
+    """One rank's numbers of a counted run into ``out``: the draw's
+    seconds and the weight blocks' GB, prefill ms and decode ms a step,
+    the collectives' ms, bytes and calls in the prefill and a decode
+    step; every one of the ``new`` steps' logits kept and finite."""
+    pre = stats["collectives_prefill"]
+    out["init_s"] = stats["init_s"]
+    out["param_gb"] = sum(t.numel() * t.element_size()
+                          for t in _leaves(params)) / 1e9
+    out["prefill_ms"] = stats["prefill_s"] * 1e3
+    out["decode_ms"] = stats["decode_s"] * 1e3 / (new - 1)
+    out["collectives"] = {
+        "prefill_ms": pre["seconds"] * 1e3,
+        "prefill_bytes": pre["bytes"], "prefill_calls": pre["calls"],
+        "decode_ms": (total["seconds"] - pre["seconds"]) * 1e3 / (new - 1),
+        "decode_bytes": (total["bytes"] - pre["bytes"]) / (new - 1)}
+    if len(steps) != new:
+        fail(f"mesh {label}: {len(steps)} steps' logits kept")
+    if not all(bool(s.isfinite().all()) for s in steps):
+        fail(f"mesh {label}: non-finite logits")
+
+
+def site_held(torch, site, name="site"):
+    """B4 on a kept call's own q, k, v (``rank_counted``) against its
+    plain version: ``<name>_err``, ``_row`` (row-scaled), ``_ok`` (phase
+    8's limits for q's dtype) and ``_shape``."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, kw = site
+    got = fa.flash_attention_gqa(q, k, v, **kw)
+    want = fa.flash_attention_gqa_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    row = row_scaled_err(got, want)
+    tol = ATTN_TOL[str(q.dtype).split(".")[-1]]
+    ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                             atol=tol)) and row <= ATTN_ROW_TOL
+    return {f"{name}_err": err, f"{name}_row": row, f"{name}_ok": ok,
+            f"{name}_shape": (tuple(q.shape), tuple(k.shape))}
+
+
+def family_cfg(arch, layers, dtype="bfloat16"):
+    """16d's config of ``arch``: full width, ``layers`` deep (None: all),
+    in ``dtype``."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                               dtype=dtype)
+
+
+def family_served(torch, cfg, route, params, ctx, dev, steps):
+    """One 16d run of MESH_FAMILY_NEW greedy tokens on LM_BATCH prompts of
+    LM_PROMPT from seed SEED (``ctx`` None: one device): ``"generate"``
+    through ``step.generate`` (the VLM with seeded bf16 image embeddings,
+    as phase 9e draws them); ``"embeds"`` through ``make_prefill`` and
+    ``make_decode_step`` on seeded frame embeddings, as ``embeds_served``
+    draws them (a step's token is its argmax; the frames feed the next
+    step). Each step's whole logits are appended to ``steps``. Returns
+    (tokens [B, new], stats as ``generate``'s)."""
+    from repro_torch.distributed import compat
+    from repro_torch.serve import step
+    B, S, new = LM_BATCH, LM_PROMPT, MESH_FAMILY_NEW
+    dt = getattr(torch, cfg.dtype)
+    stats = {}
+    if route == "generate":
+        kw = {}
+        if cfg.family == "vlm":
+            gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+            kw["image_embeds"] = (torch.randn(
+                (B, cfg.n_image_tokens, cfg.d_model), generator=gen,
+                device=dev) * 0.02).to(dt)
+        prompt = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int32)
+        toks = step.generate(params, cfg, prompt, max_new=new,
+                             max_len=S + new, device=dev, ctx=ctx,
+                             stats=stats, logits=steps, **kw)
+        return toks, stats
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    frames = (torch.randn((B, S + new, cfg.d_model), generator=gen,
+                          device=dev) * 0.02).to(dt)
+    prefill = step.make_prefill(cfg, ctx)
+    decode = step.make_decode_step(cfg, ctx)
+
+    def whole(lg):
+        if ctx is None:
+            return lg
+        lg = compat.all_gather_axis(lg, ctx, ctx.tp_axis, dim=-1)
+        for axis in reversed(ctx.dp_axes):
+            lg = compat.all_gather_axis(lg, ctx, axis, dim=0)
+        return lg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, kv = prefill(params, {"embeds": frames[:, :S]})
+    cache = step.decode_cache(cfg, kv, B, S, S + new, dev, ctx=ctx)
+    del kv
+    steps.append(whole(lg))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if compat.stats is not None:
+        stats["collectives_prefill"] = dict(compat.stats)
+    for i in range(1, new):
+        lg, cache = decode(params, {"embeds": frames[:, S + i - 1:S + i]},
+                           cache, S + i - 1)
+        steps.append(whole(lg))
+    torch.cuda.synchronize()
+    stats["prefill_s"], stats["decode_s"] = t1 - t0, time.perf_counter() - t1
+    return torch.cat([torch.argmax(t, dim=-1) for t in steps], dim=1), stats
+
+
+def lm_family_rank(rank, world, root, job, shape):
+    """One rank of phase 16d: a process of its own on the card, in a gloo
+    world of four through a FileStore under ``root``, LOCAL_RANK set. It
+    builds a DeviceMesh for each mesh shape of MESH_FAMILY_RUNS over the
+    same world and serves each run in turn (``job`` and ``shape`` are
+    ``lm_mesh_ranks``' and unused): "launcher" through
+    ``launch.serve.main --mesh`` (``mesh_served``), which draws its
+    blocks; the others from blocks born sharded one rank at a time
+    (``drawn_in_turn``) through ``family_served``. Each run is counted
+    (``rank_counted``), its numbers kept (``rank_report``) and B4 held
+    on the run's first site and first cross site (Sk != S). Pickles {run
+    label: what it found} to ``root/families<rank>.pkl``."""
+    import datetime
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.distributed.meshctx import MeshCtx
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.set_num_threads(2)
+    root = Path(root)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(root / "gloo-families"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    outs = {}
+    try:
+        ctxs = {m: MeshCtx(init_device_mesh(
+            "cpu", m, mesh_dim_names=("data", "model")), device="cuda:0")
+            for m in dict.fromkeys(run[2] for run in MESH_FAMILY_RUNS)}
+        for label, arch, mesh, layers, route, dtype in MESH_FAMILY_RUNS:
+            cfg, ctx = family_cfg(arch, layers, dtype), ctxs[mesh]
+            steps = []
+            if route == "launcher":
+                def serve():
+                    run = mesh_served(",".join(map(str, mesh)), "gloo", steps,
+                                      arch=arch, new=MESH_FAMILY_NEW)
+                    return run.tokens, run.stats, run.params
+            else:
+                params, init_s = drawn_in_turn(torch, cfg, ctx, rank, world)
+
+                def serve():
+                    toks, stats = family_served(torch, cfg, route, params,
+                                                ctx, ctx.device, steps)
+                    stats["init_s"] = init_s
+                    return toks, stats, params
+            served, counts, sites, total, _ = rank_counted(torch, serve)
+            toks, stats, params = served
+            out = {"rank": rank, "coord": (ctx.coord("data"),
+                                           ctx.coord("model")), **counts}
+            rank_report(out, stats, total, params, steps, MESH_FAMILY_NEW,
+                        f"16d-{label} rank {rank}")
+            out["tokens"] = toks.cpu().numpy()
+            if rank == 0:
+                out["steps"] = torch.stack(steps).float().cpu().numpy()
+            if "first" in sites:
+                out.update(site_held(torch, sites["first"]))
+            if "cross" in sites:
+                out.update(site_held(torch, sites["cross"], "cross"))
+            del served, params, steps, sites, toks
+            torch.cuda.empty_cache()
+            outs[label] = out
+    finally:
+        dist.destroy_process_group()
+    with open(root / f"families{rank}.pkl", "wb") as f:
+        pickle.dump(outs, f)
 
 
 def _launch_counters():

@@ -94,7 +94,6 @@ def lm_params_from_reference(params: Mapping[str, Any], cfg: ModelConfig,
     whole tree is laid out on the host first."""
     if ctx is not None and ctx.mesh is not None:
         from repro_torch.distributed import sharding
-        sharding.check_family(cfg)
         whole = _unstacked(params, cfg, torch.device("cpu"))
         return sharding.shard_params(whole, cfg, ctx, None if device is None
                                      else resolve(device))

@@ -21,7 +21,8 @@ the layer axis dropped (``leaf_spec(..., stacked=True)``).
 ``M.init``'s order on the rank's device, cut to the rank's block before
 the next is drawn, so that no rank holds more than one whole leaf, and
 every block is the slice of ``M.init(cfg, seed=seed)``'s leaf bit for
-bit. The model takes the blocks as local tensors.
+bit, for every family (``MESH_FAMILIES``). The model takes the blocks
+as local tensors.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ _REPLICATE = {"router", "wA", "wB", "conv_w", "A_log", "D", "dt_bias",
               "w0", "u", "in_proj"}
 # the port's per-layer lists, stacked ``[n, ...]`` in the reference
 STACKED = ("blocks", "cross_blocks", "mamba")
-MESH_FAMILIES = ("dense", "moe")
+# every family of the port serves on a mesh
+MESH_FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
 
 def entry(axes):
@@ -224,27 +226,24 @@ def shard_params(params, cfg: ModelConfig, ctx: MeshCtx,
     return _walk(params, cut)
 
 
-def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the mesh does not run."""
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family on a mesh is not ported "
-            f"(the mesh serves {MESH_FAMILIES}); ROADMAP A8.5")
-
-
 def sharded_init(cfg: ModelConfig, ctx: MeshCtx, seed: int = 0):
     """``M.init(cfg, seed=seed)``'s params born sharded on the ctx's
     device: the same generator on that device draws each leaf whole, in
-    ``M.init``'s order, and keeps only this rank's block of it before it
-    draws the next. The dense and moe families (``MESH_FAMILIES``)."""
-    from repro_torch.models import transformer
-    check_family(cfg)
+    ``M.init``'s order (each family's own ``init``, with its ``keep``
+    hook), and keeps only this rank's block of it before it draws the
+    next. Every family of ``MESH_FAMILIES``."""
+    from repro_torch.models import hybrid, rwkv6, transformer
+    if cfg.family not in MESH_FAMILIES:
+        raise ValueError(f"{cfg.name}: no family {cfg.family!r} on a mesh "
+                         f"(the mesh serves {MESH_FAMILIES})")
+    init = {"ssm": rwkv6.init, "hybrid": hybrid.init}.get(
+        cfg.family, transformer.init)
     gen = torch.Generator(device=ctx.device).manual_seed(seed)
 
     def keep(path, leaf):
         spec = leaf_spec(path, leaf.shape, cfg, ctx, _is_stacked(path))
         return _own(block(leaf, spec, ctx), ctx.device)
-    return transformer.init(gen, cfg, keep=keep)
+    return init(gen, cfg, keep=keep)
 
 
 def gather(t: torch.Tensor, spec: tuple, ctx: MeshCtx) -> torch.Tensor:

@@ -19,9 +19,9 @@ card. Each rank draws its blocks of the weights born sharded
 (``distributed.sharding.sharded_init``, the same values as one device's
 ``M.init``) on its device (``cuda:LOCAL_RANK`` modulo the cards, or
 ``--device cpu``), serves the same prompts in lockstep, and rank 0
-prints. The dense and moe families run on a mesh; the others raise
-``NotImplementedError`` (ROADMAP A8.5). Without ``--mesh`` the launcher
-runs one device, as before.
+prints. Every arch the launcher takes serves on a mesh: the dense and
+MoE transformers, rwkv6-7b and zamba2-1.2b. Without ``--mesh`` the
+launcher runs one device, as before.
 
 The port of ``repro.launch.serve``: random weights from ``--seed`` (no
 checkpoint is loaded), random prompt tokens from the same seed.
@@ -123,7 +123,6 @@ def main(argv=None) -> ServeRun:
         shape = tuple(int(v) for v in args.mesh.split(","))
         if len(shape) not in (2, 3):
             raise SystemExit(f"--mesh takes D,M or P,D,M, got {args.mesh}")
-        sharding.check_family(cfg)
         ctx = mesh_ctx(shape, args.dist_backend, args.device)
         device = ctx.device
     else:

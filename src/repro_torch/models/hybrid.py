@@ -27,7 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, rematcfg
-from repro_torch.models.transformer import _self_attn
+from repro_torch.models.transformer import _cache_layout, _self_attn
 
 
 MODES = ("prefill", "decode", "train")
@@ -57,22 +57,26 @@ def _site(cfg: ModelConfig, b: int) -> Optional[int]:
     return None
 
 
-def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init(gen: torch.Generator, cfg: ModelConfig, keep=L.whole) -> dict:
     """Random params on the generator's device: ``{"embed", "mamba":
     [one dict a layer], "shared_attn": {"ln1", "attn", "ln2", "mlp"},
-    "final_norm"}``."""
+    "final_norm"}``. ``keep``: see ``layers.whole``."""
     dev = gen.device
-    return {
-        "embed": L.embed_init(gen, cfg),
-        "mamba": [mamba2.layer_init(gen, cfg) for _ in range(cfg.n_layers)],
-        "shared_attn": {
-            "ln1": torch.ones(cfg.d_model, dtype=torch.float32, device=dev),
-            "attn": L.attn_init(gen, cfg),
-            "ln2": torch.ones(cfg.d_model, dtype=torch.float32, device=dev),
-            "mlp": L.ffn_init(gen, cfg)},
-        "final_norm": torch.ones(cfg.d_model, dtype=torch.float32,
-                                 device=dev),
-    }
+    sh = L.under(keep, "shared_attn")
+
+    def ones(k, path):
+        return k(path, torch.ones(cfg.d_model, dtype=torch.float32,
+                                  device=dev))
+    p = {"embed": L.embed_init(gen, cfg, keep=L.under(keep, "embed")),
+         "mamba": [mamba2.layer_init(gen, cfg, L.under(keep, "mamba", i))
+                   for i in range(cfg.n_layers)]}
+    p["shared_attn"] = {
+        "ln1": ones(sh, ("ln1",)),
+        "attn": L.attn_init(gen, cfg, keep=L.under(sh, "attn")),
+        "ln2": ones(sh, ("ln2",)),
+        "mlp": L.ffn_init(gen, cfg, keep=L.under(sh, "mlp"))}
+    p["final_norm"] = ones(keep, ("final_norm",))
+    return p
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
@@ -98,7 +102,7 @@ def _train_block(pb, x, cfg: ModelConfig, state, chunk: int):
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             mode: str = "prefill", caches: Optional[dict] = None,
             cur_index: Optional[int] = None, last_only: bool = False,
-            chunk: int = 64, remat=True):
+            chunk: int = 64, remat=True, ctx=None):
     """batch: ``{"tokens": [B, S]}`` (``S == 1`` in decode). Returns
     (logits, aux, cache): ``aux`` an f32 zero; in prefill ``cache`` is
     ``{"mamba": the new state, stacked as init_state's, "k", "v": [sites,
@@ -109,17 +113,46 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     layer runs under (``models/rematcfg.py``), as the reference wraps its
     segments' scan body; the shared block is not rematerialized (the
     reference unrolls it outside the scan), and its attention trains
-    through ``layers.Attention``, B4 with its lse."""
+    through ``layers.Attention``, B4 with its lse.
+
+    ``ctx`` with a DeviceMesh (prefill and decode): ``params`` are the
+    rank's blocks, the batch is the whole one, and the results are the
+    rank's, as the reference's constraints lay them out
+    (``src/repro/models/hybrid.py:69-130``): the batch over ``dp_axes``
+    where it divides, the residual whole over ``model``; each Mamba layer
+    through ``mamba2.block_apply``'s mesh path (the SSD state's heads
+    over ``model``); the shared block through ``transformer._self_attn``
+    (B4 on the rank's heads) and ``MeshWeights.ffn``; the cache as
+    ``serve.step.cache_specs`` ``"hybrid"`` lays it out, its k and v as
+    the transformers' (grown by ``serve.step.decode_cache``, ROADMAP
+    C20); the logits ``[B_loc, S, V/M]``."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
-    x = L.embed_apply(params["embed"], batch["tokens"])
+    mw = None
+    if ctx is not None and ctx.mesh is not None:
+        if mode == "train":
+            raise NotImplementedError(f"{cfg.name}: training on a mesh is "
+                                      "not ported (ROADMAP A8.3)")
+        mw = L.MeshWeights(cfg, ctx)
+    if mw is None:
+        x = L.embed_apply(params["embed"], batch["tokens"])
+    else:
+        x = mw.embed(params["embed"], batch["tokens"])
     B, S = x.shape[:2]
     single = mode == "decode"
+    nh = cfg.d_inner // cfg.ssm_headdim
+    if mw is not None:
+        h = mw.heads(nh, "SSD")
+        nh = h.stop - h.start
     mstate = caches["mamba"] if caches is not None else \
-        mamba2.init_state(cfg, cfg.n_layers, B, x.dtype, x.device)
+        mamba2.init_state(cfg, cfg.n_layers, B, x.dtype, x.device, heads=nh)
+    layout = None
     if single:
         positions = torch.full((B, 1), cur_index, dtype=torch.int32,
                                device=x.device)
+        if mw is not None and n_attn_sites(cfg):
+            layout = _cache_layout(cfg, ctx, batch["tokens"].shape[0],
+                                   caches["k"])
     else:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     sh = params["shared_attn"]
@@ -133,7 +166,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
                 x = layer(params["mamba"][i], x, cfg, st_in, chunk)
                 continue
             x, st = mamba2.block_apply(params["mamba"][i], x, cfg, st_in,
-                                       chunk=chunk, single=single)
+                                       chunk=chunk, single=single, mw=mw)
             if single:
                 for k, t in st.items():
                     mstate[k][i].copy_(t)
@@ -145,12 +178,15 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         cache = (caches["k"][site], caches["v"][site]) if single else None
         attn_out, (k, v) = _self_attn(sh, x, cfg, positions=positions,
                                       window=0, mode=mode, cache=cache,
-                                      cur_index=cur_index)
+                                      cur_index=cur_index, mw=mw,
+                                      layout=layout)
         if mode == "prefill":
             ks.append(k)
             vs.append(v)
         x = x + attn_out
-        x = x + L.ffn_apply(sh["mlp"], L.rms_norm(x, sh["ln2"], cfg.norm_eps))
+        h = L.rms_norm(x, sh["ln2"], cfg.norm_eps)
+        x = x + (L.ffn_apply(sh["mlp"], h) if mw is None
+                 else mw.ffn(sh["mlp"], h, "mlp", cfg.d_ff))
     if train:
         out = None
     elif single:
@@ -164,4 +200,5 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return L.unembed_apply(params["embed"], x), aux, out
+    unembed = L.unembed_apply if mw is None else mw.unembed
+    return unembed(params["embed"], x), aux, out

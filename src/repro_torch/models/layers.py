@@ -30,7 +30,9 @@ zeros elsewhere, and the sum over ``model`` is exact), the unembedding's
 logits left sharded over ``model`` on the vocabulary; and decode
 attention over a cache whose sequence is sharded (``decode_attention``'s
 ``seq_axes``): flash-decoding, each rank's softmax over its own keys,
-the partial max and sum combined over the axes.
+the partial max and sum combined over the axes. The recurrent families
+fetch their layers' blocks through it too (``rwkv_time_mix``,
+``rwkv_channel_mix``, ``mamba``), their scans on the rank's heads.
 """
 from __future__ import annotations
 
@@ -408,7 +410,9 @@ class MeshWeights:
     whole shape, and returns it with its ``fsdp`` dims gathered, and its
     spec (``sharding.leaf_spec``). ``attn`` and ``ffn`` hand such
     weights to ``attn_qkv`` and ``ffn_apply``, the one-device functions;
-    ``row_sum`` then sums a row-parallel product over ``model``."""
+    ``rwkv_time_mix``, ``rwkv_channel_mix`` and ``mamba`` to the
+    recurrent blocks; ``row_sum`` then sums a row-parallel product over
+    ``model``."""
 
     def __init__(self, cfg: ModelConfig, ctx):
         self.cfg, self.ctx = cfg, ctx
@@ -425,29 +429,32 @@ class MeshWeights:
         sharded there (``over``: that dim's spec entry). The partial
         products, each rounded to y's dtype, are summed in f32 and the
         sum rounded once, as the reference's partitioner promotes a bf16
-        all-reduce to f32."""
+        all-reduce to f32 (read from its compiled HLO: a bf16 convert,
+        then an f32 all-reduce, at the transformers' ``wo`` and
+        ``w_down``, rwkv6's ``tm.wo`` and ``cm.wv`` and Mamba's
+        ``out_proj``)."""
         if over == self.tp:
             return compat.all_reduce_axis(y.float(), self.ctx,
                                           self.tp).to(y.dtype)
         return y
 
-    def attn(self, ap: dict):
-        """(one layer's attention weights for the rank: ``wq``, ``wk``,
-        ``wv`` and ``wo`` gathered over ``fsdp``, the biases cut to the
-        rank's heads; ``wo``'s input dim's spec entry, for
-        ``row_sum``)."""
+    def attn(self, ap: dict, names=("wq", "wk", "wv", "wo")):
+        """(one layer's attention weights for the rank: ``names`` of
+        ``wq``, ``wk``, ``wv`` and ``wo`` gathered over ``fsdp``, the
+        biases cut to the rank's heads; ``wo``'s input dim's spec entry,
+        for ``row_sum``, or None without ``wo``)."""
         cfg, d = self.cfg, self.cfg.d_model
-        out = dict(ap)
-        out["wq"], sq = self.weight(ap["wq"], ("attn", "wq"), (d, cfg.q_dim))
-        out["wk"], sk = self.weight(ap["wk"], ("attn", "wk"),
-                                    (d, cfg.kv_dim))
-        out["wv"], _ = self.weight(ap["wv"], ("attn", "wv"), (d, cfg.kv_dim))
-        out["wo"], so = self.weight(ap["wo"], ("attn", "wo"), (cfg.q_dim, d))
+        full = {"wq": (d, cfg.q_dim), "wk": (d, cfg.kv_dim),
+                "wv": (d, cfg.kv_dim), "wo": (cfg.q_dim, d)}
+        out, specs = dict(ap), {}
+        for name in names:
+            out[name], specs[name] = self.weight(ap[name], ("attn", name),
+                                                 full[name])
         if "bq" in ap:
-            out["bq"] = ap["bq"][self.ctx.block(cfg.q_dim, sq[1])]
-            out["bk"] = ap["bk"][self.ctx.block(cfg.kv_dim, sk[1])]
-            out["bv"] = ap["bv"][self.ctx.block(cfg.kv_dim, sk[1])]
-        return out, so[0]
+            out["bq"] = ap["bq"][self.ctx.block(cfg.q_dim, specs["wq"][1])]
+            out["bk"] = ap["bk"][self.ctx.block(cfg.kv_dim, specs["wk"][1])]
+            out["bv"] = ap["bv"][self.ctx.block(cfg.kv_dim, specs["wk"][1])]
+        return out, specs["wo"][0] if "wo" in specs else None
 
     def ffn(self, p: dict, x: torch.Tensor, parent: str,
             d_ff: int) -> torch.Tensor:
@@ -464,6 +471,20 @@ class MeshWeights:
                                          (d, d_ff))
         return self.row_sum(ffn_apply(w, x), sd[0])
 
+    def batch_block(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's block of ``t``'s batch (dim 0) over ``dp_axes``
+        where it divides (``MeshCtx.batch_sharded``), else ``t``."""
+        B = t.shape[0]
+        return t[self.ctx.block(B, self.ctx.dp_axes)] \
+            if self.ctx.batch_sharded(B) else t
+
+    def gather_tp(self, t: torch.Tensor, over) -> torch.Tensor:
+        """``t`` gathered over ``model`` along its last dim where that dim
+        is sharded there (``over``: its spec entry), else ``t``."""
+        if over != self.tp:
+            return t
+        return compat.all_gather_axis(t, self.ctx, self.tp, t.dim() - 1)
+
     def embed(self, p: dict, tokens: torch.Tensor) -> torch.Tensor:
         """The rank's batch block of ``tokens`` [B, S] (over ``dp_axes``
         where B divides) looked up vocabulary-parallel: the rank's range
@@ -471,9 +492,7 @@ class MeshWeights:
         ``unembed``), zeros for the others' ids, summed over ``model``
         (exact)."""
         cfg, ctx = self.cfg, self.ctx
-        B = tokens.shape[0]
-        if ctx.batch_sharded(B):
-            tokens = tokens[ctx.block(B, ctx.dp_axes)]
+        tokens = self.batch_block(tokens)
         self.table, spec = self.weight(p["table"], ("embed", "table"),
                                        (cfg.vocab_size, cfg.d_model),
                                        stacked=False)
@@ -498,3 +517,67 @@ class MeshWeights:
         head, _ = self.weight(p["head"], ("embed", "head"),
                               (cfg.d_model, cfg.vocab_size), stacked=False)
         return x @ head
+
+    # -- the recurrent families --------------------------------------------
+    def heads(self, n: int, what: str) -> slice:
+        """The rank's block of ``n`` heads over ``model``; a
+        ``ValueError`` where they do not divide it."""
+        ts = self.ctx.tp_size
+        if n % ts:
+            raise ValueError(f"{self.cfg.name}: {n} {what} heads do not "
+                             f"divide the model axis of {ts}; its state "
+                             "shards its heads there (cache_specs)")
+        return self.ctx.block(n, self.tp)
+
+    def rwkv_time_mix(self, p: dict):
+        """(rwkv6's time-mix weights for the rank's heads, ``wo``'s input
+        dim's entry for ``row_sum``): ``wr``, ``wk``, ``wv`` and ``wg``
+        column-parallel and ``wo`` row-parallel, each gathered over
+        ``fsdp`` (``leaf_spec`` lays a column block on whole heads where
+        the heads divide ``model``); of the replicated leaves, ``w0``,
+        ``wB``'s columns, ``u`` and ``ln_x`` cut to the rank's heads (a
+        decay column needs only its own column of ``wB``), the lerp
+        coefficients and ``wA`` whole."""
+        cfg, d = self.cfg, self.cfg.d_model
+        hd = cfg.rwkv_head_size
+        heads = self.heads(d // hd, "WKV")
+        ch = slice(heads.start * hd, heads.stop * hd)
+        out = dict(p)
+        for name in ("wr", "wk", "wv", "wg", "wo"):
+            out[name], spec = self.weight(p[name], ("tm", name), (d, d))
+        out.update(w0=p["w0"][ch], wB=p["wB"][:, ch], u=p["u"][heads],
+                   ln_x=p["ln_x"][ch])
+        return out, spec[0]
+
+    def rwkv_channel_mix(self, p: dict):
+        """(rwkv6's channel-mix weights for the rank, the spec entries of
+        ``wr``'s output dim and ``cm.wv``'s input dim): ``wr`` and ``wk``
+        column-parallel, ``wv`` row-parallel, each gathered over
+        ``fsdp``; ``mu_r`` and ``mu_k`` whole."""
+        cfg, d = self.cfg, self.cfg.d_model
+        out = dict(p)
+        out["wr"], sr = self.weight(p["wr"], ("cm", "wr"), (d, d))
+        out["wk"], _ = self.weight(p["wk"], ("cm", "wk"), (d, cfg.d_ff))
+        out["wv"], sv = self.weight(p["wv"], ("cm", "wv"), (cfg.d_ff, d))
+        return out, sr[1], sv[0]
+
+    def mamba(self, p: dict):
+        """(a Mamba-2 layer's weights for the rank, its heads, the spec
+        entry of ``out_proj``'s input dim): ``in_proj`` gathered over
+        ``fsdp`` and whole on every ``model`` rank (its fused sections
+        are not TP-aligned), ``conv_w`` and the norms whole; ``A_log``,
+        ``D`` and ``dt_bias`` cut to the rank's heads (over ``model``,
+        as ``cache_specs`` lays the state out); ``out_proj``'s rows
+        gathered over ``fsdp``."""
+        cfg, d = self.cfg, self.cfg.d_model
+        d_in, N = cfg.d_inner, cfg.ssm_state
+        nh = d_in // cfg.ssm_headdim
+        heads = self.heads(nh, "SSD")
+        out = dict(p)
+        out["in_proj"], _ = self.weight(p["in_proj"], ("mamba", "in_proj"),
+                                        (d, 2 * d_in + 2 * N + nh))
+        out["out_proj"], so = self.weight(p["out_proj"],
+                                          ("mamba", "out_proj"), (d_in, d))
+        for name in ("A_log", "D", "dt_bias"):
+            out[name] = p[name][heads]
+        return out, heads, so[0]

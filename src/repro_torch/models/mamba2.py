@@ -47,37 +47,44 @@ def _dims(cfg: ModelConfig):
     return d_in, N, hd, d_in // hd, d_in + 2 * N
 
 
-def layer_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """One Mamba2 layer's params on the generator's device."""
+def layer_init(gen: torch.Generator, cfg: ModelConfig,
+               keep=L.whole) -> dict:
+    """One Mamba2 layer's params on the generator's device. ``keep``: see
+    ``layers.whole``."""
     d = cfg.d_model
     d_in, N, _, nh, conv_dim = _dims(cfg)
     dtype = getattr(torch, cfg.dtype)
     dev = gen.device
-    conv_w = torch.empty((CONV_K, conv_dim), dtype=torch.float32, device=dev)
-    conv_w.normal_(0.0, 1.0, generator=gen)
     f32 = dict(dtype=torch.float32, device=dev)
-    return {
-        "norm": torch.ones(d, **f32),
-        "in_proj": L.dense_init(gen, d, 2 * d_in + 2 * N + nh, dtype),
-        "conv_w": conv_w * (1.0 / math.sqrt(CONV_K)),
-        "A_log": torch.zeros(nh, **f32),      # a = exp(-exp(A_log) * dt)
-        "D": torch.ones(nh, **f32),
-        "dt_bias": torch.zeros(nh, **f32),
-        "gate_norm": torch.ones(d_in, **f32),
-        "out_proj": L.dense_init(gen, d_in, d, dtype,
-                                 scale=1.0 / math.sqrt(2 * cfg.n_layers)),
-    }
+    conv_w = torch.empty((CONV_K, conv_dim), **f32)     # drawn first
+    conv_w.normal_(0.0, 1.0, generator=gen)
+    conv_w = keep(("conv_w",), conv_w * (1.0 / math.sqrt(CONV_K)))
+    p = {"norm": keep(("norm",), torch.ones(d, **f32)),
+         "in_proj": keep(("in_proj",), L.dense_init(
+             gen, d, 2 * d_in + 2 * N + nh, dtype)),
+         "conv_w": conv_w}
+    # a = exp(-exp(A_log) * dt)
+    p["A_log"] = keep(("A_log",), torch.zeros(nh, **f32))
+    p["D"] = keep(("D",), torch.ones(nh, **f32))
+    p["dt_bias"] = keep(("dt_bias",), torch.zeros(nh, **f32))
+    p["gate_norm"] = keep(("gate_norm",), torch.ones(d_in, **f32))
+    p["out_proj"] = keep(("out_proj",), L.dense_init(
+        gen, d_in, d, dtype, scale=1.0 / math.sqrt(2 * cfg.n_layers)))
+    return p
 
 
 def init_state(cfg: ModelConfig, n: int, batch_size: int,
                dtype: Optional[torch.dtype] = None,
-               device: DeviceLike = None) -> dict:
-    """Zeroed state of ``n`` layers: ``h`` f32 ``[n, B, nh, hd, N]`` and
-    ``conv`` ``[n, B, CONV_K - 1, conv channels]`` in ``dtype`` (default
-    the config's)."""
+               device: DeviceLike = None,
+               heads: Optional[int] = None) -> dict:
+    """Zeroed state of ``n`` layers: ``h`` f32 ``[n, B, nh, hd, N]``
+    (``heads`` of them, default all: a rank's on a mesh) and ``conv``
+    ``[n, B, CONV_K - 1, conv channels]`` in ``dtype`` (default the
+    config's)."""
     _, N, hd, nh, conv_dim = _dims(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve(device)
+    nh = nh if heads is None else heads
     return {"h": torch.zeros((n, batch_size, nh, hd, N), dtype=torch.float32,
                              device=device),
             "conv": torch.zeros((n, batch_size, CONV_K - 1, conv_dim),
@@ -147,17 +154,32 @@ def _ssd_step(x, dt, B_, C_, a_log, h):
 
 
 def block_apply(pb, x, cfg: ModelConfig, state, *, chunk: int = 64,
-                single: bool = False):
+                single: bool = False, mw=None):
     """One Mamba2 block. x: [B, T, d]; state: this layer's ``{"h",
-    "conv"}``. Returns (x, the layer's new state)."""
+    "conv"}``. Returns (x, the layer's new state).
+
+    On a mesh (``mw``, a ``layers.MeshWeights``) x is the rank's batch
+    block, whole over ``model``. ``in_proj`` and the conv run whole on
+    every ``model`` rank (the reference's layout: the fused sections are
+    not TP-aligned, and ``cache_specs`` keeps ``conv`` whole there); the
+    SSD runs on the rank's heads, whose state ``h`` holds them. The
+    gated RMSNorm normalizes over the whole d_inner, so y is gathered
+    over ``model`` first and the norm is one device's, bit for bit (an
+    all-reduce of the sum of squares would add its partial sums in
+    another order). The rank's channels of the normed y then meet its
+    rows of ``out_proj``, summed over ``model``."""
     B, T, d = x.shape
     d_in, N, hd, nh, _ = _dims(cfg)
+    if mw is not None:
+        pb, heads, over = mw.mamba(pb)
     xn = L.rms_norm(x, pb["norm"], cfg.norm_eps)
     proj = xn @ pb["in_proj"]
     z, xbc, dt_raw = (proj[..., :d_in], proj[..., d_in:2 * d_in + 2 * N],
                       proj[..., 2 * d_in + 2 * N:])
     xbc, conv_state = _causal_conv(xbc, pb["conv_w"], state["conv"])
     xs = xbc[..., :d_in].reshape(B, T, nh, hd)
+    if mw is not None:
+        xs, dt_raw = xs[:, :, heads], dt_raw[..., heads]
     B_, C_ = xbc[..., d_in:d_in + N], xbc[..., d_in + N:]
     # softplus as jax.nn.softplus: logaddexp(v, 0), in f32
     v = dt_raw.float() + pb["dt_bias"][None, None, :]
@@ -170,6 +192,11 @@ def block_apply(pb, x, cfg: ModelConfig, state, *, chunk: int = 64,
     else:
         y, h = _ssd_chunked(xs, dt, B_, C_, a_log, state["h"], chunk)
     y = y + xs * pb["D"][None, None, :, None].to(y.dtype)
-    y = L.rms_norm(y.reshape(B, T, d_in) * L.silu(z), pb["gate_norm"],
-                   cfg.norm_eps)
-    return x + y @ pb["out_proj"], {"h": h, "conv": conv_state}
+    y = y.reshape(B, T, -1)
+    if mw is not None:
+        y = mw.gather_tp(y, mw.tp)
+    y = L.rms_norm(y * L.silu(z), pb["gate_norm"], cfg.norm_eps)
+    if mw is None:
+        return x + y @ pb["out_proj"], {"h": h, "conv": conv_state}
+    y = y[..., mw.ctx.block(d_in, over)] @ pb["out_proj"]
+    return x + mw.row_sum(y, over), {"h": h, "conv": conv_state}

@@ -19,9 +19,9 @@ the reference).
 
 ``apply_prefill`` and ``apply_decode`` take ``ctx=None``: ``None`` or a
 ``single_device_ctx`` runs one device; a ctx with a DeviceMesh runs the
-rank's blocks (``distributed/sharding.py``) for the dense and moe
-families (``transformer.forward``'s mesh path) and raises
-``NotImplementedError`` naming ROADMAP A8.5 for the others.
+rank's blocks (``distributed/sharding.py``) through the family's mesh
+path, for every family: ``transformer.forward`` (dense, moe, vlm,
+audio), ``rwkv6.forward`` (ssm) and ``hybrid.forward`` (hybrid).
 """
 from __future__ import annotations
 
@@ -31,7 +31,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
-from repro_torch.distributed import sharding
 from repro_torch.models import hybrid, rwkv6, transformer
 from repro_torch.models.layers import softmax_cross_entropy
 
@@ -73,24 +72,21 @@ def loss_fn(params, cfg: ModelConfig, batch, remat=True):
     return ce + 0.01 * aux, (ce, aux)
 
 
-def _mesh_kw(cfg: ModelConfig, ctx) -> dict:
-    if ctx is None or ctx.mesh is None:
-        return {}
-    sharding.check_family(cfg)
-    return {"ctx": ctx}
+def _mesh_kw(ctx) -> dict:
+    return {} if ctx is None or ctx.mesh is None else {"ctx": ctx}
 
 
 def apply_prefill(params, cfg: ModelConfig, batch, last_only: bool = False,
                   ctx=None):
     return _mod(cfg).forward(params, cfg, batch, mode="prefill",
-                             last_only=last_only, **_mesh_kw(cfg, ctx))
+                             last_only=last_only, **_mesh_kw(ctx))
 
 
 def apply_decode(params, cfg: ModelConfig, batch, caches, cur_index: int,
                  ctx=None):
     return _mod(cfg).forward(params, cfg, batch, mode="decode",
                              caches=caches, cur_index=cur_index,
-                             **_mesh_kw(cfg, ctx))
+                             **_mesh_kw(ctx))
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,

@@ -57,49 +57,52 @@ D_BYTES = 1 << 30            # the pairwise decay tensor's size a group
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _layer_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def _layer_init(gen: torch.Generator, cfg: ModelConfig,
+                keep=L.whole) -> dict:
     """One layer's params: f32 lerp coefficients, decay base, bonus and
-    norms; the projections in the config's dtype, ``x @ W``."""
+    norms; the projections in the config's dtype, ``x @ W``. ``keep``:
+    see ``layers.whole``."""
     d, ff = cfg.d_model, cfg.d_ff
     hd = cfg.rwkv_head_size
     H = d // hd
     dtype = getattr(torch, cfg.dtype)
     dev = gen.device
 
-    def full(shape, value):
-        return torch.full(shape, value, dtype=torch.float32, device=dev)
+    def full(path, shape, value):
+        return keep(path, torch.full(shape, value, dtype=torch.float32,
+                                     device=dev))
 
-    def mat(i, o, scale=1.0):
-        return L.dense_init(gen, i, o, dtype, scale)
+    def mat(path, i, o, scale=1.0, times=None):
+        w = L.dense_init(gen, i, o, dtype, scale)
+        return keep(path, w if times is None else w * times)
 
     out_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
-    tm = {
-        "mu_r": full((d,), 0.5), "mu_k": full((d,), 0.5),
-        "mu_v": full((d,), 0.5), "mu_g": full((d,), 0.5),
-        "mu_w": full((d,), 0.5),
-        "w0": full((d,), -2.0),          # base decay ~exp(-exp(-2))
-        "wA": mat(d, LORA_DIM) * 0.1,
-        "wB": mat(LORA_DIM, d) * 0.1,
-        "u": full((H, hd), 0.0),
-        "wr": mat(d, d), "wk": mat(d, d), "wv": mat(d, d), "wg": mat(d, d),
-        "wo": mat(d, d, out_scale),
-        "ln_x": full((d,), 1.0),
-    }
-    cm = {
-        "mu_r": full((d,), 0.5), "mu_k": full((d,), 0.5),
-        "wr": mat(d, d), "wk": mat(d, ff), "wv": mat(ff, d, out_scale),
-    }
-    return {"ln1": full((d,), 1.0), "ln2": full((d,), 1.0), "tm": tm,
-            "cm": cm}
+    tm = {name: full(("tm", name), (d,), 0.5)
+          for name in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w")}
+    tm["w0"] = full(("tm", "w0"), (d,), -2.0)   # base decay ~exp(-exp(-2))
+    tm["wA"] = mat(("tm", "wA"), d, LORA_DIM, times=0.1)
+    tm["wB"] = mat(("tm", "wB"), LORA_DIM, d, times=0.1)
+    tm["u"] = full(("tm", "u"), (H, hd), 0.0)
+    for name in ("wr", "wk", "wv", "wg"):
+        tm[name] = mat(("tm", name), d, d)
+    tm["wo"] = mat(("tm", "wo"), d, d, out_scale)
+    tm["ln_x"] = full(("tm", "ln_x"), (d,), 1.0)
+    cm = {"mu_r": full(("cm", "mu_r"), (d,), 0.5),
+          "mu_k": full(("cm", "mu_k"), (d,), 0.5),
+          "wr": mat(("cm", "wr"), d, d), "wk": mat(("cm", "wk"), d, ff),
+          "wv": mat(("cm", "wv"), ff, d, out_scale)}
+    return {"ln1": full(("ln1",), (d,), 1.0),
+            "ln2": full(("ln2",), (d,), 1.0), "tm": tm, "cm": cm}
 
 
-def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init(gen: torch.Generator, cfg: ModelConfig, keep=L.whole) -> dict:
     """Random params on the generator's device: ``{"embed", "blocks":
-    [one dict a layer], "final_norm"}``."""
-    return {"embed": L.embed_init(gen, cfg),
-            "blocks": [_layer_init(gen, cfg) for _ in range(cfg.n_layers)],
-            "final_norm": torch.ones(cfg.d_model, dtype=torch.float32,
-                                     device=gen.device)}
+    [one dict a layer], "final_norm"}``. ``keep``: see ``layers.whole``."""
+    return {"embed": L.embed_init(gen, cfg, keep=L.under(keep, "embed")),
+            "blocks": [_layer_init(gen, cfg, L.under(keep, "blocks", i))
+                       for i in range(cfg.n_layers)],
+            "final_norm": keep(("final_norm",), torch.ones(
+                cfg.d_model, dtype=torch.float32, device=gen.device))}
 
 
 # ---------------------------------------------------------------------------
@@ -290,9 +293,8 @@ def _lerp(x, xprev, mu):
 
 def _time_mix(p, x, cfg: ModelConfig, state, chunk: int = 64,
               single: bool = False):
-    B, T, d = x.shape
+    B, T, _ = x.shape
     hd = cfg.rwkv_head_size
-    H = d // hd
     last = state["tm_x"][:, None, :]
     xprev = last if single else _shift(x, last)
     r = _lerp(x, xprev, p["mu_r"]) @ p["wr"]
@@ -302,6 +304,7 @@ def _time_mix(p, x, cfg: ModelConfig, state, chunk: int = 64,
     xw = _lerp(x, xprev, p["mu_w"]).float()
     lw = -torch.exp(p["w0"][None, None] + torch.tanh(xw @ p["wA"].float())
                     @ p["wB"].float())                  # log w_t <= 0
+    H = r.shape[-1] // hd          # a rank's heads on a mesh, else all
     r, k, v, lw = (t.reshape(B, T, H, hd) for t in (r, k, v, lw))
     if single:
         o, s_new = _wkv_step(r[:, 0], k[:, 0], v[:, 0], lw[:, 0], p["u"],
@@ -312,28 +315,44 @@ def _time_mix(p, x, cfg: ModelConfig, state, chunk: int = 64,
     # per-head norm, then the gate
     o = L.rms_norm(o, torch.ones(hd, dtype=torch.float32, device=x.device),
                    cfg.norm_eps)
-    o = o.reshape(B, T, d) * p["ln_x"].to(o.dtype)
+    o = o.reshape(B, T, H * hd) * p["ln_x"].to(o.dtype)
     return (o * g) @ p["wo"], {"wkv": s_new, "tm_x": x[:, -1, :]}
 
 
-def _channel_mix(p, x, state, single: bool = False):
+def _channel_mix(p, x, state, single: bool = False, mw=None, over=None):
+    """RWKV's channel mix. On a mesh (``mw``; ``over``: the spec entries
+    of ``wr``'s output dim and ``wv``'s input dim) r comes out sharded
+    over ``model`` on d and is gathered there, and ``k @ wv``, row-
+    parallel, is summed there, before their product."""
     last = state["cm_x"][:, None, :]
     xprev = last if single else _shift(x, last)
     r = torch.sigmoid(_lerp(x, xprev, p["mu_r"]) @ p["wr"])
     k = torch.square(torch.relu(_lerp(x, xprev, p["mu_k"]) @ p["wk"]))
-    return r * (k @ p["wv"]), {"cm_x": x[:, -1, :]}
+    y = k @ p["wv"]
+    if mw is not None:
+        r, y = mw.gather_tp(r, over[0]), mw.row_sum(y, over[1])
+    return r * y, {"cm_x": x[:, -1, :]}
 
 
 def block_apply(pb, x, cfg: ModelConfig, state, *, chunk: int = 64,
-                single: bool = False):
+                single: bool = False, mw=None):
     """One layer. x: [B, T, d]; state: this layer's ``{"wkv", "tm_x",
-    "cm_x"}``. Returns (x, the layer's new state)."""
-    y, tm_state = _time_mix(pb["tm"], L.rms_norm(x, pb["ln1"], cfg.norm_eps),
+    "cm_x"}``. Returns (x, the layer's new state). On a mesh (``mw``, a
+    ``layers.MeshWeights``) x is the rank's batch block, whole over
+    ``model``, and the WKV state holds the rank's heads: the time mix
+    runs r, k, v, g, the decay and the scan on those heads, then the
+    per-head norm, and ``wo`` row-parallel, summed over ``model``."""
+    tm, cm, wo_over, over = pb["tm"], pb["cm"], None, None
+    if mw is not None:
+        tm, wo_over = mw.rwkv_time_mix(tm)
+        cm, *over = mw.rwkv_channel_mix(cm)
+    y, tm_state = _time_mix(tm, L.rms_norm(x, pb["ln1"], cfg.norm_eps),
                             cfg, state, chunk=chunk, single=single)
+    if mw is not None:
+        y = mw.row_sum(y, wo_over)
     x = x + y
-    y, cm_state = _channel_mix(pb["cm"],
-                               L.rms_norm(x, pb["ln2"], cfg.norm_eps),
-                               state, single=single)
+    y, cm_state = _channel_mix(cm, L.rms_norm(x, pb["ln2"], cfg.norm_eps),
+                               state, single=single, mw=mw, over=over)
     return x + y, {**tm_state, **cm_state}
 
 
@@ -342,14 +361,17 @@ def block_apply(pb, x, cfg: ModelConfig, state, *, chunk: int = 64,
 # ---------------------------------------------------------------------------
 def init_state(cfg: ModelConfig, batch_size: int,
                dtype: Optional[torch.dtype] = None,
-               device: DeviceLike = None) -> dict:
+               device: DeviceLike = None,
+               heads: Optional[int] = None) -> dict:
     """Zeroed recurrent state of every layer: ``wkv`` f32 ``[n, B, H,
-    hd, hd]``, ``tm_x`` and ``cm_x`` ``[n, B, d]`` in ``dtype`` (default
-    the config's)."""
+    hd, hd]`` (``heads`` of them, default all: a rank's on a mesh),
+    ``tm_x`` and ``cm_x`` ``[n, B, d]`` in ``dtype`` (default the
+    config's)."""
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve(device)
     d, hd, n = cfg.d_model, cfg.rwkv_head_size, cfg.n_layers
-    return {"wkv": torch.zeros((n, batch_size, d // hd, hd, hd),
+    H = d // hd if heads is None else heads
+    return {"wkv": torch.zeros((n, batch_size, H, hd, hd),
                                dtype=torch.float32, device=device),
             "tm_x": torch.zeros((n, batch_size, d), dtype=dtype,
                                 device=device),
@@ -365,7 +387,7 @@ def _train_block(pb, x, cfg: ModelConfig, state, chunk: int):
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             mode: str = "prefill", caches: Optional[dict] = None,
             cur_index: Optional[int] = None, last_only: bool = False,
-            chunk: int = 64, remat=True):
+            chunk: int = 64, remat=True, ctx=None):
     """batch: ``{"tokens": [B, T]}`` (``T == 1`` in decode). Returns
     (logits, aux, state): ``aux`` is an f32 zero (no experts); in prefill
     ``state`` is the new recurrent state, stacked ``[n, ...]`` as
@@ -374,13 +396,36 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     is unused (the state is the position). ``last_only`` unembeds only
     the last position. ``remat`` (train only): ``True`` (the default
     policy), ``False`` or a policy name of ``models/rematcfg.py``, each
-    layer under it as the reference wraps its scan body."""
+    layer under it as the reference wraps its scan body.
+
+    ``ctx`` with a DeviceMesh (prefill and decode): ``params`` are the
+    rank's blocks (``distributed/sharding.py``), the batch is the whole
+    one, and the results are the rank's, as the reference's constraints
+    lay them out (``src/repro/models/rwkv6.py:221-236``): the batch over
+    ``dp_axes`` where it divides, the residual whole over ``model``, the
+    WKV state's heads over ``model`` (``serve.step.cache_specs``
+    ``"ssm"``), the logits ``[B_loc, T, V/M]``. Each layer runs
+    ``block_apply``'s mesh path; the embedding and unembedding are
+    ``layers.MeshWeights``'."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
-    x = L.embed_apply(params["embed"], batch["tokens"])
+    mw = None
+    if ctx is not None and ctx.mesh is not None:
+        if mode == "train":
+            raise NotImplementedError(f"{cfg.name}: training on a mesh is "
+                                      "not ported (ROADMAP A8.3)")
+        mw = L.MeshWeights(cfg, ctx)
+    if mw is None:
+        x = L.embed_apply(params["embed"], batch["tokens"])
+    else:
+        x = mw.embed(params["embed"], batch["tokens"])
     B = x.shape[0]
+    H = cfg.d_model // cfg.rwkv_head_size
+    if mw is not None:
+        h = mw.heads(H, "WKV")
+        H = h.stop - h.start
     state = caches if caches is not None else \
-        init_state(cfg, B, x.dtype, x.device)
+        init_state(cfg, B, x.dtype, x.device, heads=H)
     single = mode == "decode"
     train = mode == "train"
     layer = rematcfg.wrap(_train_block, remat) if train else None
@@ -390,7 +435,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         if train:
             x = layer(pb, x, cfg, st_in, chunk)
             continue
-        x, st = block_apply(pb, x, cfg, st_in, chunk=chunk, single=single)
+        x, st = block_apply(pb, x, cfg, st_in, chunk=chunk, single=single,
+                            mw=mw)
         if single:
             for k, t in st.items():
                 state[k][i].copy_(t)
@@ -404,4 +450,5 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return L.unembed_apply(params["embed"], x), aux, state
+    unembed = L.unembed_apply if mw is None else mw.unembed
+    return unembed(params["embed"], x), aux, state

@@ -32,8 +32,8 @@ remat policy ``remat`` names (``models/rematcfg.py``: per-layer
 attention is ``layers.blockwise_attention``'s autograd Function.
 
 ``forward(..., ctx=None)``: without a ctx, or on a ``single_device_ctx``
-(no DeviceMesh), it runs on one device. On a ctx with a DeviceMesh (the
-dense and moe families, prefill and decode) the same layer loop runs
+(no DeviceMesh), it runs on one device. On a ctx with a DeviceMesh
+(every family here, prefill and decode) the same layer loop runs
 the rank's blocks of the weights (``distributed/sharding.py``), fetched
 through a ``layers.MeshWeights`` (gathered over ``fsdp``) and handed to
 the one-device ``attn_qkv`` and ``ffn_apply``, on its block of the
@@ -48,9 +48,15 @@ FFN column- then row-parallel, the row-parallel products summed over
 logits left sharded over ``model`` on the vocabulary. Decode writes and
 attends over the rank's block of the cache as
 ``serve.step.cache_specs`` lays it out: kv heads over ``model``, or the
-sequence there (flash-decoding) where they do not divide. The other
-families raise ``NotImplementedError`` naming ROADMAP A8.5, training on
-a mesh A8.3.
+sequence there (flash-decoding) where they do not divide. The audio
+arch's frame embeddings are cut to the rank's batch block as tokens
+are. The VLM's image embeddings too; its cross layers take ``wk`` and
+``wv`` as the self layers do (the rank's kv heads, or every kv head),
+B4 on the rank's q heads, and ``wo`` and the FFN through
+``MeshWeights``; its image cache is laid out as the self cache, and
+where that shards the image positions a decode step's cross attention
+is flash-decoding over them. Training on a mesh raises
+``NotImplementedError`` naming ROADMAP A8.3.
 
 The reference's perf flags (``models/perfcfg``) keep their defaults:
 the ones on this path act only on a mesh's layout or on gemma3
@@ -69,7 +75,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
-from repro_torch.distributed import compat, sharding
+from repro_torch.distributed import compat
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rematcfg
@@ -213,21 +219,23 @@ def _self_attn(pb, x, cfg, *, positions, window, mode, cache=None,
     return (y if mw is None else mw.row_sum(y, wo_over)), new_kv
 
 
-def _image_kv(cross_blocks, image_embeds, cfg):
+def _image_kv(cross_blocks, image_embeds, cfg, mw=None):
     """Each cross layer's k and v from the image embeddings [B, n_img, d]:
     stacked ``[n_cross, B, n_img, KV, hd]``, no RoPE; k RMS-normed where
     the block has ``k_norm``. The projection promotes as the reference's
-    jnp ``@`` does: f32 embeddings give f32 k and v in a bf16 model."""
+    jnp ``@`` does: f32 embeddings give f32 k and v in a bf16 model. On a
+    mesh (``mw``) ``wk`` and ``wv`` are the rank's, gathered over
+    ``fsdp``: its kv heads where they divide ``model``, else every kv
+    head."""
     B, n_img = image_embeds.shape[:2]
     ks, vs = [], []
     for pb in cross_blocks:
-        ap = pb["attn"]
+        ap = pb["attn"] if mw is None else \
+            mw.attn(pb["attn"], ("wk", "wv"))[0]
         dt = torch.promote_types(image_embeds.dtype, ap["wk"].dtype)
         x = image_embeds.to(dt)
-        k = (x @ ap["wk"].to(dt)).reshape(B, n_img, cfg.n_kv_heads,
-                                          cfg.head_dim)
-        v = (x @ ap["wv"].to(dt)).reshape(B, n_img, cfg.n_kv_heads,
-                                          cfg.head_dim)
+        k = (x @ ap["wk"].to(dt)).reshape(B, n_img, -1, cfg.head_dim)
+        v = (x @ ap["wv"].to(dt)).reshape(B, n_img, -1, cfg.head_dim)
         if "k_norm" in ap:
             k = L.rms_norm(k, ap["k_norm"], cfg.norm_eps)
         ks.append(k)
@@ -235,23 +243,49 @@ def _image_kv(cross_blocks, image_embeds, cfg):
     return torch.stack(ks), torch.stack(vs)
 
 
-def _cross_attn(pb, x, img_kv, cfg):
+def _cross_attn(pb, x, img_kv, cfg, mw=None, layout=None):
     """x + the cross layer onto the image k and v [B, n_img, KV, hd]
     (non-causal B4 at Sk = n_img, then ``wo``), then + its FFN. Where k
     and v are f32 beside a bf16 q (f32 image embeddings), q is upcast,
     which is exact, and the output cast back to q's dtype: the
-    reference's attention promotes so."""
-    ap = pb["attn"]
+    reference's attention promotes so.
+
+    On a mesh (``mw``): q on the rank's heads, B4 over the kv heads they
+    meet (``_kv_for_heads`` where the rank holds every kv head), ``wo``
+    row-parallel and the FFN through ``mw.ffn``. ``layout`` (decode):
+    the image cache's (sequence axes, the block's first position); where
+    the sequence is sharded (kv heads that do not divide ``model``, or a
+    batch that does not divide the dp axes), the rank holds a block of
+    the image positions and the attention is flash-decoding over them,
+    ``layers.decode_attention(seq_axes=)`` with every position valid."""
+    ap, wo_over = (pb["attn"], None) if mw is None else \
+        mw.attn(pb["attn"], ("wq", "wo"))
     B, S = x.shape[:2]
     q = (L.rms_norm(x, pb["ln1"], cfg.norm_eps) @ ap["wq"]).reshape(
-        B, S, cfg.n_heads, cfg.head_dim)
+        B, S, -1, cfg.head_dim)
     if "q_norm" in ap:
         q = L.rms_norm(q, ap["q_norm"], cfg.norm_eps)
     k, v = img_kv
-    out = L.blockwise_attention(q.to(k.dtype), k, v, causal=False).to(
-        q.dtype)
-    x = x + out.reshape(B, S, cfg.q_dim) @ ap["wo"]
-    return x + L.ffn_apply(pb["mlp"], L.rms_norm(x, pb["ln2"], cfg.norm_eps))
+    Hl = q.shape[2]
+    kv_whole = Hl < cfg.n_heads and k.shape[2] == cfg.n_kv_heads
+    h0 = mw.r * Hl if Hl < cfg.n_heads else 0
+    seq_axes, seq_start = layout or ((), 0)
+    if seq_axes:
+        qa = compat.all_gather_axis(q, mw.ctx, mw.tp, dim=2) if kv_whole \
+            else q
+        out = L.decode_attention(qa.to(k.dtype), k, v, cfg.n_image_tokens - 1,
+                                 ctx=mw.ctx, seq_axes=seq_axes,
+                                 seq_start=seq_start)
+        out = (out[:, :, h0:h0 + Hl] if kv_whole else out).to(q.dtype)
+    else:
+        kq, vq = _kv_for_heads(k, v, h0, Hl, cfg) if kv_whole else (k, v)
+        out = L.blockwise_attention(q.to(k.dtype), kq, vq,
+                                    causal=False).to(q.dtype)
+    y = out.reshape(B, S, Hl * cfg.head_dim) @ ap["wo"]
+    x = x + (y if mw is None else mw.row_sum(y, wo_over))
+    h = L.rms_norm(x, pb["ln2"], cfg.norm_eps)
+    return x + (L.ffn_apply(pb["mlp"], h) if mw is None
+                else mw.ffn(pb["mlp"], h, "mlp", cfg.d_ff))
 
 
 def _mlp_or_moe(pb, x, cfg, mw=None, d_ff=0):
@@ -304,25 +338,30 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
     mw = None
     if ctx is not None and ctx.mesh is not None:
-        sharding.check_family(cfg)
         if mode == "train":
             raise NotImplementedError(f"{cfg.name}: training on a mesh is "
                                       "not ported (ROADMAP A8.3)")
         mw = L.MeshWeights(cfg, ctx)
-    if cfg.embeds_input and "embeds" in batch:
+    embeds = cfg.embeds_input and "embeds" in batch
+    if embeds:
         x = batch["embeds"].to(getattr(torch, cfg.dtype))
+        if mw is not None:
+            x = mw.batch_block(x)
     elif mw is None:
         x = L.embed_apply(params["embed"], batch["tokens"])
     else:
         x = mw.embed(params["embed"], batch["tokens"])
     B, S = x.shape[:2]
-    layout = None
+    layout = img_layout = None
     if mode == "decode":
         positions = torch.full((B, 1), cur_index, dtype=torch.int32,
                                device=x.device)
         if mw is not None:
-            layout = _cache_layout(cfg, ctx, batch["tokens"].shape[0],
-                                   caches["k"])
+            whole_b = batch["embeds" if embeds else "tokens"].shape[0]
+            layout = _cache_layout(cfg, ctx, whole_b, caches["k"])
+            if cfg.family == "vlm":
+                img_layout = _cache_layout(cfg, ctx, whole_b,
+                                           caches["img_k"], "img_k")
     else:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     ks, vs = [], []
@@ -333,15 +372,20 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         else [0] * len(kinds)
     if cfg.family == "vlm":
         per = cfg.cross_attn_every
-        img_k, img_v = (caches["img_k"], caches["img_v"]) \
-            if mode == "decode" else \
-            _image_kv(params["cross_blocks"], batch["image_embeds"], cfg)
+        if mode == "decode":
+            img_k, img_v = caches["img_k"], caches["img_v"]
+        else:
+            img = batch["image_embeds"]
+            img_k, img_v = _image_kv(
+                params["cross_blocks"],
+                img if mw is None else mw.batch_block(img), cfg, mw)
     train = mode == "train"
     if train:
         layer = rematcfg.wrap(_train_layer, remat)
         cross = rematcfg.wrap(_cross_attn, remat)
     else:
-        cross = _cross_attn
+        def cross(pb, x, img_kv, cfg):
+            return _cross_attn(pb, x, img_kv, cfg, mw, img_layout)
     for i, pb in enumerate(params["blocks"]):
         if train:
             x, aux_l = layer(pb, x, cfg, positions, windows[i])
@@ -394,12 +438,14 @@ def _kv_for_heads(k, v, h0: int, Hl: int, cfg: ModelConfig):
     return k[:, :, idx].contiguous(), v[:, :, idx].contiguous()
 
 
-def _cache_layout(cfg: ModelConfig, ctx, batch_size: int, k_cache):
+def _cache_layout(cfg: ModelConfig, ctx, batch_size: int, k_cache,
+                  name: str = "k"):
     """(the sequence's mesh axes, the first position of the rank's block)
-    of the decode cache block ``k_cache`` [n, B, S_blk, KV, hd], as
+    of the decode cache block ``k_cache`` [n, B, S_blk, KV, hd] (the
+    cache's ``name`` leaf: ``"k"``, or the VLM's ``"img_k"``), as
     ``serve.step.cache_specs`` lays the cache out."""
     from repro_torch.serve.step import cache_specs
-    seq = cache_specs(cfg, ctx, batch_size)["k"][2]
+    seq = cache_specs(cfg, ctx, batch_size)[name][2]
     max_len = k_cache.shape[2] * ctx.axes_size(seq)
     return seq or (), ctx.block(max_len, seq).start
 

@@ -5,17 +5,20 @@ The port of ``repro.serve.step``. PyTorch runs eagerly, so the
 jitted ones, and the decode cache is updated in place where the
 reference donates it.
 
-On a mesh (a ``ctx`` with a DeviceMesh; the dense and moe families)
-every rank runs the same calls in lockstep on its blocks. The decode
-cache is laid out by ``cache_specs``: the batch over ``dp_axes`` where
-it divides, else the sequence over ``fsdp``; kv heads over ``model``
-where they divide, else the sequence over ``model`` too (flash-decoding,
-``layers.decode_attention``). The logits leave the model sharded over
-``model`` on the vocabulary, as the reference's constraint ``P(dp, None,
-tp)`` has them, and ``generate`` gathers them over ``model`` before
-``sample``, so ``argmax`` keeps the lowest index among equal maxima;
-the sampled tokens are gathered over the dp axes, so every rank feeds
-the whole batch to the next step and returns the whole ``[B, max_new]``.
+On a mesh (a ``ctx`` with a DeviceMesh; every family) every rank runs
+the same calls in lockstep on its blocks. The decode cache is laid out
+by ``cache_specs``: the batch over ``dp_axes`` where it divides, else
+the sequence over ``fsdp``; kv heads over ``model`` where they divide,
+else the sequence over ``model`` too (flash-decoding,
+``layers.decode_attention``), and so the VLM's image k and v; the
+recurrent states (rwkv6's WKV, the hybrid's Mamba ``h``) with their
+heads over ``model``, the token-shift and conv states whole there. The
+logits leave the model sharded over ``model`` on the vocabulary, as the
+reference's constraint ``P(dp, None, tp)`` has them, and ``generate``
+gathers them over ``model`` before ``sample``, so ``argmax`` keeps the
+lowest index among equal maxima; the sampled tokens are gathered over
+the dp axes, so every rank feeds the whole batch to the next step and
+returns the whole ``[B, max_new]``.
 """
 from __future__ import annotations
 
@@ -98,18 +101,30 @@ def make_decode_step(cfg: ModelConfig, ctx=None):
 def _mesh_cache(cfg: ModelConfig, kv: dict, batch_size: int, S: int,
                 max_len: int, ctx) -> dict:
     """The rank's block of the decode cache (``cache_specs``) after a
-    prefill of ``S`` positions whose kv is the rank's (its batch block
-    and kv heads, every position)."""
-    seq = ctx.block(max_len, cache_specs(cfg, ctx, batch_size)["k"][2])
-    cache = {}
-    for name in ("k", "v"):
-        t = kv[name]
-        blk = torch.zeros((t.shape[0], t.shape[1], seq.stop - seq.start,
-                           *t.shape[3:]), dtype=t.dtype, device=t.device)
-        hi = min(seq.stop, S)
-        if hi > seq.start:
-            blk[:, :, :hi - seq.start] = t[:, :, seq.start:hi]
-        cache[name] = blk
+    prefill of ``S`` positions whose third result ``kv`` is the rank's
+    (its batch block, kv heads and state heads, every position): the
+    recurrent states as they are, k and v grown to the rank's block of
+    ``max_len`` positions, the VLM's image k and v cut to its block of
+    the image positions."""
+    if cfg.family == "ssm":
+        return kv
+    specs = cache_specs(cfg, ctx, batch_size)
+    cache = {"mamba": kv["mamba"]} if cfg.family == "hybrid" else {}
+    if "k" in kv:                   # a hybrid with no site holds none
+        seq = ctx.block(max_len, specs["k"][2])
+        for name in ("k", "v"):
+            t = kv[name]
+            blk = torch.zeros((t.shape[0], t.shape[1], seq.stop - seq.start,
+                               *t.shape[3:]), dtype=t.dtype, device=t.device)
+            hi = min(seq.stop, S)
+            if hi > seq.start:
+                blk[:, :, :hi - seq.start] = t[:, :, seq.start:hi]
+            cache[name] = blk
+    for name in ("img_k", "img_v"):
+        if name in kv:
+            t = kv[name]
+            cache[name] = t[:, :, ctx.block(t.shape[2], specs[name][2])] \
+                .contiguous()
     return cache
 
 
@@ -194,14 +209,13 @@ def generate(params, cfg: ModelConfig, prompt, max_new: int, max_len: int,
 
     ``ctx`` with a DeviceMesh: ``params`` are the rank's blocks on the
     ctx's device (``device`` is ignored), every rank passes the whole
-    prompt and gets the whole tokens; the cache's sequence rounds up to
-    a multiple of its shards (the positions past ``max_len`` are never
-    attended). ``logits``: a list that receives each step's logits
+    prompt (and the VLM's whole ``image_embeds``; the prefill takes the
+    rank's batch block) and gets the whole tokens; the cache's sequence
+    rounds up to a multiple of its shards (the positions past
+    ``max_len`` are never attended). ``logits``: a list that receives each step's logits
     ``[B, 1, V]``, whole (gathered over the dp axes on a mesh), for
     checks."""
     mesh = _on_mesh(ctx)
-    if mesh:
-        sharding.check_family(cfg)
     device = ctx.device if mesh else resolve(device)
     prompt = torch.as_tensor(prompt, dtype=torch.int32, device=device)
     B, S = prompt.shape
@@ -216,7 +230,8 @@ def generate(params, cfg: ModelConfig, prompt, max_new: int, max_len: int,
     if image_embeds is not None:
         batch["image_embeds"] = torch.as_tensor(image_embeds, device=device)
     if mesh:
-        shards = ctx.axes_size(cache_specs(cfg, ctx, B)["k"][2])
+        seq = cache_specs(cfg, ctx, B).get("k", (None,) * 3)[2]
+        shards = ctx.axes_size(seq)
         max_len = -(-max_len // shards) * shards
     prefill, decode = make_prefill(cfg, ctx), make_decode_step(cfg, ctx)
     gen = torch.Generator(device=device).manual_seed(seed)

@@ -24,7 +24,7 @@ from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch import carry
 from repro_torch.configs import registry
-from repro_torch.distributed import sharding
+from repro_torch.distributed import compat, sharding
 from repro_torch.distributed.meshctx import MeshCtx
 from repro_torch.launch import serve as launcher
 from repro_torch.models import model as M
@@ -34,6 +34,7 @@ from repro_torch.serve import step
 TIMEOUT = datetime.timedelta(seconds=120)
 NEW = 4                        # greedy tokens a case
 MOE_ARCH = "qwen3-moe-235b-a22b"
+LAUNCHER_ARCHS = ("qwen3-4b", "rwkv6-7b", "zamba2-1.2b")
 
 
 def config(arch, dtype):
@@ -102,44 +103,83 @@ def _np(t):
     return t.float().numpy()
 
 
-def job_serve(shape, cases, inputs):
-    """Every case on a ``shape`` mesh: the rank's prefill logits block,
-    and ``generate``'s greedy tokens and each step's whole logits; the
-    first MoE block's input and output of the MoE case in f32; whether
-    ``sharded_init``'s blocks are slices of ``M.init``'s leaves; the
-    launcher's tokens on the mesh."""
-    ctx = ctx_of(shape)
-    prompt = np.load(os.path.join(inputs, "prompt.npy"))
-    out = {"coord": (ctx.coord("data"), ctx.coord("model")), "cases": {}}
-    for arch, dtype in cases:
-        cfg = config(arch, dtype)
-        tree = load_params(os.path.join(inputs, f"{arch}-{dtype}.npz"))
-        params = carry.lm_params_from_reference(tree, cfg, "cpu", ctx=ctx)
-        record = arch == MOE_ARCH and dtype == "float32"
-        moe.moe_apply.record = [] if record else None
-        try:
-            logits, _, _ = M.apply_prefill(
-                params, cfg, {"tokens": torch.from_numpy(prompt)}, ctx=ctx)
-            first = moe.moe_apply.record[0] if record else None
-        finally:
-            moe.moe_apply.record = None
-        steps = []
+def _flat(tree, prefix=""):
+    """{path: leaf} of a dict tree, paths joined by "/"."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _whole(logits, cfg, ctx, B):
+    """The rank's logits [B_loc, 1, V_loc] gathered whole."""
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = compat.all_gather_axis(logits, ctx, ctx.tp_axis, dim=-1)
+    if ctx.batch_sharded(B):
+        for axis in reversed(ctx.dp_axes):
+            logits = compat.all_gather_axis(logits, ctx, axis, dim=0)
+    return logits
+
+
+def serve_case(cfg, params, ctx, prompt, inputs):
+    """One case on the mesh: the rank's prefill logits (every position),
+    its decode-cache blocks after the prefill (``step.decode_cache``),
+    and NEW greedy steps' whole logits and tokens: through
+    ``step.generate`` (the VLM with the whole image embeddings), or, for
+    musicgen's frame embeddings, ``make_prefill`` and
+    ``make_decode_step`` on the frames (its tokens are each step's
+    argmax; the frames, not the tokens, feed the next step)."""
+    B, S = prompt.shape
+    batch = {"tokens": torch.from_numpy(prompt)}
+    frames = None
+    if cfg.family == "audio":
+        frames = torch.from_numpy(np.load(os.path.join(inputs, "frames.npy")))
+        batch = {"embeds": frames[:, :S]}
+    image = None
+    if cfg.family == "vlm":
+        image = torch.from_numpy(np.load(os.path.join(inputs, "image.npy")))
+        batch["image_embeds"] = image
+    logits, _, kv = M.apply_prefill(params, cfg, batch, ctx=ctx)
+    cache = step.decode_cache(cfg, kv, B, S, S + NEW, ctx=ctx)
+    out = {"prefill": _np(logits),
+           "cache": {k: _np(v) for k, v in _flat(cache).items()}}
+    del kv, cache
+    steps = []
+    if frames is None:
         toks = step.generate(params, cfg, prompt, max_new=NEW,
-                             max_len=prompt.shape[1] + NEW, ctx=ctx,
-                             logits=steps)
-        out["cases"][arch, dtype] = {
-            "prefill": _np(logits), "tokens": toks.numpy(),
-            "steps": [_np(s) for s in steps]}
-        if first is not None:
-            out["moe_first"] = {k: _np(first[k]) for k in ("x", "y")}
-            out["replayed"] = replayed(tree, cfg, ctx, prompt)
-    cfg = config("qwen3-4b", "float32")
+                             max_len=S + NEW, ctx=ctx, logits=steps,
+                             image_embeds=image)
+    else:
+        prefill = step.make_prefill(cfg, ctx)
+        decode = step.make_decode_step(cfg, ctx)
+        lg, kv = prefill(params, {"embeds": frames[:, :S]})
+        cache = step.decode_cache(cfg, kv, B, S, S + NEW, ctx=ctx)
+        steps.append(_whole(lg, cfg, ctx, B))
+        for i in range(1, NEW):
+            lg, cache = decode(params,
+                               {"embeds": frames[:, S + i - 1:S + i]},
+                               cache, S + i - 1)
+            steps.append(_whole(lg, cfg, ctx, B))
+        toks = torch.cat([torch.argmax(t, dim=-1) for t in steps], dim=1)
+    out.update(tokens=toks.numpy(), steps=[_np(t) for t in steps])
+    return out
+
+
+def init_held(arch, ctx):
+    """(leaves, all blocks of ``sharding.sharded_init`` equal to the
+    slices of ``M.init``'s leaves, the rank's parameter bytes == the
+    bytes of ``sharding.block``'s shapes) for ``arch``'s smoke config in
+    f32."""
+    cfg = config(arch, "float32")
     blocks = sharding.sharded_init(cfg, ctx, seed=3)
     whole = M.init(cfg, seed=3, device="cpu")
     specs = sharding.build_param_specs(whole, cfg, ctx)
-    same = []
+    same, held, want = [], 0, 0
 
     def walk(b, w, s):
+        nonlocal held, want
         if isinstance(w, dict):
             for k in w:
                 walk(b[k], w[k], s[k])
@@ -150,12 +190,60 @@ def job_serve(shape, cases, inputs):
             ref = sharding.block(w, s, ctx)
             same.append(b.shape == ref.shape and b.dtype == ref.dtype
                         and torch.equal(b, ref) and b.is_contiguous())
+            held += b.numel() * b.element_size()
+            want += ref.numel() * w.element_size()
     walk(blocks, whole, specs)
-    out["sharded_init"] = (len(same), all(same))
-    out["launcher"] = launcher.main([
-        "--arch", "qwen3-4b", "--smoke", "--batch", "4", "--max-new", "3",
+    return len(same), all(same), held == want
+
+
+def two_chunks(arch, ctx):
+    """``arch``'s f32 prefill over 128 tokens, two chunks of the scans'
+    64, on the mesh (the rank's logits block; the state carried from one
+    chunk to the next on the rank's heads) and on one device (whole),
+    from ``sharding.sharded_init`` and ``M.init`` of one seed."""
+    cfg = config(arch, "float32")
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, 128)).astype(np.int32))}
+    mesh, _, _ = M.apply_prefill(sharding.sharded_init(cfg, ctx, seed=5),
+                                 cfg, batch, ctx=ctx)
+    one, _, _ = M.apply_prefill(M.init(cfg, seed=5, device="cpu"), cfg,
+                                batch)
+    return _np(mesh), _np(one)
+
+
+def job_serve(shape, cases, inputs):
+    """Every case on a ``shape`` mesh (``serve_case``); the first MoE
+    block's input and output of the MoE case in f32; for every arch
+    whether ``sharded_init``'s blocks are slices of ``M.init``'s leaves
+    (``init_held``); the recurrent archs over two chunks
+    (``two_chunks``); the launcher's tokens on the mesh for the archs it
+    serves there."""
+    ctx = ctx_of(shape)
+    prompt = np.load(os.path.join(inputs, "prompt.npy"))
+    out = {"coord": (ctx.coord("data"), ctx.coord("model")), "cases": {}}
+    for arch, dtype in cases:
+        cfg = config(arch, dtype)
+        tree = load_params(os.path.join(inputs, f"{arch}-{dtype}.npz"))
+        params = carry.lm_params_from_reference(tree, cfg, "cpu", ctx=ctx)
+        record = arch == MOE_ARCH and dtype == "float32"
+        moe.moe_apply.record = [] if record else None
+        try:
+            out["cases"][arch, dtype] = serve_case(cfg, params, ctx, prompt,
+                                                   inputs)
+            first = moe.moe_apply.record[0] if record else None
+        finally:
+            moe.moe_apply.record = None
+        if first is not None:
+            out["moe_first"] = {k: _np(first[k]) for k in ("x", "y")}
+            out["replayed"] = replayed(tree, cfg, ctx, prompt)
+    out["sharded_init"] = {arch: init_held(arch, ctx)
+                           for arch in registry.ARCH_NAMES}
+    out["two_chunks"] = {arch: two_chunks(arch, ctx)
+                         for arch in ("rwkv6-7b", "zamba2-1.2b")}
+    out["launcher"] = {arch: launcher.main([
+        "--arch", arch, "--smoke", "--batch", "4", "--max-new", "3",
         "--mesh", f"{shape[0]},{shape[1]}", "--dist-backend", "gloo",
-        "--device", "cpu"]).tokens.numpy()
+        "--device", "cpu"]).tokens.numpy() for arch in LAUNCHER_ARCHS}
     return out
 
 
