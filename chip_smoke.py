@@ -312,7 +312,8 @@ each of which fails the run (non-zero exit) if it fails:
                the card), and the L = 8 request's ms and parts as in
                15b. 15b: four ranks (``mesh_rank``, spawned after
                the parent built the kernels) of a 2 x 2 mesh on this one
-               card over gloo, each group with a MESH_TIMEOUT_S timeout:
+               card over gloo, the world's group with a MESH_TIMEOUT_S
+               timeout:
                NCCL refuses two ranks on one GPU, so the [L, k] lists
                cross the host here. Each rank maps phase 6's corpus
                (saved once under ``build/mesh/``, removed after) and
@@ -327,7 +328,29 @@ each of which fails the run (non-zero exit) if it fails:
                and of their parts (``mesh_times``: the host merge; the
                rank's uploads, kernel and top-k; the reduction), the
                session's cold ms, beside the card's name and power
-               limit; the phase's wall time.
+               limit. 15c, the search service on a mesh (rank 0 leads
+               each coalesced batch and the live snapshot, the others
+               follow, ``distributed/lockstep.py``): in 15a's world of
+               one rank over NCCL, a ``FlashSearchSession`` over 6b's
+               store serves the 8 requests' rows through
+               ``session.submit``, bit for bit phase 6's; then 15b's
+               four ranks (``mesh_serve``) over a copy of 6b's store
+               under ``build/mesh/`` (removed after): a gpu_packed
+               service, read-only, serves the 8 requests' rows (bit for
+               bit phase 6's); rank 0 of a gpu session with
+               ``enable_ingest(seal_docs=MESH_SEAL_DOCS)`` serves
+               MESH_CLIENTS x MESH_REQUESTS L = 1 self-queries through
+               ``submit`` (max_batch 8, max_delay_ms 2) while a writer
+               thread appends MESH_APPENDS documents (at least 4 seals
+               and a compactor fold), every top-1 its own document at
+               phase 6's resident score bit for bit; after a flush 2
+               appended documents' queries, bit for bit a
+               single-device session over the same store. Per rank, B1
+               and B2 launches (each > 0, joining the kernels line),
+               batches scored, the record broadcast's ms, the
+               collectives' share of the rank's serving time
+               (``compat.stats``); rank 0's served p50, p99 and QPS;
+               the phase's wall time.
  16. LM mesh   LM serving on a mesh (``lm_mesh_phase``), run last. The
                one-device run first: qwen3-4b at full size, LM_BATCH
                prompts of LM_PROMPT, MESH_LM_NEW greedy tokens, each
@@ -504,11 +527,17 @@ MESH_ROOT = Path(__file__).resolve().parent / "build" / "mesh"
 MESH_SHAPE = (2, 2)                    # phase 15b: ("data", "model") ranks
 MESH_TIMEOUT_S = 120                   # a diverged rank fails, never hangs
 MESH_WARM = 10                         # warm L = 8 requests timed a rank
+MESH_CLIENTS, MESH_REQUESTS = 8, 16    # 15c: L = 1 self-queries a client
+MESH_APPENDS = 1024                    # 15c: the writer's documents ...
+MESH_SEAL_DOCS = 256                   # ... sealed 256 at a time
+MESH_CACHE_BYTES = 1 << 30             # a rank's 16 ELL slabs, 512 MiB
 # phase 16: LM serving on a mesh, four ranks on this one card over gloo
 MESH_LM_ARCH = "qwen3-4b"              # 16a and 16c: full width and depth
 MESH_LM_SHAPE = (2, 2)                 # 16a: ("data", "model")
 MESH_MOE_SHAPE = (1, 4)                # 16b: 32 of 128 experts a rank
-MESH_LM_NEW = 8                        # greedy tokens a run
+MESH_LM_NEW = 4                        # greedy tokens a run (cut from 8
+                                       # so that the run keeps inside
+                                       # ~1000 s with 15c)
 NO_DROP_CF = 2.0                       # 16b: no assignment drops (checked)
 MOE_PLAIN_ULPS = 8                     # 16b: top_k bf16 adds in another order
 # 16d: the other four families at full width, (label, arch, mesh, layers
@@ -525,7 +554,8 @@ MESH_FAMILY_RUNS = (
     ("hybrid-f32", "zamba2-1.2b", (2, 2), ZAMBA_F32_LAYERS, "generate",
      "float32"),
 )
-MESH_FAMILY_NEW = 4                    # greedy tokens a 16d run
+MESH_FAMILY_NEW = 2                    # greedy tokens a 16d run (cut
+                                       # from 4, as MESH_LM_NEW)
 # 16d's bf16 limit against one device, in ulps (lm_atol): a mesh rounds
 # each row-parallel product's partials to bf16 before their f32 sum (as
 # the reference's partitioner does), and its GEMMs run on other row
@@ -736,6 +766,13 @@ def same(a, b) -> bool:
     return (np.array_equal(a.doc_ids, b.doc_ids)
             and np.array_equal(a.scores.view(np.uint32),
                                b.scores.view(np.uint32)))
+
+
+def same_row(row, res, r) -> bool:
+    """A served row against row ``r`` of a batched result, bit for bit."""
+    return (np.array_equal(row.doc_ids, res.doc_ids[r])
+            and np.array_equal(np.asarray(row.scores).view(np.uint32),
+                               res.scores[r].view(np.uint32)))
 
 
 def main() -> int:
@@ -955,7 +992,7 @@ def main() -> int:
     # -- 15. the engine on a mesh (here: it reads 6b's store before 6c
     # grows it) ----------------------------------------------------------------
     mesh_launches = mesh_phase(torch, dev, cfg, corpus, requests,
-                               results["gpu"], kernels)
+                               results["gpu"], g, kernels)
     for name, n in mesh_launches.items():
         launches[name] += n
     torch.cuda.empty_cache()
@@ -1073,12 +1110,15 @@ def main() -> int:
     return 0
 
 
-def mesh_phase(torch, dev, cfg, corpus, requests, resident, kernels):
+def mesh_phase(torch, dev, cfg, corpus, requests, resident, engine,
+               kernels):
     """Phase 15: the search engine on a mesh. 15a: a world of one rank
-    over NCCL, a 1 x 1 mesh, gpu and gpu_packed on the 8 requests. 15b:
-    four ranks (``mesh_rank``) of a 2 x 2 mesh on this one card, over
-    gloo. Every result bit for bit phase 6's resident one (6b's for the
-    session). Returns B1's and B2's launches, the ranks' included."""
+    over NCCL, a 1 x 1 mesh, gpu and gpu_packed on the 8 requests, and
+    15c's service there. 15b: four ranks (``mesh_rank``) of a 2 x 2 mesh
+    on this one card, over gloo, then 15c's services on them
+    (``mesh_serve``). Every result bit for bit phase 6's resident one
+    (6b's for the session). Returns B1's and B2's launches, the ranks'
+    included."""
     import datetime
     import pickle
     import torch.distributed as dist
@@ -1088,6 +1128,7 @@ def mesh_phase(torch, dev, cfg, corpus, requests, resident, kernels):
     from repro_torch.distributed.meshctx import MeshCtx
     from repro_torch.kernels import _build
     from repro_torch.serve import Query
+    from repro_torch.storage import FlashSearchSession, FlashStore
 
     t_phase = time.perf_counter()
     card = nvidia_smi_line()
@@ -1120,6 +1161,23 @@ def mesh_phase(torch, dev, cfg, corpus, requests, resident, kernels):
                          "6's resident result")
             timed[backend] = mesh_times(torch, eng, *requests[-1][1:])
             del eng
+        # 15c-1: the service over a session on the 1 x 1 mesh
+        t0 = time.perf_counter()
+        sess = FlashSearchSession(FlashStore.open(str(STORE_ROOT)), cfg,
+                                  backend="gpu", ctx=ctx,
+                                  cache_bytes=STORE_CACHE_BYTES)
+        try:
+            futs = [[sess.submit(Query(qi[r], qv[r]))
+                     for r in range(len(idx))] for idx, qi, qv in requests]
+            for l, fs in enumerate(futs):
+                for r, f in enumerate(fs):
+                    if not same_row(f.result(), resident[l], r):
+                        fail(f"mesh 15c-1: row {r} of request L={l + 1} "
+                             "differs from phase 6's")
+            svc_batches = sess.service().stats.n_batches
+        finally:
+            sess.close()
+        svc_s = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     torch.cuda.synchronize()
@@ -1131,6 +1189,10 @@ def mesh_phase(torch, dev, cfg, corpus, requests, resident, kernels):
         f"requests bit for bit; launches {launches}; warm L=8 "
         + "; ".join(f"{b} {parts_line(t)}" for b, t in timed.items())
         + f"; {card}")
+    say(f"mesh 15c-1 (1 x 1 over NCCL): session.submit served the 8 "
+        f"requests' {sum(len(r[0]) for r in requests)} rows in "
+        f"{svc_batches} batches, {svc_s:.1f} s with the cold pass, bit for "
+        f"bit phase 6's; {card}")
     torch.cuda.empty_cache()
 
     # -- 15b: 2 x 2, four ranks on this card, over gloo ---------------------
@@ -1141,9 +1203,13 @@ def mesh_phase(torch, dev, cfg, corpus, requests, resident, kernels):
     saved_s = time.perf_counter() - t0
     reqs = {len(requests[l][0]): requests[l][1:] for l in (2, 7)}
     world = int(np.prod(MESH_SHAPE))
+    serve_in = serve_inputs(cfg, corpus, requests, engine)
+    t0 = time.perf_counter()
+    shutil.copytree(STORE_ROOT, MESH_ROOT / "store")
+    serve_in["copy_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     mp.start_processes(mesh_rank, args=(world, str(MESH_ROOT), reqs,
-                                        str(STORE_ROOT)),
+                                        str(STORE_ROOT), serve_in),
                        nprocs=world, join=True, start_method="spawn")
     ranks_s = time.perf_counter() - t0
     outs = []
@@ -1183,7 +1249,11 @@ def mesh_phase(torch, dev, cfg, corpus, requests, resident, kernels):
         "multi-card run): gpu and gpu_packed at L=8 and L=3 equal phase 6's "
         "results bit for bit on every rank, tree_topk_ppermute equals "
         "tree_topk, the session equals 6b's, gpu_fused raises; corpus "
-        f"saved in {saved_s:.1f} s, ranks ran {ranks_s:.1f} s")
+        f"saved in {saved_s:.1f} s, ranks ran {ranks_s:.1f} s (15c "
+        "included)")
+    for name, n in served_checked(dev, cfg, outs, serve_in, resident,
+                                  card).items():
+        launches[name] += n
     shutil.rmtree(MESH_ROOT, ignore_errors=True)
     say(f"mesh phase: {time.perf_counter() - t_phase:.1f} s wall; {card}")
     return launches
@@ -1229,12 +1299,13 @@ def parts_line(t) -> str:
             f"{t['reduce']:.2f})")
 
 
-def mesh_rank(rank, world, root, reqs, store_root):
+def mesh_rank(rank, world, root, reqs, store_root, serve_in):
     """One rank of phase 15b: a process of its own on the card, in a gloo
     world through a FileStore under ``root``; it loads phase 6's corpus
     from ``root`` (memory-mapped: it uploads only its row block), runs
     the engine and the store session in lockstep with the other ranks,
-    and pickles what it found to ``root/rank<r>.pkl``."""
+    then 15c's services (``mesh_serve``), and pickles what it found to
+    ``root/rank<r>.pkl``."""
     import datetime
     import pickle
     import torch
@@ -1306,10 +1377,228 @@ def mesh_rank(rank, world, root, reqs, store_root):
             out["butterfly"][backend] = (
                 torch.equal(gv.view(torch.int32), pv.view(torch.int32))
                 and torch.equal(gi, pi))
+        out["serve"] = mesh_serve(torch, ctx, cfg, str(root / "store"),
+                                  serve_in, kernels)
     finally:
         dist.destroy_process_group()
     with open(root / f"rank{rank}.pkl", "wb") as f:
         pickle.dump(out, f)
+
+
+def serve_inputs(cfg, corpus, requests, engine):
+    """15c's load: the 8 requests' rows, MESH_CLIENTS x MESH_REQUESTS L = 1
+    self-queries of base documents with the resident engine's top-1 of
+    each, MESH_APPENDS new documents and the queries of the last two."""
+    from repro_torch.core import corpus as corpus_lib
+    from repro_torch.serve import Query
+    rng = np.random.default_rng(SEED + 4)
+    n = MESH_CLIENTS * MESH_REQUESTS
+    idx = rng.integers(0, N_DOCS, n)
+    queries = [corpus_lib.make_query(corpus, int(i), cfg.max_query_nnz)
+               for i in idx]
+    top1 = []
+    for lo in range(0, n, 8):
+        q = queries[lo:lo + 8]
+        r = engine.search(Query(np.stack([x[0] for x in q]),
+                                np.stack([x[1] for x in q])))
+        top1 += list(zip(r.doc_ids[:, 0], r.scores[:, 0]))
+    if [int(d) for d, _ in top1] != [int(i) for i in idx]:
+        fail("mesh 15c: a resident self-query did not rank itself first")
+    new = corpus_lib.synthesize(MESH_APPENDS, cfg.vocab_size,
+                                cfg.avg_nnz_per_doc, cfg.nnz_pad,
+                                seed=SEED + 5)
+    new.doc_ids[:] += N_DOCS
+    return {"rows": [(qi[r], qv[r]) for _, qi, qv in requests
+                     for r in range(len(qi))],
+            "queries": queries, "top1": top1,
+            "new_docs": ell_docs(new, range(MESH_APPENDS)),
+            "new_queries": [corpus_lib.make_query(new, j, cfg.max_query_nnz)
+                            for j in (MESH_APPENDS - 2, MESH_APPENDS - 1)]}
+
+
+def mesh_serve(torch, ctx, cfg, store_root, serve_in, kernels):
+    """15c on one rank of 15b's world, over the copy of 6b's store at
+    ``store_root``. Rank 0 leads: a read-only gpu_packed service serves
+    the 8 requests' rows, then a gpu session with the write path serves
+    the clients' self-queries while a writer appends; after a flush,
+    the 2 new documents' queries. The other ranks ``follow()`` each
+    service. Returns the rank's rows, counts and times."""
+    import threading
+    from repro_torch.distributed import compat, lockstep
+    from repro_torch.serve import Query
+    from repro_torch.storage import FlashSearchSession, FlashStore
+    leader = lockstep.role(ctx) == lockstep.LEADER
+    for fn in kernels.values():
+        fn.launches = 0
+    compat.stats = {}
+    t_phase = time.perf_counter()
+    out = {"leader": leader}
+
+    def session(backend):
+        return FlashSearchSession(FlashStore.open(store_root), cfg,
+                                  backend=backend, ctx=ctx,
+                                  cache_bytes=MESH_CACHE_BYTES)
+
+    sess = session("gpu_packed")
+    try:
+        if leader:
+            futs = [sess.submit(Query(*row)) for row in serve_in["rows"]]
+            out["packed_rows"] = [f.result() for f in futs]
+            out["packed"] = dataclasses.asdict(sess.service().lockstep_stats)
+        else:
+            out["packed"] = dataclasses.asdict(sess.follow())
+    finally:
+        sess.close()
+    t_serve = time.perf_counter()
+    sess = session("gpu")
+    try:
+        if not leader:
+            out["live"] = dataclasses.asdict(sess.follow())
+        else:
+            pipe = sess.enable_ingest(seal_docs=MESH_SEAL_DOCS)
+            svc = sess.service(max_batch=8, max_delay_ms=2.0)
+            queries = serve_in["queries"]
+            rows = [None] * len(queries)
+            lats = [[] for _ in range(MESH_CLIENTS)]
+            errors, writer_s = [], {}
+
+            def client(t):
+                try:
+                    for j in range(t * MESH_REQUESTS,
+                                   (t + 1) * MESH_REQUESTS):
+                        t1 = time.perf_counter()
+                        rows[j] = sess.submit(Query(*queries[j])).result()
+                        lats[t].append(time.perf_counter() - t1)
+                except Exception as e:
+                    errors.append(repr(e))
+
+            def writer():
+                t1 = time.perf_counter()
+                try:
+                    for d, p in serve_in["new_docs"]:
+                        sess.append(d, p)
+                except Exception as e:
+                    errors.append(repr(e))
+                writer_s["wall"] = time.perf_counter() - t1
+
+            threads = [threading.Thread(target=writer)] + [
+                threading.Thread(target=client, args=(t,))
+                for t in range(MESH_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            out["wall_serve_s"] = time.perf_counter() - t0
+            # the compactor folds the writer's four deltas on its own
+            t1 = time.monotonic()
+            while (not pipe.stats.compactions
+                   and time.monotonic() - t1 < MESH_TIMEOUT_S):
+                time.sleep(0.05)
+            sess.flush_ingest()
+            out["new_rows"] = [sess.submit(Query(*q)).result()
+                               for q in serve_in["new_queries"]]
+            out.update(rows=rows, errors=errors, writer_s=writer_s["wall"],
+                       lat_ms=np.concatenate([np.asarray(x)
+                                              for x in lats]) * 1e3,
+                       batches=svc.stats.n_batches,
+                       occupancy=svc.stats.mean_occupancy,
+                       ingest=dataclasses.asdict(pipe.stats),
+                       live=dataclasses.asdict(svc.lockstep_stats))
+    finally:
+        sess.close()
+    torch.cuda.synchronize()
+    out["serve_s"] = time.perf_counter() - t_serve
+    out["launches"] = {n: fn.launches for n, fn in kernels.items()}
+    out["collectives"] = dict(compat.stats)
+    compat.stats = None
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def served_checked(dev, cfg, outs, serve_in, resident, card):
+    """15c's checks in the parent, after the ranks exited: rank 0's rows
+    against phase 6's, the new documents' rows against a single-device
+    session over the same store, every rank's batches and launches.
+    Returns B1's and B2's launches on the ranks."""
+    from repro_torch.serve import Query
+    from repro_torch.storage import FlashSearchSession, FlashStore
+    lead = outs[0]["serve"]
+    if not lead["leader"] or any(o["serve"]["leader"] for o in outs[1:]):
+        fail("mesh 15c: rank 0 is not the only leader")
+    if lead["errors"]:
+        fail(f"mesh 15c: serving under writes: {lead['errors'][:3]}")
+    at = 0
+    for l, res in enumerate(resident):
+        for r in range(len(res.doc_ids)):
+            if not same_row(lead["packed_rows"][at], res, r):
+                fail(f"mesh 15c gpu_packed: row {r} of request L={l + 1} "
+                     "differs from phase 6's")
+            at += 1
+    for j, (row, (d, sc)) in enumerate(zip(lead["rows"], serve_in["top1"])):
+        if int(row.doc_ids[0]) != int(d) or (
+                np.float32(row.scores[0]).view(np.uint32)
+                != np.float32(sc).view(np.uint32)):
+            fail(f"mesh 15c: served self-query {j} (doc {int(d)}) gave "
+                 f"{int(row.doc_ids[0])} at {row.scores[0]!r}, resident "
+                 f"{sc!r}")
+    ing = lead["ingest"]
+    if ing["seals"] < MESH_APPENDS // MESH_SEAL_DOCS or ing["compactions"] < 1:
+        fail(f"mesh 15c: {ing['seals']} seals and {ing['compactions']} "
+             "folds under writes")
+    sess = FlashSearchSession(FlashStore.open(str(MESH_ROOT / "store")), cfg,
+                              dev, "gpu")
+    try:
+        for j, (q, row) in enumerate(zip(serve_in["new_queries"],
+                                         lead["new_rows"])):
+            want = sess.search(Query(q[0][None], q[1][None]))
+            if not same_row(row, want, 0):
+                fail(f"mesh 15c: new document query {j} differs from a "
+                     "single-device session over the same store")
+            if int(row.doc_ids[0]) < N_DOCS:
+                fail(f"mesh 15c: new document query {j} ranked doc "
+                     f"{int(row.doc_ids[0])} first")
+    finally:
+        sess.close()
+    launches = {}
+    for r, o in enumerate(outs):
+        sv = o["serve"]
+        for part in ("packed", "live"):
+            if sv[part]["batches"] != lead[part]["batches"] or sv[part][
+                    "failed"]:
+                fail(f"mesh 15c rank {r} {part}: {sv[part]} against the "
+                     f"leader's {lead[part]}")
+        if min(sv["launches"].values()) <= 0:
+            fail(f"mesh 15c rank {r}: launches {sv['launches']}")
+        for name, n in sv["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        st, col = sv["live"], sv["collectives"]
+        say(f"mesh 15c rank {r} ({'leads' if r == 0 else 'follows'}): "
+            f"launches {sv['launches']}; batches gpu_packed "
+            f"{sv['packed']['batches']}, gpu {st['batches']}; records "
+            f"{st['records']}, broadcast {st['broadcast_s'] * 1e3:.1f} ms in "
+            f"all ({st['broadcast_s'] * 1e3 / max(st['records'], 1):.3f} ms "
+            f"a record{', waits for the leader included' if r else ''}), "
+            f"end-of-batch reductions {st['agree_s'] * 1e3:.1f} ms; engine "
+            f"collectives {col.get('calls', 0)} calls, "
+            f"{col.get('seconds', 0.0):.2f} s = "
+            f"{col.get('seconds', 0.0) / sv['serve_s']:.3f} of the gpu "
+            f"service's {sv['serve_s']:.2f} s; 15c-2 wall {sv['wall_s']:.1f}"
+            f" s; {card}")
+    lat = lead["lat_ms"]
+    n = len(lead["rows"])
+    say(f"mesh 15c-2 (2 x 2 over gloo, rank 0 leads): {n} L=1 "
+        f"self-queries from {MESH_CLIENTS} clients in "
+        f"{lead['wall_serve_s']:.2f} s -> {n / lead['wall_serve_s']:.1f} QPS; "
+        f"latency p50 {np.percentile(lat, 50):.1f} ms p99 "
+        f"{np.percentile(lat, 99):.1f} ms; {lead['batches']} batches, mean "
+        f"occupancy {lead['occupancy']:.2f}; writer {MESH_APPENDS} appends in "
+        f"{lead['writer_s']:.2f} s; {ing['seals']} seals, "
+        f"{ing['compactions']} folds; every top-1 its own document at the "
+        f"resident score bit for bit; the 2 new documents equal a "
+        f"single-device session; gpu_packed's rows equal phase 6's; store "
+        f"copied in {serve_in['copy_s']:.1f} s; {card}")
+    return launches
 
 
 def stage_summary(obs) -> str:

@@ -27,11 +27,13 @@ On a mesh (``ctx=``, a ``repro_torch.distributed.MeshCtx``) each rank is
 one process that holds one row block of the corpus: rows pad to a
 multiple of the ``data`` axes' size (the paper's K partitions) and the
 rank uploads only its block. The ranks call ``search`` in lockstep with
-the same queries. Each merges the whole batch, scores its block against
-its contiguous L / tp columns of the merged values (the ``model`` axis;
-L pads to a power of two times tp), takes a local top-k over its global
-doc ids, reduces it over each ``data`` axis (``core.topk.tree_topk``) and
-gathers the columns back over ``model``, so every rank returns the whole
+the same queries (behind a ``SearchService`` rank 0 leads each batch and
+the others follow it, ``distributed/lockstep.py``). Each merges the
+whole batch, scores its block against its contiguous L / tp columns of
+the merged values (the ``model`` axis; L pads to a power of two times
+tp), takes a local top-k over its global doc ids, reduces it over each
+``data`` axis (``core.topk.tree_topk``) and gathers the columns back
+over ``model``, so every rank returns the whole
 [L, k] result, bit for bit the single-device one. ``ctx=None`` (a
 ``single_device_ctx``, no DeviceMesh) is the single-device path as it
 was: no reduction runs. ``gpu_fused`` scores one device's packed tiles
@@ -201,9 +203,21 @@ class PatternSearchEngine:
         return SearchResponse(truncate_k(res, options.k), QueryStats(
             deadline_ms=options.deadline_ms, tenant=options.tenant))
 
-    def search_typed(self, query, options=None) -> SearchResult:
-        """The raw typed surface: no wrapping, no shim warning."""
-        return self._search_arrays(*query.rows())
+    def search_typed(self, query, options=None, *,
+                     _lockstep=None) -> SearchResult:
+        """The raw typed surface: no wrapping, no shim warning.
+        ``_lockstep`` is the mesh leader's (``distributed.lockstep``,
+        passed by the serving tier): the batch goes out to the followers
+        before it is scored."""
+        q_ids, q_vals = query.rows()
+        if _lockstep is None:
+            return self._search_arrays(q_ids, q_vals)
+        return _lockstep.lead({"qi": q_ids, "qv": q_vals},
+                              lambda: self._search_arrays(q_ids, q_vals))
+
+    def follow_record(self, record: dict) -> SearchResult:
+        """A follower's half of one lockstep batch."""
+        return self._search_arrays(record["qi"], record["qv"])
 
     def merged_stream(self, q_ids: np.ndarray, q_vals: np.ndarray
                       ) -> Tuple[int, np.ndarray, np.ndarray, np.ndarray]:

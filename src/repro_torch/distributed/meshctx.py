@@ -12,6 +12,11 @@ the vocabulary, and ``fsdp_axis`` the weights' model dimension, gathered
 before each use (``distributed/sharding.py``); ``block`` says which
 block of a dimension sharded over some axes this rank holds.
 
+Every rank of a mesh runs the same calls in the same order. Where one
+process's threads and clock decide them (the serving tier, the write
+path), rank 0 leads and the other ranks follow its records
+(``distributed.lockstep``).
+
 ``single_device_ctx`` is the 1 x 1 context with no DeviceMesh and no
 process group (``dist.is_initialized()`` stays False): every collective
 of ``repro_torch.distributed.compat`` is then the identity. Building a
@@ -120,17 +125,6 @@ class MeshCtx:
         at = list(self.mesh.get_coordinate())
         at[dims.index(axis)] = slice(None)
         return self.mesh.mesh[tuple(at)].tolist()
-
-
-def refuse_mesh(ctx: Optional[MeshCtx], surface: str) -> None:
-    """Raise ``NotImplementedError`` when ``ctx`` spans more than one
-    device: ``surface`` runs on one process's threads and clock and
-    cannot keep the ranks in lockstep (ROADMAP A8.6)."""
-    if ctx is not None and ctx.size > 1:
-        raise NotImplementedError(
-            f"{surface} drives one process's threads on its own clock and "
-            f"cannot keep the ranks of a {tuple(ctx.shape.values())} mesh "
-            "in lockstep; a mesh session behind it is ROADMAP A8.6")
 
 
 def single_device_ctx(device: DeviceLike = None) -> MeshCtx:

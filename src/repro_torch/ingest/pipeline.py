@@ -100,6 +100,27 @@ class IngestStats:
     segments_folded: int = 0   # segments rewritten by those folds
 
 
+class MemCorpusCache:
+    """The last memtable ELL build, keyed ``(n_docs, last_seq, nnz_pad)``
+    (the memtable key fingerprints its contents): a read-heavy workload
+    re-scores an unchanged memtable every query and must not pay the
+    codec again each time. Only the latest build is retained; a
+    concurrent-miss recompute is benign."""
+
+    def __init__(self):
+        self._last: Dict[Tuple[int, int, int],
+                         Tuple[Optional[Corpus], int]] = {}
+
+    def get(self, docs: List[Doc], key: Tuple[int, int],
+            nnz_pad: int) -> Tuple[Optional[Corpus], int]:
+        k = tuple(key) + (nnz_pad,)
+        hit = self._last.get(k)
+        if hit is None:
+            hit = MemTable.docs_to_corpus(docs, nnz_pad)
+            self._last = {k: hit}
+        return hit
+
+
 class Snapshot:
     """One query's frozen view of a live store: the segment entry list
     plus the memtable documents, captured atomically under the state
@@ -109,17 +130,47 @@ class Snapshot:
     loader (``storage/plan.py``) holds on live stores too. The
     pipeline defers compaction GC while any snapshot is registered
     (``_snapshot_closed``), so a lazily opened file is guaranteed to
-    still exist. ``close()`` is idempotent."""
+    still exist. ``close()`` is idempotent.
+
+    On a mesh the leader's snapshot travels as its ``spec`` (the
+    entries, generation, memtable documents and memtable key), and a
+    follower scores ``from_spec``'s form: no pipeline, its segments
+    opened lazily from its own handle on the same store directory, its
+    memtable's ELL built by ``MemTable.docs_to_corpus`` as the
+    leader's is, so bit for bit the leader's. It registers nothing: the
+    leader keeps its own snapshot registered until every follower has
+    finished the batch (``distributed/lockstep.py``)."""
 
     def __init__(self, entries: List[SegmentEntry], mem_docs: List[Doc],
                  mem_key: Tuple[int, int], generation: int,
-                 pipeline: "IngestPipeline"):
+                 pipeline: Optional["IngestPipeline"] = None, *,
+                 store: Optional[FlashStore] = None,
+                 corpus_cache: Optional[MemCorpusCache] = None):
         self.entries = entries
         self.mem_docs = mem_docs
-        self._mem_key = mem_key
+        self._mem_key = tuple(mem_key)
         self._generation = generation
         self._pipeline = pipeline
+        self._store = store if store is not None else pipeline.store
+        self._corpus_cache = (corpus_cache if corpus_cache is not None
+                              else pipeline._mem_corpus)
         self._segments: Dict[str, segment_lib.Segment] = {}
+
+    @classmethod
+    def from_spec(cls, spec: Dict, store: FlashStore,
+                  corpus_cache: MemCorpusCache) -> "Snapshot":
+        """A leader's snapshot, rebuilt on a follower over ``store`` (this
+        rank's handle on the leader's store directory, whose cache token
+        keys this rank's slab cache and memo)."""
+        return cls(spec["entries"], spec["mem_docs"], spec["mem_key"],
+                   spec["generation"], store=store,
+                   corpus_cache=corpus_cache)
+
+    @property
+    def spec(self) -> Dict:
+        """What a follower needs to rebuild this view (``from_spec``)."""
+        return {"entries": self.entries, "generation": self._generation,
+                "mem_docs": self.mem_docs, "mem_key": self._mem_key}
 
     @property
     def max_segment_docs(self) -> int:
@@ -129,7 +180,7 @@ class Snapshot:
     def cache_token(self):
         """Slab-cache identity (DESIGN.md §4.2): snapshot segments are
         the store's own immutable files, so they share its token."""
-        return self._pipeline.store.cache_token
+        return self._store.cache_token
 
     @property
     def generation(self) -> int:
@@ -143,7 +194,12 @@ class Snapshot:
 
     @property
     def live_generation(self) -> int:
-        return self._pipeline.store.generation
+        """The store's current generation; a follower's view is the
+        leader's current one (segment names are never reused, so a
+        slab it admits stays right)."""
+        if self._pipeline is None:
+            return self._generation
+        return self._store.generation
 
     @property
     def memo_state(self):
@@ -155,7 +211,7 @@ class Snapshot:
     def segment(self, name: str) -> segment_lib.Segment:
         if name not in self._segments:
             self._segments[name] = segment_lib.Segment(
-                os.path.join(self._pipeline.store.root, name))
+                os.path.join(self._store.root, name))
         return self._segments[name]
 
     def release(self, name: str):
@@ -164,8 +220,7 @@ class Snapshot:
             seg.close()
 
     def memtable_corpus(self, nnz_pad: int) -> Tuple[Optional[Corpus], int]:
-        return self._pipeline._memtable_corpus(
-            self.mem_docs, self._mem_key, nnz_pad)
+        return self._corpus_cache.get(self.mem_docs, self._mem_key, nnz_pad)
 
     def close(self):
         for seg in self._segments.values():
@@ -224,11 +279,7 @@ class IngestPipeline:
         # lazily opened snapshot segments can never hit a missing file
         self._live_snapshots = 0
         self._graveyard: List[str] = []
-        # last memtable ELL build, keyed (n_docs, last_seq, nnz_pad): a
-        # read-heavy workload re-scores an unchanged memtable every query
-        # and must not pay the codec again each time
-        self._mem_corpus_cache: Dict[Tuple[int, int, int],
-                                     Tuple[Optional[Corpus], int]] = {}
+        self._mem_corpus = MemCorpusCache()
         with self._write_lock:
             if len(self.memtable) >= self.cfg.seal_docs:
                 self._seal_locked()
@@ -345,18 +396,6 @@ class IngestPipeline:
                 os.unlink(os.path.join(self.store.root, name))
             except FileNotFoundError:
                 pass
-
-    def _memtable_corpus(self, docs: List[Doc], key: Tuple[int, int],
-                         nnz_pad: int) -> Tuple[Optional[Corpus], int]:
-        """Cached ELL build of the memtable (pure function of its
-        contents, which ``key`` fingerprints). Only the latest build is
-        retained; a concurrent-miss recompute is benign."""
-        k = key + (nnz_pad,)
-        hit = self._mem_corpus_cache.get(k)
-        if hit is None:
-            hit = MemTable.docs_to_corpus(docs, nnz_pad)
-            self._mem_corpus_cache = {k: hit}
-        return hit
 
     # -- compaction ----------------------------------------------------
     def _fold_range(self) -> Tuple[int, List[SegmentEntry]]:

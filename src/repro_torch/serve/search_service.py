@@ -34,6 +34,16 @@ the legacy contract bit-for-bit: FIFO keys, no admission, a bare
 A copy of ``repro.serve.search_service``: ``_score`` stacks one batch's
 queries into one L-bucketed request, so a batch costs one pass over the
 corpus or store on the card.
+
+On a mesh of more than one rank (a searcher whose ``ctx`` spans several
+processes) the service runs on rank 0 only, and leads: ``_score`` hands
+the searcher the ``distributed.lockstep.Leader``, which broadcasts each
+batch's record before it is scored, and ``close`` stops the followers.
+Admission, the EDF batcher, deadline drops and the demux run before a
+batch forms or after it is scored, on rank 0 alone. Every other rank
+calls ``follow(searcher)`` (a session's ``follow()``), which scores the
+leader's batches until that stop; a ``SearchService`` there raises
+``RuntimeError``.
 """
 from __future__ import annotations
 
@@ -45,7 +55,7 @@ from typing import List, Optional
 import numpy as np
 
 from repro_torch.core.engine import SearchResult
-from repro_torch.distributed.meshctx import refuse_mesh
+from repro_torch.distributed import lockstep
 from repro_torch.serve.admission import AdmissionController
 from repro_torch.serve.api import (Query, QueryOptions, QueryStats,
                                    SearchResponse, coerce_request,
@@ -115,11 +125,14 @@ class SearchService:
         the ``max_pending``/``tenant_qps``/``tenant_burst`` knobs to
         build one here; all-None means admit everything (legacy).
 
-        A searcher on a mesh of more than one device raises
-        ``NotImplementedError``: the service's batches run on its own
-        thread and clock, which cannot keep the ranks in lockstep
-        (ROADMAP A8.6)."""
-        refuse_mesh(getattr(searcher, "ctx", None), "SearchService")
+        A searcher on a mesh leads from rank 0 (the module docstring);
+        on any other rank this raises ``RuntimeError``."""
+        ctx = getattr(searcher, "ctx", None)
+        role = lockstep.role(ctx)
+        if role == lockstep.FOLLOWER:
+            raise RuntimeError(
+                "a SearchService on a follower rank: only rank 0 of a mesh "
+                "serves; this rank scores its batches in follow()")
         self.searcher = searcher
         # share the searcher's observability bundle (every tier carries
         # one, DESIGN.md §8) so queue-wait/occupancy histograms land in
@@ -132,6 +145,8 @@ class SearchService:
                 max_pending=max_pending, tenant_qps=tenant_qps,
                 tenant_burst=tenant_burst, registry=reg)
         self.admission = admission
+        self._lockstep = (lockstep.Leader(ctx) if role == lockstep.LEADER
+                          else None)
         self._batcher = MicroBatcher(
             self._run_batch, max_batch=max_batch, max_delay_ms=max_delay_ms,
             name="search-service", obs=self.obs)
@@ -205,8 +220,15 @@ class SearchService:
         batch's trace, annotated with its clients' queue waits)."""
         return getattr(self.searcher, "last_trace", None)
 
+    @property
+    def lockstep_stats(self) -> Optional[lockstep.LockstepStats]:
+        """The leader's record and batch counts on a mesh, else None."""
+        return self._lockstep.stats if self._lockstep is not None else None
+
     def close(self):
         self._batcher.close()
+        if self._lockstep is not None:
+            self._lockstep.close()
 
     def __enter__(self):
         return self
@@ -223,6 +245,9 @@ class SearchService:
         searchers (the engine, duck-typed test searchers) see the
         legacy positional call."""
         typed = getattr(self.searcher, "search_typed", None)
+        if self._lockstep is not None:
+            return typed(Query(qi, qv), options=opts,
+                         _lockstep=self._lockstep)
         if typed is not None:
             return typed(Query(qi, qv), options=opts)
         return self.searcher.search(qi, qv)
@@ -299,3 +324,12 @@ class SearchService:
                 partial=partial, hedged=hedged, shards_missing=missing,
                 deadline_ms=r.options.deadline_ms,
                 tenant=r.options.tenant)))
+
+
+def follow(searcher) -> lockstep.LockstepStats:
+    """On a follower rank of a mesh: score every batch that rank 0's
+    ``SearchService`` over the same searcher broadcasts (through
+    ``searcher.follow_record``), until that service closes. Returns this
+    rank's counts."""
+    return lockstep.follow(getattr(searcher, "ctx", None),
+                           searcher.follow_record)

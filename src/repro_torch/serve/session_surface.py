@@ -81,6 +81,17 @@ class ServingSessionMixin:
         ``SearchResult`` row (see serve/api.py)."""
         return self.service().submit(query, q_vals, options=options)
 
+    def follow(self):
+        """On a follower rank of a mesh (any rank but 0): score each batch
+        that rank 0's service over this session broadcasts, until it
+        closes (``distributed/lockstep.py``). Blocks; returns this rank's
+        ``LockstepStats``. ``service`` and ``submit`` raise there."""
+        with self._service_lock:
+            if self._closed:
+                raise RuntimeError(f"{type(self).__name__} is closed")
+        from repro_torch.serve.search_service import follow
+        return follow(self)
+
     def close(self):
         """Idempotent: only the first close tears down the session's
         resources (store/pipeline/router); later calls are no-ops, so a

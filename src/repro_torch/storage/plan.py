@@ -42,13 +42,17 @@ scoring thread with every query (``search_streaming`` of its
 On a mesh the slab pad aligns to the mesh rows (``rows``), and a
 ``lockstep`` planner scans in manifest order: each rank's slab cache is
 its own, and a cache-first order that differed between ranks would have
-them reduce candidates of different slabs together.
+them reduce candidates of different slabs together. For the same reason
+the approximate tier, which scores a cached segment's whole slab and any
+other its candidate pool, takes the leader's cache verdict on every rank
+(``cached_names``, then ``plan(verdict=...)``): a rank scores what the
+leader's cache held, whatever its own holds.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -115,6 +119,11 @@ class QueryPlan:
     filtered: bool = False             # vocab-filter pruning ran — the
                                        # executor may attribute zero-
                                        # score survivors to filter FPs
+    pinned: bool = False               # approx sources are a lockstep
+                                       # verdict: a cache step scores
+                                       # its whole slab, a disk step its
+                                       # candidate pool, whatever this
+                                       # rank's cache holds
 
     def key_for(self, name: str):
         return slab_key(self.cache_token, name, self.nnz_pad,
@@ -158,27 +167,52 @@ class Planner:
         self.candidates = candidates    # default top-C pool per segment
         self.approx_min_docs = approx_min_docs
 
-    def plan(self, view, q_ids: np.ndarray, snap=None, *,
-             mode: Optional[str] = None,
-             candidates: Optional[int] = None) -> QueryPlan:
-        """``snap`` carries the memtable when ``view`` is a live
-        Snapshot (the session passes the same object twice). ``mode`` /
-        ``candidates`` override the session defaults for this query
-        (the QueryOptions knobs); ``auto`` resolves against the view's
-        total doc count here, where the manifest is already in hand."""
-        entries = view.entries
-        rows = self.rows
-        slab_docs = -(-max(view.max_segment_docs, 1) // rows) * rows
-        token = view.cache_token
+    def slab_docs(self, view) -> int:
+        """The view's one launch shape: its largest segment, padded to a
+        multiple of the mesh rows."""
+        return -(-max(view.max_segment_docs, 1) // self.rows) * self.rows
+
+    def resolve_mode(self, view, mode: Optional[str] = None) -> str:
+        """The query's tier: ``mode`` (None = the session default), with
+        ``auto`` resolved against the view's total doc count."""
         eff_mode = self.mode if mode is None else mode
         if eff_mode not in MODES:
             raise ValueError(
                 f"mode must be one of {MODES}, got {eff_mode!r}")
-        eff_cand = self.candidates if candidates is None else int(candidates)
         if eff_mode == MODE_AUTO:
-            total_docs = sum(e.n_docs for e in entries)
+            total_docs = sum(e.n_docs for e in view.entries)
             eff_mode = (MODE_APPROX if total_docs >= self.approx_min_docs
                         else MODE_EXACT)
+        return eff_mode
+
+    def cached_names(self, view) -> List[str]:
+        """The view's segments whose slab this rank's cache holds now:
+        the leader's verdict for a lockstep batch (``plan``'s
+        ``verdict``)."""
+        if self.cache is None:
+            return []
+        slab_docs, token = self.slab_docs(view), view.cache_token
+        return [e.name for e in view.entries if self.cache.peek(
+            slab_key(token, e.name, self.nnz_pad, slab_docs, self.fmt))]
+
+    def plan(self, view, q_ids: np.ndarray, snap=None, *,
+             mode: Optional[str] = None,
+             candidates: Optional[int] = None,
+             verdict: Optional[Sequence[str]] = None) -> QueryPlan:
+        """``snap`` carries the memtable when ``view`` is a live
+        Snapshot (the session passes the same object twice). ``mode`` /
+        ``candidates`` override the session defaults for this query
+        (the QueryOptions knobs); ``auto`` resolves against the view's
+        total doc count here, where the manifest is already in hand.
+        ``verdict`` (a lockstep batch's, the leader's ``cached_names``)
+        replaces this rank's cache probe as each step's source, and
+        binds the approximate tier to it."""
+        entries = view.entries
+        slab_docs = self.slab_docs(view)
+        token = view.cache_token
+        eff_mode = self.resolve_mode(view, mode)
+        eff_cand = self.candidates if candidates is None else int(candidates)
+        held = None if verdict is None else frozenset(verdict)
         if eff_mode == MODE_APPROX and eff_cand <= 0:
             raise ValueError("approx mode needs a positive candidate "
                              "pool size (candidates)")
@@ -205,10 +239,10 @@ class Planner:
                     continue
             key = slab_key(token, entry.name, self.nnz_pad, slab_docs,
                            self.fmt)
-            step = PlanStep(
-                entry.name, entry.n_docs,
-                SOURCE_CACHE if self.cache is not None
-                and self.cache.peek(key) else SOURCE_DISK, rank)
+            hit = (entry.name in held if held is not None
+                   else self.cache is not None and self.cache.peek(key))
+            step = PlanStep(entry.name, entry.n_docs,
+                            SOURCE_CACHE if hit else SOURCE_DISK, rank)
             rank += 1
             (cached if step.source == SOURCE_CACHE else disk).append(step)
         mem_corpus, mem_trunc = (snap.memtable_corpus(self.nnz_pad)
@@ -231,7 +265,9 @@ class Planner:
                          memtable=mem_corpus, memtable_trunc=mem_trunc,
                          memtable_pad=mem_pad, fmt=self.fmt,
                          mode=eff_mode, candidates=eff_cand,
-                         filtered=do_filter)
+                         filtered=do_filter,
+                         pinned=(held is not None
+                                 and eff_mode == MODE_APPROX))
 
 
 def execute_plan(engine, view, plan: QueryPlan, q_ids: np.ndarray,
@@ -271,7 +307,12 @@ def execute_plan(engine, view, plan: QueryPlan, q_ids: np.ndarray,
         decode -> device upload (+ admission). At most ``prefetch_depth``
         segments are open during the scoring stream."""
         lspan = span.child("load", segment=step.name, rank=step.rank)
-        if cache is not None:
+        # the approximate tier scores a cache hit's whole slab; under a
+        # lockstep verdict the step's source, not this rank's cache,
+        # decides which (a missing verdict hit loads the slab from disk)
+        approx = plan.mode == MODE_APPROX and not (
+            plan.pinned and step.source == SOURCE_CACHE)
+        if cache is not None and not (plan.pinned and approx):
             hit = cache.get(plan.key_for(step.name))
             if hit is not None:
                 stats.cache_hits += 1
@@ -282,7 +323,7 @@ def execute_plan(engine, view, plan: QueryPlan, q_ids: np.ndarray,
             stats.cache_misses += 1
         t0 = time.perf_counter() if timed else 0.0
         seg = view.segment(step.name)
-        if plan.mode == MODE_APPROX and seg.postings is not None:
+        if approx and seg.postings is not None:
             # approximate tier (§15): posting traversal picks the top-C
             # candidate pool, then ONLY those rows are decoded (page-
             # level partial decode) and re-ranked exactly through the

@@ -25,13 +25,18 @@ the backend is one of the port's
 (``gpu`` by default: B1; ``gpu_packed``: B2; ``gpu_fused``: B3 through
 ``put_stream_slab``; ``torch``: the gather path).
 
-On a mesh every rank runs its own session over the same store, in
-lockstep with the same queries: each decodes every surviving segment,
-uploads its row block (slabs pad to a multiple of the mesh rows) and
-scans in manifest order, so the ranks reduce the same slab together.
-The serving tier and the write path drive one process's threads on its
-own clock and cannot keep ranks in lockstep: ``service``, ``submit``
-and ``enable_ingest`` raise ``NotImplementedError`` there (ROADMAP A8.6).
+On a mesh every rank runs its own session over the same store
+directory, in lockstep with the same queries: each decodes every
+surviving segment, uploads its row block (slabs pad to a multiple of
+the mesh rows) and scans in manifest order, so the ranks reduce the
+same slab together whatever their own slab caches hold. Behind the
+serving tier rank 0 leads (``distributed/lockstep.py``): it alone
+takes requests (``service``, ``submit``) and holds the write path
+(``enable_ingest``, ``append``, ``flush_ingest``); at each batch it
+captures the live snapshot and broadcasts the batch, its knobs, its
+memo and slab-cache verdicts and the snapshot's spec, and every other
+rank scores that record in ``follow()`` (``follow_record``) until the
+leader's service closes.
 
 With ``enable_ingest()`` the session also becomes a *live* writer
 surface (DESIGN.md §6): ``append`` routes documents through a
@@ -52,14 +57,15 @@ import numpy as np
 from repro_torch.configs.paper_search import SearchConfig
 from repro_torch.core.engine import PatternSearchEngine, SearchResult
 from repro_torch.device import DeviceLike
-from repro_torch.distributed.meshctx import MeshCtx, refuse_mesh
+from repro_torch.distributed import lockstep
+from repro_torch.distributed.meshctx import MeshCtx
 from repro_torch.obs import NULL_REGISTRY, NULL_SPAN, Obs, default_obs
 from repro_torch.serve.api import (Query, QueryOptions, QueryStats, SearchResponse,
                              coerce_request, truncate_k)
 from repro_torch.serve.session_surface import ServingSessionMixin
 from repro_torch.storage.memo import MemoCache, MemoStats, memo_key
-from repro_torch.storage.plan import (DEFAULT_APPROX_MIN_DOCS, MODE_EXACT,
-                                Planner, execute_plan)
+from repro_torch.storage.plan import (DEFAULT_APPROX_MIN_DOCS, MODE_APPROX,
+                                      MODE_EXACT, Planner, execute_plan)
 from repro_torch.storage.slabcache import CacheStats, SlabCache
 from repro_torch.storage.store import FlashStore
 
@@ -159,6 +165,9 @@ class FlashSearchSession(ServingSessionMixin):
             MemoCache(memo_entries) if memo_entries > 0 else None)
         self.last_stats = SearchStats()
         self._ingest = None
+        self._role = lockstep.role(self.ctx)
+        self._follow_cache = None       # a follower's memtable ELL builds
+        self._follow_names = set()      # the segments of its last record
         # one launch shape for every slab: largest segment, mesh-aligned
         self._slab_docs = -(-max(store.max_segment_docs, 1) // rows) * rows
         self._init_serving()
@@ -170,7 +179,7 @@ class FlashSearchSession(ServingSessionMixin):
         behind. ``knobs`` are ``repro_torch.ingest.IngestConfig``
         fields. Idempotent; returns the pipeline."""
         from repro_torch.ingest import IngestConfig, IngestPipeline
-        refuse_mesh(self.ctx, "the write path (enable_ingest)")
+        self._refuse_on_follower("enable_ingest")
         if self._ingest is None:
             self._ingest = IngestPipeline(self.store, IngestConfig(**knobs),
                                           obs=self.obs)
@@ -180,10 +189,18 @@ class FlashSearchSession(ServingSessionMixin):
     def ingest(self) -> Optional["IngestPipeline"]:
         return self._ingest
 
+    def _refuse_on_follower(self, surface: str):
+        if self._role == lockstep.FOLLOWER:
+            raise RuntimeError(
+                f"{surface}() on a follower rank: only rank 0 holds the "
+                "write path of a mesh session; this rank scores the "
+                "leader's batches in follow()")
+
     def append(self, doc_id: int, pairs: Sequence[Tuple[int, int]]) -> int:
         """Durably append one document ([(word, count), ...]) to the live
         store; it is searchable by the next query. Requires
         ``enable_ingest()``. Returns the WAL sequence number."""
+        self._refuse_on_follower("append")
         if self._ingest is None:
             raise RuntimeError(
                 "append() needs enable_ingest() first — the session is "
@@ -192,6 +209,7 @@ class FlashSearchSession(ServingSessionMixin):
 
     def flush_ingest(self) -> int:
         """Seal the memtable into delta segments now (0 without ingest)."""
+        self._refuse_on_follower("flush_ingest")
         return self._ingest.seal() if self._ingest is not None else 0
 
     # ------------------------------------------------------------------
@@ -215,7 +233,7 @@ class FlashSearchSession(ServingSessionMixin):
 
     def search_typed(self, query: Query,
                      options: Optional[QueryOptions] = None, *,
-                     _span=None) -> SearchResult:
+                     _span=None, _lockstep=None) -> SearchResult:
         """Query rows [L, Qn] (pad < 0) -> global top-k over the store
         (plus, with ingest enabled, the sealed deltas and memtable of an
         atomic snapshot taken now). Always returns the raw
@@ -225,8 +243,16 @@ class FlashSearchSession(ServingSessionMixin):
         ``_span`` is the observability hook for nesting callers (the
         cluster router hands each shard session a child span of the
         cluster trace): when set, this query joins the parent's trace
-        and the parent owns the query-level accounting."""
+        and the parent owns the query-level accounting. ``_lockstep`` is
+        the mesh leader's (``distributed.lockstep.Leader``, passed by the
+        serving tier): the batch's record goes out to the followers
+        before it is scored."""
         q_ids, q_vals = query.rows()
+        if (_lockstep is None and self._ingest is not None
+                and self._role is not None):
+            raise RuntimeError(
+                "a live session on a mesh searches through its service "
+                "(submit): every rank must score the leader's snapshot")
         # the wall clock only matters when this call owns the query-level
         # accounting AND the bundle is live (Obs.disabled() floor: zero
         # clock reads on the whole path, asserted by test_obs_disabled)
@@ -241,15 +267,14 @@ class FlashSearchSession(ServingSessionMixin):
             span = _span
         mode, cand = self._query_knobs(options)
         try:
-            if self._ingest is None:
-                res = self._memo_or_search(self.store, None, q_ids, q_vals,
-                                           span, mode, cand)
-            else:
-                snap = self._ingest.capture()
-                try:
-                    res = self._memo_or_search(snap, snap, q_ids, q_vals,
-                                               span, mode, cand)
-                finally:
+            snap = (self._ingest.capture() if self._ingest is not None
+                    else None)
+            try:
+                res = self._memo_or_search(
+                    self.store if snap is None else snap, snap, q_ids,
+                    q_vals, span, mode, cand, lead=_lockstep)
+            finally:
+                if snap is not None:
                     snap.close()
         except BaseException:
             if _span is None:
@@ -287,44 +312,106 @@ class FlashSearchSession(ServingSessionMixin):
         return mode, cand
 
     def _memo_or_search(self, view, snap, q_ids, q_vals, span,
-                        mode, cand) -> SearchResult:
+                        mode, cand, *, lead=None,
+                        memo_hit: Optional[bool] = None,
+                        verdict=None) -> SearchResult:
         """Memo-cache wrapper around ``_search_view`` (§15.3). The key
         is derived from the *captured* view's memo_state — generation
         and memtable fingerprint frozen under the snapshot lock — so a
         concurrent append/seal can never alias a stale entry onto the
-        new view; the bumped state is simply a different key."""
-        memo = self._memo
-        if memo is None:
-            return self._search_view(view, snap, q_ids, q_vals, span,
-                                     mode=mode, candidates=cand)
-        eff_mode = mode if mode is not None else self._planner.mode
-        eff_cand = cand if cand is not None else self._planner.candidates
-        key = memo_key(view.cache_token, view.memo_state,
-                       self.engine.slab_fmt, self.cfg.top_k,
-                       eff_mode, eff_cand, q_ids, q_vals)
-        hit = memo.get(key)
-        if hit is not None:
-            res, st = hit
-            self.last_stats = dataclasses.replace(st, memo_hits=1)
-            span.set(memo_hit=True)
+        new view; the bumped state is simply a different key.
+
+        On a mesh the leader decides hit or miss: ``lead`` broadcasts
+        the batch's record, its verdict included, before scoring, and a
+        follower passes that verdict as ``memo_hit``. A follower scores
+        exactly when the leader does, so the engine's collectives pair
+        up whatever its own memo holds. In the approximate tier the
+        record also carries the leader's slab-cache verdict
+        (``Planner.cached_names``), which a follower passes as
+        ``verdict``: every rank scores the same slabs whole and the same
+        candidate pools."""
+        mode = self._planner.mode if mode is None else mode
+        cand = self._planner.candidates if cand is None else cand
+        key = hit = None
+        if self._memo is not None:
+            key = memo_key(view.cache_token, view.memo_state,
+                           self.engine.slab_fmt, self.cfg.top_k,
+                           mode, cand, q_ids, q_vals)
+            hit = self._memo.get(key)
+        if memo_hit is False:
+            hit = None
+        elif memo_hit and hit is None:
+            # this rank's memo lacks the entry (it keeps none, or another
+            # history): the leader answers; this rank launches nothing
+            self.last_stats = SearchStats(memo_hits=1)
+            return self.engine.empty_result(q_ids.shape[0])
+
+        def resolve():
+            if hit is not None:
+                res, st = hit
+                self.last_stats = dataclasses.replace(st, memo_hits=1)
+                span.set(memo_hit=True)
+                return res
+            res = self._search_view(view, snap, q_ids, q_vals, span,
+                                    mode=mode, candidates=cand,
+                                    verdict=verdict)
+            if key is not None:
+                self._memo.put(key, (res, dataclasses.replace(
+                    self.last_stats)))
             return res
-        res = self._search_view(view, snap, q_ids, q_vals, span,
-                                mode=mode, candidates=cand)
-        memo.put(key, (res, dataclasses.replace(self.last_stats)))
-        return res
+
+        if lead is None:
+            return resolve()
+        if self._planner.resolve_mode(view, mode) == MODE_APPROX:
+            verdict = self._planner.cached_names(view)
+        return lead.lead({"qi": q_ids, "qv": q_vals, "mode": mode,
+                          "candidates": cand, "memo_hit": hit is not None,
+                          "verdict": verdict,
+                          "snapshot": None if snap is None else snap.spec},
+                         resolve)
+
+    def follow_record(self, record: dict) -> SearchResult:
+        """A follower's half of one lockstep batch: score the leader's
+        record over the leader's view, its snapshot's spec or, for a
+        read-only leader, this rank's handle on the same store."""
+        from repro_torch.ingest.pipeline import MemCorpusCache, Snapshot
+        snap = None
+        if record["snapshot"] is not None:
+            if self._follow_cache is None:
+                self._follow_cache = MemCorpusCache()
+            snap = Snapshot.from_spec(record["snapshot"], self.store,
+                                      self._follow_cache)
+            # the leader's folds drop the folded names from its cache
+            # (FlashStore.bump_generation); this rank's drops them here
+            names = {e.name for e in snap.entries}
+            gone = self._follow_names - names
+            if gone and self.slab_cache is not None:
+                self.slab_cache.invalidate(self.store.cache_token, gone)
+            self._follow_names = names
+        try:
+            return self._memo_or_search(
+                self.store if snap is None else snap, snap, record["qi"],
+                record["qv"], NULL_SPAN, record["mode"],
+                record["candidates"], memo_hit=record["memo_hit"],
+                verdict=record["verdict"])
+        finally:
+            if snap is not None:
+                snap.close()
 
     def _search_view(self, view, snap, q_ids: np.ndarray,
                      q_vals: np.ndarray, span=NULL_SPAN, *,
-                     mode=None, candidates=None) -> SearchResult:
+                     mode=None, candidates=None,
+                     verdict=None) -> SearchResult:
         """Score one segment view (a FlashStore or an ingest Snapshot;
         ``snap`` carries the memtable when the view is a snapshot):
-        plan, then run the shared executor (DESIGN.md §4.1)."""
+        plan, then run the shared executor (DESIGN.md §4.1). ``verdict``
+        is a lockstep batch's slab-cache verdict (``Planner.plan``)."""
         reg = self.obs.registry
         timed = not (reg is NULL_REGISTRY and span is NULL_SPAN)
         pspan = span.child("plan")
         t0 = time.perf_counter() if timed else 0.0
         plan = self._planner.plan(view, q_ids, snap, mode=mode,
-                                  candidates=candidates)
+                                  candidates=candidates, verdict=verdict)
         if timed:
             reg.histogram("stage_ms", stage="plan").observe(
                 (time.perf_counter() - t0) * 1e3)

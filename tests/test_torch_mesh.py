@@ -349,13 +349,6 @@ def test_single_device_collectives_are_the_identity():
     assert v is t
 
 
-@pytest.mark.parametrize("surface", ["service", "submit", "ingest"])
-def test_serving_tier_and_write_path_refuse_a_mesh(four, surface):
-    for out in four:
-        msg = out["refused", surface]
-        assert "ROADMAP A8.6" in msg and "(2, 2) mesh" in msg
-
-
 @pytest.mark.parametrize("world", ["four", "eight"])
 def test_make_ctx_raises_on_a_world_of_another_size(request, world):
     n = {"four": 4, "eight": 8}[world]

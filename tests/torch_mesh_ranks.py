@@ -254,9 +254,7 @@ def engine_requests(corpus):
 
 def job_four(store_root):
     """World of 4 (2 x 2): the store session on the mesh, the engine at
-    L = 1..5, the serving tier's and the write path's refusals, and
-    make_ctx on a world of 4."""
-    from repro_torch.serve.search_service import SearchService
+    L = 1..5, and make_ctx on a world of 4."""
     cfg = smoke()
     ctx = ctx_of((2, 2))
     out = {}
@@ -274,16 +272,6 @@ def job_four(store_root):
                      for q in engine_requests(corpus)]
     out["slab_fmt"] = (eng.slab_fmt, PatternSearchEngine(
         None, cfg, backend="gpu_packed", ctx=ctx).slab_fmt)
-    sess = FlashSearchSession(FlashStore.open(store_root), cfg, ctx=ctx)
-    for name, call in (("service", lambda: SearchService(eng)),
-                       ("submit", lambda: sess.submit(Query(
-                           *session_queries()["narrow"][:2]))),
-                       ("ingest", sess.enable_ingest)):
-        try:
-            call()
-        except NotImplementedError as e:
-            out["refused", name] = str(e)
-    sess.close()
     try:
         launch_mesh.make_ctx(device="cpu")
     except ValueError as e:
