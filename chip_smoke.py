@@ -351,14 +351,16 @@ each of which fails the run (non-zero exit) if it fails:
                collectives' share of the rank's serving time
                (``compat.stats``); rank 0's served p50, p99 and QPS;
                the phase's wall time.
- 16. LM mesh   LM serving on a mesh (``lm_mesh_phase``), run last. The
+ 16. LM mesh   LM serving on a mesh (``lm_mesh_phase``). The
                one-device run first: qwen3-4b at full size, LM_BATCH
                prompts of LM_PROMPT, MESH_LM_NEW greedy tokens, each
                step's logits kept. 16c: a world of one rank over NCCL,
                served through ``repro_torch.launch.serve.main --mesh 1,1
                --dist-backend nccl`` (a 1 x 1 DeviceMesh, the weights
                born sharded by ``sharding.sharded_init``): every step's
-               logits bit for bit the one-device run's. 16a: four ranks
+               logits bit for bit the one-device run's. 16a, qwen3-4b
+               at MESH_LM_LAYERS of 36 layers (``--layers``) against one
+               device at that depth: four ranks
                (``lm_mesh_rank``, spawned after the parent built the
                kernels, a MESH_TIMEOUT_S group timeout) of a 2 x 2 mesh
                on this card over gloo (NCCL refuses two ranks on one GPU,
@@ -410,6 +412,36 @@ each of which fails the run (non-zero exit) if it fails:
                site (the VLM's, Sk != S) against its plain version, and
                the same numbers a rank as 16a-16b; its launches join the
                G = 1, musicgen, hd-128 and Sk != S rows.
+
+ 17. train     training on a mesh (``mesh_train_phase``), run last.
+     mesh      17c: a world of one rank over NCCL, qwen3-4b at full size
+               for TRAIN_STEPS steps through ``launch.train.main --mesh
+               1,1 --dist-backend nccl``: losses, grad norms and the final
+               params' f64 leaf sums bit for bit 13c's. 17a: qwen3-4b at
+               full width and MESH_TRAIN_LAYERS layers, f32 AdamW states,
+               remat, TRAIN_BATCH x TRAIN_SEQ, on one device for
+               MESH_TRAIN_STEPS steps and one more; then one spawn of four
+               ranks (``mesh_train_rank``) on this card over gloo trains
+               MESH_TRAIN_RUNS in turn through ``launch.train.main
+               --mesh``: 17a on 2 x 2, each step's loss and grad norm
+               within MESH_TRAIN_RTOL of one device's, every rank's
+               equal, B4 2 x layers x steps times a rank (wgmma, with
+               the lse), its
+               first site against the plain version with the lse, the
+               optimizer-state blocks as ``opt_state_specs`` lays them
+               out, and a checkpoint after the last step (full arrays,
+               gathered onto rank 0, which writes) restored on one device,
+               whose next step is held to one device's the same way; 17b
+               at COMP_TRAIN_LAYERS layers on (pod, data, model) =
+               COMP_TRAIN_SHAPE with ``--grad-compression``: each step's
+               compressed mean within the quantization bound of the exact
+               f32 pod mean (``compressed_held``), the error feedback
+               g + err - dequant(quant(g + err)) bit for bit, the pod
+               reduction's wire bytes against f32's. Per rank: step ms,
+               the collectives' ms, bytes and share, the weight blocks'
+               GB. B4 with its lse timed at a rank's shape; the ranks'
+               launches are the ``flash_attention_train_rank`` row, 17c's
+               join ``flash_attention_train``.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the repo beside it, it
@@ -534,6 +566,8 @@ MESH_CACHE_BYTES = 1 << 30             # a rank's 16 ELL slabs, 512 MiB
 # phase 16: LM serving on a mesh, four ranks on this one card over gloo
 MESH_LM_ARCH = "qwen3-4b"              # 16a and 16c: full width and depth
 MESH_LM_SHAPE = (2, 2)                 # 16a: ("data", "model")
+MESH_LM_LAYERS = 12                    # 16a: 12 of 36 layers (cut from
+                                       # 36 for phase 17's time)
 MESH_MOE_SHAPE = (1, 4)                # 16b: 32 of 128 experts a rank
 MESH_LM_NEW = 4                        # greedy tokens a run (cut from 8
                                        # so that the run keeps inside
@@ -566,6 +600,19 @@ MESH_FAMILY_NEW = 2                    # greedy tokens a 16d run (cut
 # logits catch only gross faults; the sharp checks are their f32 runs
 # (LM_ATOL's 1e-3) and B4 at each rank's sites
 MESH_FAMILY_ULPS = {"ssm": ZAMBA_ULPS, "hybrid": 32}
+# phase 17: training on a mesh, four ranks on this one card over gloo
+MESH_TRAIN_ROOT = Path(__file__).resolve().parent / "build" / "mesh_train"
+MESH_TRAIN_SHAPE = (2, 2)              # 17a: ("data", "model")
+MESH_TRAIN_LAYERS = 8                  # 17a: qwen3-4b, 8 of 36 layers
+MESH_TRAIN_STEPS = 3
+COMP_TRAIN_SHAPE = (2, 2, 1)           # 17b: ("pod", "data", "model")
+# 17a's losses and grad norms against one device's, relative: the gaps
+# read on the card were at most 4.1e-4 at 8 layers and 2.2e-3 at 2
+# (PERF.md section 6), from bf16 partials rounded before their f32 sums
+# and GEMMs on other row counts
+MESH_TRAIN_RTOL = 3e-3
+COMP_TRAIN_LAYERS = 2                  # 17b: 2 of 36 layers
+COMP_TRAIN_STEPS = 2
 GRAPH_VERTICES, GRAPH_EDGES = 1 << 20, 1 << 24
 GRAPH_PR_ITERS, GRAPH_BFS_ITERS = 50, 32
 # phase 13: training on one card
@@ -1095,12 +1142,19 @@ def main() -> int:
     rows.extend(mm_rows)
     say(f"phases 8e-11e: {time.perf_counter() - t0:.1f} s")
     graph_phase(torch, dev)
-    rows.append(train_phases(torch, dev))
+    row, c13 = train_phases(torch, dev)
+    rows.append(row)
     rows.append(train_recurrent_phases(torch, dev))
     # -- 16. LM serving on a mesh: B4 at hd 128 (qwen3-4b, qwen3-moe, the
     # VLM's self layers), hd 64 (zamba2, musicgen) and Sk != S (the VLM) --
     for name, n in lm_mesh_phase(torch, dev).items():
         next(r for r in rows if r["name"] == name)["launches"] += n
+    # -- 17. training on a mesh: B4 with its lse, at 17c's full shape and on
+    # the ranks' heads -----------------------------------------------------
+    launches17, rank_row = mesh_train_phase(torch, dev, nvidia_smi_line(),
+                                            c13)
+    row["launches"] += launches17["flash_attention_train"]
+    rows.append(rank_row)
     say(f"run: {time.perf_counter() - t_run:.1f} s wall")
     say(nvidia_smi_line())
     say(json.dumps({"kernels": rows}))
@@ -3898,6 +3952,8 @@ def train_phases(torch, dev):
     trainer, _, launches, by, with_lse, peak = train_run(torch, dev,
                                                          TRAIN_ARCH)
     want = 2 * cfg.n_layers * TRAIN_STEPS
+    c13 = {"history": [(r["loss"], r["grad_norm"]) for r in trainer.history],
+           "sums": leaf_sums(trainer)}
     if not (launches["flash_attention"] == by["wgmma"] == with_lse == want):
         fail(f"B4 launched {launches['flash_attention']} times in "
              f"{TRAIN_STEPS} train steps ({by['wgmma']} wgmma, "
@@ -3960,14 +4016,14 @@ def train_phases(torch, dev):
             checkpoint_dir=str(TRAIN_ROOT / name), keep_checkpoints=2)
 
     quiet = lambda s: None  # noqa: E731
-    straight = Trainer(tc("straight", 100), device=dev, log_fn=quiet)
+    straight = Trainer(tc("straight", 100), dev, log_fn=quiet)
     straight.run(4)
     straight.close()
-    first_half = Trainer(tc("restart", 2), device=dev, log_fn=quiet)
+    first_half = Trainer(tc("restart", 2), dev, log_fn=quiet)
     first_half.run(2)
     first_half.close()
     del first_half
-    resumed = Trainer(tc("restart", 2), device=dev, log_fn=quiet)
+    resumed = Trainer(tc("restart", 2), dev, log_fn=quiet)
     if resumed.start_step != 2:
         fail(f"restart: resumed at {resumed.start_step}, want 2")
     resumed.run(2)
@@ -4001,7 +4057,7 @@ def train_phases(torch, dev):
     row = b4_row("flash_attention_train", launches["flash_attention"],
                  errs["train bf16 causal"][0], times)
     row["lse_max_abs_err"] = errs["train bf16 causal"][1]
-    return row
+    return row, c13
 
 
 def wkv_backward_held(torch, dev, cfg):
@@ -4343,7 +4399,15 @@ def lm_mesh_phase(torch, dev):
         f"{stats['decode_s'] * 1e3 / (new - 1):.2f} ms a step; B4 launches "
         f"{fa.flash_attention_gqa.launches}; {card}")
 
-    # -- 16a: qwen3-4b on 2 x 2, four ranks on this card over gloo ----------
+    # -- 16a: qwen3-4b at MESH_LM_LAYERS on 2 x 2, four ranks on this card
+    # over gloo, against one device at that depth -------------------------
+    cut = dataclasses.replace(cfg, n_layers=MESH_LM_LAYERS)
+    params = M.init(cut, seed=SEED, device=dev)
+    one = []
+    one_toks = step.generate(params, cut, prompt, max_new=new,
+                             max_len=S + new, device=dev, logits=one)
+    del params
+    torch.cuda.empty_cache()
     _build.build(["flash_attention"])          # the ranks load, never build
     one_np = torch.stack(one).float().cpu().numpy()    # [new, B, 1, V]
     outs = lm_mesh_ranks(mp, "dense", MESH_LM_SHAPE)
@@ -4369,8 +4433,9 @@ def lm_mesh_phase(torch, dev):
         if not np.array_equal(o["tokens"], outs[0]["tokens"]):
             fail(f"mesh 16a rank {o['rank']}: tokens differ from rank 0's")
         counted += lm_mesh_rank_line("16a", o, card)
-    say(f"mesh 16a ({cfg.name} at full size on 2 x 2, 4 ranks on one card "
-        f"over gloo, born sharded from seed {SEED}): the first step's logits "
+    say(f"mesh 16a ({cfg.name} at full width, {MESH_LM_LAYERS} of "
+        f"{cfg.n_layers} layers, on 2 x 2, 4 ranks on one card over gloo, "
+        f"born sharded from seed {SEED}): the first step's logits "
         f"{err0:.4f} from the one-device run's (limit {atol:.4f}, lm_atol), "
         f"tokens equal for {first} of {new} steps (they may part only below "
         "the top-2 margin limit)")
@@ -4639,13 +4704,14 @@ def moe_plain(torch, p, x, ids):
     return y
 
 
-def mesh_served(mesh, backend, logits, arch=MESH_LM_ARCH, new=MESH_LM_NEW):
+def mesh_served(mesh, backend, logits, arch=MESH_LM_ARCH, new=MESH_LM_NEW,
+                layers=None):
     """``repro_torch.launch.serve.main`` on a world that is up: ``arch``
     at full size (16a: MESH_LM_ARCH), LM_BATCH prompts of LM_PROMPT from
     seed SEED, ``new`` greedy tokens, on a ``mesh`` ("D,M") over
-    ``backend`` (``mesh`` None: one device, no world); each step's logits
-    (whole, gathered) are appended to ``logits``. Returns the launcher's
-    ``ServeRun``."""
+    ``backend`` (``mesh`` None: one device, no world), ``layers`` deep
+    (None: all); each step's logits (whole, gathered) are appended to
+    ``logits``. Returns the launcher's ``ServeRun``."""
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.serve import step
 
@@ -4653,6 +4719,8 @@ def mesh_served(mesh, backend, logits, arch=MESH_LM_ARCH, new=MESH_LM_NEW):
         return step.generate(*args, logits=logits, **kw)
     serve_launcher.generate = generate
     on = [] if mesh is None else ["--mesh", mesh, "--dist-backend", backend]
+    if layers is not None:
+        on += ["--layers", str(layers)]
     try:
         return serve_launcher.main([
             "--arch", arch, *on, "--batch", str(LM_BATCH), "--prompt-len",
@@ -4661,19 +4729,20 @@ def mesh_served(mesh, backend, logits, arch=MESH_LM_ARCH, new=MESH_LM_NEW):
         serve_launcher.generate = step.generate
 
 
-def lm_mesh_ranks(mp, job, shape, rank_fn=None, world=None):
+def lm_mesh_ranks(mp, job, shape, rank_fn=None, world=None, root=MESH_ROOT):
     """Run ``rank_fn`` (default ``lm_mesh_rank``) on the ranks of a
-    ``shape`` mesh (or a world of ``world``); their results, by rank."""
+    ``shape`` mesh (or a world of ``world``), its files under ``root``;
+    their results, by rank."""
     import pickle
     world = world or int(np.prod(shape))
     t0 = time.perf_counter()
     mp.start_processes(rank_fn or lm_mesh_rank,
-                       args=(world, str(MESH_ROOT), job, shape),
+                       args=(world, str(root), job, shape),
                        nprocs=world, join=True, start_method="spawn")
     say(f"mesh {job} ranks ran {time.perf_counter() - t0:.1f} s")
     outs = []
     for rank in range(world):
-        with open(MESH_ROOT / f"{job}{rank}.pkl", "rb") as f:
+        with open(root / f"{job}{rank}.pkl", "rb") as f:
             outs.append(pickle.load(f))
     return outs
 
@@ -4776,7 +4845,8 @@ def lm_mesh_rank(rank, world, root, job, shape):
                 return toks, stats
         else:
             def serve():
-                run = mesh_served(",".join(map(str, shape)), "gloo", steps)
+                run = mesh_served(",".join(map(str, shape)), "gloo", steps,
+                                  layers=MESH_LM_LAYERS)
                 return run.tokens, run.stats, run.ctx, run.params
 
         # the main path: B4 counted, the collectives measured
@@ -5071,6 +5141,411 @@ def lm_family_rank(rank, world, root, job, shape):
         dist.destroy_process_group()
     with open(root / f"families{rank}.pkl", "wb") as f:
         pickle.dump(outs, f)
+
+
+def leaf_sums(trainer):
+    """Each param leaf's f64 sum, in ``flatten``'s order."""
+    from repro_torch.train import optimizer as opt
+    return [float(p.detach().double().sum()) for _, p in
+            opt.flatten(trainer.params)]
+
+
+def train_argv(layers, steps, every, ckpt_dir, *flags):
+    """``launch.train.main``'s arguments for TRAIN_ARCH at full width,
+    ``layers`` deep (None: all), TRAIN_BATCH x TRAIN_SEQ."""
+    return ["--arch", TRAIN_ARCH, *(["--layers", str(layers)] if layers
+                                    else []),
+            "--steps", str(steps), "--seq-len", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--ckpt-every", str(every), "--ckpt-dir",
+            str(ckpt_dir), *flags]
+
+
+def mesh_train_phase(torch, dev, card, c13):
+    """Phase 17: training on a mesh. 17c: a world of one rank over NCCL,
+    qwen3-4b at full width and depth through ``launch.train.main --mesh
+    1,1``: its losses, grad norms and final params' f64 leaf sums bit for
+    bit 13c's. 17a: qwen3-4b at MESH_TRAIN_LAYERS layers, one device
+    first, then four ranks of a 2 x 2 mesh on this card over gloo
+    (``mesh_train_rank``), each step's loss and grad norm within
+    MESH_TRAIN_RTOL of one device's, B4 2 x layers x steps times on each
+    rank (wgmma, with the lse), its first site against the plain version,
+    the
+    optimizer-state blocks as ``opt_state_specs`` lays them out, and the
+    checkpoint saved after its last step restored on one device, whose
+    next step meets the same limits against one device's straight run.
+    17b: COMP_TRAIN_LAYERS layers on (pod, data, model) =
+    COMP_TRAIN_SHAPE with ``--grad-compression``: each step's compressed
+    mean within the quantization bound of the exact f32 pod mean, the
+    error feedback g + err - dequant(quant(g + err)). 17a and 17b run in
+    one spawn of four ranks. Returns (B4's launches of 17c, for 13c's row
+    of the kernels line; the row of B4 with its lse at a rank's shape,
+    17a's and 17b's launches)."""
+    import datetime
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import PrefetchingLoader
+    from repro_torch.kernels import _build, flash_attention as fa
+    from repro_torch.launch import train as train_launcher
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_TRAIN_ROOT, ignore_errors=True)
+    MESH_TRAIN_ROOT.mkdir(parents=True)
+    launches = {}
+
+    # -- 17c: 1 x 1 over NCCL, bit for bit 13c --------------------------------
+    t0 = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(MESH_TRAIN_ROOT / "nccl"), 1),
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S), device_id=dev)
+    try:
+        trainer, _, counts, by, with_lse, _ = train_run(
+            torch, dev, TRAIN_ARCH, ("--mesh", "1,1", "--dist-backend",
+                                     "nccl"))
+        hist = [(r["loss"], r["grad_norm"]) for r in trainer.history]
+        sums = leaf_sums(trainer)
+        shape = tuple(trainer.ctx.shape.values())
+        del trainer
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    want = 2 * get_config(TRAIN_ARCH).n_layers * TRAIN_STEPS
+    if not (counts["flash_attention"] == by["wgmma"] == with_lse == want):
+        fail(f"mesh 17c: B4 launched {counts['flash_attention']} times "
+             f"({by['wgmma']} wgmma, {with_lse} with lse), want {want}")
+    if shape != (1, 1):
+        fail(f"mesh 17c: the launcher's mesh is {shape}")
+    if hist != c13["history"] or sums != c13["sums"]:
+        fail(f"mesh 17c: losses and grad norms {hist} (13c: "
+             f"{c13['history']}), or the final params' leaf sums, differ "
+             "from 13c's bits")
+    launches["flash_attention_train"] = counts["flash_attention"]
+    say(f"mesh 17c (1 x 1, one rank over NCCL, through launch.train.main "
+        f"--mesh 1,1, {TRAIN_ARCH} at full size, {TRAIN_STEPS} steps): "
+        f"losses and grad norms {hist} and the {len(sums)} leaves' f64 "
+        f"sums bit for bit 13c's; B4 launches {want}; "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+
+    # -- 17a: one device, MESH_TRAIN_STEPS steps and one more -------------
+    t0 = time.perf_counter()
+    one = train_launcher.main(train_argv(
+        MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, 100, MESH_TRAIN_ROOT / "one"))
+    # one step past the launcher's run, on the same schedule: the step a
+    # restored checkpoint of the mesh takes next
+    one.loader = PrefetchingLoader(one.data, one.device)
+    one.loader.seek(MESH_TRAIN_STEPS)
+    one.start_step = MESH_TRAIN_STEPS
+    one.run(1)
+    one.close()
+    one_hist = [(r["loss"], r["grad_norm"], r["seconds"])
+                for r in one.history]
+    del one
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t0
+
+    # -- 17a and 17b: one spawn of four ranks, on 2 x 2, then 2 x 2 x 1 -----
+    _build.build(["flash_attention"])          # the ranks load, never build
+    outs = lm_mesh_ranks(mp, "17", MESH_TRAIN_SHAPE, mesh_train_rank,
+                         root=MESH_TRAIN_ROOT)
+    per = 2 * MESH_TRAIN_LAYERS * MESH_TRAIN_STEPS
+    gap = 0.0                       # the largest relative gap read
+    for o in (o["17a"] for o in outs):
+        mesh_train_rank_line("17a", o, card, per)
+        for step, (r, (l1, g1, _)) in enumerate(zip(o["history"], one_hist)):
+            for name, got, ref in (("loss", r["loss"], l1),
+                                   ("grad norm", r["grad_norm"], g1)):
+                gap = max(gap, abs(got - ref) / abs(ref))
+                if abs(got - ref) > MESH_TRAIN_RTOL * abs(ref):
+                    fail(f"mesh 17a rank {o['rank']} step {step}: {name} "
+                         f"{got} against one device's {ref} (limit "
+                         f"{MESH_TRAIN_RTOL} relative)")
+        if [r["loss"] for r in o["history"]] != \
+                [r["loss"] for r in outs[0]["17a"]["history"]]:
+            fail(f"mesh 17a rank {o['rank']}: losses differ from rank 0's")
+    # the mesh's checkpoint after its last step, restored on one device:
+    # its next step against the one-device run's
+    t1 = time.perf_counter()
+    restored = train_launcher.main(train_argv(
+        MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, 100, MESH_TRAIN_ROOT / "17a"))
+    got, (l1, g1, _) = restored.history[0], one_hist[MESH_TRAIN_STEPS]
+    if restored.start_step != MESH_TRAIN_STEPS or \
+            got["step"] != MESH_TRAIN_STEPS:
+        fail(f"mesh 17a: the one-device restore resumed at "
+             f"{restored.start_step}, want {MESH_TRAIN_STEPS}")
+    restored_gap = 0.0
+    for name, ref in (("loss", l1), ("grad_norm", g1)):
+        restored_gap = max(restored_gap, abs(got[name] - ref) / abs(ref))
+        if abs(got[name] - ref) > MESH_TRAIN_RTOL * abs(ref):
+            fail(f"mesh 17a: the restored step's {name} {got[name]} against "
+                 f"one device's {ref}")
+    del restored
+    torch.cuda.empty_cache()
+    h = outs[0]["17a"]["history"]
+    say(f"mesh 17a ({TRAIN_ARCH} at full width, {MESH_TRAIN_LAYERS} of 36 "
+        f"layers, 2 x 2, 4 ranks on one card over gloo, born sharded from "
+        f"seed {SEED}, f32 AdamW states, remat, {MESH_TRAIN_STEPS} steps): "
+        f"losses {[round(r['loss'], 5) for r in h]} and grad norms "
+        f"{[round(r['grad_norm'], 5) for r in h]} against one device's "
+        f"{[(round(a, 5), round(b, 5)) for a, b, _ in one_hist]}, the "
+        f"largest relative gap {gap:.3e} (limit {MESH_TRAIN_RTOL}: bf16 "
+        "partials rounded before their f32 sums and GEMMs on other row "
+        "counts, carried through the forward and backward); one device's "
+        f"step ms {[round(s * 1e3, 1) for _, _, s in one_hist]} "
+        f"({t_one:.1f} s with its draw); the mesh's checkpoint after step "
+        f"{MESH_TRAIN_STEPS} restored on one device: step "
+        f"{MESH_TRAIN_STEPS + 1} loss {got['loss']:.5f}, grad norm "
+        f"{got['grad_norm']:.5f} against one device's {l1:.5f}, {g1:.5f}, "
+        f"relative {restored_gap:.3e} (restore and step "
+        f"{time.perf_counter() - t1:.1f} s); {card}")
+
+    # -- 17b: the compressed pod reduction on COMP_TRAIN_SHAPE -----------
+    per = 2 * COMP_TRAIN_LAYERS * COMP_TRAIN_STEPS
+    for o in (o["17b"] for o in outs):
+        mesh_train_rank_line("17b", o, card, per)
+        if not o["compressed"]["ok"]:
+            fail(f"mesh 17b rank {o['rank']}: {o['compressed']['why']}")
+    checked = [o["17b"]["compressed"] for o in outs
+               if o["17b"]["compressed"]["mean_err"] is not None]
+    c = checked[0]
+    say(f"mesh 17b ({TRAIN_ARCH} at full width, {COMP_TRAIN_LAYERS} of 36 "
+        f"layers, (pod, data, model) = "
+        f"{' x '.join(map(str, COMP_TRAIN_SHAPE))}, --grad-compression, "
+        f"{COMP_TRAIN_STEPS} steps): every step's compressed mean within the "
+        f"quantization bound of the exact f32 pod mean of g + err on pod "
+        f"0's {len(checked)} ranks (largest |diff| / bound "
+        f"{max(x['ratio'] for x in checked):.4f}, mean |diff| "
+        f"{c['mean_err']:.3e}); the error feedback equal to g + err - "
+        f"dequant(quant(g + err)) bit for bit on every rank; the pod "
+        f"reduction's wire {c['wire_bytes'] / 1e9:.4f} GB a step a rank "
+        f"against {c['f32_bytes'] / 1e9:.4f} GB in f32 "
+        f"({c['f32_bytes'] / c['wire_bytes']:.2f}x fewer); {card}")
+    launches["flash_attention_train_rank"] = sum(
+        o[r]["launches"] for o in outs for r in ("17a", "17b"))
+    site_err = max(o[r]["site_err"] for o in outs for r in ("17a", "17b"))
+
+    # -- B4 with its lse at a rank's shape -------------------------------
+    cfg_h = (2, TRAIN_SEQ, 16, 4, 128)         # 32 / 2 q heads, 8 / 2 kv
+    times = b4_lse_times(torch, dev, fa, *cfg_h)
+    shutil.rmtree(MESH_TRAIN_ROOT, ignore_errors=True)
+    say(f"phase 17: {time.perf_counter() - t_phase:.1f} s wall; {card}")
+    return launches, b4_row("flash_attention_train_rank",
+                            launches["flash_attention_train_rank"],
+                            site_err, times)
+
+
+def mesh_train_rank_line(label, o, card, want):
+    """Print one rank's numbers; check its B4 launches (``want``, every
+    one wgmma with the lse), its first site and its state blocks."""
+    if not (o["launches"] == o["by"].get("wgmma", 0) == o["lse"] == want):
+        fail(f"mesh {label} rank {o['rank']}: B4 launched {o['launches']} "
+             f"times ({o['by']}, {o['lse']} with lse), want {want}")
+    if not o["shapes_ok"]:
+        fail(f"mesh {label} rank {o['rank']}: optimizer-state blocks differ "
+             "from opt_state_specs'")
+    steps = o["steps"]
+    parts = "; ".join(
+        f"step {i}: {s['s'] * 1e3:.1f} ms, collectives {s['seconds'] * 1e3:.1f}"
+        f" ms ({s['seconds'] / s['s']:.2f}), {s['bytes'] / 1e9:.3f} GB in "
+        f"{s['calls']} calls ({s['backward_calls']} in the backward, "
+        f"{s['backward_bytes'] / 1e9:.3f} GB in "
+        f"{s['backward_seconds'] * 1e3:.1f} ms)" for i, s in enumerate(steps))
+    say(f"mesh {label} rank {o['rank']} ({o['coord']}): {o['param_gb']:.2f} "
+        f"GB of weight blocks; run {o['run_s']:.1f} s; {parts}; checkpoint "
+        f"gathered in "
+        f"{o.get('save_s', 0.0):.1f} s; B4 launches {o['launches']} (wgmma, "
+        f"with the lse), the rank's first site {o['site_shape']} vs plain "
+        f"max_abs_err {o['site_err']:.3e}, lse {o['site_lse_err']:.3e}; "
+        f"state blocks as opt_state_specs'; {card}")
+
+
+def state_blocks_held(torch, trainer) -> bool:
+    """Whether every optimizer-state block has the shape that
+    ``opt_state_specs`` gives the whole state's leaf on this rank."""
+    from repro_torch.distributed import sharding
+    from repro_torch.train import optimizer as opt
+    ctx, specs = trainer.ctx, trainer.specs
+    meta = opt.tree_map(lambda p, s: torch.zeros(
+        sharding.whole_shape(p.shape, s, ctx), device="meta"),
+        trainer.params, specs)
+    whole = opt.init_state(trainer.tc.opt, meta)
+    wspecs = sharding.opt_state_specs(whole, specs, ctx)
+    for key in ("m", "v"):
+        for (_, w), (_, sp), (_, got) in zip(
+                opt.flatten(whole[key]), opt.flatten(wspecs[key]),
+                opt.flatten(trainer.opt_state[key])):
+            pairs = [(w.q, sp.q, got.q), (w.scale, sp.scale, got.scale)] \
+                if isinstance(w, opt.QTensor) else [(w, sp, got)]
+            for wt, e, g in pairs:
+                e = tuple(e) + (None,) * (wt.dim() - len(e))
+                want = tuple(len(range(*ctx.block(n, a).indices(n)))
+                             for n, a in zip(wt.shape, e))
+                if tuple(g.shape) != want:
+                    return False
+    return True
+
+
+def compressed_held(torch, trainer, record, steps):
+    """17b: each step's compressed mean (``compression.
+    compressed_mean_tree.record``: a leaf's g + err, its quantization and
+    the f32 mean) within the quantization bound of the exact f32 mean of
+    the pods' g + err (the pods' half-quanta summed over n, plus f32's
+    rounding of the sum), checked on pod 0's ranks (the pods' blocks
+    gathered there); the error feedback after the last step g + err -
+    dequant(quant(g + err)) bit for bit on every rank; the wire bytes a
+    step."""
+    from repro_torch.distributed import compat
+    from repro_torch.train import optimizer as opt
+    ctx = trainer.ctx
+    n = ctx.shape["pod"]
+    leaves = len(opt.flatten(trainer.params))
+    if len(record) != leaves * steps:
+        return {"ok": False, "why": f"{len(record)} records for {leaves} "
+                f"leaves x {steps} steps"}
+    ratio, errs, wire, f32 = 0.0, [], 0, 0
+    for gf, qt, mean in record:
+        pods = compat.gather_first(gf[None], ctx, "pod", 0)
+        scales = compat.gather_first(qt.scale[None], ctx, "pod", 0)
+        wire += qt.q.numel() + qt.scale.numel() * 4
+        f32 += gf.numel() * 4
+        if pods is None:        # pod 0's ranks check their blocks
+            continue
+        exact = pods.to(gf.device).sum(0) / n
+        half = sum(opt._quantum_floor(opt.QTensor(
+            q=qt.q, scale=sc.to(gf.device), shape=qt.shape, last=qt.last))
+            for sc in scales) / n
+        diff = (mean - exact).abs()
+        slack = 1e-6 * exact.abs() + 1e-30        # f32's sums
+        if not bool((diff <= half + slack).all()):
+            return {"ok": False, "why": "a compressed mean outside the "
+                    "quantization bound"}
+        ratio = max(ratio, float((diff / (half + slack)).max()))
+        errs.append(float(diff.mean()))
+    last = record[-leaves:]
+    for (_, e), (gf, qt, _) in zip(opt.flatten(trainer.err), last):
+        if not torch.equal(e, gf - opt.dequantize_block(qt)):
+            return {"ok": False, "why": "the error feedback is not g + err "
+                    "- dequant(quant(g + err))"}
+    return {"ok": True, "ratio": ratio,
+            "mean_err": float(np.mean(errs)) if errs else None,
+            "wire_bytes": wire // steps, "f32_bytes": f32 // steps}
+
+
+MESH_TRAIN_RUNS = (      # (label, mesh, layers, steps, flags) in turn
+    ("17a", MESH_TRAIN_SHAPE, MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, ()),
+    ("17b", COMP_TRAIN_SHAPE, COMP_TRAIN_LAYERS, COMP_TRAIN_STEPS,
+     ("--grad-compression",)),
+)
+
+
+def mesh_train_rank(rank, world, root, job, shape):
+    """One rank of phase 17: a process of its own on the card, in a gloo
+    world of four through a FileStore under ``root``, LOCAL_RANK set as
+    ``torch.distributed.run`` sets it, training MESH_TRAIN_RUNS in turn
+    through ``launch.train.main --mesh`` (``mesh_train_run``). Pickles
+    what it found to ``root/<job><rank>.pkl``."""
+    import datetime
+    import pickle
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.set_num_threads(2)
+    root = Path(root)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(root / f"gloo-{job}"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    out = {"rank": rank}
+    try:
+        for label, mesh, layers, steps, flags in MESH_TRAIN_RUNS:
+            out[label] = mesh_train_run(torch, rank, root, label, mesh,
+                                        layers, steps, flags)
+    finally:
+        dist.destroy_process_group()
+    with open(root / f"{job}{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def mesh_train_run(torch, rank, root, label, mesh, layers, steps, flags):
+    """One rank's phase-17 run through ``launch.train.main --mesh``: B4's
+    counts set to 0 before and read after, the collectives counted a step
+    (``compat.stats``), the checkpoint's save timed (17a saves after its
+    last step), B4's first site against its plain version with the lse,
+    the state blocks against ``opt_state_specs``; with
+    ``--grad-compression`` the compressed reduction
+    (``compressed_held``)."""
+    from repro_torch.distributed import compat, compression
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train import loop
+
+    comp = "--grad-compression" in flags
+    argv = train_argv(layers, steps, 100 if comp else steps, root / label,
+                      "--mesh", ",".join(map(str, mesh)), "--dist-backend",
+                      "gloo", *flags)
+    # each step's collectives, and the checkpoint's save, timed
+    per_step, saves = [], []
+    made, save = loop.make_train_step, loop.CheckpointManager.save_async
+    keys = ("calls", "bytes", "seconds", "backward_calls", "backward_bytes",
+            "backward_seconds")
+
+    def counted_steps(*a, **kw):
+        fn = made(*a, **kw)
+
+        def step(*args):
+            before = dict(compat.stats)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            after = compat.stats
+            per_step.append(dict(s=time.perf_counter() - t0, **{
+                k: after.get(k, 0) - before.get(k, 0) for k in keys}))
+            return out
+        return step
+
+    def timed_save(self, *a, **kw):
+        t0 = time.perf_counter()
+        save(self, *a, **kw)
+        saves.append(time.perf_counter() - t0)
+    loop.make_train_step = counted_steps
+    loop.CheckpointManager.save_async = timed_save
+    b4 = fa.flash_attention_gqa
+    for name in b4.launches_by_design:
+        b4.launches_by_design[name] = 0
+    b4.launches_lse = 0
+    compression.compressed_mean_tree.record = [] if comp else None
+    t_run = time.perf_counter()
+    try:
+        trainer, counts, sites, _, _ = rank_counted(
+            torch, lambda: train_launcher.main(argv))
+        record = compression.compressed_mean_tree.record
+        compression.compressed_mean_tree.record = None
+        out = {"rank": rank, "run_s": time.perf_counter() - t_run,
+               "coord": {a: trainer.ctx.coord(a) for a in trainer.ctx.shape},
+               "history": trainer.history, "by": dict(b4.launches_by_design),
+               "lse": b4.launches_lse, "steps": per_step,
+               "save_s": sum(saves), "param_gb": sum(
+                   t.numel() * t.element_size()
+                   for t in _leaves(trainer.params)) / 1e9, **counts}
+        out["shapes_ok"] = state_blocks_held(torch, trainer)
+        q, k, v, kw = sites["first"]
+        kw = {key: val for key, val in kw.items() if key != "return_lse"}
+        out["site_shape"] = (tuple(q.shape), tuple(k.shape))
+        out["site_err"], out["site_lse_err"] = b4_lse_held(
+            torch, fa, f"{label} rank {rank}'s first site", q, k, v, **kw)
+        del sites, q, k, v
+        if comp:
+            out["compressed"] = compressed_held(torch, trainer, record, steps)
+        del record, trainer
+    finally:
+        loop.make_train_step, loop.CheckpointManager.save_async = made, save
+        compression.compressed_mean_tree.record = None
+    torch.cuda.empty_cache()
+    return out
 
 
 def _launch_counters():

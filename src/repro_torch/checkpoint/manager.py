@@ -24,6 +24,19 @@ reference's ``_path_str`` writes them.
   reference wrote opens so, and ``repro_torch.carry``'s
   ``lm_params_from_reference`` and ``opt_state_from_reference`` carry it
   into the port's layout.
+
+On a mesh (``CheckpointManager(..., ctx=)`` with a DeviceMesh, and the
+tree's ``specs``: the params' and ``sharding.opt_state_specs``'), a
+save gathers each leaf whole from the ranks' blocks
+onto rank 0 (``sharding.gather_whole``) on the calling
+thread, leaf by leaf in ``flatten``'s order, so that every rank runs the
+collectives in one order; rank 0 alone keeps the host copies and writes
+them, in the same
+format, and renames atomically; a barrier over the mesh follows the
+write (for ``save_async``, in ``wait``, which every rank calls at the
+same points). So a checkpoint holds the full logical arrays, as the
+reference's does, and ``restore`` cuts each rank's block from them: it
+opens on any mesh and on one device (the reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -75,35 +88,94 @@ def _nest(leaves: Dict[str, Any]) -> dict:
     return out
 
 
+def _rank0(ctx) -> bool:
+    return all(ctx.coord(axis) == 0 for axis in ctx.shape)
+
+
+def _whole(leaf, spec, ctx):
+    """A leaf gathered whole from the ranks' blocks onto rank 0 (a
+    QTensor's payload and scales each by its own spec); None on the other
+    ranks."""
+    from repro_torch.distributed.sharding import gather_whole
+    if isinstance(leaf, QTensor):
+        q = gather_whole(leaf.q, spec.q, ctx)
+        scale = gather_whole(leaf.scale, spec.scale, ctx)
+        return None if q is None else QTensor(q=q, scale=scale,
+                                              shape=tuple(q.shape))
+    return gather_whole(leaf.detach(), spec, ctx)
+
+
+def _cut(val, spec, ctx):
+    """The rank's block of a whole leaf read from disk."""
+    from repro_torch.distributed.sharding import block
+    if isinstance(val, QTensor):
+        q = block(val.q, spec.q, ctx)
+        return QTensor(q=q, scale=block(val.scale, spec.scale, ctx),
+                       shape=tuple(q.shape))
+    return block(val, spec, ctx) if val.dim() else val
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, ctx=None):
         self.dir = directory
         self.keep = keep
-        os.makedirs(directory, exist_ok=True)
+        self.ctx = ctx if ctx is not None and ctx.mesh is not None else None
+        self.writer = self.ctx is None or _rank0(self.ctx)
+        if self.writer:
+            os.makedirs(directory, exist_ok=True)
+        self._barrier()
         self._pending: Optional[threading.Thread] = None
+        self._unsynced = False
+
+    def _barrier(self):
+        """Every rank of the mesh past this point (a one-element
+        all-reduce over its axes); nothing off a mesh."""
+        if self.ctx is not None:
+            from repro_torch.distributed import compat
+            compat.all_reduce_axis(torch.zeros(1, device=self.ctx.device),
+                                   self.ctx, tuple(self.ctx.shape))
 
     # -- write ---------------------------------------------------------
-    def save(self, step: int, tree: Any, extra: Optional[Dict] = None):
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
+             specs: Any = None):
+        """``specs``: on a mesh, the tree's specs (``tree`` the rank's
+        blocks)."""
         self.wait()
-        self._write(step, self._snapshot(tree), extra or {})
+        host = self._snapshot(tree, specs)
+        if self.writer:
+            self._write(step, host, extra or {})
+        self._barrier()
 
-    def save_async(self, step: int, tree: Any, extra: Optional[Dict] = None):
+    def save_async(self, step: int, tree: Any, extra: Optional[Dict] = None,
+                   specs: Any = None):
         self.wait()
-        host = self._snapshot(tree)     # device -> host copy happens here
-        t = threading.Thread(target=self._write, args=(step, host,
-                                                       extra or {}))
-        t.start()
-        self._pending = t
+        host = self._snapshot(tree, specs)  # device -> host copy happens here
+        if self.writer:
+            t = threading.Thread(target=self._write, args=(step, host,
+                                                           extra or {}))
+            t.start()
+            self._pending = t
+        self._unsynced = self.ctx is not None
 
     def wait(self):
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._unsynced:
+            self._unsynced = False
+            self._barrier()
 
-    @staticmethod
-    def _snapshot(tree):
+    def _snapshot(self, tree, specs=None):
+        """The host copies of the tree's leaves (on a mesh, the whole
+        leaves, gathered here; ranks other than 0 keep none)."""
         leaves = []
-        for path, leaf in flatten(tree):
+        spec_leaves = [None] * len(flatten(tree)) if self.ctx is None \
+            else [sp for _, sp in flatten(specs)]
+        for (path, leaf), spec in zip(flatten(tree), spec_leaves):
+            if spec is not None:
+                leaf = _whole(leaf, spec, self.ctx)
+            if not self.writer:
+                continue
             if isinstance(leaf, QTensor):
                 leaves.append((path, "qtensor", (_to_host(leaf.q),
                                                  _to_host(leaf.scale),
@@ -168,12 +240,14 @@ class CheckpointManager:
         val = np.load(os.path.join(d, e["files"][0]))
         return _from_disk(val, e.get("dtype", str(val.dtype)))
 
-    def restore(self, step: int, like: Any = None):
+    def restore(self, step: int, like: Any = None, specs: Any = None):
         """(tree, extra). With ``like`` (the port's tree of tensors and
         QTensors), each leaf of the checkpoint at ``like``'s path is
         copied into ``like``'s tensor in place (cast to its dtype) and
         ``like`` is returned; without, the checkpoint's own tree on the
-        host."""
+        host. On a mesh ``like`` holds the rank's blocks and ``specs``
+        their specs: each is cut from the whole leaf on disk, whatever
+        mesh (or one device) wrote it."""
         d = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -181,9 +255,13 @@ class CheckpointManager:
             return _nest({e["path"]: self._load(d, e)
                           for e in manifest["leaves"]}), manifest["extra"]
         by_path = {e["path"]: e for e in manifest["leaves"]}
+        spec_leaves = [None] * len(flatten(like)) if self.ctx is None \
+            else [sp for _, sp in flatten(specs)]
         with torch.no_grad():
-            for path, leaf in flatten(like):
+            for (path, leaf), spec in zip(flatten(like), spec_leaves):
                 val = self._load(d, by_path[_path_str(path)])
+                if spec is not None:
+                    val = _cut(val, spec, self.ctx)
                 if isinstance(leaf, QTensor):
                     leaf.q.copy_(val.q)
                     leaf.scale.copy_(val.scale)

@@ -9,8 +9,9 @@ regenerates the stream from any step with no state to lose.
 ``PrefetchingLoader`` prepares batch(step + 1) on a background thread,
 tagging each with an epoch; ``seek`` (on restore) bumps the epoch, and
 stale prefetches are discarded by tag. It puts each batch on the
-trainer's device, where the reference calls ``shard_batch`` onto its
-mesh.
+trainer's device, or, on a mesh, each rank's block of it
+(``shard_batch``): every rank draws the same counter-based batch and
+keeps its rows.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, resolve
+from repro_torch.device import resolve
+from repro_torch.distributed.meshctx import MeshCtx
 
 
 class SyntheticLMData:
@@ -59,13 +61,42 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+def shard_batch(batch: Dict[str, np.ndarray], ctx, microbatches: int = 1):
+    """The rank's rows of a numpy batch, as tensors on ``ctx.device``:
+    the reference's ``shard_batch`` places the batch over the dp axes
+    (``P(dp_axes)``). With ``microbatches`` n, microbatch i is rows
+    ``[i·B/n, (i+1)·B/n)`` of the batch (the reference's reshape), and
+    the rank keeps its block of each, in microbatch order; where a
+    microbatch does not split over the dp axes (``batch_sharded``), all
+    of it. Off a mesh (no DeviceMesh) the whole batch."""
+    if ctx.mesh is None:
+        return to_device(batch, ctx.device)
+    out = {}
+    for k, v in batch.items():
+        n = max(microbatches, 1)
+        rows = v.shape[0] // n
+        parts = [v[i * rows:(i + 1) * rows] for i in range(n)]
+        if ctx.batch_sharded(rows):
+            cut = ctx.block(rows, ctx.dp_axes)
+            parts = [p[cut] for p in parts]
+        out[k] = torch.from_numpy(np.ascontiguousarray(
+            np.concatenate(parts))).to(ctx.device)
+    return out
+
+
 class PrefetchingLoader:
     """Epoch-tagged double-buffered loader over a batch_at(step) source,
-    its batches on ``device`` (default the CUDA card)."""
+    its batches on ``where``: a device (default the CUDA card), or a
+    ``MeshCtx``, whose rank keeps its rows (``shard_batch``, with
+    ``microbatches``)."""
 
-    def __init__(self, source, device: DeviceLike = None, depth: int = 2):
+    def __init__(self, source, where=None, depth: int = 2,
+                 microbatches: int = 1):
         self.source = source
-        self.device = resolve(device)
+        self.ctx = where if isinstance(where, MeshCtx) else None
+        self.device = self.ctx.device if self.ctx is not None \
+            else resolve(where)
+        self.microbatches = microbatches
         self.depth = depth
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._epoch = 0
@@ -80,7 +111,9 @@ class PrefetchingLoader:
             with self._lock:
                 epoch, step = self._epoch, self._next_step
                 self._next_step += 1
-            batch = to_device(self.source.batch_at(step), self.device)
+            batch = self.source.batch_at(step)
+            batch = to_device(batch, self.device) if self.ctx is None \
+                else shard_batch(batch, self.ctx, self.microbatches)
             try:
                 self._q.put((epoch, step, batch), timeout=0.5)
             except queue.Full:

@@ -16,7 +16,9 @@ port keeps one dict a layer (``carry._unstacked``), so the spec of a
 layer's leaf is the reference's rule applied to the stacked shape, with
 the layer axis dropped (``leaf_spec(..., stacked=True)``).
 
-``shard_params`` cuts a whole tree into this rank's blocks, and
+``shard_params`` cuts a whole tree into this rank's blocks,
+``gather_whole`` puts a leaf back together from them on the mesh's
+first rank (a checkpoint's save), and
 ``sharded_init`` draws the params "born sharded": each leaf in
 ``M.init``'s order on the rank's device, cut to the rank's block before
 the next is drawn, so that no rank holds more than one whole leaf, and
@@ -169,10 +171,11 @@ def build_param_specs(params, cfg: ModelConfig, ctx: MeshCtx):
 
 
 def opt_state_specs(opt_state, param_specs, ctx: MeshCtx) -> dict:
-    """Specs for the optimizer state tree: f32 moments mirror the param
-    spec; an int8 ``QTensor``'s payload takes the param's spec, and its
-    per-block scales the leading entries and the last (blocked) axis's
-    only where the blocks divide across it."""
+    """Specs for the optimizer state tree (whole, or the rank's blocks):
+    f32 moments mirror the param spec; an int8 ``QTensor``'s payload
+    takes the param's spec, and its per-block scales the leading entries
+    and the last (blocked) axis's only where the blocks divide across
+    it. A gradient's spec, and the error feedback's, are the param's."""
     from repro_torch.train.optimizer import QTensor
 
     def one(state_leaf, spec):
@@ -183,7 +186,9 @@ def opt_state_specs(opt_state, param_specs, ctx: MeshCtx) -> dict:
         if len(state_leaf.scale.shape) == rank and rank > 0:
             n_blocks = state_leaf.scale.shape[-1]
             last = entries[-1]
-            ok = n_blocks % ctx.axes_size(last) == 0
+            # a rank's block on a mesh knows its place in the whole leaf
+            ok = state_leaf.last.own_scales if state_leaf.last is not None \
+                else n_blocks % ctx.axes_size(last) == 0
             ss = (*entries[:-1], last if ok else None)
         else:
             ss = tuple(entries[:len(state_leaf.scale.shape)])
@@ -226,12 +231,15 @@ def shard_params(params, cfg: ModelConfig, ctx: MeshCtx,
     return _walk(params, cut)
 
 
-def sharded_init(cfg: ModelConfig, ctx: MeshCtx, seed: int = 0):
+def sharded_init(cfg: ModelConfig, ctx: MeshCtx, seed: int = 0,
+                 with_specs: bool = False):
     """``M.init(cfg, seed=seed)``'s params born sharded on the ctx's
     device: the same generator on that device draws each leaf whole, in
     ``M.init``'s order (each family's own ``init``, with its ``keep``
     hook), and keeps only this rank's block of it before it draws the
-    next. Every family of ``MESH_FAMILIES``."""
+    next. Every family of ``MESH_FAMILIES``. ``with_specs``: (the
+    blocks, their specs in the same tree), as ``build_param_specs``
+    gives them for the whole tree."""
     from repro_torch.models import hybrid, rwkv6, transformer
     if cfg.family not in MESH_FAMILIES:
         raise ValueError(f"{cfg.name}: no family {cfg.family!r} on a mesh "
@@ -239,19 +247,51 @@ def sharded_init(cfg: ModelConfig, ctx: MeshCtx, seed: int = 0):
     init = {"ssm": rwkv6.init, "hybrid": hybrid.init}.get(
         cfg.family, transformer.init)
     gen = torch.Generator(device=ctx.device).manual_seed(seed)
+    specs = {}
 
     def keep(path, leaf):
         spec = leaf_spec(path, leaf.shape, cfg, ctx, _is_stacked(path))
+        specs[path] = spec
         return _own(block(leaf, spec, ctx), ctx.device)
-    return init(gen, cfg, keep=keep)
+    params = init(gen, cfg, keep=keep)
+    if not with_specs:
+        return params
+    return params, _walk(params, lambda path, _: specs[path])
 
 
 def gather(t: torch.Tensor, spec: tuple, ctx: MeshCtx) -> torch.Tensor:
     """The block ``t`` of a param with its dims over the ``fsdp`` axis
-    gathered whole: FSDP's gather before a weight's use. Dims over other
-    axes stay as they are (a param's spec names one axis a dim)."""
+    gathered whole: FSDP's gather before a weight's use, whose backward
+    sums the gradient over ``fsdp`` and keeps the block
+    (``compat.fsdp_gather_axis``). Dims over other axes stay as they are
+    (a param's spec names one axis a dim)."""
     from repro_torch.distributed import compat
     for dim, axes in enumerate(spec):
         if axes == ctx.fsdp_axis:
-            t = compat.all_gather_axis(t, ctx, ctx.fsdp_axis, dim)
+            t = compat.fsdp_gather_axis(t, ctx, ctx.fsdp_axis, dim)
+    return t
+
+
+def whole_shape(shape, spec: tuple, ctx: MeshCtx) -> tuple:
+    """The whole leaf's shape of a block of ``shape`` under ``spec``."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n * ctx.axes_size(axes) for n, axes in zip(shape, spec))
+
+
+@torch.no_grad()
+def gather_whole(t: torch.Tensor, spec: tuple, ctx: MeshCtx):
+    """The whole leaf from the ranks' blocks ``t`` under ``spec`` (every
+    sharded dim gathered over its axes, the first axis of an entry
+    major): what ``block`` cuts, put back on the rank whose coordinates
+    are all 0; None on the others (``compat.gather_first``: a rank off an
+    axis's first coordinate leaves the later gathers, and so does every
+    rank of its group there). Every rank must call it, in the same
+    order."""
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.meshctx import _names
+    for dim, axes in enumerate(spec):
+        for axis in reversed(_names(axes)):
+            if t is None:
+                return None
+            t = compat.gather_first(t, ctx, axis, dim)
     return t

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         [--smoke] [--batch 2] [--prompt-len 16] [--max-new 8] \
-        [--temperature 0] [--seed 0] [--device cuda]
+        [--temperature 0] [--seed 0] [--device cuda] [--layers N]
 
 On a mesh, one process a rank, under ``torch.distributed.run``::
 
@@ -36,9 +36,11 @@ tokens does not give (ROADMAP C21; serve both through ``M.init`` and
 the tokens, and the time split into prefill (with the first token) and
 decode, on the host clock; the first call includes the card's warm-up.
 ``--device`` defaults to the CUDA card; ``--device cpu`` runs the
-kernels' plain PyTorch versions.
+kernels' plain PyTorch versions. ``--layers N`` keeps a model's first N
+layers (a depth cut; the dense and MoE transformers).
 """
 import argparse
+import dataclasses
 import math
 import os
 import time
@@ -106,9 +108,14 @@ def main(argv=None) -> ServeRun:
                     help="D,M or P,D,M: serve on a mesh of that shape")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
                     default="nccl")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model to its first N layers (the "
+                         "dense and MoE transformers)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if cfg.embeds_input:
         raise SystemExit(f"{args.arch} takes frame embeddings (stub "
                          f"frontend); see examples/rag_serve.py for the "

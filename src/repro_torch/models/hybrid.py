@@ -132,7 +132,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     if ctx is not None and ctx.mesh is not None:
         if mode == "train":
             raise NotImplementedError(f"{cfg.name}: training on a mesh is "
-                                      "not ported (ROADMAP A8.3)")
+                                      "not ported (ROADMAP A8.3b)")
         mw = L.MeshWeights(cfg, ctx)
     if mw is None:
         x = L.embed_apply(params["embed"], batch["tokens"])

@@ -33,6 +33,17 @@ attention over a cache whose sequence is sharded (``decode_attention``'s
 the partial max and sum combined over the axes. The recurrent families
 fetch their layers' blocks through it too (``rwkv_time_mix``,
 ``rwkv_channel_mix``, ``mamba``), their scans on the rank's heads.
+
+In training on a mesh (the dense and MoE transformers) the same products
+carry gradients through ``distributed.compat``'s collectives: each
+FSDP gather's backward is a reduce-scatter, each row-parallel sum's the
+identity, and where the replicated residual stream enters a
+column-parallel product (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``,
+the unembedding) ``MeshWeights.enter`` sums its gradient over
+``model``; so do the replicated leaves that a rank uses on its heads
+only (the QKV biases and qk-norm scales) and, where a rank's q heads
+take the replicated k and v, k and v themselves. The loss is
+``vocab_parallel_nll`` on logits sharded over ``model``.
 """
 from __future__ import annotations
 
@@ -380,6 +391,37 @@ def unembed_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ (p["head"] if "head" in p else p["table"].T)
 
 
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, ctx,
+                       over) -> torch.Tensor:
+    """Each token's NLL, [B, S] f32, of logits [B, S, V_loc] whose
+    vocabulary is sharded over the mesh axis ``over`` (the rank's block;
+    ``None``: the whole vocabulary), by ``softmax_cross_entropy``'s
+    arithmetic: the row max, taken without gradient, is a pmax over
+    ``over`` and is subtracted in the logits' dtype; the f32 sum of exps
+    is summed over ``over``; the label's shifted logit comes from the
+    rank whose block holds it (zeros elsewhere, summed over ``over``).
+    The sums' backward is the identity (the loss is replicated over
+    ``over``), so each rank's logits get their own columns' gradient."""
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lab = labels.long()
+    if over is not None:
+        m = compat.all_reduce_axis(m, ctx, over, op="max")
+    sf = (logits - m).float()
+    m0 = m[..., 0].float()
+    sumexp = torch.exp(sf).sum(dim=-1)
+    if over is None:
+        picked = sf.gather(-1, lab[..., None])[..., 0]
+    else:
+        n = logits.shape[-1]
+        ids = lab - ctx.block(n * ctx.axes_size(over), over).start
+        inside = (ids >= 0) & (ids < n)
+        picked = sf.gather(-1, ids.clamp(0, n - 1)[..., None])[..., 0]
+        picked = torch.where(inside, picked, torch.zeros((), device=sf.device))
+        sumexp = compat.all_reduce_axis(sumexp, ctx, over)
+        picked = compat.all_reduce_axis(picked, ctx, over)
+    return (torch.log(sumexp) + m0) - (picked + m0)
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: torch.Tensor) -> torch.Tensor:
     """Mean of ``mask``-weighted token NLL, as the reference's: logits
@@ -414,11 +456,31 @@ class MeshWeights:
     recurrent blocks; ``row_sum`` then sums a row-parallel product over
     ``model``."""
 
-    def __init__(self, cfg: ModelConfig, ctx):
+    def __init__(self, cfg: ModelConfig, ctx, local_batch: bool = False):
         self.cfg, self.ctx = cfg, ctx
         self.tp = ctx.tp_axis
         self.r = ctx.coord(ctx.tp_axis)
         self.table = None
+        self.local_batch = local_batch
+
+    def enter(self, x: torch.Tensor, over) -> torch.Tensor:
+        """``x``, replicated over ``model``, where it enters work split
+        there (``over``: the spec entry of the split dim; anything else
+        than ``model`` leaves ``x`` as it is): the backward sums the
+        ranks' gradients over ``model`` (``compat.to_parallel``)."""
+        if over != self.tp:
+            return x
+        return compat.to_parallel(x, self.ctx, self.tp)
+
+    def attn_entries(self):
+        """The spec entries of ``wq``'s and ``wk``'s output dims: the
+        q heads and the kv heads are over ``model`` where they are
+        ``model``."""
+        cfg, d = self.cfg, self.cfg.d_model
+        return (sharding.leaf_spec(("attn", "wq"), (d, cfg.q_dim), cfg,
+                                   self.ctx, True)[1],
+                sharding.leaf_spec(("attn", "wk"), (d, cfg.kv_dim), cfg,
+                                   self.ctx, True)[1])
 
     def weight(self, t, names, full, stacked: bool = True):
         spec = sharding.leaf_spec(names, full, self.cfg, self.ctx, stacked)
@@ -450,10 +512,19 @@ class MeshWeights:
         for name in names:
             out[name], specs[name] = self.weight(ap[name], ("attn", name),
                                                  full[name])
+        # replicated leaves that the rank uses on its own heads: their
+        # gradients are summed over model (``enter``)
         if "bq" in ap:
-            out["bq"] = ap["bq"][self.ctx.block(cfg.q_dim, specs["wq"][1])]
-            out["bk"] = ap["bk"][self.ctx.block(cfg.kv_dim, specs["wk"][1])]
-            out["bv"] = ap["bv"][self.ctx.block(cfg.kv_dim, specs["wk"][1])]
+            qo, ko = specs["wq"][1], specs["wk"][1]
+            out["bq"] = self.enter(ap["bq"], qo)[self.ctx.block(cfg.q_dim,
+                                                                 qo)]
+            out["bk"] = self.enter(ap["bk"], ko)[self.ctx.block(cfg.kv_dim,
+                                                                 ko)]
+            out["bv"] = self.enter(ap["bv"], ko)[self.ctx.block(cfg.kv_dim,
+                                                                 ko)]
+        for norm, w in (("q_norm", "wq"), ("k_norm", "wk")):
+            if norm in ap and w in specs:
+                out[norm] = self.enter(ap[norm], specs[w][1])
         return out, specs["wo"][0] if "wo" in specs else None
 
     def ffn(self, p: dict, x: torch.Tensor, parent: str,
@@ -463,17 +534,21 @@ class MeshWeights:
         row-parallel ``w_down`` summed over ``model``."""
         d = self.cfg.d_model
         w = {}
-        w["w_up"], _ = self.weight(p["w_up"], (parent, "w_up"), (d, d_ff))
+        w["w_up"], su = self.weight(p["w_up"], (parent, "w_up"), (d, d_ff))
         w["w_down"], sd = self.weight(p["w_down"], (parent, "w_down"),
                                       (d_ff, d))
         if "w_gate" in p:
             w["w_gate"], _ = self.weight(p["w_gate"], (parent, "w_gate"),
                                          (d, d_ff))
-        return self.row_sum(ffn_apply(w, x), sd[0])
+        return self.row_sum(ffn_apply(w, self.enter(x, su[1])), sd[0])
 
     def batch_block(self, t: torch.Tensor) -> torch.Tensor:
         """The rank's block of ``t``'s batch (dim 0) over ``dp_axes``
-        where it divides (``MeshCtx.batch_sharded``), else ``t``."""
+        where it divides (``MeshCtx.batch_sharded``), else ``t``; ``t``
+        itself where the batch is the rank's block already
+        (``local_batch``: training, ``data.pipeline.shard_batch``)."""
+        if self.local_batch:
+            return t
         B = t.shape[0]
         return t[self.ctx.block(B, self.ctx.dp_axes)] \
             if self.ctx.batch_sharded(B) else t
@@ -513,10 +588,13 @@ class MeshWeights:
         ``embed`` gathered."""
         cfg = self.cfg
         if "head" not in p:
-            return x @ self.table.T
-        head, _ = self.weight(p["head"], ("embed", "head"),
-                              (cfg.d_model, cfg.vocab_size), stacked=False)
-        return x @ head
+            spec = sharding.leaf_spec(("embed", "table"),
+                                      (cfg.vocab_size, cfg.d_model), cfg,
+                                      self.ctx)
+            return self.enter(x, spec[0]) @ self.table.T
+        head, spec = self.weight(p["head"], ("embed", "head"),
+                                 (cfg.d_model, cfg.vocab_size), stacked=False)
+        return self.enter(x, spec[1]) @ head
 
     # -- the recurrent families --------------------------------------------
     def heads(self, n: int, what: str) -> slice:

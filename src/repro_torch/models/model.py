@@ -1,10 +1,10 @@
 """Family dispatcher: the port of ``repro.models.model``.
 
     params            = init(cfg, seed=seed, device=device)
-    logits, aux, _    = apply_train(params, cfg, batch)
+    logits, aux, _    = apply_train(params, cfg, batch, ctx=ctx)
     logits, _, kv     = apply_prefill(params, cfg, batch, ctx=ctx)
     logits, _, cache  = apply_decode(params, cfg, batch, cache, idx, ctx)
-    loss, (ce, aux)   = loss_fn(params, cfg, batch)
+    loss, (ce, aux)   = loss_fn(params, cfg, batch, ctx=ctx, rows=B)
 
 Transformer families (``dense``, ``moe``, ``vlm`` and ``audio``,
 ``models/transformer.py``), ``ssm`` (rwkv6, ``models/rwkv6.py``) and
@@ -17,11 +17,14 @@ recurrent state (ssm), or the Mamba state and every site's k and v
 remat policy ``remat`` names (the hybrid's shared block excepted, as in
 the reference).
 
-``apply_prefill`` and ``apply_decode`` take ``ctx=None``: ``None`` or a
+``apply_train``, ``loss_fn``, ``apply_prefill`` and ``apply_decode``
+take ``ctx=None``: ``None`` or a
 ``single_device_ctx`` runs one device; a ctx with a DeviceMesh runs the
 rank's blocks (``distributed/sharding.py``) through the family's mesh
 path, for every family: ``transformer.forward`` (dense, moe, vlm,
-audio), ``rwkv6.forward`` (ssm) and ``hybrid.forward`` (hybrid).
+audio), ``rwkv6.forward`` (ssm) and ``hybrid.forward`` (hybrid); in
+training the dense and MoE families (the others raise, naming ROADMAP
+A8.3b), whose ``loss_fn`` gives the rank's share of the loss.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import hybrid, rwkv6, transformer
-from repro_torch.models.layers import softmax_cross_entropy
+from repro_torch.models.layers import (softmax_cross_entropy,
+                                       vocab_parallel_nll)
 
 
 def _mod(cfg: ModelConfig):
@@ -52,23 +56,54 @@ def init(cfg: ModelConfig, *, seed: int = 0,
                           cfg)
 
 
-def apply_train(params, cfg: ModelConfig, batch, remat=True):
+def apply_train(params, cfg: ModelConfig, batch, remat=True, ctx=None):
     """The training forward: (logits [B, S, V], the MoE aux, None), each
-    layer under the remat policy ``remat`` names (``models/rematcfg``)."""
-    return _mod(cfg).forward(params, cfg, batch, mode="train", remat=remat)
+    layer under the remat policy ``remat`` names (``models/rematcfg``).
+    ``ctx`` with a DeviceMesh (the dense and MoE families): the rank's
+    blocks of the params and its block of the batch
+    (``data.pipeline.shard_batch``), and its logits block ``[B_loc, S,
+    V_loc]``."""
+    return _mod(cfg).forward(params, cfg, batch, mode="train", remat=remat,
+                             **_mesh_kw(ctx))
 
 
-def loss_fn(params, cfg: ModelConfig, batch, remat=True):
+def loss_fn(params, cfg: ModelConfig, batch, remat=True, ctx=None,
+            rows: Optional[int] = None):
     """Next-token cross-entropy + 0.01 x the MoE aux, and (ce, aux): the
     reference's. Targets are ``batch["labels"]`` where the batch has them
-    (embeddings in: musicgen), else the tokens shifted by one."""
-    logits, aux, _ = apply_train(params, cfg, batch, remat=remat)
+    (embeddings in: musicgen), else the tokens shifted by one.
+
+    On a mesh (``ctx`` with a DeviceMesh) ``batch`` is the rank's block
+    of a batch of ``rows`` rows (``data.pipeline.shard_batch``), and the
+    three values are this rank's shares: summed over the dp axes they
+    are the reference's loss, ce and aux (``distributed.compat``'s
+    convention), and every rank of ``model`` holds the same share. The
+    ce share is the rank's tokens' NLL sum over the whole batch's token
+    count (``layers.vocab_parallel_nll`` on the vocabulary-sharded
+    logits), or, where the batch does not split over the dp axes and
+    every rank holds all of it, its mean over the dp size; the aux
+    (replicated over the dp axes) shares alike."""
+    logits, aux, _ = apply_train(params, cfg, batch, remat=remat, ctx=ctx)
     if "labels" in batch:
         labels, lg = batch["labels"], logits
     else:
         labels, lg = batch["tokens"][:, 1:], logits[:, :-1]
-    mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-    ce = softmax_cross_entropy(lg, labels, mask)
+    if ctx is None or ctx.mesh is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+        ce = softmax_cross_entropy(lg, labels, mask)
+        return ce + 0.01 * aux, (ce, aux)
+    sharded = ctx.batch_sharded(rows)
+    held = rows // ctx.dp_size if sharded else rows
+    if labels.shape[0] != held:
+        raise ValueError(f"the rank holds {labels.shape[0]} rows of a batch "
+                         f"of {rows}; shard_batch lays out {held}")
+    over = ctx.tp_axis if logits.shape[-1] != cfg.vocab_size else None
+    ce = vocab_parallel_nll(lg, labels, ctx, over).sum() \
+        / (rows * labels.shape[1])
+    if not sharded:
+        ce = ce / ctx.dp_size
+    aux = aux / ctx.dp_size
     return ce + 0.01 * aux, (ce, aux)
 
 

@@ -20,7 +20,13 @@ those three phases (``_send``, ``_experts``, ``_combine``) three ways:
     tokens, and each expert shard computes M copies); the expert weights
     ``[E/M, d, ff]`` gathered over ``fsdp``; the ``all_to_all``s over
     ``model`` through ``distributed/compat.py``; the aux's ``me`` and
-    ``ce`` ``pmean``ed over ``model`` and the aux over the dp axes;
+    ``ce`` ``pmean``ed over ``model`` and the aux over the dp axes. In
+    training the gradients run back through the same collectives
+    (``distributed.compat``'s convention): the reverse all-to-alls, the
+    routed output's gather kept as the rank's block, the replicated x
+    and router summed over ``model`` (each rank routed only its token
+    block), the expert weights' FSDP gather reduce-scattered; training
+    needs the sequence to split over ``model``;
   - ``dispatch_simulated``: the M shards' bodies in one process, each
     ``all_to_all`` a transpose of ``[M, M, cap_send, d]``; the plain
     version of the mesh path, for checks (nothing serves through it).
@@ -367,7 +373,14 @@ def _moe_mesh(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh):
     wu, _ = mesh.weight(p["w_up"], ("moe", "w_up"), (E, d, ff))
     wd, _ = mesh.weight(p["w_down"], ("moe", "w_down"), (E, ff, d))
     blk = _token_block(S, M, r)
-    xb = x[:, blk]
+    if x.requires_grad and (blk.stop - blk.start) == S and M > 1:
+        raise ValueError(f"{cfg.name}: training on a mesh routes each model "
+                         f"rank's block of the sequence; {S} positions do "
+                         f"not split over the {M} ranks of {tp!r}")
+    # each model rank routes its own token block of the replicated x with
+    # the replicated router: their gradients are parts, summed over model
+    xb = compat.to_parallel(x, ctx, tp)[:, blk]
+    router = compat.to_parallel(p["router"], ctx, tp)
     Sl = xb.shape[1]
     forced = None
     if moe_apply.replay is not None:    # whole-batch ids: take our tokens'
@@ -377,7 +390,7 @@ def _moe_mesh(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh):
         if ctx.batch_sharded(Bg):
             ids = ids[ctx.block(Bg, ctx.dp_axes)]
         forced = ids[:, blk].reshape(-1, ids.shape[-1]).to(x.device)
-    s = _send(xb.reshape(-1, d), p["router"], cfg, M, forced)
+    s = _send(xb.reshape(-1, d), router, cfg, M, forced)
     cap, cap_exp = capacities(B * Sl, cfg, M)
     recv_x = compat.all_to_all_axis(s["send_x"], ctx, tp)
     recv_le = compat.all_to_all_axis(s["send_le"], ctx, tp)

@@ -55,8 +55,18 @@ are. The VLM's image embeddings too; its cross layers take ``wk`` and
 B4 on the rank's q heads, and ``wo`` and the FFN through
 ``MeshWeights``; its image cache is laid out as the self cache, and
 where that shards the image positions a decode step's cross attention
-is flash-decoding over them. Training on a mesh raises
-``NotImplementedError`` naming ROADMAP A8.3.
+is flash-decoding over them.
+
+Training on a mesh (``mode="train"`` with a ctx; the dense and MoE
+families) runs the same layer loop, each layer under the remat policy,
+on the rank's block of the batch (``data.pipeline.shard_batch``: the
+caller cuts it, as the reference's ``shard_batch`` places it), with
+the gradients carried through ``distributed.compat``'s collectives
+(``layers.MeshWeights``): the recompute of a layer repeats its FSDP
+gathers and its B4 launch on the rank's heads. The logits come out
+sharded over ``model`` on the vocabulary, for
+``layers.vocab_parallel_nll``. The VLM and audio families raise
+``NotImplementedError`` in train mode on a mesh, naming ROADMAP A8.3b.
 
 The reference's perf flags (``models/perfcfg``) keep their defaults:
 the ones on this path act only on a mesh's layout or on gemma3
@@ -82,6 +92,7 @@ from repro_torch.models import rematcfg
 
 MODES = ("prefill", "decode", "train")
 FAMILIES = ("dense", "moe", "vlm", "audio")
+TRAIN_MESH_FAMILIES = ("dense", "moe")     # the rest: ROADMAP A8.3b
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -186,7 +197,14 @@ def _self_attn(pb, x, cfg, *, positions, window, mode, cache=None,
     block; ``layout``: the decode cache's (sequence axes, the block's
     first position, kv heads over ``model``), ``_cache_layout``'s."""
     ap, wo_over = (pb["attn"], None) if mw is None else mw.attn(pb["attn"])
-    q, k, v = L.attn_qkv(ap, L.rms_norm(x, pb["ln1"], cfg.norm_eps), cfg)
+    h = L.rms_norm(x, pb["ln1"], cfg.norm_eps)
+    if mw is None:
+        q, k, v = L.attn_qkv(ap, h, cfg)
+    else:           # the column-parallel entries (``MeshWeights.enter``)
+        q_over, kv_over = mw.attn_entries()
+        hq = mw.enter(h, q_over)
+        q, k, v = L.attn_qkv(ap, hq, cfg, kv_x=None if kv_over == q_over
+                             else mw.enter(h, kv_over))
     q = L.rope(q, positions, cfg.rope_theta)
     k_rot = L.rope(k, positions, cfg.rope_theta)
     Hl = q.shape[2]
@@ -194,8 +212,10 @@ def _self_attn(pb, x, cfg, *, positions, window, mode, cache=None,
     kv_whole = Hl < cfg.n_heads and k.shape[2] == cfg.n_kv_heads
     h0 = mw.r * Hl if Hl < cfg.n_heads else 0
     if mode != "decode":
-        kq, vq = _kv_for_heads(k_rot, v, h0, Hl, cfg) if kv_whole \
-            else (k_rot, v)
+        # every kv head on each rank, each rank's q heads meet some: the
+        # ranks' gradients of k and v are parts, summed over model
+        kq, vq = _kv_for_heads(mw.enter(k_rot, mw.tp), mw.enter(v, mw.tp),
+                               h0, Hl, cfg) if kv_whole else (k_rot, v)
         out = L.blockwise_attention(q, kq, vq, causal=True, window=window)
         new_kv = (k_rot, v)
     else:           # decode: cache = (k_cache, v_cache) [B, S_max, KV, hd]
@@ -301,12 +321,12 @@ def _mlp_or_moe(pb, x, cfg, mw=None, d_ff=0):
     return x + y, None
 
 
-def _train_layer(pb, x, cfg, positions, window):
+def _train_layer(pb, x, cfg, positions, window, mw=None, d_ff=0):
     """One self-attention layer of a training forward: (x, its aux or
-    None)."""
+    None); on a mesh (``mw``) the FFN ``d_ff`` wide whole."""
     attn_out, _ = _self_attn(pb, x, cfg, positions=positions, window=window,
-                             mode="train")
-    return _mlp_or_moe(pb, x + attn_out, cfg)
+                             mode="train", mw=mw)
+    return _mlp_or_moe(pb, x + attn_out, cfg, mw, d_ff)
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +350,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     policy), ``False`` or a policy name of ``models/rematcfg.py``.
 
     ``ctx`` with a DeviceMesh: ``params`` are the rank's blocks, the
-    batch is the whole one (every rank gets the same), and the results
+    batch is the whole one (every rank gets the same; in train mode the
+    rank's block of it, ``data.pipeline.shard_batch``), and the results
     are the rank's: logits ``[B_loc, S, V_loc]``, kv with the rank's
     batch block and kv heads, ``caches`` the rank's blocks."""
     check_supported(cfg)
@@ -338,10 +359,11 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
     mw = None
     if ctx is not None and ctx.mesh is not None:
-        if mode == "train":
-            raise NotImplementedError(f"{cfg.name}: training on a mesh is "
-                                      "not ported (ROADMAP A8.3)")
-        mw = L.MeshWeights(cfg, ctx)
+        if mode == "train" and cfg.family not in TRAIN_MESH_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name}: training the {cfg.family} family on a mesh is "
+                "not ported (ROADMAP A8.3b)")
+        mw = L.MeshWeights(cfg, ctx, local_batch=mode == "train")
     embeds = cfg.embeds_input and "embeds" in batch
     if embeds:
         x = batch["embeds"].to(getattr(torch, cfg.dtype))
@@ -387,8 +409,9 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         def cross(pb, x, img_kv, cfg):
             return _cross_attn(pb, x, img_kv, cfg, mw, img_layout)
     for i, pb in enumerate(params["blocks"]):
+        d_ff = cfg.d_ff_dense if kinds[i] == "dense_lead" else cfg.d_ff
         if train:
-            x, aux_l = layer(pb, x, cfg, positions, windows[i])
+            x, aux_l = layer(pb, x, cfg, positions, windows[i], mw, d_ff)
         else:
             cache = (caches["k"][i], caches["v"][i]) if mode == "decode" \
                 else None
@@ -396,9 +419,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
                                           window=windows[i], mode=mode,
                                           cache=cache, cur_index=cur_index,
                                           mw=mw, layout=layout)
-            x, aux_l = _mlp_or_moe(
-                pb, x + attn_out, cfg, mw,
-                cfg.d_ff_dense if kinds[i] == "dense_lead" else cfg.d_ff)
+            x, aux_l = _mlp_or_moe(pb, x + attn_out, cfg, mw, d_ff)
         if aux_l is not None:
             aux = aux + aux_l
         if mode == "prefill":

@@ -19,16 +19,31 @@ new trees, which XLA writes into the donated buffers).
 The arithmetic is the reference's, operation for operation in f32 (a
 Python float scalar is rounded to f32 as JAX's weak types are;
 ``torch.round`` rounds half to even, as ``jnp.round`` does).
+
+On a mesh (``ctx`` and the params' ``specs``, ``distributed/sharding``)
+every leaf is the rank's block, and so are its gradient and its states,
+laid out as ``sharding.opt_state_specs`` says. ``global_norm`` sums
+each block's squares and all-reduces them over exactly the axes that
+shard the leaf (a replicated block counts once). The int8 blocks are
+those of the whole leaf (``Blocked``): where a rank's block of the last
+dim holds whole quantization blocks, its scales are its own block of
+the leaf's; where it does not (the last dim's block is not a multiple
+of the quantization block, or the whole last dim is one block), a block
+spans ranks of the axis that shards that dim, its absmax is a pmax over
+the axis, and every rank holds all of the leaf's scales (replicated
+there, as ``opt_state_specs`` lays them out).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
+from repro_torch.distributed import compat
+from repro_torch.distributed.meshctx import _names
 
 BLOCK = 128
 
@@ -36,11 +51,48 @@ BLOCK = 128
 # ---------------------------------------------------------------------------
 # block-wise int8 quantization
 # ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Blocked:
+    """Where a rank's block of a leaf's last dim sits in the whole leaf's:
+    ``whole`` its length, ``start`` the block's first index, ``axes``
+    the mesh axes that shard it (of ``ctx``)."""
+    whole: int
+    start: int
+    axes: Tuple[str, ...]
+    ctx: Any
+
+    @property
+    def b(self) -> int:
+        return _block_of((self.whole,))
+
+    @property
+    def own_scales(self) -> bool:
+        """Whether the rank's block holds whole quantization blocks, so
+        that its scales are a block of the leaf's (``opt_state_specs``'
+        rule: the blocks divide across the axes)."""
+        return (self.whole // self.b) % self.ctx.axes_size(self.axes) == 0
+
+
+def blocked(shape, spec, ctx) -> Optional[Blocked]:
+    """The ``Blocked`` of a block of ``shape`` under the leaf's ``spec``
+    on ``ctx``, or None where the last dim is whole on this rank (or the
+    leaf is a scalar)."""
+    if ctx is None or ctx.mesh is None or not shape:
+        return None
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    axes = _names(spec[-1])
+    if ctx.axes_size(axes) == 1:
+        return None
+    whole = shape[-1] * ctx.axes_size(axes)
+    return Blocked(whole, ctx.block(whole, axes).start, axes, ctx)
+
+
 @dataclasses.dataclass
 class QTensor:
     q: torch.Tensor        # int8 payload, the tensor's shape
     scale: torch.Tensor    # f32 per-block absmax / 127, shape[:-1] + (n,)
     shape: Tuple[int, ...] = ()
+    last: Optional[Blocked] = None   # on a mesh: the block's place
 
 
 def _block_of(shape) -> int:
@@ -50,8 +102,38 @@ def _block_of(shape) -> int:
     return BLOCK if last % BLOCK == 0 else last
 
 
-def quantize_block(x: torch.Tensor) -> QTensor:
+def _scale_index(t_last: Blocked, n: int, device) -> torch.Tensor:
+    """For each of the block's ``n`` last-dim entries, the index of its
+    quantization block among the rank's scales."""
+    ids = (t_last.start + torch.arange(n, device=device)) // t_last.b
+    return ids - t_last.start // t_last.b if t_last.own_scales else ids
+
+
+def _spread(t: QTensor) -> torch.Tensor:
+    """Each entry's scale, in the payload's shape (a block that spans
+    ranks)."""
+    return t.scale[..., _scale_index(t.last, t.q.shape[-1], t.q.device)]
+
+
+def quantize_block(x: torch.Tensor, last: Optional[Blocked] = None
+                   ) -> QTensor:
+    """``x`` in int8 blocks of BLOCK along the last axis, each with its
+    absmax scale; ``last``: ``x`` is a rank's block of a leaf on a mesh,
+    quantized by the whole leaf's blocks."""
     shape = tuple(x.shape)
+    if last is not None and not last.own_scales:
+        xf = x.float()
+        ids = _scale_index(last, shape[-1], x.device)
+        absmax = torch.zeros(shape[:-1] + (last.whole // last.b,),
+                             dtype=torch.float32, device=x.device)
+        absmax = absmax.scatter_reduce(-1, ids.expand(shape), xf.abs(),
+                                       "amax")
+        absmax = compat.all_reduce_axis(absmax, last.ctx, last.axes,
+                                        op="max")
+        scale = torch.clamp(absmax / 127.0, min=1e-12)
+        q = torch.clamp(torch.round(xf / scale[..., ids]), -127,
+                        127).to(torch.int8)
+        return QTensor(q=q, scale=scale, shape=shape, last=last)
     if not shape:
         return QTensor(q=torch.zeros((), dtype=torch.int8, device=x.device),
                        scale=x.abs().float()[None] / 127.0, shape=shape)
@@ -60,12 +142,15 @@ def quantize_block(x: torch.Tensor) -> QTensor:
     absmax = xb.abs().amax(dim=-1, keepdim=True)
     scale = torch.clamp(absmax / 127.0, min=1e-12)
     q = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
-    return QTensor(q=q.reshape(shape), scale=scale[..., 0], shape=shape)
+    return QTensor(q=q.reshape(shape), scale=scale[..., 0], shape=shape,
+                   last=last)
 
 
 def _quantum_floor(t: QTensor) -> torch.Tensor:
     """Half a quantum of each stored value (its error bound), in the
     tensor's shape."""
+    if t.last is not None and not t.last.own_scales:
+        return _spread(t) * 0.5
     if not t.shape:
         return t.scale[0] * 0.5
     b = _block_of(t.shape)
@@ -73,6 +158,8 @@ def _quantum_floor(t: QTensor) -> torch.Tensor:
 
 
 def dequantize_block(t: QTensor) -> torch.Tensor:
+    if t.last is not None and not t.last.own_scales:
+        return t.q.float() * _spread(t)
     if not t.shape:
         return t.q.float() * t.scale[0]
     b = _block_of(t.shape)
@@ -129,21 +216,50 @@ def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
-def init_state(cfg: OptimizerConfig, params) -> dict:
+def init_state(cfg: OptimizerConfig, params, ctx=None, specs=None) -> dict:
     """{"step": int32 0, "m", "v": zeros in the params' tree, f32 or
-    QTensor}, on the params' device."""
-    def zeros_like_state(p):
+    QTensor}, on the params' device; on a mesh (``ctx``, the params'
+    ``specs``) the rank's blocks, int8 states quantized by the whole
+    leaves' blocks."""
+    lasts = _lasts(params, ctx, specs)
+
+    def zeros_like_state(p, last):
         z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return quantize_block(z) if cfg.int8_states else z
+        return quantize_block(z, last) if cfg.int8_states else z
     device = flatten(params)[0][1].device
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
-            "m": tree_map(zeros_like_state, params),
-            "v": tree_map(zeros_like_state, params)}
+            "m": tree_map(zeros_like_state, params, lasts),
+            "v": tree_map(zeros_like_state, params, lasts)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum()
-                          for _, g in flatten(tree)))
+def _lasts(params, ctx, specs):
+    """Each leaf's ``Blocked`` (None off a mesh), in the params' tree."""
+    if specs is None:
+        return tree_map(lambda p: None, params)
+    return tree_map(lambda p, s: blocked(tuple(p.shape), s, ctx), params,
+                    specs)
+
+
+def global_norm(tree, ctx=None, specs=None) -> torch.Tensor:
+    """The f32 norm of the leaves: their sums of squares added in
+    ``flatten``'s order; on a mesh (``ctx``, ``specs``) of the whole
+    leaves, each block's sum first summed over exactly the axes that
+    shard its leaf (one reduction a set of axes, in a fixed order), so
+    that on a mesh of one rank the norm is one device's bit for bit."""
+    parts = [g.float().square().sum() for _, g in flatten(tree)]
+    if specs is not None:
+        groups = {}
+        for i, (_, spec) in enumerate(flatten(specs)):
+            axes = tuple(sorted({a for e in spec for a in _names(e)}))
+            if ctx.axes_size(axes) > 1:
+                groups.setdefault(axes, []).append(i)
+        for axes in sorted(groups):
+            idx = groups[axes]
+            summed = compat.all_reduce_axis(
+                torch.stack([parts[i] for i in idx]), ctx, axes)
+            for j, i in enumerate(idx):
+                parts[i] = summed[j]
+    return torch.sqrt(sum(parts))
 
 
 _NO_DECAY = ("norm", "ln", "bias", "b_", "mu_", "w0", "u", "scale",
@@ -160,13 +276,15 @@ def decayable(name: str) -> bool:
 
 
 @torch.no_grad()
-def apply_updates(cfg: OptimizerConfig, params, grads, state):
+def apply_updates(cfg: OptimizerConfig, params, grads, state, ctx=None,
+                  specs=None):
     """One AdamW step, params and state updated in place. ``grads``: the
     params' tree (any float dtype). Returns (params, state, {"lr",
-    "grad_norm"}), the norm before clipping."""
+    "grad_norm"}), the norm before clipping. On a mesh (``ctx``, the
+    params' ``specs``) the rank's blocks of all three trees."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, ctx, specs)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
     b1, b2 = cfg.beta1, cfg.beta2
@@ -185,11 +303,11 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state):
         v_f.mul_(b2).add_((1 - b2) * g.square_())
         mh = m_f / c1
         if cfg.int8_states:
-            uq = quantize_block(torch.sqrt(v_f))
+            uq = quantize_block(torch.sqrt(v_f), v.last)
             denom = dequantize_block(uq) / torch.sqrt(c2) \
                 + _quantum_floor(uq) + cfg.eps
             delta = mh.div_(denom)
-            mq = quantize_block(m_f)
+            mq = quantize_block(m_f, m.last)
             m.q.copy_(mq.q)
             m.scale.copy_(mq.scale)
             v.q.copy_(uq.q)

@@ -68,7 +68,7 @@ def _tc(tmp, arch="qwen2-0.5b", **opt_kw):
 
 
 def _trainer(tc):
-    return Trainer(tc, device="cpu", log_fn=lambda s: None)
+    return Trainer(tc, "cpu", log_fn=lambda s: None)
 
 
 def _params(trainer):
@@ -305,9 +305,25 @@ def test_one_train_step_matches_the_references(microbatches, int8):
                 assert int((a.q.int() - b.q.int()).abs().max()) <= 1, path
 
 
-def test_grad_compression_raises_naming_the_mesh_work():
-    cfg = registry.get_smoke_config("qwen3-4b")
-    tc = base.TrainConfig(model=cfg, opt=base.OptimizerConfig(
-        grad_compression=True))
-    with pytest.raises(NotImplementedError, match="A8"):
-        make_train_step(tc, cfg)
+def test_grad_compression_without_a_pod_axis_is_the_plain_step():
+    """The reference ignores ``grad_compression`` where the mesh has no
+    ``pod`` axis (``src/repro/train/step.py:62``); so does the port on
+    one device: the same step, bit for bit."""
+    _, cfg, _, params = _setup("qwen3-4b")
+    batch = _torch_batch(_batch(cfg, B=4))
+    runs = []
+    for compress in (False, True):
+        tc = base.TrainConfig(model=cfg, opt=base.OptimizerConfig(
+            lr=1e-2, warmup_steps=0, total_steps=10,
+            grad_compression=compress), seq_len=32, global_batch=4)
+        p = [t.detach().clone().requires_grad_(True)
+             for _, t in opt.flatten(params)]
+        p = opt.unflatten(params, p)
+        state = opt.init_state(tc.opt, p)
+        p, state, m = make_train_step(tc, cfg)(p, state, batch)
+        runs.append((p, m))
+    (a, ma), (b, mb) = runs
+    for key in ("loss", "ce", "aux", "grad_norm", "lr"):
+        assert float(ma[key]) == float(mb[key]), key
+    for (_, x), (_, y) in zip(opt.flatten(a), opt.flatten(b)):
+        assert torch.equal(x, y)
