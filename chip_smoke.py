@@ -368,7 +368,7 @@ each of which fails the run (non-zero exit) if it fails:
                --mesh 2,2 --dist-backend gloo``: logits within lm_atol of
                the one-device run's and tokens equal wherever its top-2
                margin exceeds that, every rank's tokens equal. 16b:
-               qwen3-moe at MOE_LAYERS layers on a 1 x 4 mesh (32 experts
+               qwen3-moe at MESH_MOE_LAYERS layers on a 1 x 4 mesh (32 experts
                a rank, the all_to_all over four ranks; served through
                ``step.generate``, as phase 9b serves it, since the
                launcher takes no depth cut): each rank's first MoE block
@@ -389,8 +389,9 @@ each of which fails the run (non-zero exit) if it fails:
                the rank's first site's own q, k and v against its plain
                version. 16d (``families_phase``): the other four
                families at full width, MESH_FAMILY_RUNS: rwkv6-7b at 8
-               of 32 layers through ``step.generate``, zamba2-1.2b
-               through ``launch.serve.main --mesh``, musicgen-medium on
+               of 32 layers through ``step.generate``, zamba2-1.2b at 12
+               of 38 layers through ``launch.serve.main --mesh``,
+               musicgen-medium at 16 of 48 layers on
                seeded frame embeddings through ``make_prefill`` and
                ``make_decode_step`` (as 9e), each on 2 x 2, and
                llama-3.2-vision-90b at 1 of 20 superblocks on 1 x 4 (8
@@ -437,11 +438,28 @@ each of which fails the run (non-zero exit) if it fails:
                compressed mean within the quantization bound of the exact
                f32 pod mean (``compressed_held``), the error feedback
                g + err - dequant(quant(g + err)) bit for bit, the pod
-               reduction's wire bytes against f32's. Per rank: step ms,
-               the collectives' ms, bytes and share, the weight blocks'
-               GB. B4 with its lse timed at a rank's shape; the ranks'
-               launches are the ``flash_attention_train_rank`` row, 17c's
-               join ``flash_attention_train``.
+               reduction's wire bytes against f32's. 17d, in the same
+               spawn after 17b: the ssm, hybrid, audio and vlm families
+               at full width, FAMILY_TRAIN_RUNS (rwkv6-7b at 2 layers
+               with int8 states, zamba2-1.2b at 12, musicgen-medium at
+               12, each on 2 x 2; llama-3.2-vision-90b at one superblock
+               on 1 x 4, batch 1, int8 states), 2 steps each, and
+               rwkv6 at 2 and zamba2 at 6 layers in f32, a step, each
+               through ``launch.train.main --mesh``, one device
+               first: every rank's losses and grad norms within
+               FAMILY_TRAIN_RTOL (else MESH_TRAIN_RTOL) of one device's,
+               the ranks' losses equal, B4's launches a rank
+               (``family_train_b4``: none for rwkv6, a site a step for
+               zamba2's shared block, two a layer a step otherwise), its
+               first site and the VLM's first cross site (Sk 1600 != S)
+               against the plain version with the lse, the state blocks.
+               Per rank: step ms, the collectives' ms, bytes and share,
+               the weight blocks' GB. B4 with its lse timed at a rank's
+               shape and at the VLM's cross shape on a rank; the ranks'
+               launches are the ``flash_attention_train_rank`` (hd 128)
+               and ``flash_attention_train_cross_rank`` rows, zamba2's and
+               musicgen's join ``flash_attention_train_g1``, 17c's
+               ``flash_attention_train``.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the repo beside it, it
@@ -449,6 +467,7 @@ exits non-zero and prints no result.
 """
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -566,9 +585,12 @@ MESH_CACHE_BYTES = 1 << 30             # a rank's 16 ELL slabs, 512 MiB
 # phase 16: LM serving on a mesh, four ranks on this one card over gloo
 MESH_LM_ARCH = "qwen3-4b"              # 16a and 16c: full width and depth
 MESH_LM_SHAPE = (2, 2)                 # 16a: ("data", "model")
-MESH_LM_LAYERS = 12                    # 16a: 12 of 36 layers (cut from
-                                       # 36 for phase 17's time)
+MESH_LM_LAYERS = 8                     # 16a: 8 of 36 layers (cut from
+                                       # 36 for phase 17's time, from 12
+                                       # for 17d's)
 MESH_MOE_SHAPE = (1, 4)                # 16b: 32 of 128 experts a rank
+MESH_MOE_LAYERS = 4                    # 16b: 4 of 94 layers (cut from
+                                       # 8 for 17d's time)
 MESH_LM_NEW = 4                        # greedy tokens a run (cut from 8
                                        # so that the run keeps inside
                                        # ~1000 s with 15c)
@@ -577,11 +599,13 @@ MOE_PLAIN_ULPS = 8                     # 16b: top_k bf16 adds in another order
 # 16d: the other four families at full width, (label, arch, mesh, layers
 # (None: all), route, dtype); the depths are cut only so that gloo's
 # host-borne collectives (~0.25-0.4 GB/s a rank, PERF.md section 5) fit
-# the run. The f32 runs are the recurrent archs' sharp checks (below)
+# the run (zamba2 from 38 layers to 12, two sites, and musicgen from 48
+# to 16, for 17d's time). The f32 runs are the recurrent archs' sharp
+# checks (below)
 MESH_FAMILY_RUNS = (
     ("ssm", "rwkv6-7b", (2, 2), 8, "generate", "bfloat16"),
-    ("hybrid", "zamba2-1.2b", (2, 2), None, "launcher", "bfloat16"),
-    ("audio", "musicgen-medium", (2, 2), None, "embeds", "bfloat16"),
+    ("hybrid", "zamba2-1.2b", (2, 2), 12, "launcher", "bfloat16"),
+    ("audio", "musicgen-medium", (2, 2), 16, "embeds", "bfloat16"),
     ("vlm", "llama-3.2-vision-90b", (1, 4), 4, "generate",  # 1 superblock
      "bfloat16"),
     ("ssm-f32", "rwkv6-7b", (2, 2), RULE_F32_LAYERS, "generate", "float32"),
@@ -604,13 +628,26 @@ MESH_FAMILY_ULPS = {"ssm": ZAMBA_ULPS, "hybrid": 32}
 MESH_TRAIN_ROOT = Path(__file__).resolve().parent / "build" / "mesh_train"
 MESH_TRAIN_SHAPE = (2, 2)              # 17a: ("data", "model")
 MESH_TRAIN_LAYERS = 8                  # 17a: qwen3-4b, 8 of 36 layers
-MESH_TRAIN_STEPS = 3
+MESH_TRAIN_STEPS = 2                   # cut from 3 for 17d's time
 COMP_TRAIN_SHAPE = (2, 2, 1)           # 17b: ("pod", "data", "model")
 # 17a's losses and grad norms against one device's, relative: the gaps
 # read on the card were at most 4.1e-4 at 8 layers and 2.2e-3 at 2
 # (PERF.md section 6), from bf16 partials rounded before their f32 sums
 # and GEMMs on other row counts
 MESH_TRAIN_RTOL = 3e-3
+# 17d's limits where a run needs its own (label: relative), with the
+# reading that set each (H100, PERF.md section 6). In bf16 a mesh
+# rounds each row-parallel partial to bf16 before its f32 sum and runs
+# its GEMMs on other row counts; the recurrent archs carry that through
+# their scans, and at their random init much of a bf16 gradient is
+# rounding (on the CPU rwkv6's smoke config's bf16 grad norm is 91.3 on
+# one device, 58.2 on 2 x 2, 112.8 in f32). Read: rwkv6's grad norm
+# 2.8e-2 from one device's at step 0, zamba2's 1.9e-2 at step 1, where
+# musicgen reads 8.3e-5 and the VLM 2.3e-4; their limits twice that.
+# Their f32 runs are the sharp checks, at 1e-4 (read: zamba2 0 at step
+# 0, rwkv6 1.6e-6)
+FAMILY_TRAIN_RTOL = {"17d-ssm": 6e-2, "17d-hybrid": 4e-2,
+                     "17d-ssm-f32": 1e-4, "17d-hybrid-f32": 1e-4}
 COMP_TRAIN_LAYERS = 2                  # 17b: 2 of 36 layers
 COMP_TRAIN_STEPS = 2
 GRAPH_VERTICES, GRAPH_EDGES = 1 << 20, 1 << 24
@@ -619,6 +656,33 @@ GRAPH_PR_ITERS, GRAPH_BFS_ITERS = 50, 32
 TRAIN_ARCH = "qwen3-4b"                # full width and depth, 36 layers
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
 TRAIN_ROOT = Path(__file__).resolve().parent / "build" / "train"
+# 17d: the ssm, hybrid, audio and vlm families train on a mesh at full
+# width, in the spawn of 17a and 17b, through ``launch.train.main
+# --mesh``: (label, arch, mesh, layers, batch, steps, flags). The depths
+# are cut so that gloo's host-borne wire fits the run: rwkv6-7b 2 of 32
+# layers (~1.0 B params), zamba2-1.2b 12 of 38 (two shared-attention
+# sites), musicgen-medium 12 of 48, the VLM 4 of 80 (one superblock:
+# four self layers and a cross layer over 1600 image tokens) with its
+# batch cut to 1 x 1024 (from 2 x 1024, for the script's time); int8
+# states for rwkv6 (as 14c) and for the VLM,
+# whose f32 states for ~6.4 B params would not fit beside one device's
+# run. The f32 runs are the recurrent archs' sharp checks, at the least
+# depth that holds their parts (zamba2's 6 layers: one site), one step:
+# the loss and grad norm at the same params; a second step's grad norm
+# is taken where the first moved each entry by ~lr x sign(g) (Adam's
+# first step, eps 1e-8), so a gradient within rounding of 0 steps
+# either way (rwkv6 in f32, f32 states: 1.95e-2 from one device's at
+# step 1, 1.6e-6 at step 0; H100, PERF.md section 6)
+FAMILY_TRAIN_RUNS = (
+    ("17d-ssm", "rwkv6-7b", (2, 2), 2, TRAIN_BATCH, 2, ("--int8-opt",)),
+    ("17d-hybrid", "zamba2-1.2b", (2, 2), 12, TRAIN_BATCH, 2, ()),
+    ("17d-audio", "musicgen-medium", (2, 2), 12, TRAIN_BATCH, 2, ()),
+    ("17d-vlm", "llama-3.2-vision-90b", (1, 4), 4, 1, 2, ("--int8-opt",)),
+    ("17d-ssm-f32", "rwkv6-7b", (2, 2), 2, TRAIN_BATCH, 1,
+     ("--int8-opt", "--dtype", "float32")),
+    ("17d-hybrid-f32", "zamba2-1.2b", (2, 2), 6, TRAIN_BATCH, 1,
+     ("--dtype", "float32")),
+)
 # B4's lse against the plain version's: both sum the same f32 exps in
 # another order; lse is ~5-10 here, and f32 keeps ~1e-6 of it
 LSE_TOL = 1e-4
@@ -1151,10 +1215,10 @@ def main() -> int:
         next(r for r in rows if r["name"] == name)["launches"] += n
     # -- 17. training on a mesh: B4 with its lse, at 17c's full shape and on
     # the ranks' heads -----------------------------------------------------
-    launches17, rank_row = mesh_train_phase(torch, dev, nvidia_smi_line(),
-                                            c13)
-    row["launches"] += launches17["flash_attention_train"]
-    rows.append(rank_row)
+    launches17, rows17 = mesh_train_phase(torch, dev, nvidia_smi_line(), c13)
+    for name, n in launches17.items():
+        next(r for r in rows if r["name"] == name)["launches"] += n
+    rows.extend(rows17)
     say(f"run: {time.perf_counter() - t_run:.1f} s wall")
     say(nvidia_smi_line())
     say(json.dumps({"kernels": rows}))
@@ -3881,31 +3945,43 @@ def function_grads_held(torch, layers, dev, dtype, B, S, H, KV, hd):
     return errs
 
 
-def b4_lse_times(torch, dev, fa, B, S, H, KV, hd):
+def b4_lse_times(torch, dev, fa, B, S, H, KV, hd, Sk=None, dtype=None):
     """Phase 13: B4 with and without its lse (CUDA-graph replays), the
-    plain version with the lse, and SDPA's forward (causal, GQA), bf16 at
-    the training shape, beside the bound (q, k, v, o and the lse's bytes;
-    causal FLOPs). Returns the row's numbers."""
-    q, k, v = attention_inputs(torch, dev, B, S, H, KV, hd, torch.bfloat16)
+    plain version with the lse, and SDPA's forward (causal, GQA; with
+    ``Sk`` keys non-causal, cross-attention), in ``dtype`` (default
+    bf16) at the training shape, beside the bound (q, k, v, o and the
+    lse's bytes; causal FLOPs, or all S·Sk pairs', at the dtype's peak).
+    Returns the row's numbers."""
+    dtype = dtype or torch.bfloat16
+    q, k, v = attention_inputs(torch, dev, B, S, H, KV, hd, dtype)
+    causal = Sk is None
+    if not causal:
+        k, v = cross_kv(torch, dev, B, Sk, KV, hd, dtype)
+    which = fa.design(dtype, hd)
     ms = graph_ms(torch, lambda: fa.flash_attention_gqa(
-        q, k, v, return_lse=True), 20)
-    null_ms = graph_ms(torch, lambda: fa.flash_attention_gqa(q, k, v), 20)
+        q, k, v, causal=causal, return_lse=True), 20)
+    null_ms = graph_ms(torch, lambda: fa.flash_attention_gqa(
+        q, k, v, causal=causal), 20)
     plain_ms = cuda_ms(torch, lambda: fa.flash_attention_gqa_plain(
-        q, k, v, return_lse=True), 3)
+        q, k, v, causal=causal, return_lse=True), 3)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = graph_ms(torch, lambda: torch.nn.functional.
-                      scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                      scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal,
                                                    enable_gqa=True), 20)
-    flops = 2 * B * H * S * S * hd
+    flops = 2 * B * H * S * S * hd if causal else 4 * B * H * S * Sk * hd
     n_bytes = nbytes(q, k, v) + nbytes(q) + B * H * S * 4
-    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
-    say(f"time flash_attention with lse (wgmma) [{B}, {S}, {H}/{KV}, {hd}] "
-        f"bf16 causal: {ms:.4f} ms a launch in a CUDA graph; {null_ms:.4f} "
+    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S
+                       if dtype == torch.bfloat16 else F32_OPS_PER_S)
+    mask = "causal" if causal else f"non-causal Sk {Sk}"
+    say(f"time flash_attention with lse ({which}) [{B}, {S}, {H}/{KV}, "
+        f"{hd}] {str(dtype).split('.')[-1]} {mask}: {ms:.4f} ms a launch in "
+        f"a CUDA graph; {null_ms:.4f} "
         f"ms with a null lse ({ms / null_ms:.3f}x); plain {plain_ms:.3f} ms;"
         f" bound {b_ms:.4f} ms by {b_by}; library scaled_dot_product_"
         f"attention forward {lib_ms:.4f} ms; kernel / library "
         f"{ms / lib_ms:.2f}x")
-    return {"design": "wgmma", "head_dim": hd, "ms": ms,
+    return {"design": which, "head_dim": hd, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "null_ms": null_ms}
 
@@ -4328,7 +4404,7 @@ def lm_mesh_phase(torch, dev):
     """Phase 16: LM serving on a mesh. 16c first, in this process: a
     world of one rank over NCCL (a 1 x 1 DeviceMesh), qwen3-4b through
     the mesh code bit for bit the one-device run. 16a: qwen3-4b at full
-    size on a 2 x 2 mesh, 16b: qwen3-moe at MOE_LAYERS layers on a 1 x 4
+    size on a 2 x 2 mesh, 16b: qwen3-moe at MESH_MOE_LAYERS layers on a 1 x 4
     mesh, four ranks each (``lm_mesh_rank``) on this one card over gloo.
     16d: the ssm, hybrid, audio and vlm families (``families_phase``).
     Returns B4's launches in the phase's serving runs (every rank's), by
@@ -4440,9 +4516,9 @@ def lm_mesh_phase(torch, dev):
         f"tokens equal for {first} of {new} steps (they may part only below "
         "the top-2 margin limit)")
 
-    # -- 16b: qwen3-moe at MOE_LAYERS layers on 1 x 4 ------------------------
+    # -- 16b: qwen3-moe at MESH_MOE_LAYERS layers on 1 x 4 -------------------
     full = get_config(MOE_ARCH)
-    mcfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    mcfg = dataclasses.replace(full, n_layers=MESH_MOE_LAYERS)
     nd_cfg = dataclasses.replace(mcfg, capacity_factor=NO_DROP_CF)
     params = M.init(mcfg, seed=SEED, device=dev)
     moe.moe_apply.record = []
@@ -4507,7 +4583,7 @@ def lm_mesh_phase(torch, dev):
         counted += lm_mesh_rank_line("16b", o, card)
     del layer0, y_sim, x_nd, y_plain, ids0
     torch.cuda.empty_cache()
-    say(f"mesh 16b ({MOE_ARCH} at {MOE_LAYERS} of {full.n_layers} layers on "
+    say(f"mesh 16b ({MOE_ARCH} at {MESH_MOE_LAYERS} of {full.n_layers} layers on "
         f"1 x 4: {full.n_experts // MESH_MOE_SHAPE[1]} experts a rank, the "
         "all_to_all over 4 ranks on one card over gloo): each rank's first "
         "MoE block equals dispatch_simulated within two bf16 ulps; at "
@@ -4556,7 +4632,8 @@ def families_phase(torch, dev, card):
     for label, arch, mesh, layers, route, dtype in MESH_FAMILY_RUNS:
         cfg, steps = family_cfg(arch, layers, dtype), []
         if route == "launcher":
-            run = mesh_served(None, None, steps, arch=arch, new=new)
+            run = mesh_served(None, None, steps, arch=arch, new=new,
+                              layers=layers)
             toks, stats = run.tokens, run.stats
             del run
         else:
@@ -4598,7 +4675,8 @@ def families_phase(torch, dev, card):
             fa.flash_attention_gqa.launches = 0
             fa.flash_attention_gqa.launches_cross = 0
             if route == "launcher":
-                run = mesh_served("1,1", "nccl", got, arch=arch, new=new)
+                run = mesh_served("1,1", "nccl", got, arch=arch, new=new,
+                                  layers=layers)
                 toks = run.tokens
                 del run
             else:
@@ -4781,7 +4859,7 @@ def lm_mesh_rank_line(label, o, card, want=None) -> int:
            f"logits {o['no_drop_err']:.4f} from one device with its "
            f"routing replayed (the mesh's own router picks another set of "
            f"experts for {o['flips']} of the "
-           f"{LM_BATCH * LM_PROMPT * MOE_LAYERS} token-layers, at routing "
+           f"{LM_BATCH * LM_PROMPT * MESH_MOE_LAYERS} token-layers, at routing "
            f"margins up to {o['flip_margin']:.4f})"
            if "moe_err" in o else "") + f"; {card}")
     return o["launches"]
@@ -4829,7 +4907,7 @@ def lm_mesh_rank(rank, world, root, job, shape):
         out = {"rank": rank}
         steps = []
         if job == "moe":
-            cfg = dataclasses.replace(cfg, n_layers=MOE_LAYERS)
+            cfg = dataclasses.replace(cfg, n_layers=MESH_MOE_LAYERS)
             ctx = MeshCtx(init_device_mesh("cpu", shape,
                                            mesh_dim_names=("data", "model")),
                           device="cuda:0")
@@ -4872,7 +4950,8 @@ def lm_mesh_rank(rank, world, root, job, shape):
             if rank == 0:
                 torch.save(first["x"].cpu(), root / "moe_x.pt")
             torch.save(first["y"].cpu(), root / f"moe_y{rank}.pt")
-            out["drops"] = sum(r["dropped"] for r in record[:MOE_LAYERS])
+            out["drops"] = sum(r["dropped"]
+                               for r in record[:MESH_MOE_LAYERS])
             del record, first
             nd_cfg = dataclasses.replace(cfg, capacity_factor=NO_DROP_CF)
             moe.moe_apply.record = []
@@ -5111,7 +5190,8 @@ def lm_family_rank(rank, world, root, job, shape):
             if route == "launcher":
                 def serve():
                     run = mesh_served(",".join(map(str, mesh)), "gloo", steps,
-                                      arch=arch, new=MESH_FAMILY_NEW)
+                                      arch=arch, new=MESH_FAMILY_NEW,
+                                      layers=layers)
                     return run.tokens, run.stats, run.params
             else:
                 params, init_s = drawn_in_turn(torch, cfg, ctx, rank, world)
@@ -5150,14 +5230,46 @@ def leaf_sums(trainer):
             opt.flatten(trainer.params)]
 
 
-def train_argv(layers, steps, every, ckpt_dir, *flags):
-    """``launch.train.main``'s arguments for TRAIN_ARCH at full width,
-    ``layers`` deep (None: all), TRAIN_BATCH x TRAIN_SEQ."""
-    return ["--arch", TRAIN_ARCH, *(["--layers", str(layers)] if layers
-                                    else []),
+def train_argv(layers, steps, every, ckpt_dir, *flags, arch=TRAIN_ARCH,
+               batch=TRAIN_BATCH):
+    """``launch.train.main``'s arguments for ``arch`` at full width,
+    ``layers`` deep (None: all), ``batch`` x TRAIN_SEQ."""
+    return ["--arch", arch, *(["--layers", str(layers)] if layers else []),
             "--steps", str(steps), "--seq-len", str(TRAIN_SEQ), "--batch",
-            str(TRAIN_BATCH), "--ckpt-every", str(every), "--ckpt-dir",
+            str(batch), "--ckpt-every", str(every), "--ckpt-dir",
             str(ckpt_dir), *flags]
+
+
+def family_train_b4(arch, layers, flags, steps):
+    """(B4's launches a rank in ``steps`` steps of a 17d run, those at
+    Sk != S, the launches by instance): two a layer a step (the forward
+    and the remat recompute), the VLM's cross layers too; once a site a
+    step for zamba2's shared block, which is not rematerialized; none for
+    rwkv6. A bf16 model runs the wgmma instance but at the VLM's cross
+    layers: ``SyntheticLMData``'s image embeddings are f32, as the
+    reference's, and the image k and v promote to f32 as its jnp ``@``
+    does, so the cross attention is f32, on the simt instance."""
+    from repro_torch.models import hybrid, transformer
+    cfg = family_cfg(arch, layers, family_dtype(flags))
+    design = "wgmma" if cfg.dtype == "bfloat16" else "simt"
+    if cfg.family == "ssm":
+        return 0, 0, {}
+    if cfg.family == "hybrid":
+        n = hybrid.n_attn_sites(cfg) * steps
+        return n, 0, {design: n}
+    cross = 2 * transformer.n_superblocks(cfg) * steps
+    n = 2 * len(transformer.layer_kinds(cfg)) * steps
+    by = {design: n}
+    if cross:
+        by["simt"] = by.get("simt", 0) + cross
+    return n + cross, cross, by
+
+
+def family_dtype(flags):
+    """A 17d run's dtype: the configs' bf16, or ``--dtype``'s."""
+    flags = list(flags)
+    return flags[flags.index("--dtype") + 1] if "--dtype" in flags \
+        else "bfloat16"
 
 
 def mesh_train_phase(torch, dev, card, c13):
@@ -5176,10 +5288,14 @@ def mesh_train_phase(torch, dev, card, c13):
     17b: COMP_TRAIN_LAYERS layers on (pod, data, model) =
     COMP_TRAIN_SHAPE with ``--grad-compression``: each step's compressed
     mean within the quantization bound of the exact f32 pod mean, the
-    error feedback g + err - dequant(quant(g + err)). 17a and 17b run in
-    one spawn of four ranks. Returns (B4's launches of 17c, for 13c's row
-    of the kernels line; the row of B4 with its lse at a rank's shape,
-    17a's and 17b's launches)."""
+    error feedback g + err - dequant(quant(g + err)). 17d: the runs of
+    FAMILY_TRAIN_RUNS, each on one device first (``family_train_one``),
+    then on the ranks, held to one device's (``family_train_checked``).
+    17a, 17b and 17d run in one spawn of four ranks. Returns (B4's
+    launches by the kernels line's row, of 17c for 13c's row and of
+    zamba2's and musicgen's ranks for the G = 1 training row; the rows of
+    B4 with its lse at a rank's shape, with 17a's, 17b's and the VLM's
+    self layers' launches, and at the VLM's cross shape on a rank)."""
     import datetime
     import torch.distributed as dist
     import torch.multiprocessing as mp
@@ -5244,8 +5360,9 @@ def mesh_train_phase(torch, dev, card, c13):
     del one
     torch.cuda.empty_cache()
     t_one = time.perf_counter() - t0
+    fam_one = family_train_one(torch)
 
-    # -- 17a and 17b: one spawn of four ranks, on 2 x 2, then 2 x 2 x 1 -----
+    # -- 17a, 17b and 17d: one spawn of four ranks, in turn ------------------
     _build.build(["flash_attention"])          # the ranks load, never build
     outs = lm_mesh_ranks(mp, "17", MESH_TRAIN_SHAPE, mesh_train_rank,
                          root=MESH_TRAIN_ROOT)
@@ -5325,22 +5442,138 @@ def mesh_train_phase(torch, dev, card, c13):
         o[r]["launches"] for o in outs for r in ("17a", "17b"))
     site_err = max(o[r]["site_err"] for o in outs for r in ("17a", "17b"))
 
-    # -- B4 with its lse at a rank's shape -------------------------------
+    # -- 17d: the four families against one device -----------------------
+    fam_launches, fam_errs = family_train_checked(outs, fam_one, card)
+    for name, n in fam_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    site_err = max(site_err, fam_errs.get("flash_attention_train_rank", 0.0))
+
+    # -- B4 with its lse at a rank's shape, and at the VLM's cross shape --
     cfg_h = (2, TRAIN_SEQ, 16, 4, 128)         # 32 / 2 q heads, 8 / 2 kv
     times = b4_lse_times(torch, dev, fa, *cfg_h)
+    vlm = next(r for r in FAMILY_TRAIN_RUNS if r[1] == VLM_ARCH)
+    vcfg = family_cfg(VLM_ARCH, vlm[3])
+    ranks_ = vlm[2][1]
+    # f32: the batch's image embeddings are, and k and v promote (above)
+    cross_times = b4_lse_times(
+        torch, dev, fa, vlm[4], TRAIN_SEQ, vcfg.n_heads // ranks_,
+        vcfg.n_kv_heads // ranks_, vcfg.head_dim, Sk=vcfg.n_image_tokens,
+        dtype=torch.float32)
     shutil.rmtree(MESH_TRAIN_ROOT, ignore_errors=True)
     say(f"phase 17: {time.perf_counter() - t_phase:.1f} s wall; {card}")
-    return launches, b4_row("flash_attention_train_rank",
-                            launches["flash_attention_train_rank"],
-                            site_err, times)
+    rows = [b4_row("flash_attention_train_rank",
+                   launches.pop("flash_attention_train_rank"), site_err,
+                   times),
+            b4_row("flash_attention_train_cross_rank",
+                   launches.pop("flash_attention_train_cross_rank"),
+                   fam_errs["flash_attention_train_cross_rank"],
+                   cross_times)]
+    return launches, rows
 
 
-def mesh_train_rank_line(label, o, card, want):
+def family_train_one(torch):
+    """17d on one device: each run of FAMILY_TRAIN_RUNS through
+    ``launch.train.main`` without ``--mesh``, at the same depth, width
+    and batch, the card freed after each. Returns {label: [(loss, grad
+    norm) a step]}."""
+    from repro_torch.launch import train as train_launcher
+    one = {}
+    for label, arch, mesh, layers, batch, steps, flags in FAMILY_TRAIN_RUNS:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        t = train_launcher.main(train_argv(
+            layers, steps, 100, MESH_TRAIN_ROOT / f"one-{label}", *flags,
+            arch=arch, batch=batch))
+        peak = torch.cuda.max_memory_allocated()
+        one[label] = [(r["loss"], r["grad_norm"]) for r in t.history]
+        steps_ms = [round(r["seconds"] * 1e3, 1) for r in t.history]
+        say(f"mesh {label} one device ({arch}, {layers} layers, batch "
+            f"{batch} x {TRAIN_SEQ}, {' '.join(flags) or 'f32 states'}): "
+            f"losses and grad norms {one[label]}, step ms {steps_ms}, "
+            f"{time.perf_counter() - t0:.1f} s with its draw, "
+            f"max_memory_allocated {peak / 1e9:.2f} GB")
+        del t
+        gc.collect()
+        torch.cuda.empty_cache()
+    return one
+
+
+def family_train_checked(outs, one, card):
+    """17d's checks, each run reported before one fails: every rank's loss
+    and grad norm at each step within FAMILY_TRAIN_RTOL (MESH_TRAIN_RTOL
+    where it names none) of one device's, the ranks' losses equal, and
+    per rank (``mesh_train_rank_line``) B4's launches (``family_train_b4``),
+    its first sites against the plain version, the state blocks. Returns
+    (B4's launches of the bf16 runs by the kernels line's row: zamba2's
+    and musicgen's G = 1, the VLM's self layers at hd 128 and its cross
+    layer at Sk != S; the largest site error by row)."""
+    faults, launches, errs = [], {}, {}
+    for label, arch, mesh, layers, batch, steps, flags in FAMILY_TRAIN_RUNS:
+        want, cross, by = family_train_b4(arch, layers, flags, steps)
+        limit = FAMILY_TRAIN_RTOL.get(label, MESH_TRAIN_RTOL)
+        ranks_ = [o[label] for o in outs]
+        gap = 0.0
+        for o in ranks_:
+            try:
+                mesh_train_rank_line(label, o, card, want, cross, by)
+            except SystemExit as e:
+                faults.append(str(e))
+            for step, (r, (l1, g1)) in enumerate(zip(o["history"],
+                                                     one[label])):
+                for name, got, ref in (("loss", r["loss"], l1),
+                                       ("grad norm", r["grad_norm"], g1)):
+                    gap = max(gap, abs(got - ref) / abs(ref))
+                    if not abs(got - ref) <= limit * abs(ref):
+                        faults.append(
+                            f"mesh {label} rank {o['rank']} step {step}: "
+                            f"{name} {got} against one device's {ref} "
+                            f"(limit {limit} relative)")
+            if [r["loss"] for r in o["history"]] != \
+                    [r["loss"] for r in ranks_[0]["history"]]:
+                faults.append(f"mesh {label} rank {o['rank']}: losses "
+                              "differ from rank 0's")
+        if family_dtype(flags) == "bfloat16":   # the main path's runs
+            n = sum(o["launches"] for o in ranks_)
+            n_cross = sum(o["launches_cross"] for o in ranks_)
+            row = "flash_attention_train_g1" if arch in (
+                ZAMBA_ARCH, MUSICGEN_ARCH) else "flash_attention_train_rank"
+            for name, k, err in ((row, n - n_cross, "site_err"), (
+                    "flash_attention_train_cross_rank", n_cross,
+                    "cross_err")):
+                launches[name] = launches.get(name, 0) + k
+                errs[name] = max([errs.get(name, 0.0)]
+                                 + [o[err] for o in ranks_ if err in o])
+        h = ranks_[0]["history"]
+        say(f"mesh {label} ({arch} at full width, {layers} layers, "
+            f"{' x '.join(map(str, mesh))}, 4 ranks on one card over gloo, "
+            f"batch {batch} x {TRAIN_SEQ}, {family_dtype(flags)}, "
+            f"{'int8' if '--int8-opt' in flags else 'f32'} AdamW states, "
+            f"remat, {steps} steps): losses "
+            f"{[round(r['loss'], 5) for r in h]} and grad norms "
+            f"{[round(r['grad_norm'], 5) for r in h]} against one device's "
+            f"{[(round(a, 5), round(b, 5)) for a, b in one[label]]}, the "
+            f"largest relative gap {gap:.3e} (limit {limit}); B4 {want} "
+            f"launches a rank ({cross} at Sk != S); {card}")
+    if faults:
+        fail("; ".join(faults))
+    launches.setdefault("flash_attention_train_cross_rank", 0)
+    errs.setdefault("flash_attention_train_cross_rank", 0.0)
+    return launches, errs
+
+
+def mesh_train_rank_line(label, o, card, want, cross=0, by=None):
     """Print one rank's numbers; check its B4 launches (``want``, every
-    one wgmma with the lse), its first site and its state blocks."""
-    if not (o["launches"] == o["by"].get("wgmma", 0) == o["lse"] == want):
+    one with the lse, ``cross`` of them at Sk != S, by instance ``by``:
+    all wgmma where None), its first sites and its state blocks."""
+    by = {"wgmma": want} if by is None else by
+    got_by = {k: n for k, n in o["by"].items() if n}
+    if not (o["launches"] == o["lse"] == want and got_by == {
+            k: n for k, n in by.items() if n}
+            and o["launches_cross"] == cross):
         fail(f"mesh {label} rank {o['rank']}: B4 launched {o['launches']} "
-             f"times ({o['by']}, {o['lse']} with lse), want {want}")
+             f"times ({o['by']}, {o['lse']} with lse, "
+             f"{o['launches_cross']} at Sk != S), want {want} ({by}, "
+             f"{cross} at Sk != S)")
     if not o["shapes_ok"]:
         fail(f"mesh {label} rank {o['rank']}: optimizer-state blocks differ "
              "from opt_state_specs'")
@@ -5351,13 +5584,17 @@ def mesh_train_rank_line(label, o, card, want):
         f"{s['calls']} calls ({s['backward_calls']} in the backward, "
         f"{s['backward_bytes'] / 1e9:.3f} GB in "
         f"{s['backward_seconds'] * 1e3:.1f} ms)" for i, s in enumerate(steps))
+    sites = "".join(
+        f", the rank's {what} site {o[name + '_shape']} vs plain max_abs_err "
+        f"{o[name + '_err']:.3e}, lse {o[name + '_lse_err']:.3e}"
+        for name, what in (("site", "first"), ("cross", "first Sk != S"))
+        if name + "_err" in o)
     say(f"mesh {label} rank {o['rank']} ({o['coord']}): {o['param_gb']:.2f} "
-        f"GB of weight blocks; run {o['run_s']:.1f} s; {parts}; checkpoint "
+        f"GB of weight blocks, max_memory_allocated {o['peak_gb']:.2f} GB; run {o['run_s']:.1f} s; {parts}; checkpoint "
         f"gathered in "
-        f"{o.get('save_s', 0.0):.1f} s; B4 launches {o['launches']} (wgmma, "
-        f"with the lse), the rank's first site {o['site_shape']} vs plain "
-        f"max_abs_err {o['site_err']:.3e}, lse {o['site_lse_err']:.3e}; "
-        f"state blocks as opt_state_specs'; {card}")
+        f"{o.get('save_s', 0.0):.1f} s; B4 launches {o['launches']} "
+        f"({got_by}, with the lse){sites}; state blocks as "
+        f"opt_state_specs'; {card}")
 
 
 def state_blocks_held(torch, trainer) -> bool:
@@ -5432,11 +5669,14 @@ def compressed_held(torch, trainer, record, steps):
             "wire_bytes": wire // steps, "f32_bytes": f32 // steps}
 
 
-MESH_TRAIN_RUNS = (      # (label, mesh, layers, steps, flags) in turn
-    ("17a", MESH_TRAIN_SHAPE, MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, ()),
-    ("17b", COMP_TRAIN_SHAPE, COMP_TRAIN_LAYERS, COMP_TRAIN_STEPS,
-     ("--grad-compression",)),
-)
+MESH_TRAIN_RUNS = (  # (label, arch, mesh, layers, steps, batch, flags)
+    ("17a", TRAIN_ARCH, MESH_TRAIN_SHAPE, MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS,
+     TRAIN_BATCH, ()),
+    ("17b", TRAIN_ARCH, COMP_TRAIN_SHAPE, COMP_TRAIN_LAYERS, COMP_TRAIN_STEPS,
+     TRAIN_BATCH, ("--grad-compression",)),
+) + tuple((label, arch, mesh, layers, steps, batch, flags)
+          for label, arch, mesh, layers, batch, steps, flags
+          in FAMILY_TRAIN_RUNS)
 
 
 def mesh_train_rank(rank, world, root, job, shape):
@@ -5461,32 +5701,33 @@ def mesh_train_rank(rank, world, root, job, shape):
         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     out = {"rank": rank}
     try:
-        for label, mesh, layers, steps, flags in MESH_TRAIN_RUNS:
-            out[label] = mesh_train_run(torch, rank, root, label, mesh,
-                                        layers, steps, flags)
+        for label, *run in MESH_TRAIN_RUNS:
+            out[label] = mesh_train_run(torch, rank, root, label, *run)
     finally:
         dist.destroy_process_group()
     with open(root / f"{job}{rank}.pkl", "wb") as f:
         pickle.dump(out, f)
 
 
-def mesh_train_run(torch, rank, root, label, mesh, layers, steps, flags):
-    """One rank's phase-17 run through ``launch.train.main --mesh``: B4's
-    counts set to 0 before and read after, the collectives counted a step
-    (``compat.stats``), the checkpoint's save timed (17a saves after its
-    last step), B4's first site against its plain version with the lse,
-    the state blocks against ``opt_state_specs``; with
-    ``--grad-compression`` the compressed reduction
-    (``compressed_held``)."""
+def mesh_train_run(torch, rank, root, label, arch, mesh, layers, steps,
+                   batch, flags):
+    """One rank's phase-17 run of ``arch`` through ``launch.train.main
+    --mesh``: B4's counts set to 0 before and read after, the collectives
+    counted a step (``compat.stats``), the checkpoint's save timed (17a
+    saves after its last step), B4's first site, and its first site at
+    Sk != S, against its plain version with the lse, the state blocks
+    against ``opt_state_specs``; with ``--grad-compression`` the
+    compressed reduction (``compressed_held``)."""
     from repro_torch.distributed import compat, compression
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train as train_launcher
     from repro_torch.train import loop
 
     comp = "--grad-compression" in flags
-    argv = train_argv(layers, steps, 100 if comp else steps, root / label,
-                      "--mesh", ",".join(map(str, mesh)), "--dist-backend",
-                      "gloo", *flags)
+    argv = train_argv(layers, steps, steps if label == "17a" else 100,
+                      root / label, "--mesh", ",".join(map(str, mesh)),
+                      "--dist-backend", "gloo", *flags, arch=arch,
+                      batch=batch)
     # each step's collectives, and the checkpoint's save, timed
     per_step, saves = [], []
     made, save = loop.make_train_step, loop.CheckpointManager.save_async
@@ -5518,32 +5759,40 @@ def mesh_train_run(torch, rank, root, label, mesh, layers, steps, flags):
         b4.launches_by_design[name] = 0
     b4.launches_lse = 0
     compression.compressed_mean_tree.record = [] if comp else None
+    torch.cuda.reset_peak_memory_stats()
     t_run = time.perf_counter()
     try:
         trainer, counts, sites, _, _ = rank_counted(
             torch, lambda: train_launcher.main(argv))
+        peak = torch.cuda.max_memory_allocated()
         record = compression.compressed_mean_tree.record
         compression.compressed_mean_tree.record = None
         out = {"rank": rank, "run_s": time.perf_counter() - t_run,
                "coord": {a: trainer.ctx.coord(a) for a in trainer.ctx.shape},
                "history": trainer.history, "by": dict(b4.launches_by_design),
                "lse": b4.launches_lse, "steps": per_step,
-               "save_s": sum(saves), "param_gb": sum(
+               "save_s": sum(saves), "peak_gb": peak / 1e9, "param_gb": sum(
                    t.numel() * t.element_size()
                    for t in _leaves(trainer.params)) / 1e9, **counts}
         out["shapes_ok"] = state_blocks_held(torch, trainer)
-        q, k, v, kw = sites["first"]
-        kw = {key: val for key, val in kw.items() if key != "return_lse"}
-        out["site_shape"] = (tuple(q.shape), tuple(k.shape))
-        out["site_err"], out["site_lse_err"] = b4_lse_held(
-            torch, fa, f"{label} rank {rank}'s first site", q, k, v, **kw)
-        del sites, q, k, v
+        for name, what in (("site", "first"), ("cross", "cross")):
+            if what not in sites:
+                continue
+            q, k, v, kw = sites.pop(what)
+            kw = {key: val for key, val in kw.items() if key != "return_lse"}
+            out[f"{name}_shape"] = (tuple(q.shape), tuple(k.shape))
+            out[f"{name}_err"], out[f"{name}_lse_err"] = b4_lse_held(
+                torch, fa, f"{label} rank {rank}'s {what} site", q, k, v,
+                **kw)
+            del q, k, v
+        del sites
         if comp:
             out["compressed"] = compressed_held(torch, trainer, record, steps)
         del record, trainer
     finally:
         loop.make_train_step, loop.CheckpointManager.save_async = made, save
         compression.compressed_mean_tree.record = None
+    gc.collect()                # the trainer's cycles, before the next run
     torch.cuda.empty_cache()
     return out
 

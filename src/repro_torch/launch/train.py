@@ -3,10 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
         --steps 100 --seq-len 128 --batch 8 --ckpt-dir build/train/run1 \
         [--smoke] [--lr 3e-4] [--microbatches 1] [--int8-opt] \
-        [--ckpt-every 100] [--device cuda] [--layers N]
+        [--ckpt-every 100] [--device cuda] [--layers N] [--dtype float32]
 
-On a mesh, one process a rank, under ``torch.distributed.run`` (the
-dense and MoE transformers)::
+On a mesh, one process a rank, under ``torch.distributed.run`` (every
+arch; for the recurrent ones a ``--seq-len`` past 64 is a multiple of
+64)::
 
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
         -m repro_torch.launch.train --arch qwen3-4b --mesh 2,2 \
@@ -23,7 +24,10 @@ checkpoints hold the full arrays, so a run resumes on another mesh.
 
 The reference's flags, plus ``--device`` (the CUDA card by default;
 ``--device cpu`` runs the kernels' plain versions; ``--layers`` keeps a
-model's first N layers). Random weights from
+model's first N layers; ``--dtype`` trains in another dtype than the
+config's, f32 for a run held to f32 limits: the recurrent archs' bf16
+gradients at their random init are mostly rounding, so a mesh and one
+device agree in f32 and not in bf16). Random weights from
 seed 0 and the Zipf batches of ``SyntheticLMData``. Restart the command
 to resume from the latest checkpoint in ``--ckpt-dir``; SIGTERM makes a
 synchronous final checkpoint. Every arch trains, the recurrent ones
@@ -70,13 +74,16 @@ def main(argv=None) -> Trainer:
                     default="nccl")
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the model to its first N layers (the "
-                         "dense and MoE transformers)")
+                    help="cut the model to its first N layers")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
+                    help="the params' dtype (default: the config's)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     tc = TrainConfig(
         model=cfg,
         opt=OptimizerConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),

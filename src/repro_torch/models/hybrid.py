@@ -94,9 +94,10 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
             "v": torch.zeros(kv, dtype=dtype, device=device)}
 
 
-def _train_block(pb, x, cfg: ModelConfig, state, chunk: int):
-    """One Mamba layer of a training forward: x only."""
-    return mamba2.block_apply(pb, x, cfg, state, chunk=chunk)[0]
+def _train_block(pb, x, cfg: ModelConfig, state, chunk: int, mw=None):
+    """One Mamba layer of a training forward: x only; on a mesh (``mw``)
+    ``mamba2.block_apply``'s mesh path."""
+    return mamba2.block_apply(pb, x, cfg, state, chunk=chunk, mw=mw)[0]
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -115,25 +116,25 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     reference unrolls it outside the scan), and its attention trains
     through ``layers.Attention``, B4 with its lse.
 
-    ``ctx`` with a DeviceMesh (prefill and decode): ``params`` are the
-    rank's blocks, the batch is the whole one, and the results are the
-    rank's, as the reference's constraints lay them out
+    ``ctx`` with a DeviceMesh: ``params`` are the rank's blocks, the
+    batch is the whole one (in train mode the rank's block of it,
+    ``data.pipeline.shard_batch``), and the results are the rank's, as
+    the reference's constraints lay them out
     (``src/repro/models/hybrid.py:69-130``): the batch over ``dp_axes``
     where it divides, the residual whole over ``model``; each Mamba layer
     through ``mamba2.block_apply``'s mesh path (the SSD state's heads
     over ``model``); the shared block through ``transformer._self_attn``
-    (B4 on the rank's heads) and ``MeshWeights.ffn``; the cache as
-    ``serve.step.cache_specs`` ``"hybrid"`` lays it out, its k and v as
-    the transformers' (grown by ``serve.step.decode_cache``, ROADMAP
-    C20); the logits ``[B_loc, S, V/M]``."""
+    (B4 on the rank's heads; in training with its lse, the shared
+    leaves' gradients summed over the sites by autograd) and
+    ``MeshWeights.ffn``; the cache as ``serve.step.cache_specs``
+    ``"hybrid"`` lays it out, its k and v as the transformers' (grown by
+    ``serve.step.decode_cache``, ROADMAP C20); the logits ``[B_loc, S,
+    V/M]``."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
     mw = None
     if ctx is not None and ctx.mesh is not None:
-        if mode == "train":
-            raise NotImplementedError(f"{cfg.name}: training on a mesh is "
-                                      "not ported (ROADMAP A8.3b)")
-        mw = L.MeshWeights(cfg, ctx)
+        mw = L.MeshWeights(cfg, ctx, local_batch=mode == "train")
     if mw is None:
         x = L.embed_apply(params["embed"], batch["tokens"])
     else:
@@ -163,7 +164,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         for i in range(a, b):
             st_in = {k: t[i] for k, t in mstate.items()}
             if train:
-                x = layer(params["mamba"][i], x, cfg, st_in, chunk)
+                x = layer(params["mamba"][i], x, cfg, st_in, chunk, mw)
                 continue
             x, st = mamba2.block_apply(params["mamba"][i], x, cfg, st_in,
                                        chunk=chunk, single=single, mw=mw)

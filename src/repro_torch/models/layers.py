@@ -34,16 +34,19 @@ the partial max and sum combined over the axes. The recurrent families
 fetch their layers' blocks through it too (``rwkv_time_mix``,
 ``rwkv_channel_mix``, ``mamba``), their scans on the rank's heads.
 
-In training on a mesh (the dense and MoE transformers) the same products
+In training on a mesh (every family) the same products
 carry gradients through ``distributed.compat``'s collectives: each
 FSDP gather's backward is a reduce-scatter, each row-parallel sum's the
 identity, and where the replicated residual stream enters a
 column-parallel product (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``,
 the unembedding) ``MeshWeights.enter`` sums its gradient over
 ``model``; so do the replicated leaves that a rank uses on its heads
-only (the QKV biases and qk-norm scales) and, where a rank's q heads
-take the replicated k and v, k and v themselves. The loss is
-``vocab_parallel_nll`` on logits sharded over ``model``.
+only (the QKV biases and qk-norm scales; rwkv6's ``w0``, ``wB``, ``u``
+and ``ln_x``; Mamba's ``A_log``, ``D`` and ``dt_bias``) and, where a
+rank's q heads take the replicated k and v, k and v themselves. The
+recurrent blocks add their own entries (``rwkv6._time_mix``,
+``mamba2.block_apply``). The loss is ``vocab_parallel_nll`` on logits
+sharded over ``model``.
 """
 from __future__ import annotations
 
@@ -615,7 +618,9 @@ class MeshWeights:
         the heads divide ``model``); of the replicated leaves, ``w0``,
         ``wB``'s columns, ``u`` and ``ln_x`` cut to the rank's heads (a
         decay column needs only its own column of ``wB``), the lerp
-        coefficients and ``wA`` whole."""
+        coefficients and ``wA`` whole. The cut leaves enter through "f"
+        (``enter``) first, so that their gradients are summed over
+        ``model``."""
         cfg, d = self.cfg, self.cfg.d_model
         hd = cfg.rwkv_head_size
         heads = self.heads(d // hd, "WKV")
@@ -623,21 +628,23 @@ class MeshWeights:
         out = dict(p)
         for name in ("wr", "wk", "wv", "wg", "wo"):
             out[name], spec = self.weight(p[name], ("tm", name), (d, d))
-        out.update(w0=p["w0"][ch], wB=p["wB"][:, ch], u=p["u"][heads],
-                   ln_x=p["ln_x"][ch])
+        own = {name: self.enter(p[name], self.tp)
+               for name in ("w0", "wB", "u", "ln_x")}
+        out.update(w0=own["w0"][ch], wB=own["wB"][:, ch],
+                   u=own["u"][heads], ln_x=own["ln_x"][ch])
         return out, spec[0]
 
     def rwkv_channel_mix(self, p: dict):
         """(rwkv6's channel-mix weights for the rank, the spec entries of
-        ``wr``'s output dim and ``cm.wv``'s input dim): ``wr`` and ``wk``
-        column-parallel, ``wv`` row-parallel, each gathered over
-        ``fsdp``; ``mu_r`` and ``mu_k`` whole."""
+        ``wr``'s and ``wk``'s output dims and ``cm.wv``'s input dim):
+        ``wr`` and ``wk`` column-parallel, ``wv`` row-parallel, each
+        gathered over ``fsdp``; ``mu_r`` and ``mu_k`` whole."""
         cfg, d = self.cfg, self.cfg.d_model
         out = dict(p)
         out["wr"], sr = self.weight(p["wr"], ("cm", "wr"), (d, d))
-        out["wk"], _ = self.weight(p["wk"], ("cm", "wk"), (d, cfg.d_ff))
+        out["wk"], sk = self.weight(p["wk"], ("cm", "wk"), (d, cfg.d_ff))
         out["wv"], sv = self.weight(p["wv"], ("cm", "wv"), (cfg.d_ff, d))
-        return out, sr[1], sv[0]
+        return out, sr[1], sk[1], sv[0]
 
     def mamba(self, p: dict):
         """(a Mamba-2 layer's weights for the rank, its heads, the spec
@@ -645,8 +652,9 @@ class MeshWeights:
         ``fsdp`` and whole on every ``model`` rank (its fused sections
         are not TP-aligned), ``conv_w`` and the norms whole; ``A_log``,
         ``D`` and ``dt_bias`` cut to the rank's heads (over ``model``,
-        as ``cache_specs`` lays the state out); ``out_proj``'s rows
-        gathered over ``fsdp``."""
+        as ``cache_specs`` lays the state out), each through "f"
+        (``enter``) first; ``out_proj``'s rows gathered over
+        ``fsdp``."""
         cfg, d = self.cfg, self.cfg.d_model
         d_in, N = cfg.d_inner, cfg.ssm_state
         nh = d_in // cfg.ssm_headdim
@@ -657,5 +665,5 @@ class MeshWeights:
         out["out_proj"], so = self.weight(p["out_proj"],
                                           ("mamba", "out_proj"), (d_in, d))
         for name in ("A_log", "D", "dt_bias"):
-            out[name] = p[name][heads]
+            out[name] = self.enter(p[name], self.tp)[heads]
         return out, heads, so[0]

@@ -167,7 +167,16 @@ def block_apply(pb, x, cfg: ModelConfig, state, *, chunk: int = 64,
     over ``model`` first and the norm is one device's, bit for bit (an
     all-reduce of the sum of squares would add its partial sums in
     another order). The rank's channels of the normed y then meet its
-    rows of ``out_proj``, summed over ``model``."""
+    rows of ``out_proj``, summed over ``model``.
+
+    The gradients follow ``distributed.compat``'s convention: ``in_proj``'s
+    output is replicated over ``model``, and of it z is used whole (after
+    y's gather, whose backward is a slice), while the heads of ``xs`` and
+    ``dt`` and the B and C that every head reads meet the rank's heads
+    only. So "f" (``MeshWeights.enter``) sits where the heads are cut, on
+    ``xbc`` after the conv and on ``dt_raw``, and on the normed y before
+    its cut to the rank's channels; never on ``in_proj``'s input, where
+    it would sum z's replicated gradient once a rank."""
     B, T, d = x.shape
     d_in, N, hd, nh, _ = _dims(cfg)
     if mw is not None:
@@ -177,6 +186,8 @@ def block_apply(pb, x, cfg: ModelConfig, state, *, chunk: int = 64,
     z, xbc, dt_raw = (proj[..., :d_in], proj[..., d_in:2 * d_in + 2 * N],
                       proj[..., 2 * d_in + 2 * N:])
     xbc, conv_state = _causal_conv(xbc, pb["conv_w"], state["conv"])
+    if mw is not None:
+        xbc, dt_raw = mw.enter(xbc, mw.tp), mw.enter(dt_raw, mw.tp)
     xs = xbc[..., :d_in].reshape(B, T, nh, hd)
     if mw is not None:
         xs, dt_raw = xs[:, :, heads], dt_raw[..., heads]
@@ -198,5 +209,5 @@ def block_apply(pb, x, cfg: ModelConfig, state, *, chunk: int = 64,
     y = L.rms_norm(y * L.silu(z), pb["gate_norm"], cfg.norm_eps)
     if mw is None:
         return x + y @ pb["out_proj"], {"h": h, "conv": conv_state}
-    y = y[..., mw.ctx.block(d_in, over)] @ pb["out_proj"]
+    y = mw.enter(y, over)[..., mw.ctx.block(d_in, over)] @ pb["out_proj"]
     return x + mw.row_sum(y, over), {"h": h, "conv": conv_state}

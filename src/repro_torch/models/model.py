@@ -22,9 +22,8 @@ take ``ctx=None``: ``None`` or a
 ``single_device_ctx`` runs one device; a ctx with a DeviceMesh runs the
 rank's blocks (``distributed/sharding.py``) through the family's mesh
 path, for every family: ``transformer.forward`` (dense, moe, vlm,
-audio), ``rwkv6.forward`` (ssm) and ``hybrid.forward`` (hybrid); in
-training the dense and MoE families (the others raise, naming ROADMAP
-A8.3b), whose ``loss_fn`` gives the rank's share of the loss.
+audio), ``rwkv6.forward`` (ssm) and ``hybrid.forward`` (hybrid), in
+training too, where ``loss_fn`` gives the rank's share of the loss.
 """
 from __future__ import annotations
 
@@ -59,10 +58,10 @@ def init(cfg: ModelConfig, *, seed: int = 0,
 def apply_train(params, cfg: ModelConfig, batch, remat=True, ctx=None):
     """The training forward: (logits [B, S, V], the MoE aux, None), each
     layer under the remat policy ``remat`` names (``models/rematcfg``).
-    ``ctx`` with a DeviceMesh (the dense and MoE families): the rank's
-    blocks of the params and its block of the batch
-    (``data.pipeline.shard_batch``), and its logits block ``[B_loc, S,
-    V_loc]``."""
+    ``ctx`` with a DeviceMesh (every family): the rank's blocks of the
+    params and its block of the batch (``data.pipeline.shard_batch``:
+    the tokens, or musicgen's frame embeddings and labels, and the VLM's
+    image embeddings), and its logits block ``[B_loc, S, V_loc]``."""
     return _mod(cfg).forward(params, cfg, batch, mode="train", remat=remat,
                              **_mesh_kw(ctx))
 
@@ -71,7 +70,8 @@ def loss_fn(params, cfg: ModelConfig, batch, remat=True, ctx=None,
             rows: Optional[int] = None):
     """Next-token cross-entropy + 0.01 x the MoE aux, and (ce, aux): the
     reference's. Targets are ``batch["labels"]`` where the batch has them
-    (embeddings in: musicgen), else the tokens shifted by one.
+    (embeddings in: musicgen, on a mesh as on one device), else the
+    tokens shifted by one.
 
     On a mesh (``ctx`` with a DeviceMesh) ``batch`` is the rank's block
     of a batch of ``rows`` rows (``data.pipeline.shard_batch``), and the

@@ -291,18 +291,33 @@ def _lerp(x, xprev, mu):
     return x + (xprev - x) * mu.to(x.dtype)
 
 
+def _entry(mw):
+    """Megatron's "f" over ``model`` on a mesh (``mw``), else the
+    identity: a replicated value that enters the rank's heads."""
+    if mw is None:
+        return lambda t: t
+    return lambda t: mw.enter(t, mw.tp)
+
+
 def _time_mix(p, x, cfg: ModelConfig, state, chunk: int = 64,
-              single: bool = False):
+              single: bool = False, mw=None):
+    """RWKV's time mix. On a mesh (``mw``; ``p`` the rank's, from
+    ``MeshWeights.rwkv_time_mix``) the four lerps that meet the
+    column-parallel ``wr``, ``wk``, ``wv`` and ``wg``, and the decay's
+    ``tanh(xw @ wA)`` that meets the rank's columns of ``wB``, enter
+    through "f": ``wA`` and the lerp coefficients are whole, and their
+    gradients come out summed over the heads of every rank."""
     B, T, _ = x.shape
     hd = cfg.rwkv_head_size
+    f = _entry(mw)
     last = state["tm_x"][:, None, :]
     xprev = last if single else _shift(x, last)
-    r = _lerp(x, xprev, p["mu_r"]) @ p["wr"]
-    k = _lerp(x, xprev, p["mu_k"]) @ p["wk"]
-    v = _lerp(x, xprev, p["mu_v"]) @ p["wv"]
-    g = L.silu(_lerp(x, xprev, p["mu_g"]) @ p["wg"])
+    r = f(_lerp(x, xprev, p["mu_r"])) @ p["wr"]
+    k = f(_lerp(x, xprev, p["mu_k"])) @ p["wk"]
+    v = f(_lerp(x, xprev, p["mu_v"])) @ p["wv"]
+    g = L.silu(f(_lerp(x, xprev, p["mu_g"])) @ p["wg"])
     xw = _lerp(x, xprev, p["mu_w"]).float()
-    lw = -torch.exp(p["w0"][None, None] + torch.tanh(xw @ p["wA"].float())
+    lw = -torch.exp(p["w0"][None, None] + f(torch.tanh(xw @ p["wA"].float()))
                     @ p["wB"].float())                  # log w_t <= 0
     H = r.shape[-1] // hd          # a rank's heads on a mesh, else all
     r, k, v, lw = (t.reshape(B, T, H, hd) for t in (r, k, v, lw))
@@ -321,16 +336,21 @@ def _time_mix(p, x, cfg: ModelConfig, state, chunk: int = 64,
 
 def _channel_mix(p, x, state, single: bool = False, mw=None, over=None):
     """RWKV's channel mix. On a mesh (``mw``; ``over``: the spec entries
-    of ``wr``'s output dim and ``wv``'s input dim) r comes out sharded
-    over ``model`` on d and is gathered there, and ``k @ wv``, row-
-    parallel, is summed there, before their product."""
+    of ``wr``'s and ``wk``'s output dims and ``wv``'s input dim) the
+    lerps enter the column-parallel ``wr`` and ``wk`` through "f", r
+    comes out sharded over ``model`` on d and is gathered there (the
+    backward a slice), and ``k @ wv``, row-parallel, is summed there,
+    before their product."""
     last = state["cm_x"][:, None, :]
     xprev = last if single else _shift(x, last)
-    r = torch.sigmoid(_lerp(x, xprev, p["mu_r"]) @ p["wr"])
-    k = torch.square(torch.relu(_lerp(x, xprev, p["mu_k"]) @ p["wk"]))
+    xr, xk = _lerp(x, xprev, p["mu_r"]), _lerp(x, xprev, p["mu_k"])
+    if mw is not None:
+        xr, xk = mw.enter(xr, over[0]), mw.enter(xk, over[1])
+    r = torch.sigmoid(xr @ p["wr"])
+    k = torch.square(torch.relu(xk @ p["wk"]))
     y = k @ p["wv"]
     if mw is not None:
-        r, y = mw.gather_tp(r, over[0]), mw.row_sum(y, over[1])
+        r, y = mw.gather_tp(r, over[0]), mw.row_sum(y, over[2])
     return r * y, {"cm_x": x[:, -1, :]}
 
 
@@ -347,7 +367,7 @@ def block_apply(pb, x, cfg: ModelConfig, state, *, chunk: int = 64,
         tm, wo_over = mw.rwkv_time_mix(tm)
         cm, *over = mw.rwkv_channel_mix(cm)
     y, tm_state = _time_mix(tm, L.rms_norm(x, pb["ln1"], cfg.norm_eps),
-                            cfg, state, chunk=chunk, single=single)
+                            cfg, state, chunk=chunk, single=single, mw=mw)
     if mw is not None:
         y = mw.row_sum(y, wo_over)
     x = x + y
@@ -379,9 +399,10 @@ def init_state(cfg: ModelConfig, batch_size: int,
                                 device=device)}
 
 
-def _train_block(pb, x, cfg: ModelConfig, state, chunk: int):
-    """One layer of a training forward: x only (the state is dropped)."""
-    return block_apply(pb, x, cfg, state, chunk=chunk)[0]
+def _train_block(pb, x, cfg: ModelConfig, state, chunk: int, mw=None):
+    """One layer of a training forward: x only (the state is dropped); on
+    a mesh (``mw``) ``block_apply``'s mesh path."""
+    return block_apply(pb, x, cfg, state, chunk=chunk, mw=mw)[0]
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -398,23 +419,22 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     policy), ``False`` or a policy name of ``models/rematcfg.py``, each
     layer under it as the reference wraps its scan body.
 
-    ``ctx`` with a DeviceMesh (prefill and decode): ``params`` are the
-    rank's blocks (``distributed/sharding.py``), the batch is the whole
-    one, and the results are the rank's, as the reference's constraints
-    lay them out (``src/repro/models/rwkv6.py:221-236``): the batch over
-    ``dp_axes`` where it divides, the residual whole over ``model``, the
-    WKV state's heads over ``model`` (``serve.step.cache_specs``
-    ``"ssm"``), the logits ``[B_loc, T, V/M]``. Each layer runs
-    ``block_apply``'s mesh path; the embedding and unembedding are
-    ``layers.MeshWeights``'."""
+    ``ctx`` with a DeviceMesh: ``params`` are the rank's blocks
+    (``distributed/sharding.py``), the batch is the whole one (in train
+    mode the rank's block of it, ``data.pipeline.shard_batch``), and the
+    results are the rank's, as the reference's constraints lay them out
+    (``src/repro/models/rwkv6.py:221-236``): the batch over ``dp_axes``
+    where it divides, the residual whole over ``model``, the WKV state's
+    heads over ``model`` (``serve.step.cache_specs`` ``"ssm"``), the
+    logits ``[B_loc, T, V/M]``. Each layer runs ``block_apply``'s mesh
+    path (in training under the remat policy, its gradients through
+    ``distributed.compat``'s collectives); the embedding and unembedding
+    are ``layers.MeshWeights``'."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
     mw = None
     if ctx is not None and ctx.mesh is not None:
-        if mode == "train":
-            raise NotImplementedError(f"{cfg.name}: training on a mesh is "
-                                      "not ported (ROADMAP A8.3b)")
-        mw = L.MeshWeights(cfg, ctx)
+        mw = L.MeshWeights(cfg, ctx, local_batch=mode == "train")
     if mw is None:
         x = L.embed_apply(params["embed"], batch["tokens"])
     else:
@@ -433,7 +453,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     for i, pb in enumerate(params["blocks"]):
         st_in = {k: t[i] for k, t in state.items()}
         if train:
-            x = layer(pb, x, cfg, st_in, chunk)
+            x = layer(pb, x, cfg, st_in, chunk, mw)
             continue
         x, st = block_apply(pb, x, cfg, st_in, chunk=chunk, single=single,
                             mw=mw)

@@ -65,8 +65,10 @@ the gradients carried through ``distributed.compat``'s collectives
 (``layers.MeshWeights``): the recompute of a layer repeats its FSDP
 gathers and its B4 launch on the rank's heads. The logits come out
 sharded over ``model`` on the vocabulary, for
-``layers.vocab_parallel_nll``. The VLM and audio families raise
-``NotImplementedError`` in train mode on a mesh, naming ROADMAP A8.3b.
+``layers.vocab_parallel_nll``. Every family trains so: the VLM's cross
+layers run under the remat policy too, q and the image k and v entering
+the rank's heads through "f" (``MeshWeights.enter``), and musicgen's
+frame embeddings come in as the rank's rows.
 
 The reference's perf flags (``models/perfcfg``) keep their defaults:
 the ones on this path act only on a mesh's layout or on gemma3
@@ -92,7 +94,6 @@ from repro_torch.models import rematcfg
 
 MODES = ("prefill", "decode", "train")
 FAMILIES = ("dense", "moe", "vlm", "audio")
-TRAIN_MESH_FAMILIES = ("dense", "moe")     # the rest: ROADMAP A8.3b
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -246,14 +247,17 @@ def _image_kv(cross_blocks, image_embeds, cfg, mw=None):
     jnp ``@`` does: f32 embeddings give f32 k and v in a bf16 model. On a
     mesh (``mw``) ``wk`` and ``wv`` are the rank's, gathered over
     ``fsdp``: its kv heads where they divide ``model``, else every kv
-    head."""
+    head; the embeddings enter them through "f"."""
     B, n_img = image_embeds.shape[:2]
     ks, vs = [], []
     for pb in cross_blocks:
-        ap = pb["attn"] if mw is None else \
-            mw.attn(pb["attn"], ("wk", "wv"))[0]
-        dt = torch.promote_types(image_embeds.dtype, ap["wk"].dtype)
-        x = image_embeds.to(dt)
+        if mw is None:
+            ap, x = pb["attn"], image_embeds
+        else:
+            ap = mw.attn(pb["attn"], ("wk", "wv"))[0]
+            x = mw.enter(image_embeds, mw.attn_entries()[1])
+        dt = torch.promote_types(x.dtype, ap["wk"].dtype)
+        x = x.to(dt)
         k = (x @ ap["wk"].to(dt)).reshape(B, n_img, -1, cfg.head_dim)
         v = (x @ ap["wv"].to(dt)).reshape(B, n_img, -1, cfg.head_dim)
         if "k_norm" in ap:
@@ -270,9 +274,11 @@ def _cross_attn(pb, x, img_kv, cfg, mw=None, layout=None):
     which is exact, and the output cast back to q's dtype: the
     reference's attention promotes so.
 
-    On a mesh (``mw``): q on the rank's heads, B4 over the kv heads they
-    meet (``_kv_for_heads`` where the rank holds every kv head), ``wo``
-    row-parallel and the FFN through ``mw.ffn``. ``layout`` (decode):
+    On a mesh (``mw``): q on the rank's heads (the normed x entering
+    ``wq`` through "f"), B4 over the kv heads they meet
+    (``_kv_for_heads`` where the rank holds every kv head, k and v
+    entering through "f", as the self layers' do), ``wo`` row-parallel
+    and the FFN through ``mw.ffn``. ``layout`` (decode):
     the image cache's (sequence axes, the block's first position); where
     the sequence is sharded (kv heads that do not divide ``model``, or a
     batch that does not divide the dp axes), the rank holds a block of
@@ -281,8 +287,10 @@ def _cross_attn(pb, x, img_kv, cfg, mw=None, layout=None):
     ap, wo_over = (pb["attn"], None) if mw is None else \
         mw.attn(pb["attn"], ("wq", "wo"))
     B, S = x.shape[:2]
-    q = (L.rms_norm(x, pb["ln1"], cfg.norm_eps) @ ap["wq"]).reshape(
-        B, S, -1, cfg.head_dim)
+    h = L.rms_norm(x, pb["ln1"], cfg.norm_eps)
+    if mw is not None:
+        h = mw.enter(h, mw.attn_entries()[0])
+    q = (h @ ap["wq"]).reshape(B, S, -1, cfg.head_dim)
     if "q_norm" in ap:
         q = L.rms_norm(q, ap["q_norm"], cfg.norm_eps)
     k, v = img_kv
@@ -298,7 +306,8 @@ def _cross_attn(pb, x, img_kv, cfg, mw=None, layout=None):
                                  seq_start=seq_start)
         out = (out[:, :, h0:h0 + Hl] if kv_whole else out).to(q.dtype)
     else:
-        kq, vq = _kv_for_heads(k, v, h0, Hl, cfg) if kv_whole else (k, v)
+        kq, vq = _kv_for_heads(mw.enter(k, mw.tp), mw.enter(v, mw.tp),
+                               h0, Hl, cfg) if kv_whole else (k, v)
         out = L.blockwise_attention(q.to(k.dtype), kq, vq,
                                     causal=False).to(q.dtype)
     y = out.reshape(B, S, Hl * cfg.head_dim) @ ap["wo"]
@@ -359,10 +368,6 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
     mw = None
     if ctx is not None and ctx.mesh is not None:
-        if mode == "train" and cfg.family not in TRAIN_MESH_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: training the {cfg.family} family on a mesh is "
-                "not ported (ROADMAP A8.3b)")
         mw = L.MeshWeights(cfg, ctx, local_batch=mode == "train")
     embeds = cfg.embeds_input and "embeds" in batch
     if embeds:
@@ -404,7 +409,10 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     train = mode == "train"
     if train:
         layer = rematcfg.wrap(_train_layer, remat)
-        cross = rematcfg.wrap(_cross_attn, remat)
+        cross_layer = rematcfg.wrap(_cross_attn, remat)
+
+        def cross(pb, x, img_kv, cfg):
+            return cross_layer(pb, x, img_kv, cfg, mw)
     else:
         def cross(pb, x, img_kv, cfg):
             return _cross_attn(pb, x, img_kv, cfg, mw, img_layout)

@@ -9,7 +9,7 @@
   any mesh (or one device) restores onto another.
 
 ``Trainer(tc, where)``: ``where`` a ``MeshCtx`` with a DeviceMesh trains
-the dense and MoE transformers on it, every rank in lockstep: the
+any family on it, every rank in lockstep: the
 params born sharded (``sharding.sharded_init``), the optimizer's states
 on the rank's blocks (laid out as ``sharding.opt_state_specs`` says),
 the error feedback of the compressed pod reduction where

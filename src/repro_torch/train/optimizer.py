@@ -14,7 +14,11 @@ alike. ``flatten`` fixes the leaf order: dict keys sorted, as JAX orders
 them, list items in order. ``apply_updates`` updates params and states
 in place, leaf by leaf, so that a step holds one leaf's f32 temporaries
 at a time beside the params, grads and states (the reference returns
-new trees, which XLA writes into the donated buffers).
+new trees, which XLA writes into the donated buffers); a leaf of more
+than ``UPDATE_ROWS_ENTRIES`` entries goes a run of rows at a time (the
+VLM's 1.05 B-entry embedding table would otherwise hold ~40 GB of
+them), which every entry's arithmetic, and each block's absmax along
+the last axis, leave bit for bit the same.
 
 The arithmetic is the reference's, operation for operation in f32 (a
 Python float scalar is rounded to f32 as JAX's weak types are;
@@ -46,6 +50,7 @@ from repro_torch.distributed import compat
 from repro_torch.distributed.meshctx import _names
 
 BLOCK = 128
+UPDATE_ROWS_ENTRIES = 1 << 26        # a leaf's update, this many at a time
 
 
 # ---------------------------------------------------------------------------
@@ -290,32 +295,66 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state, ctx=None,
     b1, b2 = cfg.beta1, cfg.beta2
     c1 = 1 - b1 ** step.float()
     c2 = 1 - b2 ** step.float()
+    consts = (lr, clip, c1, c2)
     for (path, p), (_, g), (_, m), (_, v) in zip(
             flatten(params), flatten(grads), flatten(state["m"]),
             flatten(state["v"])):
-        g = g.float() * clip
-        if cfg.int8_states:
-            m_f = dequantize_block(m)
-            v_f = dequantize_block(v).square_()
-        else:
-            m_f, v_f = m, v
-        m_f.mul_(b1).add_((1 - b1) * g)
-        v_f.mul_(b2).add_((1 - b2) * g.square_())
-        mh = m_f / c1
-        if cfg.int8_states:
-            uq = quantize_block(torch.sqrt(v_f), v.last)
-            denom = dequantize_block(uq) / torch.sqrt(c2) \
-                + _quantum_floor(uq) + cfg.eps
-            delta = mh.div_(denom)
-            mq = quantize_block(m_f, m.last)
-            m.q.copy_(mq.q)
-            m.scale.copy_(mq.scale)
-            v.q.copy_(uq.q)
-            v.scale.copy_(uq.scale)
-        else:
-            delta = mh.div_(torch.sqrt(v_f / c2).add_(cfg.eps))
-        if cfg.weight_decay and decayable(str(path[-1])):
-            delta.add_(cfg.weight_decay * p.float())
-        p.copy_(p.float() - lr * delta)
+        decay = cfg.weight_decay and decayable(str(path[-1]))
+        for rows in _row_runs(p):
+            _update(cfg, consts, decay, *(_rows(t, rows) for t in (
+                p, g, m, v)))
     state["step"].copy_(step)
     return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _row_runs(p: torch.Tensor):
+    """Slices of ``p``'s first dim that split it into runs of at most
+    ``UPDATE_ROWS_ENTRIES`` entries (one slice, all of it, for a small or
+    one-dimensional leaf)."""
+    if p.dim() < 2 or p.numel() <= UPDATE_ROWS_ENTRIES:
+        return [slice(None)]
+    n = max(1, UPDATE_ROWS_ENTRIES // (p.numel() // p.shape[0]))
+    return [slice(i, i + n) for i in range(0, p.shape[0], n)]
+
+
+def _rows(t, rows: slice):
+    """A view of rows ``rows`` of a tensor, or of a QTensor's payload and
+    scales (its scales keep the payload's leading dims)."""
+    if rows == slice(None):
+        return t
+    if isinstance(t, QTensor):
+        q = t.q[rows]
+        return QTensor(q=q, scale=t.scale[rows], shape=tuple(q.shape),
+                       last=t.last)
+    return t[rows]
+
+
+def _update(cfg: OptimizerConfig, consts, decay: bool, p, g, m, v):
+    """AdamW on one leaf (or a run of its rows), in place: ``consts`` the
+    step's lr, clip and bias corrections."""
+    lr, clip, c1, c2 = consts
+    b1, b2 = cfg.beta1, cfg.beta2
+    g = g.float() * clip
+    if cfg.int8_states:
+        m_f = dequantize_block(m)
+        v_f = dequantize_block(v).square_()
+    else:
+        m_f, v_f = m, v
+    m_f.mul_(b1).add_((1 - b1) * g)
+    v_f.mul_(b2).add_((1 - b2) * g.square_())
+    mh = m_f / c1
+    if cfg.int8_states:
+        uq = quantize_block(torch.sqrt(v_f), v.last)
+        denom = dequantize_block(uq) / torch.sqrt(c2) \
+            + _quantum_floor(uq) + cfg.eps
+        delta = mh.div_(denom)
+        mq = quantize_block(m_f, m.last)
+        m.q.copy_(mq.q)
+        m.scale.copy_(mq.scale)
+        v.q.copy_(uq.q)
+        v.scale.copy_(uq.scale)
+    else:
+        delta = mh.div_(torch.sqrt(v_f / c2).add_(cfg.eps))
+    if decay:
+        delta.add_(cfg.weight_decay * p.float())
+    p.copy_(p.float() - lr * delta)

@@ -4,7 +4,7 @@ Value and gradient of ``models.model.loss_fn`` (with the reference's
 microbatch accumulation), then ``optimizer.apply_updates``, which
 updates params and optimizer state in place.
 
-On a mesh (``ctx`` with a DeviceMesh, the dense and MoE families) the
+On a mesh (``ctx`` with a DeviceMesh, every family) the
 params, gradients and states are the rank's blocks (``specs``: the
 params', ``distributed.sharding``), the batch the rank's block
 (``data.pipeline.shard_batch``), and the loss the rank's share

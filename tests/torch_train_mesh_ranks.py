@@ -35,8 +35,6 @@ from repro_torch.train.step import dp_summed, make_train_step
 B, SEQ, LR, EPS = 8, 32, 1e-3, 1e-3
 TIMEOUT = datetime.timedelta(seconds=300)
 REF_WAIT_S = 300
-REFUSED_ARCHS = ("llama-3.2-vision-90b", "musicgen-medium", "rwkv6-7b",
-                 "zamba2-1.2b")
 
 
 def run(*worlds):
@@ -142,12 +140,18 @@ def state_shapes_held(trainer):
 
 
 def grads_of(params, specs, cfg, ctx, batch):
-    """The gradients of ``loss_fn`` summed over the dp axes, whole."""
+    """(the gradients of ``loss_fn`` summed over the dp axes, whole on
+    rank 0; this rank's gradients of the leaves it holds whole, the
+    replicated ones)."""
     loss, _ = M.loss_fn(params, cfg, batch, ctx=ctx, rows=B)
     g = torch.autograd.grad(loss, [p for _, p in opt.flatten(params)],
                             allow_unused=True, materialize_grads=True)
     g = dp_summed(opt.unflatten(params, list(g)), ctx, specs, ctx.dp_axes)
-    return whole(g, specs, ctx)
+    own = {"/".join(map(str, path)): _np(t)
+           for (path, t), (_, spec) in zip(opt.flatten(g),
+                                           opt.flatten(specs))
+           if not any(spec)}
+    return whole(g, specs, ctx), own
 
 
 def snapshot(trainer):
@@ -187,8 +191,8 @@ def train_case(ctx, case, inputs, root):
     if case["grads"]:
         batch = shard_batch(SyntheticLMData(trainer.cfg, B, SEQ, seed=0)
                             .batch_at(0), ctx)
-        out["grads"] = grads_of(trainer.params, trainer.specs, trainer.cfg,
-                                ctx, batch)
+        out["grads"], out["own_grads"] = grads_of(
+            trainer.params, trainer.specs, trainer.cfg, ctx, batch)
     compat.stats = {}
     try:
         trainer.run(1)
@@ -222,12 +226,12 @@ def job_train(shape, cases, inputs, root, launcher=False):
     return out
 
 
-def launched(shape, root):
-    """``launch.train.main --mesh`` for 2 steps of qwen3-4b's smoke
-    config, checkpointing after the second: each step's loss and grad
-    norm."""
-    t = train_launcher.main([
-        "--arch", "qwen3-4b", "--smoke", "--device", "cpu", "--mesh",
+def launched(shape, root, arch="qwen3-4b", flags=()):
+    """``launch.train.main --mesh`` for 2 steps of ``arch``'s smoke
+    config (and ``flags``), checkpointing after the second: each step's
+    loss and grad norm."""
+    t = train_launcher.main([*flags,
+        "--arch", arch, "--smoke", "--device", "cpu", "--mesh",
         ",".join(map(str, shape)), "--dist-backend", "gloo", "--steps", "2",
         "--seq-len", str(SEQ), "--batch", str(B), "--ckpt-every", "2",
         "--ckpt-dir", os.path.join(root, "launcher")])
@@ -305,8 +309,7 @@ def _leaf(seed, *shape):
 def job_collectives(root, shape=(4, 2)):
     """Each collective's forward and backward on a ``shape`` mesh (``D``
     ranks of ``data``, ``M`` of ``model``): the rank's results, for the
-    test to hold against one process computing the same sums; and the
-    A8.3b refusals."""
+    test to hold against one process computing the same sums."""
     ctx = ctx_of(shape)
     D, Mm = shape
     r, m = ctx.coord("data"), ctx.coord("model")
@@ -344,25 +347,14 @@ def job_collectives(root, shape=(4, 2)):
     gv = compat.all_gather_axis(v, ctx, "model", 0)
     (gg,) = torch.autograd.grad((gv * _leaf(19, 2 * Mm, 3)).sum(), [v])
     out["gather"] = gg.numpy()
-    # A8.3b: the families that do not train on a mesh yet
-    out["refused"] = {}
-    for arch in REFUSED_ARCHS:
-        cfg = registry.get_smoke_config(arch)
-        params = sharding.sharded_init(cfg, ctx, seed=0)
-        data = SyntheticLMData(cfg, 2, 64, seed=0).batch_at(0)
-        try:
-            M.loss_fn(params, cfg, shard_batch(data, ctx), ctx=ctx, rows=2)
-            out["refused"][arch] = "no error"
-        except NotImplementedError as exc:
-            out["refused"][arch] = str(exc)
     return out
 
 
 def job_all(root, meshes, inputs, restore, ref_ckpt):
     """The 8-rank meshes in turn on one world: ``meshes`` {name: (shape,
     cases)} trained (``job_train``; the 4 x 2's launcher too), then the
-    ``restore`` mesh (``job_restore``, the 4 x 2 mesh's checkpoints), the
-    collectives and the refusals."""
+    ``restore`` mesh (``job_restore``, the 4 x 2 mesh's checkpoints) and
+    the collectives."""
     out = {}
     for name, (shape, cases) in meshes.items():
         out[name] = job_train(shape, cases, inputs, root,
@@ -374,4 +366,17 @@ def job_all(root, meshes, inputs, restore, ref_ckpt):
     return out
 
 
-JOBS = {"train": job_train, "all": job_all}
+def job_meshes(root, meshes, inputs, launcher=None):
+    """``meshes`` {name: (shape, cases)} trained in turn on one world
+    (``job_train``), each under its own directory; then, with
+    ``launcher`` (shape, arch, flags), ``launch.train.main --mesh`` for
+    that arch's smoke config (``launched``)."""
+    out = {name: job_train(shape, cases, inputs, root)
+           for name, (shape, cases) in meshes.items()}
+    if launcher is not None:
+        shape, arch, flags = launcher
+        out["launcher"] = launched(shape, mesh_dir(root, shape), arch, flags)
+    return out
+
+
+JOBS = {"train": job_train, "all": job_all, "meshes": job_meshes}

@@ -67,14 +67,19 @@ def load(root, arch, dtype, cfg):
 
 def compiled(fn, dtype):
     """``jax.jit(fn)``; bf16 without XLA's excess precision, as the
-    port's tests run the reference."""
+    port's tests run the reference. A compile is kept for the arguments'
+    shapes, types and shardings, as ``jax.jit`` keeps its own: a step's
+    outputs may come out laid out otherwise than its inputs went in
+    (rwkv6's per-head leaves over ``model``), and the next step then
+    compiles anew."""
     jitted = jax.jit(fn)
     if dtype != "bfloat16":
         return jitted
     cache = {}
 
     def run(*args):
-        key = str(jax.tree.map(lambda a: (jnp.shape(a), jnp.result_type(a)),
+        key = str(jax.tree.map(lambda a: (jnp.shape(a), jnp.result_type(a),
+                                          getattr(a, "sharding", None)),
                                args))
         if key not in cache:
             cache[key] = jitted.lower(*args).compile(
