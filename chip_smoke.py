@@ -388,7 +388,7 @@ each of which fails the run (non-zero exit) if it fails:
                they join the hd-128 row of the kernels line) and B4 on
                the rank's first site's own q, k and v against its plain
                version. 16d (``families_phase``): the other four
-               families at full width, MESH_FAMILY_RUNS: rwkv6-7b at 8
+               families at full width, MESH_FAMILY_RUNS: rwkv6-7b at 4
                of 32 layers through ``step.generate``, zamba2-1.2b at 12
                of 38 layers through ``launch.serve.main --mesh``,
                musicgen-medium at 16 of 48 layers on
@@ -461,10 +461,55 @@ each of which fails the run (non-zero exit) if it fails:
                musicgen's join ``flash_attention_train_g1``, 17c's
                ``flash_attention_train``.
 
+ 18. perf      the reference's perf flags (``models/perfcfg``) on the
+     flags     mesh path and the dry run (``perf_phase``, after 17).
+               18a: B4 at a rank's sequence rows (``seq_shard_attn``):
+               qwen2-0.5b's q [4, 256, 14, 64] over k, v [4, 256 (r +
+               1), 2, 64] at ``q_offset`` 256 r for r = 0..3, bf16
+               (wgmma) and f32 (simt), and gemma3's hd-256 windowed
+               instance at offset 1024, with and without the lse: each
+               rank's rows bit for bit the full causal call's, and
+               within phase 8's limits of the plain version; the last
+               rank's time beside the bound (``attention_flops``), the
+               plain version and SDPA with the equivalent boolean mask
+               (the ``flash_attention_seq_rank`` row). 18b, on phase
+               17's four ranks after 17d (``seq_mesh_run``): qwen2-0.5b
+               at full width and SEQ_LAYERS layers on 1 x 4 (14 heads do
+               not divide 4), served through ``step.generate`` (4 x
+               1024, SEQ_NEW tokens) with the flags off, then with
+               ``seq_shard_attn`` and ``sp_residual``, and trained a
+               step each way through ``launch.train.main --mesh 1,4``:
+               logits within lm_atol of each other and of one device's,
+               B4's offset launches (SEQ_LAYERS a prefill, twice that a
+               training step, on model ranks 1-3; the row's launches),
+               the step's loss and grad norm within MESH_TRAIN_RTOL,
+               each rank's collective bytes by op and axis. 18c, on
+               16b's ranks after its main path (``a2a_prefill``):
+               prefills under the ``a2aint8`` variant, with the router's
+               own choices and with one device's routing replayed at
+               NO_DROP_CF: each rank's first MoE block (input bit for
+               bit 16b's) within 16b's two bf16 ulps of
+               ``moe.dispatch_simulated`` under the flag, each rank's
+               rows quantized twice a MoE layer a prefill; the reference
+               test's rule (mean |Δ| / mean |base| < A2A_RULE) read, not
+               gated, against the flag off and between the mesh's and
+               one device's passes under the flag (it holds at the smoke
+               configs' width, not at 128 experts of 4096: ROADMAP C30). 18d: the dry run
+               (``launch/dryrun.py``) on the meta device, in a process
+               of its own started before phase 8 (``dry_child``, one
+               thread, no card visible): 17a's
+               configuration on each of its ranks, whose collective
+               bytes and calls a step equal 17a's ranks' exactly and
+               whose weight blocks equal theirs, the peak printed beside
+               17a's max_memory_allocated; then qwen3-4b ``train_4k``
+               on the single and kimi-k2 ``train_4k`` on the multi
+               production mesh, with the seconds each took.
+
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the repo beside it, it
 exits non-zero and prints no result.
 """
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -578,7 +623,8 @@ MESH_ROOT = Path(__file__).resolve().parent / "build" / "mesh"
 MESH_SHAPE = (2, 2)                    # phase 15b: ("data", "model") ranks
 MESH_TIMEOUT_S = 120                   # a diverged rank fails, never hangs
 MESH_WARM = 10                         # warm L = 8 requests timed a rank
-MESH_CLIENTS, MESH_REQUESTS = 8, 16    # 15c: L = 1 self-queries a client
+MESH_CLIENTS, MESH_REQUESTS = 8, 8     # 15c: L = 1 self-queries a client
+                                       # (cut from 16 for phase 18's time)
 MESH_APPENDS = 1024                    # 15c: the writer's documents ...
 MESH_SEAL_DOCS = 256                   # ... sealed 256 at a time
 MESH_CACHE_BYTES = 1 << 30             # a rank's 16 ELL slabs, 512 MiB
@@ -603,7 +649,7 @@ MOE_PLAIN_ULPS = 8                     # 16b: top_k bf16 adds in another order
 # to 16, for 17d's time). The f32 runs are the recurrent archs' sharp
 # checks (below)
 MESH_FAMILY_RUNS = (
-    ("ssm", "rwkv6-7b", (2, 2), 8, "generate", "bfloat16"),
+    ("ssm", "rwkv6-7b", (2, 2), 4, "generate", "bfloat16"),  # cut from 8
     ("hybrid", "zamba2-1.2b", (2, 2), 12, "launcher", "bfloat16"),
     ("audio", "musicgen-medium", (2, 2), 16, "embeds", "bfloat16"),
     ("vlm", "llama-3.2-vision-90b", (1, 4), 4, "generate",  # 1 superblock
@@ -627,7 +673,8 @@ MESH_FAMILY_ULPS = {"ssm": ZAMBA_ULPS, "hybrid": 32}
 # phase 17: training on a mesh, four ranks on this one card over gloo
 MESH_TRAIN_ROOT = Path(__file__).resolve().parent / "build" / "mesh_train"
 MESH_TRAIN_SHAPE = (2, 2)              # 17a: ("data", "model")
-MESH_TRAIN_LAYERS = 8                  # 17a: qwen3-4b, 8 of 36 layers
+MESH_TRAIN_LAYERS = 4                  # 17a: qwen3-4b, 4 of 36 layers
+                                       # (cut from 8 for phase 18's time)
 MESH_TRAIN_STEPS = 2                   # cut from 3 for 17d's time
 COMP_TRAIN_SHAPE = (2, 2, 1)           # 17b: ("pod", "data", "model")
 # 17a's losses and grad norms against one device's, relative: the gaps
@@ -649,6 +696,21 @@ MESH_TRAIN_RTOL = 3e-3
 FAMILY_TRAIN_RTOL = {"17d-ssm": 6e-2, "17d-hybrid": 4e-2,
                      "17d-ssm-f32": 1e-4, "17d-hybrid-f32": 1e-4}
 COMP_TRAIN_LAYERS = 2                  # 17b: 2 of 36 layers
+# phase 18: the reference's perf flags (models/perfcfg) and the dry run
+SEQ_S = 1024                           # 18: qwen2-0.5b's prefill rows ...
+SEQ_RANKS = 4                          # ... over a model axis of 4
+SEQ_SHAPE = (1, SEQ_RANKS)             # 18b: ("data", "model")
+SEQ_LAYERS = 4                         # 18b: qwen2-0.5b, 4 of 24 layers
+SEQ_NEW = 2                            # 18b: greedy tokens a run
+SEQ_FLAGS = {"seq_shard_attn": True, "sp_residual": True}
+A2A_RULE = 0.03                        # 18c: the reference test's rule (read)
+DRY_ROOT = Path(__file__).resolve().parent / "build" / "dry18"
+DRY_CELLS = (("qwen3-4b", "train_4k", False),
+             ("kimi-k2-1t-a32b", "train_4k", True))
+DRY_WAIT_S = 600                       # the dry run's process, at most
+# what phases 16 and 17 hand on to phase 18: 18c's logits from 16b's
+# ranks, 18b's runs and 17a's numbers from phase 17's ranks
+PHASE18 = {}
 COMP_TRAIN_STEPS = 2
 GRAPH_VERTICES, GRAPH_EDGES = 1 << 20, 1 << 24
 GRAPH_PR_ITERS, GRAPH_BFS_ITERS = 50, 32
@@ -933,7 +995,6 @@ def main() -> int:
     for name in _build.SOURCES:
         if not _build.library_path(name).exists():
             fail(f"{name} did not build")
-
     # -- 3. corpus -------------------------------------------------------
     cfg = SearchConfig(name="paper-full")
     t0 = time.perf_counter()
@@ -1187,6 +1248,10 @@ def main() -> int:
     del engines, g, p, f, corpus, slabs, csr, dq
     torch.cuda.empty_cache()
 
+    # phase 18d's dry run needs no card: it runs on the host beside the LM
+    # phases, whose host work is one thread's dispatch
+    dry = dry_started()
+    atexit.register(lambda: dry[0].poll() is None and dry[0].kill())
     rows.append(lm_phases(torch, dev))
     t0 = time.perf_counter()
     rows.append(lm128_phases(torch, dev))
@@ -1219,6 +1284,9 @@ def main() -> int:
     for name, n in launches17.items():
         next(r for r in rows if r["name"] == name)["launches"] += n
     rows.extend(rows17)
+    # -- 18. the reference's perf flags on the mesh path (B4 at a rank's
+    # sequence rows) and the dry run on the meta device --------------------
+    rows.append(perf_phase(torch, dev, nvidia_smi_line(), dry))
     say(f"run: {time.perf_counter() - t_run:.1f} s wall")
     say(nvidia_smi_line())
     say(json.dumps({"kernels": rows}))
@@ -3073,12 +3141,6 @@ def serve_checked(torch, step, fa, dev, cfg, run, B, S, **gen_kw):
     return pre, dec / (LM_NEW - 1)
 
 
-def band_pairs(S, window) -> int:
-    """(query, key) pairs a causal mask with ``window`` keeps: row r sees
-    min(r + 1, window) keys."""
-    return sum(min(r + 1, window) for r in range(S))
-
-
 def sdpa_backend(torch, q, k, v, **kw) -> str:
     """The backend scaled_dot_product_attention picks for these inputs."""
     from torch.nn.attention import SDPBackend
@@ -3121,15 +3183,11 @@ def b4_times(torch, dev, fa, B, S, H, KV, hd, window=0, Sk=None):
     lib_ms = graph_ms(torch, lib, 20)
     lib_err = float((lib().transpose(1, 2).float()
                      - kern().float()).abs().max())
-    # operations: q·kᵀ and p·v, 2·hd each a kept (query, key) pair a head;
-    # causal is the usual 2·B·H·S²·hd, a window only its band's pairs,
-    # cross-attention all S·Sk pairs
-    if not causal:
-        flops = 4 * B * H * S * Sk * hd
-    elif window:
-        flops = 4 * B * H * hd * band_pairs(S, window)
-    else:
-        flops = 2 * B * H * S * S * hd
+    # operations: q·kᵀ and p·v, 2·hd each a kept (query, key) pair a head
+    # (fa.attention_flops): causal S(S+1)/2 pairs, a window only its
+    # band's, cross-attention all S·Sk
+    flops = fa.attention_flops(B, S, Sk or S, H, hd, causal=causal,
+                               window=window)
     b_ms, b_by = bound(nbytes(q, k, v) + nbytes(q), flops, BF16_OPS_PER_S)
     shape = f"[{B}, {S}, {H}/{KV}, {hd}]" + ("" if causal else f" Sk {Sk}")
     mask = (f"causal{f' window {window}' if window else ''}" if causal
@@ -3969,7 +4027,7 @@ def b4_lse_times(torch, dev, fa, B, S, H, KV, hd, Sk=None, dtype=None):
                       scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=causal,
                                                    enable_gqa=True), 20)
-    flops = 2 * B * H * S * S * hd if causal else 4 * B * H * S * Sk * hd
+    flops = fa.attention_flops(B, S, Sk or S, H, hd, causal=causal)
     n_bytes = nbytes(q, k, v) + nbytes(q) + B * H * S * 4
     b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S
                        if dtype == torch.bfloat16 else F32_OPS_PER_S)
@@ -4416,7 +4474,7 @@ def lm_mesh_phase(torch, dev):
     import torch.multiprocessing as mp
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build, flash_attention as fa
-    from repro_torch.models import model as M, moe
+    from repro_torch.models import model as M, moe, perfcfg
     from repro_torch.serve import step
 
     t_phase = time.perf_counter()
@@ -4538,6 +4596,18 @@ def lm_mesh_phase(torch, dev):
     # each flip's margin is held below nd_atol in the ranks
     torch.save([r["expert_id"].cpu() for r in routing],
                MESH_ROOT / "moe_routing.pt")
+    # 18c's yardstick on one device: the same pass under the a2aint8
+    # variant, this routing replayed (the wire's int8 rows alone move it)
+    perfcfg.set_variant("a2aint8")
+    moe.moe_apply.replay = [r["expert_id"] for r in routing]
+    try:
+        nd_a2a, _, _ = M.apply_prefill(
+            params, nd_cfg, {"tokens": torch.as_tensor(prompt, device=dev)},
+            last_only=True)
+    finally:
+        perfcfg.reset()
+        moe.moe_apply.replay = None
+    nd_a2a = nd_a2a.float().cpu().numpy()
     ids0 = routing[0]["expert_id"]
     del routing
     nd_one = nd_one.float().cpu().numpy()
@@ -4552,6 +4622,7 @@ def lm_mesh_phase(torch, dev):
     y_sim, _ = moe.dispatch_simulated(layer0, x, mcfg, dp=1,
                                       M=MESH_MOE_SHAPE[1])
     tol = 2 * 2.0 ** (np.floor(np.log2(float(y_sim.float().abs().max()))) - 7)
+    a2a_first = a2a_first_held(torch, moe, perfcfg, layer0, x, mcfg, dev)
     del x
     x_nd = torch.load(MESH_ROOT / "moe_nd_x.pt").to(dev)
     y_plain = moe_plain(torch, layer0, x_nd.reshape(-1, mcfg.d_model), ids0)
@@ -4583,6 +4654,23 @@ def lm_mesh_phase(torch, dev):
         counted += lm_mesh_rank_line("16b", o, card)
     del layer0, y_sim, x_nd, y_plain, ids0
     torch.cuda.empty_cache()
+    # 18c: the mesh's a2a_int8 pass with one device's routing replayed
+    # against one device's; and the reference test's rule, mean |diff| /
+    # mean |base| against the flag off, read for the router's own
+    # choices, the replayed mesh and one device
+    got = outs[0]["a2a_replayed"]
+    c = PHASE18["18c"] = {
+        "first": a2a_first,
+        "quantized": [o["a2a_quantized"] for o in outs],
+        "seconds": max(o["a2a_s"] for o in outs),
+        "mesh_err": float(np.abs(got - nd_a2a).max()),
+        "differs": not np.array_equal(got, outs[0]["no_drop"])}
+    for name, a, base in (("own", outs[0]["a2a_own"], outs[0]["steps"][0]),
+                          ("replayed", got, outs[0]["no_drop"]),
+                          ("one", nd_a2a, nd_one),
+                          ("mesh_vs_one", got, nd_a2a)):
+        c[name] = float(np.abs(a - base).mean() / (np.abs(base).mean()
+                                                   + 1e-6))
     say(f"mesh 16b ({MOE_ARCH} at {MESH_MOE_LAYERS} of {full.n_layers} layers on "
         f"1 x 4: {full.n_experts // MESH_MOE_SHAPE[1]} experts a rank, the "
         "all_to_all over 4 ranks on one card over gloo): each rank's first "
@@ -4953,6 +5041,8 @@ def lm_mesh_rank(rank, world, root, job, shape):
             out["drops"] = sum(r["dropped"]
                                for r in record[:MESH_MOE_LAYERS])
             del record, first
+            out.update(a2a_prefill(torch, params, cfg, prompt, ctx, rank,
+                                   root))
             nd_cfg = dataclasses.replace(cfg, capacity_factor=NO_DROP_CF)
             moe.moe_apply.record = []
             moe.moe_apply.replay = torch.load(root / "moe_routing.pt")
@@ -4986,6 +5076,89 @@ def lm_mesh_rank(rank, world, root, job, shape):
         dist.destroy_process_group()
     with open(root / f"{job}{rank}.pkl", "wb") as f:
         pickle.dump(out, f)
+
+
+def a2a_first_held(torch, moe, perfcfg, layer0, x, cfg, dev):
+    """18c's gate: each rank's first MoE block under ``a2a_int8`` (its
+    rows of it: the ``a2aint8`` variant keeps the residual as the rank's
+    rows) against ``moe.dispatch_simulated`` under the flag on 16b's
+    whole input ``x``, whose rows the rank's input must equal bit for
+    bit: within two bf16 ulps of its max, 16b's limit for the flag off.
+    Returns (the largest error, the limit)."""
+    M = MESH_MOE_SHAPE[1]
+    perfcfg.set_flags(a2a_int8=True)
+    try:
+        y_sim, _ = moe.dispatch_simulated(layer0, x, cfg, dp=1, M=M)
+    finally:
+        perfcfg.reset()
+    tol = 2 * 2.0 ** (np.floor(np.log2(float(y_sim.float().abs().max()))) - 7)
+    n = x.shape[1] // M
+    err = 0.0
+    for r in range(M):
+        x_r, y_r = torch.load(MESH_ROOT / f"moe_a2a{r}.pt")
+        rows = slice(r * n, (r + 1) * n)
+        if not torch.equal(x_r.to(dev), x[:, rows]):
+            fail(f"18c rank {r}: the first MoE block's input rows differ "
+                 "from 16b's")
+        err = max(err, float((y_r.to(dev).float()
+                              - y_sim[:, rows].float()).abs().max()))
+    if err > tol:
+        fail(f"18c: the first MoE block under a2a_int8 {err} from "
+             f"dispatch_simulated's (limit {tol}, two bf16 ulps of its max)")
+    return err, tol
+
+
+def a2a_prefill(torch, params, cfg, prompt, ctx, rank, root):
+    """Phase 18c on a rank of 16b's world: prefills of 16b's prompt on
+    its weights under the reference's ``a2aint8`` variant (``a2a_int8``
+    with ``sp_residual``), the MoE's rows quantized to int8 on the wire:
+    with the router's own choices (``"own"``; its first MoE block's
+    input and output rows saved to ``root/moe_a2a<rank>.pt``), and at
+    NO_DROP_CF with one device's routing replayed (``"replayed"``, as
+    16b's no-drop pass runs). The last position's logits gathered whole
+    (rank 0 keeps them), the quantizations a rank made, the seconds it
+    took."""
+    from repro_torch.distributed import compat
+    from repro_torch.models import model as M, moe, perfcfg
+    t0 = time.perf_counter()
+    made = []
+    quantize = moe.quantize_rows
+
+    def counted(t):
+        made.append(tuple(t.shape))
+        return quantize(t)
+    runs = {"own": (cfg, None),
+            "replayed": (dataclasses.replace(cfg, capacity_factor=NO_DROP_CF),
+                         root / "moe_routing.pt")}
+    out = {}
+    perfcfg.set_variant("a2aint8")
+    moe.quantize_rows = counted
+    try:
+        for name, (run_cfg, routing) in runs.items():
+            moe.moe_apply.replay = None if routing is None \
+                else torch.load(routing)
+            moe.moe_apply.record = [] if routing is None else None
+            with torch.no_grad():
+                logits, _, _ = M.apply_prefill(
+                    params, run_cfg, {"tokens": torch.as_tensor(
+                        prompt, device=ctx.device)}, last_only=True,
+                    ctx=ctx)
+                logits = compat.all_gather_axis(logits, ctx, ctx.tp_axis,
+                                                dim=-1)
+            if rank == 0:
+                out[f"a2a_{name}"] = logits.float().cpu().numpy()
+            if routing is None:     # the first MoE block's rows, in and out
+                first = moe.moe_apply.record[0]
+                torch.save((first["x"].cpu(), first["y"].cpu()),
+                           root / f"moe_a2a{rank}.pt")
+                del first
+        torch.cuda.synchronize()
+    finally:
+        perfcfg.reset()
+        moe.quantize_rows = quantize
+        moe.moe_apply.replay = moe.moe_apply.record = None
+    out.update(a2a_s=time.perf_counter() - t0, a2a_quantized=len(made))
+    return out
 
 
 def drawn_in_turn(torch, cfg, ctx, rank, world):
@@ -5399,6 +5572,10 @@ def mesh_train_phase(torch, dev, card, c13):
                  f"one device's {ref}")
     del restored
     torch.cuda.empty_cache()
+    PHASE18["17a"] = [{k: o["17a"][k] for k in ("rank", "coord", "steps",
+                                                 "param_bytes", "peak_gb")}
+                       for o in outs]
+    PHASE18["18b"] = [o["18b"] for o in outs]
     h = outs[0]["17a"]["history"]
     say(f"mesh 17a ({TRAIN_ARCH} at full width, {MESH_TRAIN_LAYERS} of 36 "
         f"layers, 2 x 2, 4 ranks on one card over gloo, born sharded from "
@@ -5703,6 +5880,7 @@ def mesh_train_rank(rank, world, root, job, shape):
     try:
         for label, *run in MESH_TRAIN_RUNS:
             out[label] = mesh_train_run(torch, rank, root, label, *run)
+        out["18b"] = seq_mesh_run(torch, rank, root)
     finally:
         dist.destroy_process_group()
     with open(root / f"{job}{rank}.pkl", "wb") as f:
@@ -5771,9 +5949,11 @@ def mesh_train_run(torch, rank, root, label, arch, mesh, layers, steps,
                "coord": {a: trainer.ctx.coord(a) for a in trainer.ctx.shape},
                "history": trainer.history, "by": dict(b4.launches_by_design),
                "lse": b4.launches_lse, "steps": per_step,
-               "save_s": sum(saves), "peak_gb": peak / 1e9, "param_gb": sum(
-                   t.numel() * t.element_size()
-                   for t in _leaves(trainer.params)) / 1e9, **counts}
+               "save_s": sum(saves), "peak_gb": peak / 1e9,
+               "param_bytes": sum(t.numel() * t.element_size()
+                                  for t in _leaves(trainer.params)),
+               **counts}
+        out["param_gb"] = out["param_bytes"] / 1e9
         out["shapes_ok"] = state_blocks_held(torch, trainer)
         for name, what in (("site", "first"), ("cross", "cross")):
             if what not in sites:
@@ -5795,6 +5975,405 @@ def mesh_train_run(torch, rank, root, label, arch, mesh, layers, steps,
     gc.collect()                # the trainer's cycles, before the next run
     torch.cuda.empty_cache()
     return out
+
+
+def seq_rank_cases(torch, dev, fa):
+    """Phase 18a: B4 at a rank's sequence rows (``seq_shard_attn``): each
+    of SEQ_RANKS ranks' block of qwen2-0.5b's query rows over the keys up
+    to its last row, at ``q_offset`` r·S/SEQ_RANKS, in bf16 (wgmma) and
+    f32 (simt), with and without the lse, equal bit for bit to the full
+    causal call's rows and within phase 8's limits of the plain version;
+    then gemma3's hd-256 windowed instance at an offset alike. Returns
+    the largest error against the plain version."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(LM_ARCH)
+    gem = get_config(GEMMA_ARCH)
+    shapes = [(LM_BATCH, SEQ_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+               0, SEQ_RANKS, dt) for dt in (torch.bfloat16, torch.float32)]
+    shapes.append((1, GEMMA_PROMPT, gem.n_heads, gem.n_kv_heads,
+                   gem.head_dim, gem.sliding_window, 2, torch.bfloat16))
+    err = 0.0
+    for B, S, H, KV, hd, window, ranks, dtype in shapes:
+        q, k, v = attention_inputs(torch, dev, B, S, H, KV, hd, dtype)
+        full, full_lse = fa.flash_attention_gqa(q, k, v, window=window,
+                                                return_lse=True)
+        n = S // ranks
+        for r in range(ranks):
+            a, b = r * n, (r + 1) * n
+            qr, kr, vr = q[:, a:b], k[:, :b], v[:, :b]
+            before = fa.flash_attention_gqa.launches_offset
+            out = fa.flash_attention_gqa(qr, kr, vr, window=window,
+                                         q_offset=a)
+            out_l, lse = fa.flash_attention_gqa(qr, kr, vr, window=window,
+                                                q_offset=a, return_lse=True)
+            torch.cuda.synchronize()
+            if fa.flash_attention_gqa.launches_offset != before + 2 * (a > 0):
+                fail(f"B4 seq rank {r}: offset launches not counted")
+            if not (torch.equal(out, full[:, a:b]) and torch.equal(
+                    out_l, full[:, a:b]) and torch.equal(
+                        lse, full_lse[..., a:b])):
+                fail(f"B4 seq rank {r} [{B}, {n}, {H}/{KV}, {hd}] "
+                     f"{dtype} window {window}: its rows differ from the "
+                     "full causal call's")
+            name = (f"rank {r} of {ranks}, q_offset {a}"
+                    + (f", window {window}" if window else ""))
+            e, _ = b4_lse_held(torch, fa, name, qr, kr, vr, window=window,
+                               q_offset=a)
+            err = max(err, e)
+        say(f"B4 ({fa.design(dtype, hd)}) at a rank's rows: [{B}, {S}, "
+            f"{H}/{KV}, {hd}] {str(dtype).split('.')[-1]}"
+            + (f" window {window}" if window else "") + f" over {ranks} "
+            f"ranks of {n} rows: each rank's output and lse equal bit for "
+            "bit to the full causal call's rows, with and without the lse")
+        del q, k, v, full, full_lse
+    return err
+
+
+def seq_rank_times(torch, dev, fa):
+    """Phase 18a: B4 at the last rank's rows of qwen2-0.5b's prefill
+    (the most keys), bf16, beside its plain version, the bound
+    (``fa.attention_flops``) and SDPA with the equivalent boolean mask
+    (True: key <= q_offset + row)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(LM_ARCH)
+    B, H, KV, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = SEQ_S // SEQ_RANKS
+    off = SEQ_S - n
+    q, k, v = attention_inputs(torch, dev, B, SEQ_S, H, KV, hd,
+                               torch.bfloat16)
+    q = q[:, off:].contiguous()
+    kern = lambda: fa.flash_attention_gqa(q, k, v, q_offset=off)  # noqa
+    ms = graph_ms(torch, kern, 20)
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_gqa_plain(
+        q, k, v, q_offset=off), 3)
+    mask = (torch.arange(SEQ_S, device=dev)[None, :]
+            <= off + torch.arange(n, device=dev)[:, None])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = {"attn_mask": mask, "enable_gqa": True}
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+        qt, kt, vt, **kw)
+    backend = sdpa_backend(torch, qt, kt, vt, is_causal=False, **kw)
+    lib_ms = graph_ms(torch, lib, 20)
+    lib_err = float((lib().transpose(1, 2).float() - kern().float())
+                    .abs().max())
+    flops = fa.attention_flops(B, n, SEQ_S, H, hd, q_offset=off)
+    n_bytes = nbytes(q, k, v) + nbytes(q)
+    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
+    say(f"time flash_attention at a rank's rows (wgmma) [{B}, {n}, "
+        f"{H}/{KV}, {hd}] over {SEQ_S} keys, q_offset {off}, bf16: "
+        f"{ms:.4f} ms a launch in a CUDA graph (plain {plain_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms by {b_by}: {flops / 1e9:.3f} GFLOP, "
+        f"{n_bytes / 1e6:.1f} MB; library scaled_dot_product_attention "
+        f"({backend}, boolean mask) {lib_ms:.4f} ms, max |diff| "
+        f"{lib_err:.3e}); kernel / bound {ms / b_ms:.1f}x")
+    return {"design": "wgmma", "head_dim": hd, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
+
+
+def seq_mesh_run(torch, rank, root):
+    """Phase 18b on one rank of phase 17's world: qwen2-0.5b at full
+    width and SEQ_LAYERS layers on a SEQ_SHAPE mesh (its 14 q heads do
+    not divide 4), born sharded from seed SEED. Served through
+    ``step.generate`` (SEQ_NEW greedy tokens of LM_BATCH x SEQ_S) with
+    the flags off, then with SEQ_FLAGS (``seq_shard_attn``: B4 at the
+    rank's rows, a query offset; ``sp_residual``), and trained one step
+    each way through ``launch.train.main --mesh``: B4's launches and
+    its offset launches set to 0 before each run and read after, the
+    collectives counted (``compat.stats``), the logits (rank 0), the
+    losses and grad norms."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed import compat, sharding
+    from repro_torch.distributed.meshctx import MeshCtx
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import perfcfg
+    from repro_torch.serve import step
+
+    t_run = time.perf_counter()
+    b4 = fa.flash_attention_gqa
+    cfg = family_cfg(LM_ARCH, SEQ_LAYERS)
+    ctx = MeshCtx(init_device_mesh("cpu", SEQ_SHAPE,
+                                   mesh_dim_names=("data", "model")),
+                  device="cuda:0")
+    params = sharding.sharded_init(cfg, ctx, seed=SEED)
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, SEQ_S)).astype(np.int32)
+    out = {"rank": rank, "coord": ctx.coord("model")}
+    for name, flags in (("off", {}), ("on", SEQ_FLAGS)):
+        steps = []
+        perfcfg.set_flags(**flags)
+        b4.launches = b4.launches_offset = 0
+        compat.stats = {}
+        try:
+            t0 = time.perf_counter()
+            toks = step.generate(params, cfg, prompt, max_new=SEQ_NEW,
+                                 max_len=SEQ_S + SEQ_NEW, ctx=ctx,
+                                 logits=steps)
+            torch.cuda.synchronize()
+            run = {"s": time.perf_counter() - t0, "launches": b4.launches,
+                   "offset": b4.launches_offset,
+                   "bytes": compat.stats.get("bytes", 0),
+                   "calls": compat.stats.get("calls", 0),
+                   "by": compat.stats.get("by", {}),
+                   "tokens": toks.cpu().numpy()}
+        finally:
+            compat.stats = None
+            perfcfg.reset()
+        if rank == 0:
+            run["steps"] = torch.stack(steps).float().cpu().numpy()
+        out[name] = run
+    del params
+    for name, flags in (("train_off", {}), ("train_on", SEQ_FLAGS)):
+        perfcfg.set_flags(**flags)
+        b4.launches = b4.launches_offset = 0
+        try:
+            trainer = train_launcher.main(train_argv(
+                SEQ_LAYERS, 1, 100, root / f"18b-{name}", "--mesh",
+                ",".join(map(str, SEQ_SHAPE)), "--dist-backend", "gloo",
+                arch=LM_ARCH))
+            torch.cuda.synchronize()
+            out[name] = {"history": trainer.history,
+                         "launches": b4.launches,
+                         "offset": b4.launches_offset}
+            del trainer
+        finally:
+            perfcfg.reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_run
+    return out
+
+
+def seq_mesh_checked(torch, dev, card):
+    """Phase 18b's checks in the parent, on the ranks' runs (PHASE18):
+    one device's logits at SEQ_LAYERS first; each step's logits with the
+    flags off and on within lm_atol of one device's and of each other
+    (tokens equal where the top-2 margin exceeds it); B4's offset
+    launches SEQ_LAYERS a prefill on every rank but model rank 0 (whose
+    rows start at 0) with the flags on and none with them off, and
+    2 x SEQ_LAYERS in a training step (the forward and its recompute);
+    the training step's loss and grad norm with the flags on within
+    MESH_TRAIN_RTOL of the flags off. Returns the offset launches of the
+    runs with the flags on, every rank's."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import step
+    outs = PHASE18["18b"]
+    cfg = family_cfg(LM_ARCH, SEQ_LAYERS)
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, SEQ_S)).astype(np.int32)
+    params = M.init(cfg, seed=SEED, device=dev)
+    one = []
+    step.generate(params, cfg, prompt, max_new=SEQ_NEW,
+                  max_len=SEQ_S + SEQ_NEW, device=dev, logits=one)
+    one = torch.stack(one).float().cpu().numpy()
+    del params
+    torch.cuda.empty_cache()
+    atol = lm_atol("bfloat16", torch.from_numpy(one))
+    off, on = outs[0]["off"]["steps"], outs[0]["on"]["steps"]
+    errs = {}
+    for name, a, b in (("flags on vs one device", on, one),
+                       ("flags off vs one device", off, one),
+                       ("flags on vs off", on, off)):
+        errs[name] = float(np.abs(a - b).max())
+        if errs[name] > atol:
+            fail(f"18b: {name}: logits {errs[name]} apart (limit {atol})")
+    toks_on, toks_off = outs[0]["on"]["tokens"], outs[0]["off"]["tokens"]
+    for t in range(SEQ_NEW):
+        rows = np.nonzero(toks_on[:, t] != toks_off[:, t])[0]
+        top2 = np.sort(off[t][:, 0], axis=-1)[:, -2:]
+        if ((top2[rows, 1] - top2[rows, 0]) >= atol).any():
+            fail(f"18b: tokens part at step {t} above the top-2 margin "
+                 f"limit {atol}")
+    launched = 0
+    for o in outs:
+        want = 0 if o["coord"] == 0 else SEQ_LAYERS
+        if not (o["on"]["offset"] == want and o["off"]["offset"] == 0
+                and o["train_on"]["offset"] == 2 * want
+                and o["train_off"]["offset"] == 0):
+            fail(f"18b rank {o['rank']}: B4 offset launches "
+                 f"{o['on']['offset']} serving, {o['train_on']['offset']} "
+                 f"training with the flags on ({o['off']['offset']}, "
+                 f"{o['train_off']['offset']} off), want {want}, {2 * want}")
+        (l0, g0), (l1, g1) = ((o[k]["history"][0]["loss"],
+                               o[k]["history"][0]["grad_norm"])
+                              for k in ("train_off", "train_on"))
+        gap = max(abs(l1 - l0) / abs(l0), abs(g1 - g0) / abs(g0))
+        if gap > MESH_TRAIN_RTOL:
+            fail(f"18b rank {o['rank']}: the training step with the flags "
+                 f"on (loss {l1}, grad norm {g1}) against off ({l0}, {g0}): "
+                 f"{gap} relative (limit {MESH_TRAIN_RTOL})")
+        launched += o["on"]["offset"] + o["train_on"]["offset"]
+        by_on, by_off = o["on"]["by"], o["off"]["by"]
+        say(f"18b rank {o['rank']} (model {o['coord']}): B4 launches "
+            f"{o['on']['launches']} serving with the flags on, "
+            f"{o['on']['offset']} of them at a query offset "
+            f"({o['off']['launches']} and 0 off), "
+            f"{o['train_on']['offset']} offset launches in the training "
+            f"step; collectives of the served run with the flags on "
+            f"{o['on']['bytes'] / 1e9:.4f} GB in {o['on']['calls']} calls "
+            f"({', '.join(f'{k} {v['bytes'] / 1e6:.1f} MB' for k, v in sorted(by_on.items()))}) "
+            f"against {o['off']['bytes'] / 1e9:.4f} GB in "
+            f"{o['off']['calls']} off "
+            f"({', '.join(f'{k} {v['bytes'] / 1e6:.1f} MB' for k, v in sorted(by_off.items()))}); "
+            f"served {o['on']['s']:.1f} s on, {o['off']['s']:.1f} s off; "
+            f"training step loss {l1:.5f} on, {l0:.5f} off, grad norm "
+            f"{g1:.5f}, {g0:.5f} (gap {gap:.2e}); rank {o['s']:.1f} s; "
+            f"{card}")
+    say(f"18b ({LM_ARCH} at full width, {SEQ_LAYERS} of 24 layers, "
+        f"{' x '.join(map(str, SEQ_SHAPE))}, 4 ranks on one card over gloo, "
+        f"flags {sorted(SEQ_FLAGS)}): logits apart by "
+        + ", ".join(f"{k} {v:.4f}" for k, v in errs.items())
+        + f" (limit lm_atol {atol:.4f}); {launched} B4 launches at a "
+        "query offset in the runs with the flags on")
+    return launched
+
+
+def dry_child(path):
+    """Phase 18d's dry run, in a process of its own beside the phases on
+    the card (it needs no card and runs on the meta device): 17a's
+    configuration on each of its four ranks (``dryrun.dry_rank``), then
+    DRY_CELLS (``dryrun.run_cell``), each timed; written to ``path`` as
+    JSON."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    torch.set_num_threads(1)
+    cfg = family_cfg(TRAIN_ARCH, MESH_TRAIN_LAYERS)
+    shape = ShapeSpec("17a", "train", TRAIN_SEQ, TRAIN_BATCH)
+    out = {"17a": [], "cells": []}
+    for d in range(MESH_TRAIN_SHAPE[0]):
+        for m in range(MESH_TRAIN_SHAPE[1]):
+            t0 = time.perf_counter()
+            r = dryrun.dry_rank(cfg, shape, MESH_TRAIN_SHAPE,
+                                ("data", "model"), (d, m))
+            r["seconds"] = time.perf_counter() - t0
+            out["17a"].append(r)
+    for arch, shape_name, multi in DRY_CELLS:
+        out["cells"].append(dryrun.run_cell(arch, shape_name, multi,
+                                            str(DRY_ROOT)))
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def dry_started():
+    """Start ``dry_child`` in a process of its own, at low priority and
+    with no card visible; (the process, its result's path)."""
+    shutil.rmtree(DRY_ROOT, ignore_errors=True)
+    DRY_ROOT.mkdir(parents=True)
+    path = DRY_ROOT / "dry.json"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dry-child",
+         str(path)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        preexec_fn=lambda: os.nice(10))
+    return proc, path
+
+
+def dry_checked(torch, proc, path, card):
+    """Phase 18d: the dry run's process (``dry_started``) waited for and
+    read. 17a's ranks on the meta device against 17a's ranks on the
+    card: each rank's collective bytes and calls a step equal, exactly,
+    to every step 17a's rank counted, its weight blocks' bytes equal to
+    17a's, its peak of live bytes printed beside 17a's
+    max_memory_allocated as a ratio (no gate); then DRY_CELLS' records,
+    with the seconds each took."""
+    try:
+        log, _ = proc.communicate(timeout=DRY_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"18d: the dry run did not end within {DRY_WAIT_S} s")
+    if proc.returncode != 0:
+        fail(f"18d: the dry run failed ({proc.returncode}): {log[-3000:]}")
+    with open(path) as f:
+        dry = json.load(f)
+    memory = torch.cuda.get_device_properties(0).total_memory
+    for o in PHASE18["17a"]:
+        d = next(r for r in dry["17a"]
+                 if (r["coords"]["data"], r["coords"]["model"])
+                 == (o["coord"]["data"], o["coord"]["model"]))
+        c = d["collectives"]
+        for i, st in enumerate(o["steps"]):
+            if (st["bytes"], st["calls"]) != (c["bytes"], c["calls"]):
+                fail(f"18d rank {o['rank']}: the dry run counts "
+                     f"{c['bytes']} bytes in {c['calls']} collectives a "
+                     f"step, 17a's step {i} {st['bytes']} in "
+                     f"{st['calls']}")
+        if d["argument_bytes"]["params"] != o["param_bytes"]:
+            fail(f"18d rank {o['rank']}: weight blocks of "
+                 f"{d['argument_bytes']['params']} bytes on the meta device, "
+                 f"{o['param_bytes']} in 17a")
+        say(f"18d rank {o['rank']} ({o['coord']}): on the meta device "
+            f"{c['bytes']} bytes in {c['calls']} collectives a step "
+            f"({c['backward_bytes']} in the backward), equal to each of "
+            f"17a's steps; weight blocks {o['param_bytes']} bytes, equal; "
+            f"peak of live bytes {d['peak_bytes'] / 1e9:.3f} GB against "
+            f"17a's max_memory_allocated {o['peak_gb']:.3f} GB (ratio "
+            f"{d['peak_bytes'] / 1e9 / o['peak_gb']:.3f}); "
+            f"{d['flops']:.4e} FLOP ({d['flops_b4']:.4e} B4's); "
+            f"{d['seconds']:.1f} s")
+    for rec in dry["cells"]:
+        if rec["status"] != "ok":
+            fail(f"18d: the dry run of {rec['arch']} {rec['shape']} "
+                 f"{rec['mesh']}: {rec.get('error', rec['status'])}")
+        a = rec["argument_bytes"]
+        say(f"18d {rec['arch']} {rec['shape']} on the {rec['mesh']} "
+            f"production mesh ({rec['n_chips']} ranks), rank "
+            f"{rec['coords']} on the meta device: arguments "
+            + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in a.items())
+            + f"; peak {rec['peak_bytes'] / 1e9:.2f} GB, "
+            f"{'fits' if rec['fits'] else 'does not fit'} "
+            f"{rec['card_bytes'] / 1e9:.2f} GB (this card's total_memory "
+            f"{memory}); {rec['flops']:.4e} FLOP; collectives "
+            f"{rec['collectives']['bytes'] / 1e9:.2f} GB in "
+            f"{rec['collectives']['calls']} calls; {rec['seconds']:.1f} s "
+            f"on the host; {card}")
+
+
+def perf_phase(torch, dev, card, dry):
+    """Phase 18: the reference's perf flags and the dry run. 18a: B4 at a
+    rank's rows (``seq_rank_cases``, ``seq_rank_times``); 18b: qwen2-0.5b
+    on 1 x 4 with ``seq_shard_attn`` and ``sp_residual``, run on phase
+    17's ranks (``seq_mesh_run``), checked here; 18c: ``a2a_int8`` on
+    16b's ranks (``a2a_prefill``), checked here; 18d: the dry run
+    (``dry_checked``). Returns the kernels line's row of B4 at a rank's
+    rows."""
+    from repro_torch.kernels import flash_attention as fa
+    t_phase = time.perf_counter()
+    err = seq_rank_cases(torch, dev, fa)
+    times = seq_rank_times(torch, dev, fa)
+    launched = seq_mesh_checked(torch, dev, card)
+    c = PHASE18["18c"]
+    n_moe = MESH_MOE_LAYERS
+    if not (c["differs"] and all(n == 4 * n_moe for n in c["quantized"])):
+        fail(f"18c: a2a_int8's logits equal the flag off's "
+             f"({not c['differs']}), or the ranks quantized "
+             f"{c['quantized']} times (want {4 * n_moe} a rank)")
+    say(f"18c ({MOE_ARCH} at {n_moe} layers on "
+        f"{' x '.join(map(str, MESH_MOE_SHAPE))}, 16b's weights and prompt, "
+        f"the a2aint8 variant): each rank's first MoE block (its rows, "
+        f"input bit for bit 16b's) within {c['first'][0]:.3e} of "
+        f"dispatch_simulated under the flag (limit {c['first'][1]:.4f}, "
+        f"16b's two bf16 ulps); each rank quantized its rows "
+        f"{c['quantized'][0]} times (out and back, {n_moe} MoE layers, two "
+        f"prefills). The reference test's rule, mean |diff| / mean |base| "
+        f"< {A2A_RULE}, read, not gated (ROADMAP C30: it holds at the smoke "
+        f"configs' width, not at 128 experts of 4096, where the reference's "
+        f"own a2aint8 reads 0.15-0.17 on the CPU, and int8 levels turn the "
+        f"two sides' one-ulp bf16 differences into level flips): against "
+        f"the flag off with the router's own choices {c['own']:.4f}, with "
+        f"one device's routing replayed {c['replayed']:.4f} (one device "
+        f"{c['one']:.4f}); the replayed mesh against one device's a2a_int8 "
+        f"pass {c['mesh_vs_one']:.4f}, max |diff| {c['mesh_err']:.4f}; "
+        f"{c['seconds']:.1f} s on the ranks; {card}")
+    dry_checked(torch, *dry, card)
+    say(f"phase 18: {time.perf_counter() - t_phase:.1f} s wall here, 18b's "
+        f"ranks {max(o['s'] for o in PHASE18['18b']):.1f} s in phase 17's "
+        f"spawn, 18c's {c['seconds']:.1f} s in 16b's; {card}")
+    return b4_row("flash_attention_seq_rank", launched, err, times)
 
 
 def _launch_counters():
@@ -5819,4 +6398,7 @@ def _leaves(tree):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dry-child"]:
+        dry_child(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

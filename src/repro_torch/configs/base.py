@@ -4,14 +4,17 @@
 The dataclasses, their field defaults (but for the checkpoint directory,
 which follows ``$TMPDIR``) and the properties the models read are the
 reference's, so a config built here compares field for field with the
-JAX package's. The shapes table and the analytic parameter counters stay
-with the dry-run tools, which the port does not have yet (ROADMAP A8).
+JAX package's, and so are the analytic parameter counters
+(``param_count``, ``active_param_count``), the four input shapes
+(``SHAPES``) and ``shape_applicable``, which the dry run
+(``launch/dryrun.py``) reads.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import tempfile
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +84,124 @@ class ModelConfig:
     @property
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic rule for the long_500k shape (see DESIGN.md)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        # gemma3-style mostly-local attention qualifies (5:1 local:global).
+        return self.local_global_ratio > 0 and self.sliding_window > 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for MODEL_FLOPS roofline terms)."""
+        return _param_count(self)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: routed top-k + shared only)."""
+        return _param_count(self, active_only=True)
+
+
+def _ffn_params(cfg: ModelConfig, d_ff: int) -> int:
+    if cfg.ffn_kind == "gelu":      # up + down
+        return 2 * cfg.d_model * d_ff
+    if cfg.ffn_kind == "rwkv":      # receptance (d,d) + key (d,ff) + value (ff,d)
+        return cfg.d_model * cfg.d_model + 2 * cfg.d_model * d_ff
+    return 3 * cfg.d_model * d_ff   # swiglu: gate + up + down
+
+
+def _attn_params(cfg: ModelConfig) -> int:
+    p = cfg.d_model * cfg.q_dim + 2 * cfg.d_model * cfg.kv_dim + cfg.q_dim * cfg.d_model
+    if cfg.qkv_bias:
+        p += cfg.q_dim + 2 * cfg.kv_dim
+    return p
+
+
+def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    d = cfg.d_model
+    emb = cfg.vocab_size * d
+    head = 0 if cfg.tie_embeddings else cfg.vocab_size * d
+    total = emb + head + d  # final norm
+
+    if cfg.family == "ssm":  # rwkv6
+        H = d // cfg.rwkv_head_size
+        per_layer = (
+            5 * d * d          # r,k,v,g,o projections
+            + 6 * d            # token-shift lerp mus (r,k,v,g,w + x)
+            + 2 * 64 * d       # w lora (d->64->d)
+            + d                # u bonus
+            + H * cfg.rwkv_head_size  # group-norm scale approx
+            + _ffn_params(cfg, cfg.d_ff)
+            + 2 * d            # norms
+        )
+        return total + cfg.n_layers * per_layer
+
+    if cfg.family == "hybrid":  # zamba2: mamba2 layers + one shared attn block
+        d_in = cfg.d_inner
+        nh = d_in // cfg.ssm_headdim
+        # Zamba2 mamba blocks carry no per-layer FFN; the shared attention
+        # block owns the MLP (matches the 1.2B total).
+        per_mamba = (
+            d * d_in * 2       # in proj -> x, z
+            + d * (2 * cfg.ssm_state + nh)  # B, C, dt projections
+            + nh * 2           # A_log, D
+            + d_in             # dt bias
+            + d_in * d         # out proj
+            + d                # norm
+        )
+        shared_attn = _attn_params(cfg) + _ffn_params(cfg, cfg.d_ff) + 2 * d
+        return total + cfg.n_layers * per_mamba + shared_attn
+
+    # transformer families
+    per_layer = _attn_params(cfg) + 2 * d
+    if cfg.qk_norm:
+        per_layer += 2 * cfg.head_dim
+    n_moe_layers = 0
+    if cfg.n_experts > 0:
+        n_moe_layers = cfg.n_layers - cfg.first_k_dense
+        d_ff_dense = cfg.d_ff_dense or cfg.d_ff
+        total += cfg.first_k_dense * _ffn_params(cfg, d_ff_dense)
+        router = cfg.d_model * cfg.n_experts
+        experts = cfg.n_experts * _ffn_params(cfg, cfg.d_ff)
+        shared = cfg.n_shared_experts * _ffn_params(cfg, cfg.d_ff)
+        if active_only:
+            experts = cfg.top_k * _ffn_params(cfg, cfg.d_ff)
+        total += n_moe_layers * (router + experts + shared)
+    else:
+        total += cfg.n_layers * _ffn_params(cfg, cfg.d_ff)
+    total += cfg.n_layers * per_layer
+
+    if cfg.cross_attn_every > 0:  # vlm: extra cross-attn blocks
+        n_cross = cfg.n_layers // (cfg.cross_attn_every + 1)
+        total += n_cross * (_attn_params(cfg) + _ffn_params(cfg, cfg.d_ff) + 2 * d)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Assignment rules: long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "long_500k skipped: pure full-attention arch (DESIGN.md)"
+    return True, ""
+
 
 
 # ---------------------------------------------------------------------------

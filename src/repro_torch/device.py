@@ -3,7 +3,9 @@
 Every entry point takes a ``device`` argument and passes it through
 ``resolve``. With none given it is ``cuda:0``; a machine without a card
 is an error, never a quiet move to the CPU (the CPU runs the kernels'
-plain versions, which is what tests ask for by name).
+plain versions, which is what tests ask for by name). ``"meta"``, asked
+for by name, is the dry run's (``launch/dryrun.py``): shapes and no
+storage, nothing launched; ``generator`` there draws nothing.
 
 ``LAUNCHES`` is the process's launch gate: the search engine's device
 work holds it shared, a profiler session's start and stop hold it alone.
@@ -20,7 +22,8 @@ DeviceLike = Union[None, str, torch.device]
 
 
 def resolve(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda:0``; a name or ``torch.device`` as given.
+    """``None`` -> ``cuda:0``; a name or ``torch.device`` as given: a
+    card, the CPU, or the meta device (by name only).
 
     Raises ``RuntimeError`` when a CUDA device is asked for (or implied)
     and none is present."""
@@ -32,9 +35,31 @@ def resolve(device: DeviceLike = None) -> torch.device:
                 "the port on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {dev}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"device must be 'cuda', 'cpu' or 'meta', got {dev}")
     return dev
+
+
+class NoDraw:
+    """A random generator's stand-in on the meta device, whose tensors
+    hold no numbers: the init functions read its ``device`` and draw
+    nothing (``draws``)."""
+
+    device = torch.device("meta")
+
+
+def generator(device: DeviceLike, seed: int):
+    """A ``torch.Generator`` on ``resolve(device)`` seeded with ``seed``;
+    on the meta device a ``NoDraw``."""
+    dev = resolve(device)
+    if dev.type == "meta":
+        return NoDraw()
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def draws(gen) -> bool:
+    """Whether ``gen`` draws numbers (not on the meta device)."""
+    return gen.device.type != "meta"
 
 
 class LaunchGate:

@@ -12,7 +12,11 @@ each over one named axis (or, for the reductions, several) of a
     axis's coordinate order, of an activation whose downstream work is
     replicated over the axis (the vocabulary's logits, the MoE's routed
     output, Mamba's ``y``); ``fsdp_gather_axis``: the same gather of a
-    weight's FSDP block;
+    weight's FSDP block; ``gather_parts_axis``: of an activation whose
+    downstream work is split over the axis (``sp_residual``'s rows
+    entering a column-parallel product);
+  - ``reduce_scatter_axis``: the sum over the axis, each rank keeping
+    its block along a dim (``sp_residual``'s row-parallel exits);
   - ``all_reduce_axis``: ``lax.psum`` (or ``lax.pmax``): the row-parallel
     products, the vocabulary-parallel embedding and cross entropy,
     flash-decoding;
@@ -42,7 +46,11 @@ each rank's own share's. From that:
     reduce-scatter), in f32, rounded once to the gradient's dtype;
   - ``all_gather_axis``: the downstream work is replicated, so every
     rank holds the same upstream gradient, and the backward keeps the
-    rank's block (a slice, no sum);
+    rank's block (a slice, no sum); ``gather_parts_axis``: each rank's
+    downstream work is a part, so the backward is ``fsdp_gather_axis``'s
+    reduce-scatter;
+  - ``reduce_scatter_axis``: each rank's block feeds its own work, and
+    the backward gathers the blocks' gradients (an all-gather);
   - ``all_reduce_axis`` (sum): Megatron's "g": the sum feeds replicated
     work, and the backward is the identity;
   - ``to_parallel``: Megatron's "f": each rank's downstream work is a
@@ -70,7 +78,16 @@ one rank.
 call, bytes sent and host seconds (the card synchronized before and
 after, so a measured run is slower than an unmeasured one); those of a
 backward are also added under ``backward_calls``, ``backward_bytes``
-and ``backward_seconds``.
+and ``backward_seconds``; and under ``by``, keyed ``"op/axis"``
+(``all_gather``, ``all_reduce``, ``all_reduce_max``, ``reduce_scatter``,
+``all_to_all``, ``gather``), each call's and its bytes, forward and
+backward apart.
+
+*The dry mode.* On a ctx whose mesh is a ``meshctx.DryMesh`` (a shape,
+axis names and one rank's coordinates, no process group) the
+collectives move nothing: each returns an empty tensor of its result's
+shape on the input's device (meta, in the dry run) and counts its call
+and bytes in ``stats`` as the wire would.
 """
 from __future__ import annotations
 
@@ -100,9 +117,10 @@ def _sync(t: torch.Tensor) -> None:
 
 
 @contextlib.contextmanager
-def _counted(t: torch.Tensor, backward: bool = False):
+def _counted(t: torch.Tensor, op: str, axis: str, backward: bool = False):
     """Add one call of ``t``'s bytes and its host seconds to ``stats``
-    (and to its ``backward_`` keys for a backward's collective)."""
+    (and to its ``backward_`` keys for a backward's collective), and the
+    call and bytes under ``stats["by"]["op/axis"]``."""
     if stats is None:
         yield
         return
@@ -112,11 +130,22 @@ def _counted(t: torch.Tensor, backward: bool = False):
     _sync(t)
     seconds = time.perf_counter() - t0
     keys = ("", "backward_") if backward else ("",)
+    n = t.numel() * t.element_size()
     for k in keys:
         stats[k + "calls"] = stats.get(k + "calls", 0) + 1
-        stats[k + "bytes"] = stats.get(k + "bytes", 0) \
-            + t.numel() * t.element_size()
+        stats[k + "bytes"] = stats.get(k + "bytes", 0) + n
         stats[k + "seconds"] = stats.get(k + "seconds", 0.0) + seconds
+    # a new dict each time: a shallow copy of ``stats`` stays as it was
+    key = f"{op}/{axis}"
+    one = dict(stats.get("by", {}).get(key, {}))
+    for k in keys:
+        one[k + "calls"] = one.get(k + "calls", 0) + 1
+        one[k + "bytes"] = one.get(k + "bytes", 0) + n
+    stats["by"] = {**stats.get("by", {}), key: one}
+
+
+def _dry(ctx: MeshCtx) -> bool:
+    return getattr(ctx.mesh, "dry", False)
 
 
 def _axes(axes: Axes) -> Tuple[str, ...]:
@@ -143,8 +172,12 @@ def _ordered_group(ctx: MeshCtx, axis: str):
 # ---------------------------------------------------------------------------
 # the wire, without autograd
 # ---------------------------------------------------------------------------
-def _gather(t, ctx, axis, dim):
-    with _counted(t):
+def _gather(t, ctx, axis, dim, backward=False):
+    with _counted(t, "all_gather", axis, backward):
+        if _dry(ctx):
+            shape = list(t.shape)
+            shape[dim] *= ctx.shape[axis]
+            return t.new_empty(shape)
         group = _ordered_group(ctx, axis)
         src = t.movedim(dim, 0).contiguous()
         if not _on_card(group):
@@ -160,7 +193,11 @@ def _reduce(t, ctx, axes, op="sum", backward=False):
     for axis in _axes(axes):
         if _trivial(ctx, axis):
             continue
-        with _counted(out, backward):
+        with _counted(out, "all_reduce" + ("_max" if op == "max" else ""),
+                      axis, backward):
+            if _dry(ctx):
+                out = torch.empty_like(out)
+                continue
             group = ctx.group(axis)
             buf = out.contiguous() if _on_card(group) else out.cpu()
             if buf.data_ptr() == t.data_ptr():
@@ -170,16 +207,21 @@ def _reduce(t, ctx, axes, op="sum", backward=False):
     return out.to(t.device)
 
 
-def _reduce_scatter(g, ctx, axis, dim):
+def _reduce_scatter(g, ctx, axis, dim, backward=True):
     """The sum of ``g`` over ``axis`` in f32 (or ``g``'s wider dtype),
     this rank's block along ``dim``, rounded to ``g``'s dtype. Under
     gloo an all-reduce of the whole, then the block: gloo's own
     reduce-scatter is slower (``benchmarks/port_gloo_wire.py``)."""
-    group = _ordered_group(ctx, axis)
     n = ctx.shape[axis]
     wide = torch.promote_types(g.dtype, torch.float32)
     src = g.to(wide).movedim(dim, 0).contiguous()
-    with _counted(src, backward=True):          # the wider bytes are sent
+    # the wider bytes are sent
+    with _counted(src, "reduce_scatter", axis, backward):
+        if _dry(ctx):
+            shape = list(g.shape)
+            shape[dim] //= n
+            return g.new_empty(shape)
+        group = _ordered_group(ctx, axis)
         if _on_card(group):
             out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
             dist.reduce_scatter_tensor(out, src, group=group)
@@ -193,8 +235,10 @@ def _reduce_scatter(g, ctx, axis, dim):
 
 
 def _exchange(t, ctx, axis, backward=False):
-    group = _ordered_group(ctx, axis)
-    with _counted(t, backward):
+    with _counted(t, "all_to_all", axis, backward):
+        if _dry(ctx):
+            return torch.empty_like(t)
+        group = _ordered_group(ctx, axis)
         src = t.contiguous() if _on_card(group) else t.cpu()
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=group)
@@ -221,6 +265,18 @@ class _Gather(torch.autograd.Function):
             return _reduce_scatter(g, fc.ctx, fc.axis, fc.dim), None, None, \
                 None, None
         return _block(g, fc.ctx, fc.axis, fc.dim), None, None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fc, t, ctx, axis, dim):
+        fc.ctx, fc.axis, fc.dim = ctx, axis, dim
+        return _reduce_scatter(t, ctx, axis, dim, backward=False)
+
+    @staticmethod
+    def backward(fc, g):
+        return _gather(g, fc.ctx, fc.axis, fc.dim, backward=True), None, \
+            None, None
 
 
 class _Sum(torch.autograd.Function):
@@ -292,6 +348,30 @@ def fsdp_gather_axis(t: torch.Tensor, ctx: MeshCtx, axis: str,
     return _Gather.apply(t, ctx, axis, dim, True)
 
 
+def gather_parts_axis(t: torch.Tensor, ctx: MeshCtx, axis: str,
+                      dim: int) -> torch.Tensor:
+    """``all_gather_axis`` of an activation whose downstream work is
+    split over the axis, each rank's a part (``sp_residual``'s rows
+    entering a column-parallel product): the backward sums the parts'
+    gradients over the axis and keeps the rank's block (a
+    reduce-scatter, in f32, rounded once to the gradient's dtype)."""
+    if _trivial(ctx, axis):
+        return t
+    return _Gather.apply(t, ctx, axis, dim, True)
+
+
+def reduce_scatter_axis(t: torch.Tensor, ctx: MeshCtx, axis: str,
+                        dim: int) -> torch.Tensor:
+    """The sum of ``t`` over ``axis`` in f32 (or ``t``'s wider dtype),
+    the rank's block along ``dim`` in the axis's coordinate order,
+    rounded once to ``t``'s dtype (``lax.psum_scatter``). The backward
+    gathers the blocks' gradients along ``dim`` (each rank's block feeds
+    its own work)."""
+    if _trivial(ctx, axis):
+        return t
+    return _Scatter.apply(t, ctx, axis, dim)
+
+
 @torch.no_grad()
 def gather_first(t: torch.Tensor, ctx: MeshCtx, axis: str,
                  dim: int) -> Optional[torch.Tensor]:
@@ -304,7 +384,7 @@ def gather_first(t: torch.Tensor, ctx: MeshCtx, axis: str,
         return t
     group = ctx.group(axis)
     ranks = ctx.axis_ranks(axis)
-    with _counted(t):
+    with _counted(t, "gather", axis):
         src = t.contiguous() if _on_card(group) else t.cpu()
         first = ctx.coord(axis) == 0
         parts = [torch.empty_like(src) for _ in ranks] if first else None

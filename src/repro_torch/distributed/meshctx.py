@@ -22,6 +22,12 @@ process group (``dist.is_initialized()`` stays False): every collective
 of ``repro_torch.distributed.compat`` is then the identity. Building a
 1 x 1 DeviceMesh would start a default group from the environment.
 
+``dry_ctx`` is one rank of a mesh of any shape with no process group:
+its mesh is a ``DryMesh`` (the shape, the axis names, the rank's
+coordinates), its device ``"meta"``, and ``distributed.compat``'s
+collectives on it return empty results of the right shapes and count
+their bytes (the dry run, ``launch/dryrun.py``).
+
 The ctx carries the device the rank launches on; it defaults to the CUDA
 card through ``repro_torch.device.resolve``, as every entry point does.
 """
@@ -131,3 +137,41 @@ def single_device_ctx(device: DeviceLike = None) -> MeshCtx:
     """The 1 x 1 context with the production axis names and no process
     group: the engine runs its single-device path unchanged."""
     return MeshCtx(mesh=None, device=device)
+
+
+class DryMesh:
+    """What a ``MeshCtx`` reads of a DeviceMesh (the axis names, the
+    shape, this rank's coordinates, the ranks' layout), for one rank of a
+    mesh that no process group backs: ``get_group`` raises, and
+    ``distributed.compat`` moves nothing on it (``dry``)."""
+
+    dry = True
+
+    def __init__(self, shape, names, coords):
+        if not (len(shape) == len(names) == len(coords)) or any(
+                not 0 <= c < n for c, n in zip(coords, shape)):
+            raise ValueError(f"coordinates {tuple(coords)} of a mesh "
+                             f"{tuple(shape)} over {tuple(names)}")
+        self.mesh_dim_names = tuple(names)
+        self.mesh = torch.arange(math.prod(shape)).reshape(tuple(shape))
+        self._coords = tuple(coords)
+
+    def get_local_rank(self, axis: str) -> int:
+        return self._coords[self.mesh_dim_names.index(axis)]
+
+    def get_coordinate(self) -> List[int]:
+        return list(self._coords)
+
+    def get_group(self, axis: str):
+        raise RuntimeError("a dry mesh has no process group")
+
+
+def dry_ctx(shape, names, coords, dp_axes=None,
+            device: DeviceLike = "meta") -> MeshCtx:
+    """One rank (``coords``) of a mesh of ``shape`` over ``names`` with no
+    process group, on ``device`` (the meta device); ``dp_axes`` default
+    every axis but the last (``model``), ``fsdp`` is ``data``."""
+    names = tuple(names)
+    return MeshCtx(mesh=DryMesh(shape, names, coords),
+                   dp_axes=tuple(dp_axes or names[:-1]), fsdp_axis="data",
+                   tp_axis=names[-1], device=device)

@@ -34,6 +34,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import generator
 from repro_torch.distributed.meshctx import MeshCtx
 
 # weight classes: which of the last two dims carries TP
@@ -246,7 +247,7 @@ def sharded_init(cfg: ModelConfig, ctx: MeshCtx, seed: int = 0,
                          f"(the mesh serves {MESH_FAMILIES})")
     init = {"ssm": rwkv6.init, "hybrid": hybrid.init}.get(
         cfg.family, transformer.init)
-    gen = torch.Generator(device=ctx.device).manual_seed(seed)
+    gen = generator(ctx.device, seed)      # draws nothing on "meta"
     specs = {}
 
     def keep(path, leaf):

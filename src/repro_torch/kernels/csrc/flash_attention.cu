@@ -45,6 +45,16 @@
 // 2·B·H·S²·hd = 7.5 GFLOP against 16.8 MB of q, k, v and o: 7.6 us on the
 // bf16 tensor cores (989 TFLOP/s) against 5.0 us at 3.35 TB/s.
 //
+// Causal query offset (seq_shard_attn: a rank's block of the query rows
+// against the keys up to its last row): query row i of the call sits at
+// key position q_offset + i, and the wrapper passes Sk = q_offset + S.
+// The causal test is key > q_offset + row, the window's q_offset + row -
+// key >= window, and a block's key loop runs from the band's first tile
+// to min(Sk, q_offset + q0 + kBlockQ): the tiles of the full call's block
+// at q_offset + q0, in the same order, so where q_offset is a multiple of
+// kBlockQ the rows equal the full call's bit for bit. q_offset 0 is the
+// plain causal call.
+//
 // Log-sum-exp for the backward: where the caller passes an f32 `lse`
 // [B, H, S] (the training forward's autograd Function), both instances
 // also write each query row's m + log(max(l, 1e-30)) there, in the
@@ -177,7 +187,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o,
           float* __restrict__ lse, int S, int Sk, int G, Strides sq,
           Strides sk, Strides sv, Strides so, int causal, int window,
-          float scale) {
+          int q_offset, float scale) {
   extern __shared__ float smem[];
   float* ks = smem;                   // [kBlockK][HD]
   float* vs = ks + kBlockK * HD;      // [kBlockK][HD]
@@ -187,6 +197,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
   const int row = q0 + tid;
+  const int pos = q_offset + row;     // its key position
   const bool live = row < S;
 
   float qr[HD], acc[HD];
@@ -207,9 +218,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   // causal: a tile runs iff its first key is at or below the block's
   // last row (the TPU kernel's `run`); window: from the tile that holds
   // the block's first row's first key, q0 - window + 1
-  const int k_end = causal ? min(Sk, q0 + kBlockQ) : Sk;
+  const int k_end = causal ? min(Sk, q_offset + q0 + kBlockQ) : Sk;
   const int k_begin =
-      kWindow ? max(0, q0 - window + 1) / kBlockK * kBlockK : 0;
+      kWindow ? max(0, q_offset + q0 - window + 1) / kBlockK * kBlockK : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
     const int nk = min(kBlockK, Sk - k0);
     __syncthreads();                  // the previous tile is consumed
@@ -228,7 +239,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int d = 0; d < HD; ++d) s += qr[d] * kr[d];
       s *= scale;
-      if ((causal && k0 + j > row) || (kWindow && row - k0 - j >= window))
+      if ((causal && k0 + j > pos) || (kWindow && pos - k0 - j >= window))
         s = kNegInf;
       ss[j * kBlockQ + tid] = s;
       m_tile = fmaxf(m_tile, s);
@@ -263,7 +274,7 @@ template <typename T, int HD, bool kWindow>
 cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int S, int Sk, int H, int KV,
                       const long long* st, int causal, int window,
-                      float scale, cudaStream_t stream) {
+                      int q_offset, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * kBlockK * HD + kBlockK * kBlockQ);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, HD, kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -275,7 +286,7 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(v), static_cast<T*>(o), lse, S, Sk, H / KV,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
-      window, scale);
+      window, q_offset, scale);
   return cudaGetLastError();
 }
 
@@ -283,39 +294,40 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int S, int Sk, int H, int KV,
-                   const long long* st, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   const long long* st, int causal, int window, int q_offset,
+                   float scale, cudaStream_t stream) {
   return window > 0
              ? launch_as<T, HD, true>(q, k, v, o, lse, B, S, Sk, H, KV, st,
-                                      causal, window, scale, stream)
+                                      causal, window, q_offset, scale, stream)
              : launch_as<T, HD, false>(q, k, v, o, lse, B, S, Sk, H, KV, st,
-                                       causal, window, scale, stream);
+                                       causal, window, q_offset, scale,
+                                       stream);
 }
 
 // float32 at every head dim
 cudaError_t launch_f32(int hd, const void* q, const void* k, const void* v,
                        void* o, float* lse, int B, int S, int Sk, int H,
                        int KV, const long long* st, int causal, int window,
-                       float scale, cudaStream_t stream) {
+                       int q_offset, float scale, cudaStream_t stream) {
   switch (hd) {
     case 8:
       return launch<float, 8>(q, k, v, o, lse, B, S, Sk, H, KV, st, causal,
-                              window, scale, stream);
+                              window, q_offset, scale, stream);
     case 16:
       return launch<float, 16>(q, k, v, o, lse, B, S, Sk, H, KV, st, causal,
-                               window, scale, stream);
+                               window, q_offset, scale, stream);
     case 32:
       return launch<float, 32>(q, k, v, o, lse, B, S, Sk, H, KV, st, causal,
-                               window, scale, stream);
+                               window, q_offset, scale, stream);
     case 64:
       return launch<float, 64>(q, k, v, o, lse, B, S, Sk, H, KV, st, causal,
-                               window, scale, stream);
+                               window, q_offset, scale, stream);
     case 128:
       return launch<float, 128>(q, k, v, o, lse, B, S, Sk, H, KV, st, causal,
-                                window, scale, stream);
+                                window, q_offset, scale, stream);
     case 256:
       return launch<float, 256>(q, k, v, o, lse, B, S, Sk, H, KV, st, causal,
-                                window, scale, stream);
+                                window, q_offset, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -600,7 +612,8 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ v,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                 int S, int Sk, int G, Strides sq, Strides sk, Strides sv,
-                Strides so, int causal, int window, float scale) {
+                Strides so, int causal, int window, int q_offset,
+                float scale) {
   using T = Tile<HD>;
   using P = Split<HD>;
   extern __shared__ unsigned char smem_raw[];
@@ -616,15 +629,16 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   const int warp = (P::kGroups > 1 ? tid % kThreads : tid) / 32;
   const int h = blockIdx.x, b = blockIdx.y, kvh = h / G;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockQ;   // longest first
+  const int p0 = q_offset + q0;                  // its first key position
   const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
   const __nv_bfloat16* kb = k + b * sk.b + kvh * sk.h;
   const __nv_bfloat16* vb = v + b * sv.b + kvh * sv.h;
   // causal: a tile runs iff its first key is at or below the block's
   // last row (the TPU kernel's `run`); window: tiles [t0, t_end) from
-  // the one that holds key q0 - window + 1, the band's first
-  const int k_end = causal ? min(Sk, q0 + kBlockQ) : Sk;
+  // the one that holds key p0 - window + 1, the band's first
+  const int k_end = causal ? min(Sk, p0 + kBlockQ) : Sk;
   const int t_end = (k_end + kBlockK - 1) / kBlockK;
-  const int t0 = kWindow ? max(0, q0 - window + 1) / kBlockK : 0;
+  const int t0 = kWindow ? max(0, p0 - window + 1) / kBlockK : 0;
 
   load_tile<HD>(s_q, qb, sq.s, q0, S, tid);
   load_tile<HD>(s_k, kb, sk.s, t0 * kBlockK, Sk, tid);
@@ -676,9 +690,9 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     // scale; -1e30 only on a tile that crosses the diagonal, Sk or the
     // window band's lower edge
     const int k0 = t * kBlockK;
-    const bool edge = (causal && k0 + kBlockK - 1 > q0) ||
+    const bool edge = (causal && k0 + kBlockK - 1 > p0) ||
                       k0 + kBlockK > Sk ||
-                      (kWindow && q0 + kBlockQ - 1 - k0 >= window);
+                      (kWindow && p0 + kBlockQ - 1 - k0 >= window);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int i = 0; i < kBlockK / 8; ++i) {
@@ -687,7 +701,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
         float x = s[4 * i + e] * scale;
         if (edge) {
           const int col = k0 + 8 * i + c_lo + (e & 1);
-          const int row = q0 + r_lo + 8 * (e >> 1);
+          const int row = p0 + r_lo + 8 * (e >> 1);   // key position
           if (col >= Sk || (causal && col > row) ||
               (kWindow && row - col >= window))
             x = kNegInf;
@@ -777,7 +791,7 @@ template <int HD, bool kWindow>
 cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int S, int Sk, int H, int KV,
                       const long long* st, int causal, int window,
-                      float scale, cudaStream_t stream) {
+                      int q_offset, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma<HD, kWindow>,
@@ -792,7 +806,7 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
       lse, S, Sk, H / KV, Strides{st[0], st[1], st[2]},
       Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
-      window, scale);
+      window, q_offset, scale);
   return cudaGetLastError();
 }
 
@@ -800,12 +814,13 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int S, int Sk, int H, int KV,
-                   const long long* st, int causal, int window, float scale,
-                   cudaStream_t stream) {
-  return window > 0 ? launch_as<HD, true>(q, k, v, o, lse, B, S, Sk, H, KV,
-                                          st, causal, window, scale, stream)
-                    : launch_as<HD, false>(q, k, v, o, lse, B, S, Sk, H, KV,
-                                           st, causal, window, scale, stream);
+                   const long long* st, int causal, int window, int q_offset,
+                   float scale, cudaStream_t stream) {
+  return window > 0
+             ? launch_as<HD, true>(q, k, v, o, lse, B, S, Sk, H, KV, st,
+                                   causal, window, q_offset, scale, stream)
+             : launch_as<HD, false>(q, k, v, o, lse, B, S, Sk, H, KV, st,
+                                    causal, window, q_offset, scale, stream);
 }
 
 }  // namespace wg
@@ -815,28 +830,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // 256; 1: bfloat16 at hd 8 only (the wgmma instance takes bf16 at 16-256).
 // S query rows, Sk keys. strides: 12 element strides, (b, s, head) of q,
 // k, v and o in turn. window: 0 for global attention, else keys with
-// dq - dk < window only. lse: null, or f32 [B, H, S], contiguous, for each
-// row's log-sum-exp. Returns cudaGetLastError() of the launch.
+// dq - dk < window only. q_offset: query row i's key position is
+// q_offset + i (causal; 0 otherwise). lse: null, or f32 [B, H, S],
+// contiguous, for each row's log-sum-exp. Returns cudaGetLastError() of
+// the launch.
 extern "C" int flash_attention_launch(int device, int dtype, int hd,
                                       const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int B, int S, int Sk, int H, int KV,
                                       const long long* strides, int causal,
-                                      int window, float scale,
+                                      int window, int q_offset, float scale,
                                       cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
   if (Sk <= 0 || KV <= 0 || H % KV != 0 || H > 65535 || B > 65535 ||
-      window < 0)
+      window < 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (dtype == 0)
     return (int)launch_f32(hd, q, k, v, o, lse, B, S, Sk, H, KV, strides,
-                           causal, window, scale, stream);
+                           causal, window, q_offset, scale, stream);
   if (dtype == 1 && hd == 8)
     return (int)launch<__nv_bfloat16, 8>(q, k, v, o, lse, B, S, Sk, H, KV,
-                                         strides, causal, window, scale,
-                                         stream);
+                                         strides, causal, window, q_offset,
+                                         scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -850,30 +867,35 @@ extern "C" int flash_attention_wgmma_launch(int device, int hd,
                                             int H, int KV,
                                             const long long* strides,
                                             int causal, int window,
-                                            float scale,
+                                            int q_offset, float scale,
                                             cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
   if (Sk <= 0 || KV <= 0 || H % KV != 0 || B > 65535 || window < 0 ||
-      (S + wg::kBlockQ - 1) / wg::kBlockQ > 65535)
+      q_offset < 0 || (S + wg::kBlockQ - 1) / wg::kBlockQ > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   switch (hd) {
     case 16:
       return (int)wg::launch<16>(q, k, v, o, lse, B, S, Sk, H, KV,
-                                 strides, causal, window, scale, stream);
+                                 strides, causal, window, q_offset, scale,
+                                 stream);
     case 32:
       return (int)wg::launch<32>(q, k, v, o, lse, B, S, Sk, H, KV,
-                                 strides, causal, window, scale, stream);
+                                 strides, causal, window, q_offset, scale,
+                                 stream);
     case 64:
       return (int)wg::launch<64>(q, k, v, o, lse, B, S, Sk, H, KV,
-                                 strides, causal, window, scale, stream);
+                                 strides, causal, window, q_offset, scale,
+                                 stream);
     case 128:
       return (int)wg::launch<128>(q, k, v, o, lse, B, S, Sk, H, KV,
-                                  strides, causal, window, scale, stream);
+                                  strides, causal, window, q_offset, scale,
+                                  stream);
     case 256:
       return (int)wg::launch<256>(q, k, v, o, lse, B, S, Sk, H, KV,
-                                  strides, causal, window, scale, stream);
+                                  strides, causal, window, q_offset, scale,
+                                  stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

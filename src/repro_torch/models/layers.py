@@ -56,6 +56,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import draws
 from repro_torch.distributed import compat, sharding
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_gqa
 
@@ -84,7 +85,8 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
     """Truncated normal at ±3σ, std = scale / sqrt(d_in), drawn in f32 on
     the generator's device, then cast to ``dtype``: ``[d_in, d_out]``."""
     w = torch.empty((d_in, d_out), dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    if draws(gen):
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
     return (w * (scale / math.sqrt(d_in))).to(dtype)
 
 
@@ -143,7 +145,8 @@ def embed_init(gen: torch.Generator, cfg: ModelConfig, keep=whole) -> dict:
     dtype = getattr(torch, cfg.dtype)
     table = torch.empty((cfg.vocab_size, cfg.d_model), dtype=torch.float32,
                         device=gen.device)
-    table.normal_(0.0, 1.0, generator=gen)
+    if draws(gen):
+        table.normal_(0.0, 1.0, generator=gen)
     p = {"table": keep(("table",), (table * 0.02).to(dtype))}
     del table
     if not cfg.tie_embeddings:
@@ -181,18 +184,28 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # attention
 # ---------------------------------------------------------------------------
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        window: int = 0) -> torch.Tensor:
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
     """Prefill and training attention, q [B, S, H, hd], k, v [B, Sk, KV,
     hd] -> [B, S, H, hd]; ``window > 0`` keeps only the last ``window``
     positions (gemma3's local layers); Sk != S is cross-attention,
-    non-causal: kernel B4 (the reference computes the same function with
-    its jnp blockwise attention). Where grad mode is on and q, k or v
+    non-causal, or, causal, a block of query rows at key positions
+    ``q_offset`` on over the keys up to its last row (``Sk == q_offset +
+    S``): kernel B4 (the reference computes the same function with its
+    jnp blockwise attention). Where grad mode is on and q, k or v
     requires grad, through ``Attention`` (B4 with its lse, and
     ``attention_bwd``)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return Attention.apply(q, k, v, causal, window)
-    return flash_attention_gqa(q, k, v, causal=causal, window=window)
+        return Attention.apply(q, k, v, causal, window, q_offset)
+    return flash_attention_gqa(q, k, v, causal=causal, window=window,
+                               **_offset(q_offset))
+
+
+def _offset(q_offset: int) -> dict:
+    """B4's ``q_offset`` argument where it is not 0: a call at offset 0 is
+    the call it always was, to whatever stands in ``flash_attention_gqa``
+    (the checks' fault and site wrappers)."""
+    return {"q_offset": q_offset} if q_offset else {}
 
 
 class Attention(torch.autograd.Function):
@@ -204,26 +217,27 @@ class Attention(torch.autograd.Function):
     in the backward pass, B4 included."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_offset=0):
         out, lse = flash_attention_gqa(q, k, v, causal=causal, window=window,
-                                       return_lse=True)
+                                       return_lse=True, **_offset(q_offset))
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, out, lse, dout,
-                                   causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+                                   causal=ctx.causal, window=ctx.window,
+                                   q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
 
 
 BWD_BLOCK_K = 512        # keys a backward step, the reference's block_kv
 
 
 def attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
-                  window: int = 0):
+                  window: int = 0, q_offset: int = 0):
     """dq, dk, dv of attention, the reference's ``_flash_b`` in plain
     PyTorch: q, out, dout [B, S, H, hd], k, v [B, Sk, KV, hd], lse f32
     [B, H, S] (the forward's, in scaled-score units). One block of
@@ -233,7 +247,8 @@ def attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     query heads of each kv head; each is cast to its input's dtype.
     Query rows that no key of a block can reach (above the diagonal,
     below the window's band) are left out of that block's products: their
-    ``p`` is exactly 0 there."""
+    ``p`` is exactly 0 there. Query row i sits at key position
+    ``q_offset + i`` (causal; a rank's rows under ``seq_shard_attn``)."""
     B, S, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -248,8 +263,8 @@ def attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     for k0 in range(0, Sk, BWD_BLOCK_K):
         k1 = min(Sk, k0 + BWD_BLOCK_K)
         # the query rows [r0, r1) that see a key of [k0, k1)
-        r0 = k0 if causal else 0
-        r1 = min(S, k1 - 1 + window) if window > 0 else S
+        r0 = max(0, k0 - q_offset) if causal else 0
+        r1 = min(S, k1 - 1 + window - q_offset) if window > 0 else S
         kb, vb = k[:, k0:k1].float(), v[:, k0:k1].float()
         if r0 >= r1:
             dk[:, k0:k1] = 0.0
@@ -258,7 +273,8 @@ def attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         qb, dob = qf[:, r0:r1], do[:, r0:r1]
         s = torch.einsum("bqkgd,bskd->bqkgs", qb, kb) * scale
         if causal or window > 0:
-            d = (torch.arange(r0, r1, device=q.device)[:, None]
+            d = (torch.arange(q_offset + r0, q_offset + r1,
+                              device=q.device)[:, None]
                  - torch.arange(k0, k1, device=q.device)[None, :])
             keep = d >= 0 if causal else torch.ones_like(d, dtype=torch.bool)
             if window > 0:
@@ -457,7 +473,16 @@ class MeshWeights:
     weights to ``attn_qkv`` and ``ffn_apply``, the one-device functions;
     ``rwkv_time_mix``, ``rwkv_channel_mix`` and ``mamba`` to the
     recurrent blocks; ``row_sum`` then sums a row-parallel product over
-    ``model``."""
+    ``model``.
+
+    ``sp`` (the forward sets it, ``perfcfg``'s ``sp_residual``; and
+    ``seq_attn``, its ``seq_shard_attn``, ``models/transformer.py``): the
+    residual stream is the rank's block of the sequence's rows
+    (``rows``), not the whole sequence replicated over ``model``: the
+    vocabulary-parallel embedding ends in a reduce-scatter over the rows,
+    each column-parallel entry gathers them (``enter_rows``), each
+    row-parallel exit reduce-scatters them (``row_sum``), and the final
+    norm takes them whole again (``enter_rows`` for replicated work)."""
 
     def __init__(self, cfg: ModelConfig, ctx, local_batch: bool = False):
         self.cfg, self.ctx = cfg, ctx
@@ -465,6 +490,32 @@ class MeshWeights:
         self.r = ctx.coord(ctx.tp_axis)
         self.table = None
         self.local_batch = local_batch
+        self.sp = False
+        self.seq_attn = False       # perfcfg's seq_shard_attn: the forward's
+
+    def rows(self, S: int) -> slice:
+        """The rank's block of ``S`` sequence rows over ``model``."""
+        return self.ctx.block(S, self.tp)
+
+    def enter_rows(self, x: torch.Tensor, over) -> torch.Tensor:
+        """The residual stream ``x`` where it enters a column-parallel
+        product (``over``: the spec entry of the product's split dim):
+        ``enter``, or under ``sp`` its rows gathered whole over ``model``,
+        whose backward sums the parts' gradients where the product is
+        split there (``compat.gather_parts_axis``) and keeps the rank's
+        rows where it is not (``compat.all_gather_axis``: the replicated
+        work downstream enters "f" itself)."""
+        if not self.sp:
+            return self.enter(x, over)
+        if over == self.tp:
+            return compat.gather_parts_axis(x, self.ctx, self.tp, 1)
+        return compat.all_gather_axis(x, self.ctx, self.tp, 1)
+
+    def row_scale(self, scale: torch.Tensor) -> torch.Tensor:
+        """A per-token norm's replicated ``scale``: under ``sp`` each rank
+        applies it to its own rows, so it enters "f" (its gradients are
+        parts, summed over ``model``)."""
+        return self.enter(scale, self.tp) if self.sp else scale
 
     def enter(self, x: torch.Tensor, over) -> torch.Tensor:
         """``x``, replicated over ``model``, where it enters work split
@@ -497,7 +548,10 @@ class MeshWeights:
         all-reduce to f32 (read from its compiled HLO: a bf16 convert,
         then an f32 all-reduce, at the transformers' ``wo`` and
         ``w_down``, rwkv6's ``tm.wo`` and ``cm.wv`` and Mamba's
-        ``out_proj``)."""
+        ``out_proj``). Under ``sp`` the sum is a reduce-scatter over the
+        rows, in f32 and rounded once alike."""
+        if over == self.tp and self.sp:
+            return compat.reduce_scatter_axis(y, self.ctx, self.tp, 1)
         if over == self.tp:
             return compat.all_reduce_axis(y.float(), self.ctx,
                                           self.tp).to(y.dtype)
@@ -534,7 +588,10 @@ class MeshWeights:
             d_ff: int) -> torch.Tensor:
         """``ffn_apply`` on ``parent``'s blocks (``d_ff`` wide whole),
         gathered over ``fsdp``: column-parallel ``w_gate`` and ``w_up``,
-        row-parallel ``w_down`` summed over ``model``."""
+        row-parallel ``w_down`` summed over ``model``. Under ``sp`` an FFN
+        replicated over ``model`` (``d_ff`` does not divide it) runs on
+        the rank's rows alone (it is a function of each row), its weights
+        entering "f": each rank's gradients of them are parts."""
         d = self.cfg.d_model
         w = {}
         w["w_up"], su = self.weight(p["w_up"], (parent, "w_up"), (d, d_ff))
@@ -543,7 +600,10 @@ class MeshWeights:
         if "w_gate" in p:
             w["w_gate"], _ = self.weight(p["w_gate"], (parent, "w_gate"),
                                          (d, d_ff))
-        return self.row_sum(ffn_apply(w, self.enter(x, su[1])), sd[0])
+        if self.sp and su[1] != self.tp:
+            return ffn_apply({k: self.enter(t, self.tp)
+                              for k, t in w.items()}, x)
+        return self.row_sum(ffn_apply(w, self.enter_rows(x, su[1])), sd[0])
 
     def batch_block(self, t: torch.Tensor) -> torch.Tensor:
         """The rank's block of ``t``'s batch (dim 0) over ``dp_axes``
@@ -568,13 +628,18 @@ class MeshWeights:
         where B divides) looked up vocabulary-parallel: the rank's range
         of the table, gathered over ``fsdp`` (kept for a tied
         ``unembed``), zeros for the others' ids, summed over ``model``
-        (exact)."""
+        (exact); under ``sp`` the sum is a reduce-scatter over the rows,
+        and a table replicated over ``model`` is looked up at the rank's
+        rows, entering "f"."""
         cfg, ctx = self.cfg, self.ctx
         tokens = self.batch_block(tokens)
         self.table, spec = self.weight(p["table"], ("embed", "table"),
                                        (cfg.vocab_size, cfg.d_model),
                                        stacked=False)
         table = self.table
+        if spec[0] != self.tp and self.sp:
+            return self.enter(table, self.tp)[
+                tokens[:, self.rows(tokens.shape[1])]]
         if spec[0] != self.tp:
             return table[tokens]
         rows = table.shape[0]
@@ -583,6 +648,8 @@ class MeshWeights:
         x = torch.where(inside[..., None], table[ids.clamp(0, rows - 1)],
                         torch.zeros((), dtype=table.dtype,
                                     device=table.device))
+        if self.sp:
+            return compat.reduce_scatter_axis(x, ctx, self.tp, 1)
         return compat.all_reduce_axis(x, ctx, self.tp)
 
     def unembed(self, p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -35,7 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, resolve
+from repro_torch.device import DeviceLike, draws, resolve
 from repro_torch.models import layers as L
 
 CONV_K = 4  # depthwise causal conv kernel size
@@ -57,7 +57,8 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig,
     dev = gen.device
     f32 = dict(dtype=torch.float32, device=dev)
     conv_w = torch.empty((CONV_K, conv_dim), **f32)     # drawn first
-    conv_w.normal_(0.0, 1.0, generator=gen)
+    if draws(gen):
+        conv_w.normal_(0.0, 1.0, generator=gen)
     conv_w = keep(("conv_w",), conv_w * (1.0 / math.sqrt(CONV_K)))
     p = {"norm": keep(("norm",), torch.ones(d, **f32)),
          "in_proj": keep(("in_proj",), L.dense_init(

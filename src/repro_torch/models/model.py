@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, resolve
+from repro_torch.device import DeviceLike, generator
 from repro_torch.models import hybrid, rwkv6, transformer
 from repro_torch.models.layers import (softmax_cross_entropy,
                                        vocab_parallel_nll)
@@ -49,10 +49,9 @@ def _mod(cfg: ModelConfig):
 def init(cfg: ModelConfig, *, seed: int = 0,
          device: DeviceLike = None) -> dict:
     """Random params on ``device`` (default the CUDA card), drawn from a
-    ``torch.Generator`` on that device seeded with ``seed``."""
-    device = resolve(device)
-    return _mod(cfg).init(torch.Generator(device=device).manual_seed(seed),
-                          cfg)
+    ``torch.Generator`` on that device seeded with ``seed``; on
+    ``"meta"`` their shapes alone, nothing drawn."""
+    return _mod(cfg).init(generator(device, seed), cfg)
 
 
 def apply_train(params, cfg: ModelConfig, batch, remat=True, ctx=None):

@@ -37,7 +37,8 @@ drops, step by step:
 
   - router: ``x @ router`` with the router rounded to x's dtype and the
     products summed in f32 (the reference's default ``router_bf16_matmul``
-    flag; in f32 it is ``x @ router``), softmax, top-k with the lower
+    flag; in f32 it is ``x @ router``; with the flag off, x in f32 times
+    the f32 router), softmax, top-k with the lower
     expert first among equal probabilities (``jax.lax.top_k``'s order: a
     stable descending sort), weights renormalised by ``max(sum, 1e-9)``;
   - aux loss ``E · Σ_e mean_t(probs) · count_e / (T·k)``;
@@ -50,6 +51,13 @@ drops, step by step:
     of them, keeping only those inside its own ``[start_e, start_e +
     count_e)``: an expert's assignments past its window are dropped
     (ROADMAP C17);
+  - the wire (``perfcfg``'s ``a2a_int8``): the rows sent out and the
+    rows sent back quantized per row to int8, the reference's
+    ``_a2a_maybe_int8``: scale ``max(absmax / 127, 1e-12)`` in f32,
+    ``round`` half to even, clipped to ±127; the scales travel as a
+    second exchange, and the rows come back as ``q · scale`` in x's
+    dtype. On one card (M = 1) at the same two points, as the
+    reference's ``shard_map`` at M = 1 quantizes too;
   - combine: each token's weighted expert outputs summed in x's dtype,
     rounding at each add, in the order of their send slots, as the
     reference's scatter-add applies them: by destination shard, then in
@@ -89,7 +97,9 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import draws
 from repro_torch.models import layers as L
+from repro_torch.models import perfcfg
 
 
 
@@ -104,7 +114,9 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, keep=L.whole) -> dict:
 
     def trunc(shape, std):
         w = torch.empty(shape, dtype=torch.float32, device=gen.device)
-        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
+        if draws(gen):
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0,
+                                        generator=gen)
         return w.mul_(std)
 
     p = {"router": keep(("router",), trunc((d, E), 1.0 / math.sqrt(d))),
@@ -127,7 +139,10 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, keep=L.whole) -> dict:
 def route(x: torch.Tensor, router: torch.Tensor, k: int):
     """x [T, d] -> (gate weights [T, k] f32, expert ids [T, k] int64,
     probs [T, E] f32, router logits [T, E] f32)."""
-    logits = x.float() @ router.to(x.dtype).float()
+    if perfcfg.flag("router_bf16_matmul"):
+        logits = x.float() @ router.to(x.dtype).float()
+    else:
+        logits = x.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_w, expert_id = top.values[:, :k], top.indices[:, :k]
@@ -153,6 +168,14 @@ def capacities(T: int, cfg: ModelConfig, M: int = 1):
     cap_send = int(math.ceil(T * k / M * cf))
     N = M * cap_send
     return cap_send, min(int(math.ceil(N / max(E // M, 1) * cf)), N)
+
+
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """How many of ``ids`` (each in [0, n)) hold each value, [n] int64:
+    ``bincount``'s counts, as a scatter-add of fixed size (which the dry
+    run's meta tensors take)."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
 
 
 def _send(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, M: int,
@@ -192,7 +215,7 @@ def _send(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, M: int,
     else:
         dest = flat_eid // E_loc
         s_dest, order = torch.sort(dest, stable=True)
-        counts = torch.bincount(s_dest, minlength=M)
+        counts = _counts(s_dest, M)
         starts = torch.cumsum(counts, 0) - counts
         pos = torch.arange(T * k, device=dev) - starts[s_dest]
         slot_sorted = torch.where(pos < cap, s_dest * cap + pos,
@@ -222,7 +245,7 @@ def _experts(recv_x: torch.Tensor, recv_le: torch.Tensor, w_gate, w_up,
     E_loc = w_gate.shape[0]
     dev = recv_x.device
     le_sorted, order = torch.sort(recv_le, stable=True)
-    counts = torch.bincount(le_sorted, minlength=E_loc + 1)[:E_loc]
+    counts = _counts(le_sorted, E_loc + 1)[:E_loc]
     starts = torch.cumsum(counts, 0) - counts
     first = torch.clamp(starts, 0, max(N - cap, 0))
     window = first[:, None] + torch.arange(cap, device=dev)   # [E_loc, cap]
@@ -282,6 +305,34 @@ def _combine(back: torch.Tensor, s: dict, dtype: torch.dtype,
     return y, kept
 
 
+_INV127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+
+
+def quantize_rows(t: torch.Tensor):
+    """``t`` [..., d] -> (int8 [..., d], f32 scales [..., 1]): per row,
+    ``scale = max(absmax / 127, 1e-12)`` and ``round(t / scale)`` (half
+    to even) clipped to ±127, the reference's ``_a2a_maybe_int8`` as XLA
+    compiles it: the division by the constant 127 is a product with its
+    f32 reciprocal."""
+    tf = t.float()
+    scale = torch.clamp(tf.abs().amax(dim=-1, keepdim=True) * _INV127,
+                        min=1e-12)
+    return torch.clamp(torch.round(tf / scale), -127, 127).to(torch.int8), \
+        scale
+
+
+def _wire(t: torch.Tensor, exchange=None) -> torch.Tensor:
+    """The dispatch's exchange of ``t`` [M, cap, d] (``exchange``: the
+    mesh's all-to-all; ``None``: one card's, the identity), int8 per row
+    under ``a2a_int8``: the payload and the scales exchanged apart, the
+    rows rebuilt in t's dtype."""
+    exchange = exchange or (lambda a: a)
+    if not perfcfg.flag("a2a_int8"):
+        return exchange(t)
+    q, scale = quantize_rows(t)
+    return (exchange(q).float() * exchange(scale)).to(t.dtype)
+
+
 def _aux(cfg: ModelConfig, me, ce):
     return cfg.n_experts * torch.sum(me * ce)
 
@@ -293,9 +344,10 @@ def _dispatch(x: torch.Tensor, p: dict, cfg: ModelConfig, expert_id=None):
     T, d = x.shape
     s = _send(x, p["router"], cfg, 1, expert_id)
     _, cap_exp = capacities(T, cfg)
-    back, done = _experts(s["send_x"].view(-1, d), s["send_le"].view(-1),
-                          p["w_gate"], p["w_up"], p["w_down"], cap_exp)
-    y, kept = _combine(back, s, x.dtype, done)
+    back, done = _experts(_wire(s["send_x"]).view(-1, d),
+                          s["send_le"].view(-1), p["w_gate"], p["w_up"],
+                          p["w_down"], cap_exp)
+    y, kept = _combine(_wire(back[None]).view(-1, d), s, x.dtype, done)
     return (y, _aux(cfg, s["me"], s["ce"]), s["expert_id"], kept,
             (s["own_id"], s["logits"]))
 
@@ -331,7 +383,7 @@ def dispatch_simulated(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  for b in blocks]
         T = blocks[0].shape[0] * blocks[0].shape[1]
         cap, cap_exp = capacities(T, cfg, M)
-        sx = torch.stack([s["send_x"] for s in sends])     # [src, dst, cap, d]
+        sx = torch.stack([_wire(s["send_x"]) for s in sends])  # [src, dst..]
         sl = torch.stack([s["send_le"] for s in sends])
         outs = []
         for r in range(M):
@@ -339,7 +391,7 @@ def dispatch_simulated(p: dict, x: torch.Tensor, cfg: ModelConfig,
             back, _ = _experts(sx[:, r].reshape(-1, d), sl[:, r].reshape(-1),
                                p["w_gate"][w], p["w_up"][w], p["w_down"][w],
                                cap_exp)
-            outs.append(back.view(M, cap, d))               # [src, cap, d]
+            outs.append(_wire(back.view(M, cap, d)))        # [src, cap, d]
         back = torch.stack(outs, dim=1)                     # [src, dst, ...]
         y = [_combine(back[r].reshape(-1, d), sends[r], x.dtype)[0]
              for r in range(M)]
@@ -358,8 +410,9 @@ def dispatch_simulated(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def _moe_mesh(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh):
     """The rank's MoE block on a mesh: x [B_loc, S, d] its residual
-    block (replicated over ``model``) -> (y [B_loc, S, d], aux).
-    ``mesh``: the forward's ``layers.MeshWeights``."""
+    block (replicated over ``model``) -> (y [B_loc, S, d], aux); under
+    ``mesh.sp`` x is its rows, the token block it dispatches, and so is
+    y. ``mesh``: the forward's ``layers.MeshWeights``."""
     from repro_torch.distributed import compat
     ctx = mesh.ctx
     B, S, d = x.shape
@@ -373,13 +426,15 @@ def _moe_mesh(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh):
     wu, _ = mesh.weight(p["w_up"], ("moe", "w_up"), (E, d, ff))
     wd, _ = mesh.weight(p["w_down"], ("moe", "w_down"), (E, ff, d))
     blk = _token_block(S, M, r)
+    if mesh.sp:         # x is the rank's rows already: S of the whole
+        S, blk = S * M, slice(r * S, (r + 1) * S)
     if x.requires_grad and (blk.stop - blk.start) == S and M > 1:
         raise ValueError(f"{cfg.name}: training on a mesh routes each model "
                          f"rank's block of the sequence; {S} positions do "
                          f"not split over the {M} ranks of {tp!r}")
     # each model rank routes its own token block of the replicated x with
     # the replicated router: their gradients are parts, summed over model
-    xb = compat.to_parallel(x, ctx, tp)[:, blk]
+    xb = x if mesh.sp else compat.to_parallel(x, ctx, tp)[:, blk]
     router = compat.to_parallel(p["router"], ctx, tp)
     Sl = xb.shape[1]
     forced = None
@@ -392,14 +447,16 @@ def _moe_mesh(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh):
         forced = ids[:, blk].reshape(-1, ids.shape[-1]).to(x.device)
     s = _send(xb.reshape(-1, d), router, cfg, M, forced)
     cap, cap_exp = capacities(B * Sl, cfg, M)
-    recv_x = compat.all_to_all_axis(s["send_x"], ctx, tp)
-    recv_le = compat.all_to_all_axis(s["send_le"], ctx, tp)
+    def exchange(t):
+        return compat.all_to_all_axis(t, ctx, tp)
+    recv_x = _wire(s["send_x"], exchange)
+    recv_le = exchange(s["send_le"])
     back, done = _experts(recv_x.reshape(-1, d), recv_le.reshape(-1), wg, wu,
                           wd, cap_exp)
-    back = compat.all_to_all_axis(back.view(M, cap, d), ctx, tp)
+    back = _wire(back.view(M, cap, d), exchange)
     y, _ = _combine(back.reshape(-1, d), s, x.dtype)
     y = y.view(B, Sl, d)
-    if Sl != S:
+    if Sl != S and not mesh.sp:
         y = compat.all_gather_axis(y, ctx, tp, dim=1)
     me = compat.pmean_axis(s["me"], ctx, tp)
     ce = compat.pmean_axis(s["ce"], ctx, tp)

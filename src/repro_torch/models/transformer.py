@@ -70,14 +70,35 @@ layers run under the remat policy too, q and the image k and v entering
 the rank's heads through "f" (``MeshWeights.enter``), and musicgen's
 frame embeddings come in as the rank's rows.
 
-The reference's perf flags (``models/perfcfg``) keep their defaults:
-the ones on this path act only on a mesh's layout or on gemma3
-(``seq_shard_attn``, ``sp_residual``, ``banded_local``, all off), but
-for ``router_bf16_matmul``, on, whose arithmetic the MoE block keeps. So
-local layers run the reference's default path, blockwise attention with
-the window mask, and attention whose heads do not divide the ``model``
-axis replicates there. Logit-softcap configs raise
-``NotImplementedError`` (no config of the repo sets one).
+The reference's perf flags (``models/perfcfg``), each under the
+reference's own conditions, on a mesh (the dense, MoE and audio
+families; the VLM's layers take neither, as the reference's do not):
+
+  - ``seq_shard_attn`` (train and prefill, where the q heads do not
+    divide ``model``, S divides it and S >= 1024): in place of every
+    rank computing every head for every row, rank r attends for its
+    rows ``[r·S/M, (r+1)·S/M)`` over the keys ``[0, (r+1)·S/M)``, B4
+    at ``q_offset = r·S/M``, and its rows after ``wo`` are gathered
+    over ``model`` along the sequence. q, k, v and ``wo``, replicated
+    there, enter "f": each rank's gradients of them are parts;
+  - ``sp_residual`` (where S divides ``model`` and S >= M): the residual
+    stream is the rank's rows between blocks (``layers.MeshWeights``'
+    ``sp``): the norms and residual adds run on them, each
+    column-parallel entry gathers the rows, each row-parallel exit
+    reduce-scatters them, the MoE dispatches its rows as they are, and
+    the final norm takes the rows whole. Attention replicated over
+    ``model`` computes every row and keeps the rank's (its q, k, v and
+    ``wo`` entering "f"), or, with ``seq_shard_attn``, the rank's rows
+    alone. As in the reference, gemma3 under ``banded_local`` keeps its
+    residual whole (its superblock scan has no such constraint);
+  - ``banded_local`` changes no work: B4's windowed instance starts each
+    query tile's key loop at the band's first tile, which is the O(S·w)
+    that the reference's banded attention buys (ROADMAP C29);
+  - ``a2a_int8`` and ``router_bf16_matmul`` act in the MoE block
+    (``models/moe.py``), on one device too.
+
+Logit-softcap configs raise ``NotImplementedError`` (no config of the
+repo sets one).
 """
 from __future__ import annotations
 
@@ -90,7 +111,7 @@ from repro_torch.device import DeviceLike, resolve
 from repro_torch.distributed import compat
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
-from repro_torch.models import rematcfg
+from repro_torch.models import perfcfg, rematcfg
 
 MODES = ("prefill", "decode", "train")
 FAMILIES = ("dense", "moe", "vlm", "audio")
@@ -196,23 +217,43 @@ def _self_attn(pb, x, cfg, *, positions, window, mode, cache=None,
     ``model`` where ``wo`` is row-parallel, and in decode the rank's
     cache blocks, written at ``cur_index`` where it falls in their
     block; ``layout``: the decode cache's (sequence axes, the block's
-    first position, kv heads over ``model``), ``_cache_layout``'s."""
+    first position, kv heads over ``model``), ``_cache_layout``'s.
+
+    Under ``mw.sp`` x is the rank's rows, and so is the result; where
+    ``mw.seq_attn`` the rank attends for its rows alone (B4 at a query
+    offset). Either way, attention replicated over ``model`` takes q, k,
+    v and ``wo`` through "f" (each rank's gradients of them are
+    parts)."""
     ap, wo_over = (pb["attn"], None) if mw is None else mw.attn(pb["attn"])
-    h = L.rms_norm(x, pb["ln1"], cfg.norm_eps)
+    h = L.rms_norm(x, pb["ln1"] if mw is None else mw.row_scale(pb["ln1"]),
+                   cfg.norm_eps)
+    parts = False       # replicated attention, each rank's rows a part
     if mw is None:
         q, k, v = L.attn_qkv(ap, h, cfg)
     else:           # the column-parallel entries (``MeshWeights.enter``)
         q_over, kv_over = mw.attn_entries()
-        hq = mw.enter(h, q_over)
+        hq = mw.enter_rows(h, q_over)
         q, k, v = L.attn_qkv(ap, hq, cfg, kv_x=None if kv_over == q_over
-                             else mw.enter(h, kv_over))
+                             else mw.enter_rows(h, kv_over))
+        parts = mode != "decode" and q_over != mw.tp and (mw.sp
+                                                         or mw.seq_attn)
     q = L.rope(q, positions, cfg.rope_theta)
     k_rot = L.rope(k, positions, cfg.rope_theta)
+    if parts:
+        q, k_rot, v = (mw.enter(t, mw.tp) for t in (q, k_rot, v))
+        ap = dict(ap, wo=mw.enter(ap["wo"], mw.tp))
     Hl = q.shape[2]
     # a rank's q heads [h0, h0 + Hl) where they shard and kv heads do not
     kv_whole = Hl < cfg.n_heads and k.shape[2] == cfg.n_kv_heads
     h0 = mw.r * Hl if Hl < cfg.n_heads else 0
-    if mode != "decode":
+    if mode != "decode" and parts and mw.seq_attn:
+        # the rank's rows [a, b) over the keys [0, b)
+        rows = mw.rows(q.shape[1])
+        a, b = rows.start, rows.stop
+        out = L.blockwise_attention(q[:, a:b], k_rot[:, :b], v[:, :b],
+                                    causal=True, window=window, q_offset=a)
+        new_kv = (k_rot, v)
+    elif mode != "decode":
         # every kv head on each rank, each rank's q heads meet some: the
         # ranks' gradients of k and v are parts, summed over model
         kq, vq = _kv_for_heads(mw.enter(k_rot, mw.tp), mw.enter(v, mw.tp),
@@ -235,9 +276,13 @@ def _self_attn(pb, x, cfg, *, positions, window, mode, cache=None,
         if kv_whole:
             out = out[:, :, h0:h0 + Hl]
         new_kv = (k_cache, v_cache)
-    B, S = x.shape[:2]
+    B, S = out.shape[:2]
     y = out.reshape(B, S, Hl * cfg.head_dim) @ ap["wo"]
-    return (y if mw is None else mw.row_sum(y, wo_over)), new_kv
+    if not parts:
+        return (y if mw is None else mw.row_sum(y, wo_over)), new_kv
+    if mw.seq_attn and not mw.sp:   # the rows, whole over model
+        return compat.all_gather_axis(y, mw.ctx, mw.tp, dim=1), new_kv
+    return (y if mw.seq_attn else y[:, mw.rows(S)]), new_kv
 
 
 def _image_kv(cross_blocks, image_embeds, cfg, mw=None):
@@ -321,7 +366,8 @@ def _mlp_or_moe(pb, x, cfg, mw=None, d_ff=0):
     """(x + FFN or MoE of the normed x, the layer's f32 aux or None). On a
     mesh (``mw``) the FFN ``d_ff`` wide whole, column- then
     row-parallel, and the MoE's dispatch over ``model``."""
-    h = L.rms_norm(x, pb["ln2"], cfg.norm_eps)
+    h = L.rms_norm(x, pb["ln2"] if mw is None else mw.row_scale(pb["ln2"]),
+                   cfg.norm_eps)
     if "moe" in pb:
         y, aux = moe_lib.moe_apply(pb["moe"], h, cfg, mw)
         return x + y, aux
@@ -367,18 +413,22 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
     mw = None
+    embeds = cfg.embeds_input and "embeds" in batch
+    S = batch["embeds" if embeds else "tokens"].shape[1]
     if ctx is not None and ctx.mesh is not None:
         mw = L.MeshWeights(cfg, ctx, local_batch=mode == "train")
-    embeds = cfg.embeds_input and "embeds" in batch
+        mw.sp, mw.seq_attn = _perf_layout(cfg, ctx, S, mode)
     if embeds:
         x = batch["embeds"].to(getattr(torch, cfg.dtype))
         if mw is not None:
             x = mw.batch_block(x)
+            if mw.sp:
+                x = x[:, mw.rows(S)]
     elif mw is None:
         x = L.embed_apply(params["embed"], batch["tokens"])
     else:
         x = mw.embed(params["embed"], batch["tokens"])
-    B, S = x.shape[:2]
+    B = x.shape[0]
     layout = img_layout = None
     if mode == "decode":
         positions = torch.full((B, 1), cur_index, dtype=torch.int32,
@@ -441,6 +491,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         if mode == "prefill" else (None if train else caches)
     if cfg.family == "vlm" and mode == "prefill":
         kv.update(img_k=img_k, img_v=img_v)
+    if mw is not None:      # under sp the final norm takes whole rows
+        x = mw.enter_rows(x, None)
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -451,6 +503,27 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
 # ---------------------------------------------------------------------------
 # on a mesh
 # ---------------------------------------------------------------------------
+def _perf_layout(cfg: ModelConfig, ctx, S: int, mode: str):
+    """(``sp_residual``, ``seq_shard_attn``) for a forward of S positions
+    on ``ctx``'s mesh, under the reference's conditions: neither in the
+    VLM (its superblocks pass no ctx to their layers), neither at a
+    model axis of one; ``sp_residual`` where S divides ``model`` and S
+    >= M, but for gemma3's layers under ``banded_local`` (the
+    reference's superblock scan keeps them whole), ``seq_shard_attn`` in
+    train and prefill where the q heads do not divide ``model``, S does
+    and S >= 1024."""
+    M = ctx.tp_size
+    if cfg.family == "vlm" or M == 1:
+        return False, False
+    banded = (cfg.local_global_ratio > 0 and cfg.sliding_window > 0
+              and mode != "decode" and perfcfg.flag("banded_local"))
+    sp = (perfcfg.flag("sp_residual") and S % M == 0 and S >= M
+          and not banded)
+    seq = (perfcfg.flag("seq_shard_attn") and mode != "decode"
+           and cfg.n_heads % M != 0 and S % M == 0 and S >= 1024)
+    return sp, seq
+
+
 def _kv_for_heads(k, v, h0: int, Hl: int, cfg: ModelConfig):
     """k, v [B, S, KV, hd] (every kv head) for the rank's q heads
     ``[h0, h0 + Hl)``: q head h meets kv head h // G. Contiguous, for

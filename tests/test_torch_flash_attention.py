@@ -310,3 +310,131 @@ def test_negative_windows_are_refused():
     q, k, v = _torch(*_qkv(0, (1, 8, 2, 16), (1, 8, 1, 16)))
     with pytest.raises(ValueError, match="window -1"):
         fa.flash_attention_gqa(q, k, v, window=-1)
+
+
+# ---------------------------------------------------------------------------
+# a causal query offset: a rank's block of the query rows (seq_shard_attn)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_query_offset_rows_equal_the_full_calls_rows(dtype, window, lse):
+    """Where the offset is a multiple of BLOCK_Q, each block of rows runs
+    the full causal call's tiles in the same order: its output (and lse)
+    equal those rows bit for bit."""
+    S, n = 4 * fa.BLOCK_Q, fa.BLOCK_Q
+    q, k, v = _torch(*_qkv(7, (2, S, 4, 16), (2, S, 2, 16)))
+    if dtype == "bfloat16":
+        q, k, v = (t.bfloat16() for t in (q, k, v))
+    full = fa.flash_attention_gqa(q, k, v, window=window, return_lse=True)
+    for r in range(S // n):
+        a, b = r * n, (r + 1) * n
+        got = fa.flash_attention_gqa(q[:, a:b], k[:, :b], v[:, :b],
+                                     window=window, q_offset=a,
+                                     return_lse=lse)
+        out = got[0] if lse else got
+        assert torch.equal(out, full[0][:, a:b])
+        if lse:
+            assert torch.equal(got[1], full[1][..., a:b])
+
+
+@pytest.mark.parametrize("a,b", [(0, 70), (70, 150), (128, 150)])
+def test_query_offset_matches_the_reference_rows(a, b):
+    """Rows [a, b) at offset a over keys [0, b), any offset, against the
+    same rows of the Pallas kernel's causal call (interpret mode)."""
+    S = 150
+    q, k, v = _qkv(11, (1, S, 4, 16), (1, S, 2, 16))
+    want = np.asarray(ref_gqa(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), causal=True, interpret=True))
+    tq, tk, tv = _torch(q[:, a:b], k[:, :b], v[:, :b])
+    got = fa.flash_attention_gqa(tq, tk, tv, q_offset=a)
+    np.testing.assert_allclose(got.numpy(), want[:, a:b], rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+def test_query_offsets_are_causal_over_the_keys_up_to_the_last_row():
+    q, k, v = _torch(*_qkv(0, (1, 8, 2, 16), (1, 24, 1, 16)))
+    with pytest.raises(ValueError, match="Sk == q_offset"):
+        fa.flash_attention_gqa(q, k, v, q_offset=8)
+    with pytest.raises(ValueError, match="causal and not negative"):
+        fa.flash_attention_gqa(q, k, v, causal=False, q_offset=16)
+    with pytest.raises(ValueError, match="causal and not negative"):
+        fa.flash_attention_gqa(q, k[:, :8], v[:, :8], q_offset=-1)
+    assert fa.flash_attention_gqa(q, k, v, q_offset=16).shape == q.shape
+
+
+@pytest.mark.parametrize("causal,window,S,Sk,off", [
+    (True, 0, 50, 50, 0), (True, 0, 30, 100, 70), (True, 7, 30, 100, 70),
+    (True, 200, 30, 100, 70), (False, 0, 20, 33, 0), (False, 9, 40, 40, 0)])
+def test_attention_flops_count_the_pairs_the_mask_keeps(causal, window, S,
+                                                        Sk, off):
+    d = (off + torch.arange(S))[:, None] - torch.arange(Sk)[None, :]
+    keep = d >= 0 if causal else torch.ones_like(d, dtype=torch.bool)
+    if window:
+        keep &= d < window
+    pairs = int(keep.sum())
+    assert fa.attention_flops(2, S, Sk, 3, 8, causal=causal, window=window,
+                              q_offset=off) == 4 * 2 * 3 * 8 * pairs
+
+
+def test_meta_tensors_launch_nothing_and_add_their_operations():
+    """The dry run's B4: shapes only, no launch, the FLOPs of
+    ``attention_flops`` added to ``meta_flops``."""
+    b4 = fa.flash_attention_gqa
+    launches, flops = b4.launches, b4.meta_flops
+    q = torch.empty(2, 64, 4, 16, device="meta")
+    kv = torch.empty(2, 192, 2, 16, device="meta")
+    out, lse = b4(q, kv, kv, q_offset=128, return_lse=True)
+    assert out.device.type == lse.device.type == "meta"
+    assert out.shape == q.shape and lse.shape == (2, 4, 64)
+    assert b4.launches == launches
+    assert b4.meta_flops - flops == fa.attention_flops(2, 64, 192, 4, 16,
+                                                       q_offset=128)
+    with pytest.raises(ValueError, match="one CUDA device or all"):
+        b4(q, torch.empty(kv.shape), kv, q_offset=128)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64),
+                                      (torch.bfloat16, 256),
+                                      (torch.float32, 64),
+                                      (torch.bfloat16, 8)])
+def test_query_offset_on_the_card(dtype, hd, window, lse):
+    """Both instances (wgmma: bf16 at hd 16-256; simt: f32, and bf16 at
+    hd 8) at each rank's rows of a causal call, with and without the
+    lse and the window: each rank's rows equal the full call's bit for
+    bit, and the plain version's within 2e-5 (f32) or 3e-2 (bf16);
+    every offset launch counted."""
+    dev = _card()
+    S, ranks = 512, 4
+    q, k, v = (t.to(dev, dtype) for t in _torch(
+        *_qkv(3, (2, S, 4, hd), (2, S, 2, hd))))
+    full = fa.flash_attention_gqa(q, k, v, window=window, return_lse=True)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    n = S // ranks
+    for r in range(ranks):
+        a, b = r * n, (r + 1) * n
+        before = fa.flash_attention_gqa.launches_offset
+        got = fa.flash_attention_gqa(q[:, a:b], k[:, :b], v[:, :b],
+                                     window=window, q_offset=a,
+                                     return_lse=lse)
+        want = fa.flash_attention_gqa_plain(q[:, a:b], k[:, :b], v[:, :b],
+                                            window=window, q_offset=a,
+                                            return_lse=True)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_gqa.launches_offset == before + (a > 0)
+        out = got[0] if lse else got
+        assert torch.equal(out, full[0][:, a:b])
+        torch.testing.assert_close(out.float(), want[0].float(), rtol=tol,
+                                   atol=tol)
+        if lse:
+            assert torch.equal(got[1], full[1][..., a:b])
+            torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
