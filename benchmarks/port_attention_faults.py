@@ -71,8 +71,9 @@ def build_faults(out_dir: Path) -> dict:
         cu.write_text(src.replace(old, new))
         lib = out_dir / f"fault{i}.so"
         procs[name] = (lib, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}",
-             "-o", str(lib), str(cu)], stdout=subprocess.PIPE,
+            [_build.nvcc_path(), *_build.flags("flash_attention"),
+             f"-I{_build.CSRC}", "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     for name, (lib, proc) in procs.items():
         log, _ = proc.communicate()

@@ -975,6 +975,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
+    simt_run = simt_counted(_build)
 
     # -- 1. card ---------------------------------------------------------
     card = nvidia_smi_line()
@@ -995,6 +996,7 @@ def main() -> int:
     for name in _build.SOURCES:
         if not _build.library_path(name).exists():
             fail(f"{name} did not build")
+    simt_spills(_build)
     # -- 3. corpus -------------------------------------------------------
     cfg = SearchConfig(name="paper-full")
     t0 = time.perf_counter()
@@ -1287,6 +1289,11 @@ def main() -> int:
     # -- 18. the reference's perf flags on the mesh path (B4 at a rank's
     # sequence rows) and the dry run on the meta device --------------------
     rows.append(perf_phase(torch, dev, nvidia_smi_line(), dry))
+    rows.extend(F32_ROWS)
+    say(f"B4's simt instance over the whole run, in this process: "
+        f"{simt_run[0]} launches (launches_by_design['simt'], every "
+        "reset added back; the mesh ranks' own are in phases 16-17's "
+        "lines)")
     say(f"run: {time.perf_counter() - t_run:.1f} s wall")
     say(nvidia_smi_line())
     say(json.dumps({"kernels": rows}))
@@ -1294,6 +1301,57 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def simt_counted(_build):
+    """B4's simt launches over the whole run: the phases set
+    ``launches_by_design`` to 0 before each run they read, so the total
+    is counted beside it, where the wrapper counts (``count_launch``).
+    Returns a one-item list that holds the total."""
+    total = [0]
+    count = _build.count_launch
+
+    def counted(wrapper, design=None, *also):
+        if design == "simt":
+            total[0] += 1
+        count(wrapper, design, *also)
+    _build.count_launch = counted
+    return total
+
+
+def simt_spills(_build):
+    """Phase 2: ptxas' report of every simt instance of B4 (``ptxas
+    -v``; f32 at each head dim and bf16 at 8, each global and windowed,
+    with 16-byte and with one-element copies): its registers, and no
+    bytes spilled to local memory."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    log = _build.ptxas_log("flash_attention").splitlines()
+    seen = []
+    for i, ln in enumerate(log):
+        if "Compiling entry function" not in ln or "simt9flash_fwd" not in ln:
+            continue
+        props = next(x for x in log[i + 1:] if "spill stores" in x)
+        used = next(x for x in log[i + 1:] if "Used " in x)
+        # template arguments T, HD, kWindow, kWide
+        args = ln.split("flash_fwdI")[1].split("EEEv")[0]
+        window, wide = (f.startswith("1") for f in args.split("Lb")[1:])
+        name = (("bf16" if "bfloat16" in args else "f32") + " hd "
+                + args.split("Li")[1].split("E")[0]
+                + (" window" if window else "")
+                + ("" if wide else " one-element copies"))
+        seen.append((name, int(used.split("Used ")[1].split()[0]),
+                     props.strip()))
+        if not props.strip().startswith("0 bytes stack frame, 0 bytes spill "
+                                        "stores, 0 bytes spill loads"):
+            fail(f"B4 simt instance {seen[-1][0]} spills: {props.strip()}")
+    if len(seen) != 4 * (len(HEAD_DIMS) + 1):
+        fail(f"ptxas reported {len(seen)} simt instances of B4, want "
+             f"{4 * (len(HEAD_DIMS) + 1)}")
+    narrow = [r for n, r, _ in seen if n.endswith("copies")]
+    say(f"B4 simt instances (ptxas -v): {len(seen)}, none spills; registers"
+        " " + ", ".join(f"{n} {r}" for n, r, _ in seen
+                        if not n.endswith("copies"))
+        + f"; with one-element copies {min(narrow)}-{max(narrow)}")
 
 
 def mesh_phase(torch, dev, cfg, corpus, requests, resident, engine,
@@ -2805,7 +2863,9 @@ def greedy_with_margins(torch, step, params, cfg, prompt, max_new,
 def lm_check(torch, step, layers, fa, params, cfg, prompt, label,
              extra=None):
     """Phase 10 (10b) in ``cfg.dtype``: the model with kernel B4 against
-    the same model with its plain version. Returns the logits' max error.
+    the same model with its plain version. Returns the kernel run's B4
+    launches, ``{"launches", "windowed", "cross"}`` (the f32 rows',
+    ``f32_row``).
 
     With experts, the plain run replays the kernel run's routing
     (``moe_apply.replay``): a one-ulp attention difference can flip a
@@ -2831,6 +2891,8 @@ def lm_check(torch, step, layers, fa, params, cfg, prompt, label,
     from repro_torch.models import moe
     by = fa.flash_attention_gqa.launches_by_design
     before = dict(by)
+    before_w = fa.flash_attention_gqa.launches_windowed
+    before_x = fa.flash_attention_gqa.launches_cross
     moe_run = cfg.n_experts > 0
     moe.moe_apply.record = [] if moe_run else None
     kernel_attn = layers.flash_attention_gqa
@@ -2850,6 +2912,10 @@ def lm_check(torch, step, layers, fa, params, cfg, prompt, label,
     if by[which] - before[which] != b4_per_generate(cfg):
         fail(f"LM check {label}: the greedy run did not run B4's {which} "
              f"instance {b4_per_generate(cfg)} times")
+    counts = {
+        "launches": by[which] - before[which],
+        "windowed": fa.flash_attention_gqa.launches_windowed - before_w,
+        "cross": fa.flash_attention_gqa.launches_cross - before_x}
     layers.flash_attention_gqa = fa.flash_attention_gqa_plain
     if moe_run:
         moe.moe_apply.replay = [r["expert_id"] for r in routing]
@@ -2885,7 +2951,7 @@ def lm_check(torch, step, layers, fa, params, cfg, prompt, label,
             f"{float(margin_p.min()):.3e}")
     if moe_run:
         route_flips(torch, cfg, replayed, first, label, atol)
-    return err
+    return counts
 
 
 def lm_atol(dtype, logits, ulps=LM_ULPS) -> float:
@@ -3148,24 +3214,28 @@ def sdpa_backend(torch, q, k, v, **kw) -> str:
                                               scale=None, **kw)).name
 
 
-def b4_times(torch, dev, fa, B, S, H, KV, hd, window=0, Sk=None):
+def b4_times(torch, dev, fa, B, S, H, KV, hd, window=0, Sk=None,
+             dtype=None, lse=False, reps=20, plain_reps=3):
     """Phase 11 (11b-11e): B4, its plain version and the library
-    yardstick at a bf16 prefill shape, causal and with ``window``, or
-    with ``Sk`` keys non-causal (cross-attention), beside the bound.
-    Returns the row's numbers."""
-    q, k, v = attention_inputs(torch, dev, B, S, H, KV, hd, torch.bfloat16)
+    yardstick at a prefill shape in ``dtype`` (default bf16; f32 runs
+    the simt instance), causal and with ``window``, or with ``Sk`` keys
+    non-causal (cross-attention), with ``lse`` writing the rows'
+    log-sum-exp, beside the bound at the dtype's peak. Returns the
+    row's numbers."""
+    dtype = dtype or torch.bfloat16
+    q, k, v = attention_inputs(torch, dev, B, S, H, KV, hd, dtype)
     causal = Sk is None
     if not causal:
-        k, v = cross_kv(torch, dev, B, Sk, KV, hd, torch.bfloat16)
+        k, v = cross_kv(torch, dev, B, Sk, KV, hd, dtype)
     which = fa.design(q.dtype, hd)
     kern = lambda: fa.flash_attention_gqa(q, k, v, causal=causal,  # noqa
-                                          window=window)
+                                          window=window, return_lse=lse)
     # device times from CUDA-graph replays: the wrapper's host work is
     # longer than the kernel, so one eager call would time the host
-    eager_ms = cuda_ms(torch, kern, 20)
-    ms = graph_ms(torch, kern, 20)
+    eager_ms = cuda_ms(torch, kern, reps)
+    ms = graph_ms(torch, kern, reps)
     plain_ms = cuda_ms(torch, lambda: fa.flash_attention_gqa_plain(
-        q, k, v, causal=causal, window=window), 3)
+        q, k, v, causal=causal, window=window, return_lse=lse), plain_reps)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if window:
@@ -3179,26 +3249,32 @@ def b4_times(torch, dev, fa, B, S, H, KV, hd, window=0, Sk=None):
         kw = {"attn_mask": None, "is_causal": causal, "enable_gqa": True}
     backend = sdpa_backend(torch, qt, kt, vt, **kw)
     lib = lambda: sdpa(qt, kt, vt, **kw)  # noqa: E731
-    lib_eager_ms = cuda_ms(torch, lib, 20)
-    lib_ms = graph_ms(torch, lib, 20)
+    lib_eager_ms = cuda_ms(torch, lib, reps)
+    lib_ms = graph_ms(torch, lib, reps)
+    got = kern()
     lib_err = float((lib().transpose(1, 2).float()
-                     - kern().float()).abs().max())
+                     - (got[0] if lse else got).float()).abs().max())
     # operations: q·kᵀ and p·v, 2·hd each a kept (query, key) pair a head
     # (fa.attention_flops): causal S(S+1)/2 pairs, a window only its
-    # band's, cross-attention all S·Sk
+    # band's, cross-attention all S·Sk; bytes: q, k, v and o (and the lse)
     flops = fa.attention_flops(B, S, Sk or S, H, hd, causal=causal,
                                window=window)
-    b_ms, b_by = bound(nbytes(q, k, v) + nbytes(q), flops, BF16_OPS_PER_S)
+    n_bytes = nbytes(q, k, v) + nbytes(q) + (B * H * S * 4 if lse else 0)
+    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S
+                       if dtype == torch.bfloat16 else F32_OPS_PER_S)
     shape = f"[{B}, {S}, {H}/{KV}, {hd}]" + ("" if causal else f" Sk {Sk}")
     mask = (f"causal{f' window {window}' if window else ''}" if causal
-            else "non-causal")
-    say(f"time flash_attention ({which}) {shape} bf16 {mask}: {ms:.4f} ms a "
+            else "non-causal") + (" with the lse" if lse else "")
+    say(f"time flash_attention ({which}) {shape} "
+        f"{str(dtype).split('.')[-1]} {mask}: {ms:.4f} ms a "
         f"launch in a CUDA graph, {eager_ms:.4f} ms an eager call (plain "
         f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: "
-        f"{flops / 1e9:.2f} GFLOP, "
-        f"{(nbytes(q, k, v) + nbytes(q)) / 1e6:.1f} MB; library "
+        f"{flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB; library "
         f"scaled_dot_product_attention ({backend}"
-        f"{', boolean band mask' if window else ''}) {lib_ms:.4f} ms in a "
+        f"{', boolean band mask' if window else ''}"
+        + (f", allow_tf32 {torch.backends.cuda.matmul.allow_tf32}"
+           if dtype == torch.float32 else "") + ") "
+        f"{lib_ms:.4f} ms in a "
         f"graph, {lib_eager_ms:.4f} ms eager, max |diff| "
         f"{lib_err:.3e}); kernel / library {ms / lib_ms:.2f}x, kernel / "
         f"bound {ms / b_ms:.1f}x")
@@ -3215,6 +3291,21 @@ def b4_row(name, launches, max_abs_err, times):
             "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
             "library_ms": times["library_ms"]}
+
+
+# the simt instance's f32 rows of the kernels line, one a timed shape,
+# added by phases 11-11e (main joins them to the line)
+F32_ROWS = []
+
+
+def f32_row(torch, dev, fa, name, launches, err, *shape, **kw):
+    """The simt instance at an f32 shape (11-11e): ``b4_times`` in f32,
+    5 replays and one plain call (each phase's f32 shapes take ~1-3 s),
+    SDPA in f32 beside it; ``launches`` are the phase's f32 whole-model
+    check's (``lm_check``'s), ``err`` its phase 8 case's."""
+    times = b4_times(torch, dev, fa, *shape, dtype=torch.float32, reps=5,
+                     plain_reps=1, **kw)
+    F32_ROWS.append(b4_row(name, launches, err, times))
 
 
 def lm_phases(torch, dev):
@@ -3249,12 +3340,15 @@ def lm_phases(torch, dev):
     params32 = M.init(cfg32, seed=SEED, device=dev)
     prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32), device=dev)
-    lm_check(torch, step, layers, fa, params32, cfg32, prompt, "f32")
+    f32_launches = lm_check(torch, step, layers, fa, params32, cfg32,
+                            prompt, "f32")["launches"]
     del params32
     torch.cuda.empty_cache()
 
     # -- 11. B4 times --------------------------------------------------------
     times = b4_times(torch, dev, fa, B, S, H, KV, hd)
+    f32_row(torch, dev, fa, "flash_attention_f32_hd64", f32_launches,
+            attn_err["prefill f32 causal"], B, S, H, KV, hd)
     return b4_row("flash_attention", launches["flash_attention"],
                   attn_err["prefill bf16 causal"], times)
 
@@ -3354,14 +3448,16 @@ def lm128_phases(torch, dev):
 
     # -- 10b. f32 at a depth the card holds ---------------------------------
     t_phase = time.perf_counter()
+    f32_launches = 0
     for arch, depth in LM128_F32_LAYERS.items():
         cfg32 = dataclasses.replace(get_config(arch), dtype="float32",
                                     n_layers=depth)
         params32 = M.init(cfg32, seed=SEED, device=dev)
         prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
             0, cfg32.vocab_size, (B, S)).astype(np.int32), device=dev)
-        lm_check(torch, step, layers, fa, params32, cfg32, prompt,
-                 f"{arch} f32 at {depth} layers")
+        f32_launches += lm_check(torch, step, layers, fa, params32, cfg32,
+                                 prompt, f"{arch} f32 at {depth} layers"
+                                 )["launches"]
         del params32
         torch.cuda.empty_cache()
     say(f"phase 10b (f32): {time.perf_counter() - t_phase:.1f} s")
@@ -3369,6 +3465,9 @@ def lm128_phases(torch, dev):
     # -- 11b. B4 times at hd 128 ----------------------------------------------
     t_phase = time.perf_counter()
     times = b4_times(torch, dev, fa, B, S, H, KV, hd)
+    # f32 with the lse: the training forward's (phase 13)
+    f32_row(torch, dev, fa, "flash_attention_f32_hd128", f32_launches,
+            attn_err["prefill f32 causal"], B, S, H, KV, hd, lse=True)
     say(f"phase 11b: {time.perf_counter() - t_phase:.1f} s")
     return b4_row("flash_attention_hd128", served,
                   attn_err["prefill bf16 causal"], times)
@@ -3422,9 +3521,10 @@ def lm256_phases(torch, dev):
     params32 = M.init(cfg32, seed=SEED, device=dev)
     prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
         0, cfg32.vocab_size, (B, S)).astype(np.int32), device=dev)
-    lm_check(torch, step, layers, fa, params32, cfg32, prompt,
-             f"{GEMMA_ARCH} f32 at {GEMMA_F32_LAYERS} layers (windows "
-             f"{transformer.window_schedule(cfg32, GEMMA_F32_LAYERS)})")
+    f32_counts = lm_check(
+        torch, step, layers, fa, params32, cfg32, prompt,
+        f"{GEMMA_ARCH} f32 at {GEMMA_F32_LAYERS} layers (windows "
+        f"{transformer.window_schedule(cfg32, GEMMA_F32_LAYERS)})")
     del params32, prompt
     torch.cuda.empty_cache()
     say(f"phase 9c/10c ({GEMMA_ARCH}): {time.perf_counter() - t_phase:.1f} s")
@@ -3460,6 +3560,12 @@ def lm256_phases(torch, dev):
         times = b4_times(torch, dev, fa, B, S, H, KV, hd, window=w)
         err = attn_err["prefill bf16 causal" + (f" window {w}" if w else "")]
         rows.append(b4_row(name, n, err, times))
+        f32_n = f32_counts["windowed"] if w else (
+            f32_counts["launches"] - f32_counts["windowed"])
+        f32_row(torch, dev, fa, name.replace("attention_", "attention_f32_"),
+                f32_n, attn_err["prefill f32 causal" + (f" window {w}" if w
+                                                        else "")],
+                B, S, H, KV, hd, window=w)
     say(f"phase 11c: {time.perf_counter() - t_phase:.1f} s")
     return rows, k_launches["flash_attention"]
 
@@ -3798,9 +3904,10 @@ def multimodal_phases(torch, dev):
     cfg32 = dataclasses.replace(vfull, dtype="float32",
                                 n_layers=VLM_F32_SUPERBLOCKS * per)
     params32 = M.init(cfg32, seed=SEED, device=dev)
-    lm_check(torch, step, layers, fa, params32, cfg32, prompt,
-             f"{VLM_ARCH} f32 at {VLM_F32_SUPERBLOCKS} superblock",
-             extra={"image_embeds": img.float()})
+    f32_cross = lm_check(torch, step, layers, fa, params32, cfg32, prompt,
+                         f"{VLM_ARCH} f32 at {VLM_F32_SUPERBLOCKS} "
+                         "superblock", extra={"image_embeds": img.float()}
+                         )["cross"]
     del params32, prompt, img
     torch.cuda.empty_cache()
     say(f"phase 9e/10e ({VLM_ARCH}): {time.perf_counter() - t_phase:.1f} s")
@@ -3811,6 +3918,9 @@ def multimodal_phases(torch, dev):
                        mcfg.head_dim)
     x_times = b4_times(torch, dev, fa, B, S, vfull.n_heads, vfull.n_kv_heads,
                        vfull.head_dim, Sk=n_img)
+    f32_row(torch, dev, fa, "flash_attention_f32_cross", f32_cross,
+            x_err["cross f32"], B, S, vfull.n_heads, vfull.n_kv_heads,
+            vfull.head_dim, Sk=n_img)
     say(f"phase 11e: {time.perf_counter() - t_phase:.1f} s")
     rows = [b4_row("flash_attention_musicgen", m_launches["flash_attention"],
                    m_err["prefill bf16 causal"], m_times),
@@ -4023,6 +4133,8 @@ def b4_lse_times(torch, dev, fa, B, S, H, KV, hd, Sk=None, dtype=None):
     plain_ms = cuda_ms(torch, lambda: fa.flash_attention_gqa_plain(
         q, k, v, causal=causal, return_lse=True), 3)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    backend = sdpa_backend(torch, qt, kt, vt, attn_mask=None,
+                           is_causal=causal, enable_gqa=True)
     lib_ms = graph_ms(torch, lambda: torch.nn.functional.
                       scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=causal,
@@ -4037,7 +4149,7 @@ def b4_lse_times(torch, dev, fa, B, S, H, KV, hd, Sk=None, dtype=None):
         f"a CUDA graph; {null_ms:.4f} "
         f"ms with a null lse ({ms / null_ms:.3f}x); plain {plain_ms:.3f} ms;"
         f" bound {b_ms:.4f} ms by {b_by}; library scaled_dot_product_"
-        f"attention forward {lib_ms:.4f} ms; kernel / library "
+        f"attention forward ({backend}) {lib_ms:.4f} ms; kernel / library "
         f"{ms / lib_ms:.2f}x")
     return {"design": which, "head_dim": hd, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,

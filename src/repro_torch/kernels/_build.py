@@ -10,6 +10,11 @@ reused. ``build`` starts one ``nvcc`` per source, all at once.
 Flags: no ``--use_fast_math`` and ``-fmad=false``, so division, square
 root and every multiply-add round as IEEE float32 does on the host, which
 the bit-identity of the backends needs (DESIGN.md §12.1).
+``flash_attention.cu`` (``SPLIT_COMPILE``) also takes
+``--split-compile=0``, which optimizes its 38 kernel instances on as
+many threads as the host has cores: 22 s against 53 s without it, the
+same registers and kernel times. The other sources build without it, as
+they always have (it changes their machine code).
 
 Nothing here runs at import: the CPU has no ``nvcc`` and needs none.
 """
@@ -31,6 +36,8 @@ SOURCES = ("sparse_match", "sparse_match_packed", "fused",
            "flash_attention")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+# sources whose many kernel instances are optimized on every core
+SPLIT_COMPILE = ("flash_attention",)
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -51,19 +58,26 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for source ``name``."""
+    return NVCC_FLAGS + (("--split-compile=0",) if name in SPLIT_COMPILE
+                         else ())
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode() + src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
     """Compile every named source not built yet, one ``nvcc`` each, in
     parallel. Returns ``{name: {"seconds", "log"}}`` for the ones built
-    (``log`` holds ptxas' register and spill report); raises with the
-    compiler's output if any fails."""
+    (``log`` holds ptxas' register and spill report, also written beside
+    the library, ``ptxas_log``); raises with the compiler's output if any
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
@@ -71,7 +85,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc_path(), *flags(name), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         jobs[name] = (out, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -83,10 +97,22 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
             failed.append(f"{name}:\n{log}")
             continue
         os.replace(tmp, out)
+        out.with_suffix(".ptxas").write_text(log)
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return report
+
+
+def ptxas_log(name: str) -> str:
+    """ptxas' register and spill report of library ``name`` (``-v``), kept
+    beside the library when it is built; builds it if the report is
+    missing."""
+    log = library_path(name).with_suffix(".ptxas")
+    if not log.exists():
+        library_path(name).unlink(missing_ok=True)
+        build([name])
+    return log.read_text()
 
 
 def kernel(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:

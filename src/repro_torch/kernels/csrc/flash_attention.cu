@@ -140,15 +140,76 @@
 //    (benchmarks/port_b4_times.py, H100 80GB HBM3 at 700 W).
 //
 // simt (float32 at every head dim, and bfloat16 at hd 8, below wgmma's
-// bf16 depth of 16): one thread a query row holding its q row and f32
-// accumulator in registers; 64-key K and V tiles staged in shared memory
-// as f32, and each thread keeps its row of a tile's scores in a
-// shared-memory column. The f32 path is the accuracy reference of the
-// whole-model check in chip_smoke.py. At hd 128 its 256 floats of q and
-// accumulator a thread exceed the 255 registers and spill to local
-// memory, and its 81,920 bytes of shared memory need the opt-in above
-// 48 KB; at hd 256, 512 floats a thread and 147,456 bytes. It stays the
-// reference, untuned.
+// bf16 depth of 16), on the CUDA cores. The f32 path is the accuracy
+// reference of chip_smoke.py's whole-model checks (ATTN_TOL 2e-5,
+// LM_ATOL 1e-3, GRAD_TOL 1e-5, LSE_TOL 1e-4), so it stays full f32: no
+// tensor cores and no TF32 in any form (TF32 keeps ~3 decimal digits,
+// and 3xTF32 would also need v transposed in shared memory).
+//  - Bound: operations, at 67 TFLOP/s (132 SMs x 128 f32 lanes x 2 x
+//    1.98 GHz). The VLM's cross layer trained on a rank's heads (q [1,
+//    1024, 16, 128] over k, v [1, 1600, 2, 128]) needs 13.4 GFLOP, 0.2003
+//    ms, against 0.006 ms for its 20.1 MB (q, k, v, o, lse) at 3.35 TB/s. The first design
+//    (one thread a query row, its q row and accumulator in registers, a
+//    shared-memory load for each multiply-add, scores through a
+//    shared-memory column, synchronous f32 staging, 64-thread blocks)
+//    ran that in 2.5251 ms, 12.6x the bound, and spilled 308 bytes a
+//    thread at hd 128, 2428 at hd 256.
+//  - Block: one (64-row query tile, head, batch), 128 threads (256 at
+//    hd 256). Thread t = KG rg + kg (KG = 8, or 16 at hd 256) holds 4
+//    query rows, rg + 16 i: their scores against 64 / KG keys of a
+//    tile, kg + KG j (32 or 16 registers), and their outputs at hd / KG
+//    columns (64 accumulators at hd 128 and 256). A row's KG threads are
+//    consecutive lanes of one warp; its max and sum reduce by xor
+//    shuffles.
+//  - Shared memory: q, K and V tiles in their [64][hd] layout, 16-byte
+//    chunk c of row r at c ^ (r mod 8), so the 8 rows a quarter-warp
+//    reads at one chunk fall on 8 bank groups; a thread's rows (rg + 16
+//    i) share one swizzle, and so do its keys (kg + KG j). q·kᵀ reads q
+//    and k as 16-byte loads along hd: cp.async cannot transpose, and 4
+//    rows x 8 keys x 4 elements take the 128 multiply-adds for 12 loads
+//    that a transposed layout would. p goes through one [64][64] f32 tile
+//    (chunks swizzled by row) into p·v, which reads 4 keys of p and each
+//    key's v row in 16-byte vectors: 20 loads for 256 multiply-adds at
+//    hd 128.
+//  - Copies: cp.async in 16-byte chunks, zero-filled past S and Sk (the
+//    ragged edge's mask). Two stages of K and V at hd <= 64 (tile j + 1
+//    lands during tile j). One stage at hd 128 and 256: K(j + 1)'s copy
+//    is issued once q·kᵀ(j) has read K, V(j + 1)'s once p·v(j) has read
+//    V, so each overlaps about half a tile's work. q, K, V and p take
+//    114,688 bytes at hd 128 (two blocks an SM; 234 registers, 244-252
+//    with one-element copies) and 212,992 at hd 256 (one block; 187-189,
+//    193-207); ptxas -v: no instance spills. Views that are not 16-byte aligned, or whose
+//    strides are not whole 16-byte chunks, copy one element at a time
+//    (4-byte cp.async for f32, a plain load and store for bf16's 2
+//    bytes): an instance of its own (kWide), which launch() picks from
+//    the pointers and strides; as a runtime argument of one instance the
+//    second copy loop cost the hd-128 instance registers and 4 bytes of
+//    spill.
+//  - Arithmetic: each product an explicit __fmaf_rn, one instruction and
+//    one rounding (-fmad=false forbids only the compiler's contraction of
+//    a * b + c, which would otherwise issue as an FMUL and an FADD);
+//    expf, IEEE division and the build flags as before. p rounded to v's
+//    dtype before p·v (bf16 at hd 8 converts on the read from shared
+//    memory). The -1e30 mask only on tiles that cross the diagonal, Sk
+//    or the window's lower edge; keys past Sk score -inf, so p = 0
+//    exactly, as if the tile ended at Sk.
+//  - Launch order: grid (H, B, query tiles), heads and batches fastest,
+//    so every (head, batch)'s longest query tile starts before any
+//    shorter one (past gridDim.z's 65535 tiles, the (tiles, H, B) order).
+//    Against tiles first, in turns on one card: 24% faster at qwen2's
+//    and 27% at qwen3-4b's causal prefill shapes, the cross shapes the
+//    same, 3% and 8% slower at gemma3's global and windowed (one block
+//    an SM, and a wave then spans every (head, batch)'s keys).
+//  - Measured (benchmarks/port_b4_times.py --dtype float32, graph
+//    replay, parent and change in turns; NVIDIA H100 80GB HBM3, 700.00
+//    W), ms, x the bound, and the first design's ms: qwen2-0.5b [4, 1024,
+//    14/2, 64] causal 0.2589, 2.31x, 0.8543; qwen3-4b [4, 1024, 32/8,
+//    128] causal with the lse 1.0721, 2.09x, 7.9742; gemma3-4b [4, 2048,
+//    8/4, 256] causal 2.4766, 2.41x, 24.8504, and with window 1024
+//    1.9247, 2.50x, 17.7262; the VLM's cross [4, 1024, 64/8, 128] over
+//    1600 keys 6.1362, 1.91x, 40.9341, and on a rank's heads with the lse
+//    0.4048, 2.02x, 2.5223. SDPA in f32 (its MATH backend, allow_tf32
+//    False) is 1.45-4.70x slower at each of these shapes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -158,8 +219,6 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;         // query rows a block, one thread each
-constexpr int kBlockK = 64;         // keys a shared-memory tile
 constexpr float kNegInf = -1e30f;   // the TPU kernel's NEG_INF
 
 // Element strides of a [B, S, heads, hd] view; hd has stride 1.
@@ -181,127 +240,419 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename T, int HD, bool kWindow>
-__global__ void __launch_bounds__(kBlockQ)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o,
-          float* __restrict__ lse, int S, int Sk, int G, Strides sq,
-          Strides sk, Strides sv, Strides so, int causal, int window,
-          int q_offset, float scale) {
-  extern __shared__ float smem[];
-  float* ks = smem;                   // [kBlockK][HD]
-  float* vs = ks + kBlockK * HD;      // [kBlockK][HD]
-  float* ss = vs + kBlockK * HD;      // [kBlockK][kBlockQ]: a column a row
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
-  const int row = q0 + tid;
-  const int pos = q_offset + row;     // its key position
-  const bool live = row < S;
+// 16 bytes global -> shared, asynchronous; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes, the same way (cp.async takes no narrower copy)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  float qr[HD], acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = 0.f;
-    acc[d] = 0.f;
-  }
-  if (live) {
-    const T* qp = q + b * sq.b + row * sq.s + h * sq.h;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = to_f32(qp[d]);
-  }
-  float m = kNegInf, l = 0.f;
+// ---------------------------------------------------------------------------
+// The CUDA-core instance: float32 at every head dim, bfloat16 at hd 8.
+// ---------------------------------------------------------------------------
+namespace simt {
 
-  const T* kb = k + b * sk.b + kvh * sk.h;
-  const T* vb = v + b * sv.b + kvh * sv.h;
-  // causal: a tile runs iff its first key is at or below the block's
-  // last row (the TPU kernel's `run`); window: from the tile that holds
-  // the block's first row's first key, q0 - window + 1
-  const int k_end = causal ? min(Sk, q_offset + q0 + kBlockQ) : Sk;
-  const int k_begin =
-      kWindow ? max(0, q_offset + q0 - window + 1) / kBlockK * kBlockK : 0;
-  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
-    const int nk = min(kBlockK, Sk - k0);
-    __syncthreads();                  // the previous tile is consumed
-    for (int e = tid; e < nk * HD; e += kBlockQ) {
-      const long long j = k0 + e / HD;
-      const int d = e % HD;
-      ks[e] = to_f32(kb[j * sk.s + d]);
-      vs[e] = to_f32(vb[j * sv.s + d]);
+constexpr int kBlockQ = 64;         // query rows a block
+constexpr int kBlockK = 64;         // keys a tile
+constexpr int kRows = 4;            // query rows a thread: rg + 16 i
+constexpr int kRowGroups = kBlockQ / kRows;
+
+template <typename T, int HD>
+struct Cfg {
+  static constexpr int kThreads = HD == 256 ? 256 : 128;
+  static constexpr int KG = kThreads / kRowGroups;  // threads a row: 8, 16
+  static constexpr int kKeys = kBlockK / KG;        // its keys: kg + KG j
+  static constexpr int kCols = HD / KG;             // its columns of o
+  static constexpr int VW = kCols < 4 ? kCols : 4;  // columns a vector
+  static constexpr int NV = kCols / VW;             // VW kg + VW KG n
+  static constexpr int kRowBytes = HD * (int)sizeof(T);
+  static constexpr int R = kRowBytes / 16;          // 16-byte chunks a row
+  static constexpr int kTileBytes = kBlockK * kRowBytes;
+  static constexpr int kStages = HD <= 64 ? 2 : 1;  // K/V tiles in flight
+  static constexpr int kSmem =                      // q, K and V, p
+      (1 + 2 * kStages) * kTileBytes + kBlockQ * kBlockK * 4;
+  static_assert(kKeys * KG == kBlockK && NV * VW == kCols, "tiling");
+};
+
+// A [64][HD] tile of T: 16-byte chunk c of row r sits at chunk c ^ x(r),
+// so that 8 consecutive rows read at one chunk fall on 8 different
+// 16-byte bank groups; rows of fewer than 8 chunks spread the 8 rows over
+// their R chunks (r·R/8 mod R).
+template <int R>
+__device__ __forceinline__ int swizzle(int r) {
+  return R >= 8 ? (r & 7) : ((r * R) >> 3) & (R - 1);
+}
+// byte offset, within its row, of the element at byte b of a row whose
+// swizzle is x
+__device__ __forceinline__ int chunk_off(int b, int x) {
+  return (((b >> 4) ^ x) << 4) | (b & 15);
+}
+
+// Rows row0.. of a [rows, HD] slice (row stride `stride` elements) into a
+// swizzled tile; rows at or past `rows` are zeros. kWide: 16-byte
+// cp.async chunks (pointer 16-byte aligned, strides multiples of 16
+// bytes); else one element a copy: 4-byte cp.async for float, a plain
+// load and store for bfloat16's 2 bytes.
+template <typename T, int HD, bool kWide>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const T* base,
+                                          long long stride, int row0,
+                                          int rows, int tid) {
+  using C = Cfg<T, HD>;
+  if constexpr (kWide) {
+    for (int i = tid; i < kBlockK * C::R; i += C::kThreads) {
+      const int r = i / C::R, c = i % C::R;
+      const bool live = row0 + r < rows;
+      const T* src = base + (live ? (row0 + r) * stride + c * (16 / (int)
+                                    sizeof(T)) : 0);
+      cp_async16(smem_addr(dst + r * C::kRowBytes +
+                           chunk_off(c * 16, swizzle<C::R>(r))),
+                 src, live ? 16 : 0);
     }
-    __syncthreads();
-    if (!live) continue;
-    float m_tile = kNegInf;
-    for (int j = 0; j < nk; ++j) {
-      const float* kr = ks + j * HD;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) s += qr[d] * kr[d];
-      s *= scale;
-      if ((causal && k0 + j > pos) || (kWindow && pos - k0 - j >= window))
-        s = kNegInf;
-      ss[j * kBlockQ + tid] = s;
-      m_tile = fmaxf(m_tile, s);
+  } else {
+    for (int i = tid; i < kBlockK * HD; i += C::kThreads) {
+      const int r = i / HD, e = i % HD;
+      const bool live = row0 + r < rows;
+      const T* src = base + (live ? (row0 + r) * stride + e : 0);
+      unsigned char* d = dst + r * C::kRowBytes +
+                         chunk_off(e * (int)sizeof(T), swizzle<C::R>(r));
+      if constexpr (sizeof(T) == 4)
+        cp_async4(smem_addr(d), src, live ? 4 : 0);
+      else
+        *reinterpret_cast<T*>(d) = live ? *src : from_f32<T>(0.f);
     }
-    const float m_new = fmaxf(m, m_tile);
-    const float alpha = expf(m - m_new);
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= alpha;
-    float p_sum = 0.f;
-    for (int j = 0; j < nk; ++j) {
-      const float p = expf(ss[j * kBlockQ + tid] - m_new);
-      p_sum += p;
-      const float pv = to_f32(from_f32<T>(p));  // p in v's dtype
-      const float* vr = vs + j * HD;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] += pv * vr[d];
-    }
-    l = l * alpha + p_sum;
-    m = m_new;
-  }
-  if (live) {
-    const float denom = fmaxf(l, 1e-30f);
-    T* op = o + b * so.b + row * so.s + h * so.h;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) op[d] = from_f32<T>(acc[d] / denom);
-    // [B, H, S]: gridDim.y is H
-    if (lse) lse[((long long)b * gridDim.y + h) * S + row] = m + logf(denom);
   }
 }
 
-template <typename T, int HD, bool kWindow>
+// N consecutive elements (N = 1, 2 or 4, within one 16-byte chunk) from
+// shared memory, as f32
+template <typename T, int N>
+__device__ __forceinline__ void ld(const unsigned char* p, float (&x)[N]) {
+  if constexpr (sizeof(T) == 4 && N == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
+  } else if constexpr (sizeof(T) == 4 && N == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    x[0] = f.x, x[1] = f.y;
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) x[e] = to_f32(reinterpret_cast<const T*>(p)[e]);
+  }
+}
+
+// One block a (64-row query tile, head, batch); thread t = KG rg + kg holds
+// query rows rg + 16 i (i < 4): their scores against keys kg + KG j of a
+// tile, and their outputs at columns VW kg + VW KG n (+ < VW). A row's KG
+// threads are consecutive lanes of one warp, so its max and sum reduce by
+// xor shuffles.
+template <typename T, int HD, bool kWindow, bool kWide>
+__global__ void __launch_bounds__(Cfg<T, HD>::kThreads)
+flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int S, int Sk, int H, int G, Strides sq,
+          Strides sk, Strides sv, Strides so, int causal, int window,
+          int q_offset, float scale) {
+  using C = Cfg<T, HD>;
+  constexpr int KG = C::KG, RB = C::kRowBytes, ES = (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* s_q = smem;
+  unsigned char* s_k = s_q + C::kTileBytes;                // kStages tiles
+  unsigned char* s_v = s_k + C::kStages * C::kTileBytes;   // kStages tiles
+  // p [row][key] in f32; row r's 16-byte chunk c at c ^ g(r)
+  float* s_p = reinterpret_cast<float*>(s_v + C::kStages * C::kTileBytes);
+
+  const int tid = threadIdx.x, rg = tid / KG, kg = tid % KG;
+  // grid (H, B, query tiles), or (query tiles, H, B) past gridDim.z's
+  // 65535 tiles; the longest tiles first
+  const int tiles = (S + kBlockQ - 1) / kBlockQ;
+  const bool tiles_z = tiles <= 65535;
+  const int h = tiles_z ? blockIdx.x : blockIdx.y;
+  const int b = tiles_z ? blockIdx.y : blockIdx.z, kvh = h / G;
+  const int q0 = (tiles - 1 - (tiles_z ? blockIdx.z : blockIdx.x)) * kBlockQ;
+  const int p0 = q_offset + q0;                  // its first key position
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
+  // causal: a tile runs iff its first key is at or below the block's
+  // last row (the TPU kernel's `run`); window: tiles [t0, t_end) from
+  // the one that holds key p0 - window + 1, the band's first
+  const int k_end = causal ? min(Sk, p0 + kBlockQ) : Sk;
+  const int t_end = (k_end + kBlockK - 1) / kBlockK;
+  const int t0 = kWindow ? max(0, p0 - window + 1) / kBlockK : 0;
+
+  // q with K, then V: with one stage V's copy has a group of its own
+  load_tile<T, HD, kWide>(s_q, qb, sq.s, q0, S, tid);
+  load_tile<T, HD, kWide>(s_k, kb, sk.s, t0 * kBlockK, Sk, tid);
+  if constexpr (C::kStages == 1) cp_async_commit();
+  load_tile<T, HD, kWide>(s_v, vb, sv.s, t0 * kBlockK, Sk, tid);
+  cp_async_commit();
+
+  // the swizzles this thread reads q and K under: its rows rg + 16 i
+  // share one, and so do its keys kg + KG j (16 i and KG j are multiples
+  // of 8 rows); p's rows rg + 16 i share g
+  const int xq = swizzle<C::R>(rg), xk = swizzle<C::R>(kg);
+  const int g = (rg * KG / 4) & 7;
+  const unsigned char* q_row = s_q + rg * RB;
+  float* p_row = s_p + rg * kBlockK;
+
+  float acc[kRows][C::kCols];
+  float m[kRows], l[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C::kCols; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int t = t0; t < t_end; ++t) {
+    const int stage = C::kStages == 2 ? (t - t0) & 1 : 0;
+    const unsigned char* kt = s_k + stage * C::kTileBytes;
+    const unsigned char* vt = s_v + stage * C::kTileBytes;
+    const bool more = t + 1 < t_end;
+    if constexpr (C::kStages == 2) {
+      // the next tile's copy is issued before this tile's products
+      if (more) {
+        const int next = (t - t0 + 1) & 1;
+        load_tile<T, HD, kWide>(s_k + next * C::kTileBytes, kb, sk.s,
+                                (t + 1) * kBlockK, Sk, tid);
+        load_tile<T, HD, kWide>(s_v + next * C::kTileBytes, vb, sv.s,
+                                (t + 1) * kBlockK, Sk, tid);
+        cp_async_commit();
+        cp_async_wait<1>();                 // all but the newest group
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      cp_async_wait<1>();                   // q and K(t); V(t) may not be
+    }
+    __syncthreads();
+
+    // s = q kᵀ: 4 rows x kKeys keys a thread, 4 elements of hd a step
+    const unsigned char* k_row = kt + kg * RB;
+    float s[kRows][C::kKeys];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < C::kKeys; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < HD; d0 += (HD < 32 ? HD : 32)) {
+#pragma unroll
+      for (int d = d0; d < d0 + (HD < 32 ? HD : 32); d += 4) {
+        float qv[kRows][4];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+          ld<T, 4>(q_row + i * kRowGroups * RB + chunk_off(d * ES, xq),
+                   qv[i]);
+        const int ko = chunk_off(d * ES, xk);
+#pragma unroll
+        for (int j = 0; j < C::kKeys; ++j) {
+          float kv[4];
+          ld<T, 4>(k_row + j * KG * RB + ko, kv);
+#pragma unroll
+          for (int i = 0; i < kRows; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[i][j] = __fmaf_rn(qv[i][e], kv[e], s[i][j]);
+        }
+      }
+    }
+    if constexpr (C::kStages == 1) {
+      __syncthreads();                      // K(t) is read
+      if (more) {
+        load_tile<T, HD, kWide>(s_k, kb, sk.s, (t + 1) * kBlockK, Sk, tid);
+        cp_async_commit();
+      }
+    }
+
+    // scale; -1e30 on masked keys and -inf on keys past Sk, tested only
+    // on a tile that crosses the diagonal, Sk or the band's lower edge
+    const int k0 = t * kBlockK;
+    const bool edge = (causal && k0 + kBlockK - 1 > p0) ||
+                      k0 + kBlockK > Sk ||
+                      (kWindow && p0 + kBlockQ - 1 - k0 >= window);
+    float alpha[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int pos = p0 + rg + kRowGroups * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < C::kKeys; ++j) {
+        float x = s[i][j] * scale;
+        if (edge) {
+          const int key = k0 + kg + KG * j;
+          if (key >= Sk)
+            x = __int_as_float(0xff800000);  // -inf: p = 0, as if absent
+          else if ((causal && key > pos) ||
+                   (kWindow && pos - key >= window))
+            x = kNegInf;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int w = 1; w < KG; w *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float m_new = fmaxf(m[i], mx);
+      alpha[i] = expf(m[i] - m_new);
+      float p_sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < C::kKeys; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        p_sum += p;
+        s[i][j] = to_f32(from_f32<T>(p));   // p in v's dtype
+      }
+#pragma unroll
+      for (int w = 1; w < KG; w *= 2)
+        p_sum += __shfl_xor_sync(0xffffffffu, p_sum, w);
+      l[i] = l[i] * alpha[i] + p_sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < C::kKeys; ++j) {
+        const int key = kg + KG * j;
+        p_row[i * kRowGroups * kBlockK + ((((key >> 2) ^ g) << 2) |
+                                          (key & 3))] = s[i][j];
+      }
+    }
+    if constexpr (C::kStages == 1) {
+      if (more)
+        cp_async_wait<1>();                 // V(t); K(t + 1) may not be
+      else
+        cp_async_wait<0>();
+    }
+    __syncthreads();                        // p is written, V(t) is here
+
+    // o = o·alpha + p v: 4 keys of p a read, each key's v row in VW-wide
+    // vectors; 8 keys a step, so each key's swizzle is known
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int c = 0; c < C::kCols; ++c) acc[i][c] *= alpha[i];
+    const int vb0 = C::VW * kg * ES;         // its first column, in bytes
+#pragma unroll 2
+    for (int j0 = 0; j0 < kBlockK; j0 += 8) {
+#pragma unroll
+      for (int jh = 0; jh < 8; jh += 4) {
+        float pj[kRows][4];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+          ld<float, 4>(reinterpret_cast<const unsigned char*>(
+                           p_row + i * kRowGroups * kBlockK +
+                           ((((j0 + jh) >> 2) ^ g) << 2)),
+                       pj[i]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const unsigned char* v_row = vt + (j0 + jh + jj) * RB;
+          const int x = swizzle<C::R>(jh + jj);   // = swizzle(j0 + jh + jj)
+#pragma unroll
+          for (int n = 0; n < C::NV; ++n) {
+            float vv[C::VW];
+            ld<T, C::VW>(v_row + chunk_off(vb0, x) + n * C::VW * KG * ES,
+                         vv);
+#pragma unroll
+            for (int i = 0; i < kRows; ++i)
+#pragma unroll
+              for (int e = 0; e < C::VW; ++e)
+                acc[i][n * C::VW + e] =
+                    __fmaf_rn(pj[i][jj], vv[e], acc[i][n * C::VW + e]);
+          }
+        }
+      }
+    }
+    __syncthreads();                        // p and V(t) are read
+    if constexpr (C::kStages == 1) {
+      if (more) {
+        load_tile<T, HD, kWide>(s_v, vb, sv.s, (t + 1) * kBlockK, Sk, tid);
+        cp_async_commit();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + rg + kRowGroups * i;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    T* op = o + b * so.b + row * so.s + h * so.h;
+#pragma unroll
+    for (int n = 0; n < C::NV; ++n)
+#pragma unroll
+      for (int e = 0; e < C::VW; ++e)
+        op[C::VW * (kg + KG * n) + e] =
+            from_f32<T>(acc[i][n * C::VW + e] / denom);
+    // [B, H, S]; one thread of the row's KG writes it
+    if (lse && kg == 0)
+      lse[((long long)b * H + h) * S + row] = m[i] + logf(denom);
+  }
+}
+
+template <typename T, int HD, bool kWindow, bool kWide>
 cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int S, int Sk, int H, int KV,
                       const long long* st, int causal, int window,
                       int q_offset, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * kBlockK * HD + kBlockK * kBlockQ);
+  using C = Cfg<T, HD>;
+  const auto kernel = flash_fwd<T, HD, kWindow, kWide>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, HD, kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd<T, HD, kWindow><<<grid, kBlockQ, smem, stream>>>(
+  // all of the SM's shared memory, so that two hd-128 blocks share one
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  // heads and batches vary fastest in launch order, so that every (head,
+  // batch)'s longest query tile starts before any shorter one
+  const int tiles = (S + kBlockQ - 1) / kBlockQ;
+  const dim3 grid = tiles <= 65535 ? dim3(H, B, tiles) : dim3(tiles, H, B);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Sk, H / KV,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Sk, H, H / KV,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
       window, q_offset, scale);
   return cudaGetLastError();
 }
 
-// the global instance for window 0, the windowed one otherwise
+// the global instance for window 0, the windowed one otherwise; the one
+// with 16-byte copies where q, k and v are 16-byte aligned with (b, s,
+// head) strides of whole 16-byte chunks, one-element copies otherwise
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int S, int Sk, int H, int KV,
                    const long long* st, int causal, int window, int q_offset,
                    float scale, cudaStream_t stream) {
-  return window > 0
-             ? launch_as<T, HD, true>(q, k, v, o, lse, B, S, Sk, H, KV, st,
-                                      causal, window, q_offset, scale, stream)
-             : launch_as<T, HD, false>(q, k, v, o, lse, B, S, Sk, H, KV, st,
-                                       causal, window, q_offset, scale,
-                                       stream);
+  constexpr long long kEl = 16 / sizeof(T);
+  const void* views[3] = {q, k, v};
+  bool wide = true;
+  for (const void* p : views)
+    wide = wide && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (int i = 0; i < 9; ++i) wide = wide && st[i] % kEl == 0;
+  const auto as = window > 0
+                      ? (wide ? launch_as<T, HD, true, true>
+                              : launch_as<T, HD, true, false>)
+                      : (wide ? launch_as<T, HD, false, true>
+                              : launch_as<T, HD, false, false>);
+  return as(q, k, v, o, lse, B, S, Sk, H, KV, st, causal, window, q_offset,
+            scale, stream);
 }
 
 // float32 at every head dim
@@ -333,6 +684,7 @@ cudaError_t launch_f32(int hd, const void* q, const void* k, const void* v,
   }
 }
 
+}  // namespace simt
 
 // ---------------------------------------------------------------------------
 // The tensor-core instance: bf16, head dims 16, 32, 64, 128 and 256.
@@ -380,24 +732,6 @@ struct Tile {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 // makes this thread's completed shared-memory writes visible to wgmma,
 // which reads through the async proxy
 __device__ __forceinline__ void fence_proxy_async() {
@@ -848,12 +1182,14 @@ extern "C" int flash_attention_launch(int device, int dtype, int hd,
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (dtype == 0)
-    return (int)launch_f32(hd, q, k, v, o, lse, B, S, Sk, H, KV, strides,
-                           causal, window, q_offset, scale, stream);
+    return (int)simt::launch_f32(hd, q, k, v, o, lse, B, S, Sk, H, KV,
+                                 strides, causal, window, q_offset, scale,
+                                 stream);
   if (dtype == 1 && hd == 8)
-    return (int)launch<__nv_bfloat16, 8>(q, k, v, o, lse, B, S, Sk, H, KV,
-                                         strides, causal, window, q_offset,
-                                         scale, stream);
+    return (int)simt::launch<__nv_bfloat16, 8>(q, k, v, o, lse, B, S, Sk,
+                                               H, KV, strides, causal,
+                                               window, q_offset, scale,
+                                               stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,9 +11,10 @@ tensors and what the kernel is held against.
 
 The source holds two instances, and ``design(dtype, head_dim)`` picks
 one: ``"wgmma"`` (tensor cores) for bfloat16 at head dims 16, 32, 64,
-128 and 256, ``"simt"`` (CUDA cores, f32 arithmetic) for float32 at every head
-dim and bfloat16 at 8, which is below wgmma's bf16 depth of 16. A launch that
-fails raises; neither instance stands in for the other.
+128 and 256, ``"simt"`` (CUDA cores, full f32 arithmetic with explicit
+FMAs and no TF32) for float32 at every head dim and bfloat16 at 8, which
+is below wgmma's bf16 depth of 16. A launch that fails raises; neither
+instance stands in for the other.
 
 Two entry points, as in the reference:
 
@@ -64,6 +65,8 @@ any other raises. Any S and Sk: partial tiles are masked, not resized. The
 wgmma instance reads 16-byte chunks, so it needs q, k and v 16-byte
 aligned with (batch, position, head) strides that are multiples of 8
 elements (any view of the model's projections is); it raises on others.
+The simt instance copies 16-byte chunks where the views allow that and
+one element at a time where they do not, so it takes any strides.
 """
 from __future__ import annotations
 
@@ -87,8 +90,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def design(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel instance runs these inputs: ``"wgmma"`` for bfloat16
     at head dims 16 to 256 (the tensor cores: bf16 operands, K 16 deep),
-    else ``"simt"`` (float32, the accuracy reference, and bf16
-    at head dim 8)."""
+    else ``"simt"`` (float32, the accuracy reference, and bf16 at head
+    dim 8): the CUDA cores in full f32, 128 threads a 64-row query tile
+    (256 at head dim 256) with scores and outputs in register tiles."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"

@@ -1289,8 +1289,8 @@ def test_flash_attention_gqa_at_the_qwen3_prefill_shape(dev, dtype):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S", [1, 64, 100, 130])
 def test_simt_instance_at_head_dim_128(dev, S, causal):
-    """f32 at hd 128 (the instance whose q row and accumulator spill to
-    local memory) against the plain version on the CPU."""
+    """f32 at hd 128 (128 threads a 64-row tile, 64 accumulators a
+    thread) against the plain version on the CPU."""
     cpu = _attn_inputs(S, (2, S, 4, 128), (2, S, 2, 128), torch.float32)
     want = fa.flash_attention_gqa(*cpu, causal=causal)
     before = fa.flash_attention_gqa.launches_by_design["simt"]
@@ -1374,9 +1374,9 @@ def test_a_window_as_wide_as_s_is_the_global_path(dev, hd, dtype):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S", [1, 64, 100, 130])
 def test_simt_instance_at_head_dim_256(dev, S, causal):
-    """f32 at hd 256 (512 floats a thread, spilled to local memory;
-    147,456 bytes of shared memory) against the plain version on the
-    CPU, global and with a window of 40."""
+    """f32 at hd 256 (256 threads a 64-row tile; 212,992 bytes of shared
+    memory) against the plain version on the CPU, global and with a
+    window of 40."""
     cpu = _attn_inputs(S, (2, S, 4, 256), (2, S, 2, 256), torch.float32)
     for window in (0, 40):
         want = fa.flash_attention_gqa(*cpu, causal=causal, window=window)
@@ -1386,6 +1386,116 @@ def test_simt_instance_at_head_dim_256(dev, S, causal):
         assert fa.flash_attention_gqa.launches_by_design["simt"] == \
             before + 1
         torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+# The simt instance (f32 at every head dim, bf16 at hd 8) against its
+# plain version on the same card tensors: FLASH_TOL (f32 2e-5, the f32
+# sums in another order; bf16 3e-2, outputs rounded to 8 bits) and the
+# lse within 1e-4 (tests/test_torch_flash_attention.py's LSE_TOL).
+SIMT_CASES = [(torch.float32, hd) for hd in fa.HEAD_DIMS] + [
+    (torch.bfloat16, 8)]
+
+
+def _simt_held(q, k, v, **kw):
+    """One counted simt launch with the lse against the plain version;
+    its output equal bit for bit to the call without the lse."""
+    by = fa.flash_attention_gqa.launches_by_design
+    before = by["simt"]
+    out, lse = fa.flash_attention_gqa(q, k, v, return_lse=True, **kw)
+    assert by["simt"] == before + 1
+    null = fa.flash_attention_gqa(q, k, v, **kw)
+    want, want_lse = fa.flash_attention_gqa_plain(q, k, v, return_lse=True,
+                                                  **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, null)
+    tol = FLASH_TOL[q.dtype]
+    torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    return out
+
+
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("dtype,hd", SIMT_CASES,
+                         ids=lambda x: str(x).split(".")[-1])
+def test_simt_instance_matches_plain(dev, dtype, hd, S, G):
+    """Causal and non-causal, global and with a window of 40 (two
+    key tiles at S 1000), G query heads a kv head, with the lse."""
+    q, k, v = (t.to(dev) for t in _attn_inputs(
+        S * hd + G, (2, S, 2 * G, hd), (2, S, 2, hd), dtype))
+    for causal in (True, False):
+        for window in (0, 40):
+            _simt_held(q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("S,Sk", [(1, 1600), (1, 1), (63, 65), (65, 1000),
+                                  (1000, 77)])
+@pytest.mark.parametrize("dtype,hd", SIMT_CASES,
+                         ids=lambda x: str(x).split(".")[-1])
+def test_simt_instance_cross_attention_matches_plain(dev, dtype, hd, S, Sk):
+    """Keys of their own length (Sk != S, non-causal), Sq 1 included."""
+    q, k, v = (t.to(dev) for t in _attn_inputs(
+        S + Sk + hd, (2, S, 8, hd), (2, Sk, 2, hd), dtype))
+    _simt_held(q, k, v, causal=False)
+
+
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("dtype,hd", SIMT_CASES,
+                         ids=lambda x: str(x).split(".")[-1])
+def test_simt_instance_at_query_offsets(dev, dtype, hd, window):
+    """A rank's rows of a causal call (seq_shard_attn) at offsets that
+    are multiples of 64 and at one that is not: within tolerance of the
+    plain version, and where the offset is a multiple of 64 equal bit
+    for bit to the full call's rows."""
+    S = 320
+    q, k, v = (t.to(dev) for t in _attn_inputs(
+        hd + window, (2, S, 4, hd), (2, S, 2, hd), dtype))
+    full = fa.flash_attention_gqa(q, k, v, window=window, return_lse=True)
+    for a, b in ((0, 64), (64, 192), (192, 320), (100, 257)):
+        got = _simt_held(q[:, a:b], k[:, :b], v[:, :b], window=window,
+                         q_offset=a)
+        if a % 64 == 0:
+            assert torch.equal(got, full[0][:, a:b])
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
+                                      (torch.float32, 128),
+                                      (torch.float32, 256),
+                                      (torch.bfloat16, 8)],
+                         ids=lambda x: str(x).split(".")[-1])
+def test_simt_instance_reads_views_that_take_one_element_copies(dev, dtype,
+                                                                hd):
+    """Views no 16-byte copy can read: q, k and v cut from a buffer whose
+    rows are hd + 1 elements, one element in, so pointers and strides are
+    not whole 16-byte chunks. The launch copies one element at a time and
+    gives the result of the contiguous call (16-byte copies) bit for
+    bit, within tolerance of the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    buf = torch.randn(2, 130, 9, hd + 1, generator=gen, device=dev).to(dtype)
+    q, k, v = buf[:, :, 0:4, 1:], buf[:, :, 4:6, 1:], buf[:, :, 6:8, 1:]
+    assert q.data_ptr() % 16 and q.stride(2) % 4
+    for causal, window in ((True, 0), (True, 50), (False, 0)):
+        got = _simt_held(q, k, v, causal=causal, window=window)
+        wide = fa.flash_attention_gqa(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=causal,
+                                      window=window)
+        assert torch.equal(got, wide)
+
+
+def test_simt_instances_spill_nothing(dev):
+    """ptxas -v on every simt entry of the built library (f32 at each
+    head dim and bf16 at 8, global and windowed, with 16-byte and with
+    one-element copies): no stack frame, no bytes spilled to local
+    memory."""
+    log = _build.ptxas_log("flash_attention").splitlines()
+    entries = [i for i, ln in enumerate(log)
+               if "Compiling entry function" in ln and "simt9flash_fwd" in ln]
+    assert len(entries) == 4 * len(SIMT_CASES)
+    for i in entries:
+        props = next(x for x in log[i + 1:] if "spill stores" in x).strip()
+        name = log[i].split("flash_fwdI")[1].split("EEEv")[0]
+        assert props == ("0 bytes stack frame, 0 bytes spill stores, "
+                         "0 bytes spill loads"), (name, props)
 
 
 def test_gemma3_smoke_on_the_card_matches_the_cpu(dev):
